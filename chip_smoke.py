@@ -3,26 +3,38 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. device  — the card's name and count; nvidia-smi's name and power limit
                follow on a line of their own.
   2. build   — builds every CUDA kernel of the port with nvcc, one process
                per source, all started together; build seconds and ptxas'
                register/spill report.
   3. kernel  — each kernel against its plain PyTorch version on the card, on
-               the cases listed in CASES, with the tolerances stated there;
-               at the serving slice's shape also the kernel's time, the
-               plain version's, one PyTorch library call's
-               (F.scaled_dot_product_attention, a yardstick the port never
-               calls) and the bound (the least time the card could take).
+               the cases listed in CASES (forward; the backward pair on the
+               same cases plus BWD_BLOCK_CASE, through
+               flash_attention_bwd_block at global offsets), with the
+               tolerances stated there; at the serving slice's shape also
+               each kernel's time, the plain version's, one PyTorch library
+               call's (F.scaled_dot_product_attention, forward or backward:
+               a yardstick the port never calls) and the bound (the least
+               time the card could take).
   4. slice   — the serving slice at the LM's published width (BASE_CFG:
                d_model 512, 8 heads, 6 layers, vocab 32000, random weights
                from a seed): get_model -> Model.init on CUDA -> generate() of
                8 prompts x 1024 tokens, 32 new tokens, greedy, flash +
                bf16 on. Every kernel's launch count is set to 0 just before
                generate() and read just after.
-  5. kernels — one line: each kernel with its launches in phase 4, its error
-               and times from phase 3.
+  5. train   — the training slice at BASE_CFG: Model.init -> the spec's
+               optimizer (Adam) -> minimize -> one step on 8 x 1024 tokens,
+               flash + bf16 + check_nan_inf on, with every launch count set
+               to 0 just before the step and read just after; then 8 steps
+               on the fixed batch (the loss must fall), the step time,
+               tokens/s and peak memory (check_nan_inf off, as bench.py
+               steps), and the loss and gradients of one
+               step against composed attention and against the recomputed
+               (unfused) flash backward.
+  6. kernels — one line: each kernel with its launches in phases 4 and 5,
+               its error and times from phase 3.
 The last line is {"ok": true, "device": {...}}. It is printed only when every
 phase passed; the exit code is 0 only then. Without CUDA the script exits 1
 and prints no result.
@@ -59,11 +71,38 @@ CASES = [
 # from f32 scores and differs only by summation order and exp2 vs exp: 1e-3.
 # f32: FMA in another order than the plain version's einsum (TF32 off): 1e-4.
 TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
+# The backward pair on the same cases, plus one block backward at global
+# offsets (q rows at positions 256..511 against keys 0..511, window 200:
+# every row keeps a live key): (name, B, H, H_kv, T, T_kv, d, dtype, causal,
+# window, q_off, k_off).
+BWD_BLOCK_CASE = ("bwd_block_offsets", 2, 8, 2, 256, 512, 64, "bfloat16", True, 200, 256, 0)
+# max |kernel - plain| / max |plain| allowed on each of dq, dk, dv. bf16: the
+# plain version keeps P and dS in f32 (as the TPU kernels do); the kernels
+# round P and dS to bf16 (2^-9 relative) as tensor-core operands and store
+# bf16 gradients (another 2^-9), and sum up to 1024 such terms in f32: 2e-2.
+# f32: FMA in another order than the plain version's einsums (TF32 off): 1e-4.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # first-token logits of the slice, flash on vs off: both round q/k/v to bf16
 # and accumulate in f32; they differ by where P is rounded: 2e-2 absolute
 LOGITS_TOL = 2e-2
 NEW_TOKENS = 32
 PROMPTS, PROMPT_LEN = 8, 1024
+# the training slice: bench.py's LM cell (8 sequences x 1024 tokens)
+TRAIN_BATCH, TRAIN_STEPS = 8, 8
+# One step's loss, flash attention vs composed attention (and vs the
+# recomputed flash backward): both round q/k/v and P to bf16 and accumulate
+# in f32; the kernel sums in another order and stores `out` in bf16, which
+# the next projection rounds to bf16 anyway: 5e-3 absolute on a loss of ~10.
+TRAIN_LOSS_TOL = 5e-3
+# Gradients, per parameter: |g_flash - g_composed|_2 / max(|g_composed|_2,
+# 1e-2 * the largest parameter's |g_composed|_2), at most 5e-2. The composed
+# path's autograd rounds dP to bf16 at the P cast before the softmax backward
+# subtracts Delta (a cancellation); the kernels keep dP and Delta in f32 and
+# round P and dS to bf16, so in bf16 the two differ by a few 1e-2 relative
+# even where both are right. The floor: the k projections' biases have zero gradient in exact
+# arithmetic (a constant added to all of a row's scores cancels in the
+# softmax), so theirs is rounding noise in both paths (~1e-5 of the largest).
+TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR = 5e-2, 1e-2
 
 
 def emit(obj) -> None:
@@ -87,12 +126,12 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def live_pairs(T, T_kv, causal, window, kv_len, B, H):
+def live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off=0, k_off=0):
     """Live (q, k) pairs of the call, as the masks define them."""
     import torch
 
-    q = torch.arange(T, device="cuda")[:, None]
-    k = torch.arange(T_kv, device="cuda")[None, :]
+    q = q_off + torch.arange(T, device="cuda")[:, None]
+    k = k_off + torch.arange(T_kv, device="cuda")[None, :]
     live = torch.ones(T, T_kv, dtype=torch.bool, device="cuda")
     if causal:
         live &= q >= k
@@ -116,6 +155,24 @@ def bound_ms(B, H, H_kv, T, d, dtype, causal, window, kv_len):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bwd_bound_ms(kernel, B, H, H_kv, T, T_kv, d, dtype, causal, window, kv_len, q_off=0, k_off=0):
+    """The bound of one backward kernel: operations per live pair (dK/dV:
+    S, dP, dV, dK = 8*d; dQ: S, dP, dQ = 6*d) over the dtype's peak, against
+    bytes (q, k, v, dO read once, lse and Delta in f32, then dk and dv, or
+    dq, written once) over the memory rate."""
+    esize = 2 if dtype == "bfloat16" else 4
+    pairs = live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off, k_off)
+    q_like, kv_like = esize * B * H * T * d, esize * B * H_kv * T_kv * d
+    nbytes = 2 * q_like + 2 * kv_like + 2 * 4 * B * H * T
+    if kernel == "flash_bwd_dkv":
+        flops, nbytes = 8 * d * pairs, nbytes + 2 * kv_like
+    else:
+        flops, nbytes = 6 * d * pairs, nbytes + q_like
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     import torch
 
@@ -126,11 +183,17 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from paddle_tpu_torch.backward import append_backward
     from paddle_tpu_torch.core.config import set_flags
     from paddle_tpu_torch.models import get_model, transformer_lm
     from paddle_tpu_torch.ops.cuda import build as kbuild
     from paddle_tpu_torch.ops.cuda.flash_attention import (
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dkv_reference,
+        _flash_bwd_dq_cuda,
+        _flash_bwd_dq_reference,
         _reference_attention_with_lse,
+        flash_attention_bwd_block,
         flash_attention_with_lse,
     )
 
@@ -205,6 +268,74 @@ def main() -> int:
                             f"(tol {tol_lse}), finite {finite}")
         del q, k, v, out, lse, ref, ref_lse
 
+    # 3b. the backward pair vs its plain versions: the forward's cases, then
+    # one block backward at global offsets
+    bwd_numbers = {}
+    bwd_cases = [(c, B, H, H_kv, T, T, d, dt, causal, window, 0, 0, ragged)
+                 for c, B, H, H_kv, T, d, dt, causal, window, ragged in CASES]
+    bwd_cases.append(BWD_BLOCK_CASE + (False,))
+    for case, B, H, H_kv, T, T_kv, d, dt, causal, window, q_off, k_off, ragged in bwd_cases:
+        dtype = getattr(torch, dt)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rand(B, H, T, d), rand(B, H_kv, T_kv, d), rand(B, H_kv, T_kv, d)
+        g = rand(B, H, T, d)
+        kv_len = None
+        if ragged:  # every row keeps key 0 live, so every row is compared
+            kv_len = torch.randint(1, T_kv + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+        scale = 1.0 / d ** 0.5
+        mask = dict(kv_len=kv_len, window=window, q_off=q_off, k_off=k_off)
+        with torch.no_grad():
+            out, lse = flash_attention_with_lse(q, k, v, causal=causal, **mask)
+            dq, dk, dv = flash_attention_bwd_block(q, k, v, out, lse, g, causal=causal, **mask)
+            delta = (g.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, g, lse, delta, causal, scale, kv_len, window, q_off, k_off)
+            ref_dk, ref_dv = _flash_bwd_dkv_reference(*args)
+            ref_dq = _flash_bwd_dq_reference(*args)
+        torch.cuda.synchronize()
+        abs_errs = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+        errs = {n: abs_errs[n] / float(b.float().abs().max())
+                for n, b in (("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv))}
+        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+        tol = BWD_TOL[dt]
+        ok = finite and all(e <= tol for e in errs.values())
+        line = {"phase": "kernel", "kernel": "flash_bwd_dkv+flash_bwd_dq", "case": case,
+                "shape": [B, H, H_kv, T, T_kv, d], "dtype": dt, "causal": causal,
+                "window": window, "q_off": q_off, "k_off": k_off,
+                "kv_len": kv_len.tolist() if ragged else None,
+                "max_abs_err": abs_errs, "max_rel_err": errs, "tol": tol, "ok": ok}
+        if case == "slice":
+            with torch.no_grad():
+                ms = {"flash_bwd_dkv": time_ms(lambda: _flash_bwd_dkv_cuda(*args)),
+                      "flash_bwd_dq": time_ms(lambda: _flash_bwd_dq_cuda(*args))}
+                plain = {"flash_bwd_dkv": time_ms(lambda: _flash_bwd_dkv_reference(*args), 3),
+                         "flash_bwd_dq": time_ms(lambda: _flash_bwd_dq_reference(*args), 3)}
+            # the library's backward computes dq, dk and dv together: forward
+            # plus backward, less the forward, at the same shape
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True))
+            both_lib = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), (qr, kr, vr), g))
+            lib = both_lib - fwd_lib
+            for kname, outs in (("flash_bwd_dkv", ("dk", "dv")), ("flash_bwd_dq", ("dq",))):
+                bms, bound_by = bwd_bound_ms(kname, B, H, H_kv, T, T_kv, d, dt, causal, window, kv_len)
+                bwd_numbers[kname] = {"max_abs_err": max(abs_errs[o] for o in outs),
+                                      "max_rel_err": max(errs[o] for o in outs),
+                                      "ms": ms[kname], "plain_ms": plain[kname],
+                                      "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
+            line.update(ms=ms, plain_ms=plain, library_ms_pair=lib,
+                        pair_ms=ms["flash_bwd_dkv"] + ms["flash_bwd_dq"],
+                        bound_ms={n: bwd_numbers[n]["bound_ms"] for n in ms},
+                        bound_by={n: bwd_numbers[n]["bound_by"] for n in ms})
+            del qr, kr, vr
+        emit(line)
+        if not ok:
+            failures.append(f"backward case {case}: rel errs {errs} (tol {tol}), finite {finite}")
+        del q, k, v, g, out, lse, dq, dk, dv, ref_dq, ref_dk, ref_dv, delta, args
+
     # 4. the serving slice
     set_flags(use_flash_attention=True, use_bf16_compute=True)
     spec = get_model("transformer_lm")  # BASE_CFG, seq_len 1024, on CUDA
@@ -270,14 +401,105 @@ def main() -> int:
           "decode_tokens_per_s": PROMPTS * (NEW_TOKENS - 1) / decode_s,
           "checks": checks})
     failures += [f"slice check {k}" for k, good in checks.items() if not good]
+    del dec, logits_flash, logits_plain, variables
 
-    # 5. kernels
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:67 _flash_fwd_kernel, "
-                    ":139 _flash_fwd_kernel_resident",
-        "launches": launches["flash_fwd"], **slice_numbers,
-    }]})
+    # 5. the training slice
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    spec = get_model("transformer_lm")  # BASE_CFG, seq_len 1024, on CUDA
+    ids, labels = spec.synth_batch(TRAIN_BATCH, np.random.RandomState(0))
+    variables = spec.model.init(0, ids, labels)
+    opt = spec.optimizer()
+    opt_state = opt.create_state(variables.params)
+    step = opt.minimize(spec.model)
+    for kern in kbuild.KERNELS.values():
+        kern.launches = 0
+    out = step(variables, opt_state, ids, labels)
+    torch.cuda.synchronize()
+    train_launches = {n: kern.launches for n, kern in kbuild.KERNELS.items()}
+    losses = [float(out.loss)]
+    finite = bool(out.finite)
+    new_vars, new_state = out.variables, out.opt_state
+    for _ in range(TRAIN_STEPS - 1):
+        o = step(new_vars, new_state, ids, labels)
+        new_vars, new_state = o.variables, o.opt_state
+        losses.append(float(o.loss))
+    del out, o, new_vars, new_state
+
+    set_flags(check_nan_inf=False)  # timed as bench.py steps, without the finite checks
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        o = step(variables, opt_state, ids, labels)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    del o
+
+    def loss_and_grads(**fl):
+        set_flags(**fl)
+        loss, (grads, _, _) = append_backward(spec.model, ids, labels)(variables.params)
+        return float(loss), grads
+
+    loss_flash, g_flash = loss_and_grads(use_flash_attention=True, flash_fused_bwd=True)
+    ref = {"recomputed_bwd": loss_and_grads(use_flash_attention=True, flash_fused_bwd=False)}
+    ref["composed"] = loss_and_grads(use_flash_attention=False)
+    set_flags(use_flash_attention=True, flash_fused_bwd=True)
+    agreement = {}
+    for rname, (loss_r, g_r) in ref.items():
+        norms = {n: float(g.float().norm()) for n, g in g_r.items()}
+        floor = TRAIN_GRAD_FLOOR * max(norms.values())
+        rel = {n: float((g_flash[n].float() - g.float()).norm()) / max(norms[n], floor)
+               for n, g in g_r.items()}
+        worst = max(rel, key=rel.get)
+        agreement[rname] = {"loss_abs_err": abs(loss_flash - loss_r), "grad_rel_l2_max": rel[worst],
+                            "grad_rel_l2_worst_param": worst,
+                            "grad_rel_l2_median": float(np.median(list(rel.values())))}
+    del ref, g_flash
+
+    n_layers = spec.extra["cfg"]["n_layers"]
+    tokens_per_step = TRAIN_BATCH * spec.extra["seq_len"]
+    train_checks = {
+        "flash_fwd_launches_eq_n_layers": train_launches["flash_fwd"] == n_layers,
+        "flash_bwd_dkv_launches_eq_n_layers": train_launches["flash_bwd_dkv"] == n_layers,
+        "flash_bwd_dq_launches_eq_n_layers": train_launches["flash_bwd_dq"] == n_layers,
+        "loss_finite": bool(np.isfinite(losses).all()),
+        "check_nan_inf_finite": finite,
+        "loss_falls_over_steps": losses[-1] < losses[0],
+    }
+    for rname, a in agreement.items():
+        train_checks[f"loss_vs_{rname}_within_tol"] = a["loss_abs_err"] <= TRAIN_LOSS_TOL
+        train_checks[f"grads_vs_{rname}_within_tol"] = a["grad_rel_l2_max"] <= TRAIN_GRAD_TOL
+    emit({"phase": "train", "model": "transformer_lm", "optimizer": type(opt).__name__,
+          "params": sum(p.numel() for p in variables.params.values()),
+          "batch": TRAIN_BATCH, "seq_len": spec.extra["seq_len"], "launches": train_launches,
+          "losses": losses, "step_ms": 1e3 * min(step_s), "step_ms_runs": [1e3 * s for s in step_s],
+          "tokens_per_s": tokens_per_step / min(step_s), "peak_memory_bytes": peak_bytes,
+          "agreement": agreement, "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+          "grad_floor": TRAIN_GRAD_FLOOR, "card": smi, "checks": train_checks})
+    failures += [f"train check {k}" for k, good in train_checks.items() if not good]
+
+    # 6. kernels
+    paths = {"generate": launches, "train_step": train_launches}
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:67 _flash_fwd_kernel, "
+                     ":139 _flash_fwd_kernel_resident",
+         "launches": train_launches["flash_fwd"],
+         "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()}, **slice_numbers},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
+         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:362 _flash_bwd_dkv_kernel",
+         "launches": train_launches["flash_bwd_dkv"],
+         "launches_by_path": {p: n["flash_bwd_dkv"] for p, n in paths.items()},
+         **bwd_numbers.get("flash_bwd_dkv", {}),
+         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dq.cu",
+         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:434 _flash_bwd_dq_kernel",
+         "launches": train_launches["flash_bwd_dq"],
+         "launches_by_path": {p: n["flash_bwd_dq"] for p, n in paths.items()},
+         **bwd_numbers.get("flash_bwd_dq", {}),
+         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
+    ]})
     print(smi, flush=True)
 
     if failures:

@@ -10,7 +10,9 @@ port reaches is a hand-written CUDA C++ kernel under ``csrc/``, built with
 Entry points run on CUDA unless the caller passes ``device="cpu"``. Ported
 so far: the serving slice — ``models.get_model("transformer_lm")`` →
 ``Model.init`` → ``models.transformer_lm.generate`` with flash-attention
-prefill.
+prefill — and the training slice — ``Model.init`` →
+``spec.optimizer().minimize(spec.model)`` steps with the flash-attention
+forward and backward kernels.
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401
@@ -27,4 +29,5 @@ from paddle_tpu_torch.framework import (  # noqa: F401
     name_scope,
 )
 from paddle_tpu_torch import initializer, layers, models, ops  # noqa: F401
+from paddle_tpu_torch import backward, clip, lr_scheduler, optimizer, regularizer  # noqa: F401
 from paddle_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: F401

@@ -1,21 +1,23 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
 Both packages name parameters identically (``framework.name_scope``), so a
 flat ``{name: array}`` dict moves across unchanged: this is how the tests
 run the two packages on identical weights, and how a checkpoint written by
-one loads into the other.
+one loads into the other. Optimizer state moves the same way: its step and
+its slot dicts (``{slot: {param name: array}}``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.config import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax", "opt_state_to_numpy"]
 
 
 def _to_tensor(value, device: torch.device) -> torch.Tensor:
@@ -43,3 +45,23 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
         t = t.detach().cpu()
         out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out
+
+
+def opt_state_from_jax(state: Any, device="cuda"):
+    """An optimizer state with ``step`` and ``slots`` (the JAX package's
+    ``OptState``, or the dict :func:`opt_state_to_numpy` returns) → the
+    port's :class:`~paddle_tpu_torch.optimizer.OptState` on ``device``
+    (default CUDA; raises if CUDA is absent unless ``device="cpu"``)."""
+    from paddle_tpu_torch.optimizer import OptState
+
+    step, slots = (state["step"], state["slots"]) if isinstance(state, Mapping) else (
+        state.step, state.slots)
+    return OptState(step=int(np.asarray(step)),
+                    slots={s: params_from_jax(d, device) for s, d in slots.items()})
+
+
+def opt_state_to_numpy(state) -> Dict[str, Any]:
+    """An ``OptState`` → ``{"step": int, "slots": {slot: {name: numpy
+    array}}}`` on the host."""
+    return {"step": int(np.asarray(state.step)),
+            "slots": {s: params_to_numpy(d) for s, d in state.slots.items()}}

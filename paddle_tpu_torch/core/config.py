@@ -25,12 +25,15 @@ class Flags:
 
     # verbosity for vlog()
     v: int = 0
+    # numeric sanitizer: Optimizer.minimize's step reports in
+    # StepOutput.finite whether the loss and every gradient are finite
+    check_nan_inf: bool = False
     # mixed precision: bf16 tensor-core operands, f32 accumulation
     use_bf16_compute: bool = False
     # route unmasked/causal attention through the hand-written flash kernel
     use_flash_attention: bool = False
-    # fused backward kernels for flash attention (ported with the training
-    # slice; the forward-only port reads it nowhere yet)
+    # flash attention's backward: the fused dK/dV and dQ kernels when on,
+    # else autograd through the recomputed plain attention (no kernel)
     flash_fused_bwd: bool = True
     # consult the autotune store for kernel block configs (the store is not
     # ported yet: resolve_blocks raises while this is on)

@@ -43,18 +43,11 @@
 // shared-memory stores instead of ldmatrix.trans, blocks are not persistent
 // and causal tiles are not ordered heaviest-first.
 
-#include <cuda_bf16.h>
-#include <math.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1.0e9f;  // core/dtypes.py NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegInfLog2 = kNegInf * kLog2e;  // NEG_INF in log2 units
-constexpr int kBlockM = 64;                      // q rows per thread block
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -67,76 +60,6 @@ struct Params {
   int causal, window, q_off, k_off;  // window 0 = none
   float scale_log2;                  // sm_scale * log2(e)
 };
-
-// Kv tiles [*lo, *hi) that hold a live key for q rows at global positions
-// [q_first, q_last] — the loop bounds of _flash_fwd_kernel_resident.
-__device__ __forceinline__ void tile_range(const Params& p, int q_first,
-                                           int q_last, int kv_limit, int bn,
-                                           int* lo, int* hi) {
-  int h = (p.T_kv + bn - 1) / bn;
-  if (p.causal) {
-    int need = max(0, q_last - p.k_off + 1);  // local key idx < need
-    h = min(h, (need + bn - 1) / bn);
-  }
-  if (kv_limit >= 0) {
-    int need = max(0, kv_limit - p.k_off);
-    h = min(h, (need + bn - 1) / bn);
-  }
-  int l = 0;
-  if (p.window > 0) {
-    int first = q_first - p.k_off - (p.window - 1);
-    l = first > 0 ? first / bn : 0;
-  }
-  *lo = l;
-  *hi = h;
-}
-
-// True when every key of tile [k0, k0 + bn) is live for every q row in
-// [q_first, q_last]: the tile then needs no per-element mask.
-__device__ __forceinline__ bool tile_all_live(const Params& p, int q_first,
-                                              int q_last, int kv_limit, int k0,
-                                              int bn) {
-  if (k0 + bn > p.T_kv) return false;
-  int k_first = p.k_off + k0, k_last = k_first + bn - 1;
-  if (p.causal) {
-    if (k_last > q_first) return false;
-    if (p.window > 0 && q_last - k_first >= p.window) return false;
-  }
-  if (kv_limit >= 0 && k_last >= kv_limit) return false;
-  return true;
-}
-
-// Score s (log2 units) of q row at global position q_pos against local key k_idx.
-__device__ __forceinline__ float mask_score(const Params& p, float s, int q_pos,
-                                            int k_idx, int kv_limit) {
-  if (k_idx >= p.T_kv) return -INFINITY;
-  int k_pos = p.k_off + k_idx;
-  if (p.causal) {
-    if (q_pos < k_pos) return kNegInfLog2;
-    if (p.window > 0 && q_pos - k_pos >= p.window) return kNegInfLog2;
-  }
-  if (kv_limit >= 0 && k_pos >= kv_limit) return kNegInfLog2;
-  return s;
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d[0..3] += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(128)

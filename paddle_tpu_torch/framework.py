@@ -225,11 +225,17 @@ class Model:
         self,
         variables: Union[Variables, Dict[str, torch.Tensor], Tuple],
         *args,
+        rng: Optional[torch.Generator] = None,
         is_train: bool = False,
         **kwargs,
     ):
         """Run the program against ``variables``. Returns ``(output,
-        new_state)``; it runs on the device that holds the parameters."""
+        new_state)``; it runs on the device that holds the parameters.
+
+        ``rng``: the ``torch.Generator`` of a training-mode run's random
+        draws (dropout); None when nothing random runs.
+        Gradients flow: apply does not disable autograd, so a loss it
+        returns differentiates with respect to the parameters given."""
         if isinstance(variables, Variables):
             params, state = variables.params, variables.state
         elif isinstance(variables, tuple) and len(variables) == 2:
@@ -239,7 +245,7 @@ class Model:
         if not params:
             raise EnforceError("Model.apply: no parameters given (run Model.init first)")
         device = next(iter(params.values())).device
-        frame = _Frame("apply", params=params, device=device, generator=None, is_train=is_train)
+        frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train)
         with _enter(frame):
             out = self._fn(*args, **kwargs)
         if not self.param_info:

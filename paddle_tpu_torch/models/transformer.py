@@ -5,6 +5,7 @@ Parameter names and sharding annotations match the JAX package."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -114,6 +115,16 @@ def sinusoid_position_encoding(max_len: int, d_model: int, dtype=torch.float32, 
     return torch.as_tensor(enc, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=8)
+def _position_table(max_len: int, d_model: int, dtype, device):
+    """:func:`sinusoid_position_encoding`, built once per shape, dtype and
+    device and only read afterwards: it is a constant, and rebuilding it
+    (float64 sin/cos on the host over all ``max_len`` rows) would add that
+    host work to every forward, which the JAX package does once, at trace
+    time."""
+    return sinusoid_position_encoding(max_len, d_model, dtype, device)
+
+
 def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate, name,
                       pos_offset: int = 0, add_position_encoding: bool = True):
     """token embedding * sqrt(d) (+ fixed sinusoid position encoding unless
@@ -127,7 +138,7 @@ def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate, name,
         emb = emb * (d_model ** 0.5)
         if add_position_encoding:
             t = ids.shape[-1]
-            pe = sinusoid_position_encoding(max_len, d_model, emb.dtype, emb.device)
+            pe = _position_table(max_len, d_model, emb.dtype, emb.device)
             emb = emb + pe[pos_offset:pos_offset + t]
         if dropout_rate:
             emb = layers.dropout(emb, dropout_rate)

@@ -1,19 +1,21 @@
 """Decoder-only causal language model (GPT-style) — port of
-``paddle_tpu/models/transformer_lm.py``: the training forward in eval use
-(:func:`lm_forward`) and static-cache autoregressive decoding
-(:func:`generate`), with the same parameter names, configuration and math.
+``paddle_tpu/models/transformer_lm.py``: the training forward
+(:func:`lm_forward`, trained through ``get_model(...).optimizer()``'s
+``minimize``) and static-cache autoregressive decoding (:func:`generate`),
+with the same parameter names, configuration and math.
 
 Causal masking is structural: with ``flags().use_flash_attention`` the
 prompt's attention (``lm_forward``, and ``generate``'s prefill, once per
-layer) runs the hand-written flash kernel (``ops/cuda/flash_attention.py``).
-Decode steps compose attention against the cache from einsums, as in the
-JAX package.
+layer) runs the hand-written flash kernels (``ops/cuda/flash_attention.py``:
+the forward, and in training the dK/dV and dQ backward kernels). Decode
+steps compose attention against the cache from einsums, as in the JAX
+package.
 
 Not ported yet (they raise ``NotImplementedError``): sequence parallelism
 (``ring_mesh``/``ulysses_mesh``), pipeline parallelism (``pipe_mesh``),
-mixture-of-experts FFNs, rematerialization in training, beam search and the
-paged serving functions. ``scan_layers`` runs as the plain layer loop, whose
-math is identical.
+mixture-of-experts FFNs, rematerialization (``remat``) in training, beam
+search and the paged serving functions. ``scan_layers`` runs as the plain
+layer loop, whose math is identical.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch import framework, layers
+from paddle_tpu_torch import framework, layers, optimizer
 from paddle_tpu_torch.core.config import on_device, resolve_device
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import name_scope
@@ -105,8 +107,9 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     _check_ported(cfg)
     if cfg.get("remat") and framework.is_training() and not framework.is_initializing():
         raise NotImplementedError(
-            "transformer_lm cfg['remat']: rematerialization matters only for the "
-            "backward pass, which is ported with the training slice"
+            "transformer_lm cfg['remat']: per-layer rematerialization "
+            "(torch.utils.checkpoint) is not ported to paddle_tpu_torch yet; "
+            "train with remat=False"
         )
     dev = framework.current_device()
     ids = torch.as_tensor(ids, device=dev)
@@ -356,10 +359,6 @@ BASE_CFG = dict(
 )
 
 
-def _optimizer_not_ported():
-    raise NotImplementedError("optimizers are ported with the training slice of paddle_tpu_torch")
-
-
 def get_model(
     seq_len: int = 1024, learning_rate: float = 1e-3, ring_mesh=None,
     ulysses_mesh=None, device="cuda", **overrides
@@ -389,7 +388,7 @@ def get_model(
         name="transformer_lm",
         model=model,
         synth_batch=synth_batch,
-        optimizer=_optimizer_not_ported,
+        optimizer=lambda: optimizer.Adam(learning_rate=learning_rate),
         unit="tokens/sec",
         examples_per_row=seq_len,
         extra={"cfg": cfg, "seq_len": seq_len, "device": dev, "learning_rate": learning_rate},

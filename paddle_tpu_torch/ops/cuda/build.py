@@ -1,12 +1,13 @@
 """Build the port's hand-written CUDA C++ kernels and bind them with ctypes.
 
-Each kernel is one ``.cu`` source under ``paddle_tpu_torch/csrc/`` with a
-plain ``extern "C"`` launcher that returns the launch's ``cudaError_t``.
-It is compiled with ``nvcc`` for ``sm_90a`` into its own shared library
-under ``paddle_tpu_torch/csrc/build/`` (git-ignored) at first use; the
-library's file name carries a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded. Nothing is
-built or imported when this module is imported.
+Each kernel is one ``.cu`` source under ``paddle_tpu_torch/csrc/`` (which
+may include the shared ``.cuh`` headers there) with a plain ``extern "C"``
+launcher that returns the launch's ``cudaError_t``. It is compiled with
+``nvcc`` for ``sm_90a`` into its own shared library under
+``paddle_tpu_torch/csrc/build/`` (git-ignored) at first use; the library's
+file name carries a hash of the source, the headers and the flags, so an
+edited source or header rebuilds and a stale library is never loaded.
+Nothing is built or imported when this module is imported.
 
 A :class:`CudaKernel` counts its launches in ``launches``: the count rises
 by one exactly where the kernel is launched, so a run can show that its
@@ -67,9 +68,11 @@ class CudaKernel:
         KERNELS[name] = self
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        # the headers beside the sources count too: an edited shared
+        # header rebuilds every kernel that may include it
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 
     def start_build(self, extra_flags: Sequence[str] = ()) -> Optional["_Build"]:

@@ -9,7 +9,11 @@ PyTorch is installed:
 
 Tolerances: bf16 ``out`` 2e-2 absolute (the kernel rounds P to bf16 inside
 its tensor-core product and stores ``out`` in bf16), ``lse`` 1e-3; f32 1e-4
-(FMA order differs from the plain version's einsum; TF32 is off).
+(FMA order differs from the plain version's einsum; TF32 is off). The
+backward pair: max |kernel - plain| / max |plain| on each of dq, dk, dv,
+2e-2 in bf16 (the kernels round P and dS to bf16 as tensor-core operands,
+where the plain version keeps f32, and store bf16 gradients) and 1e-4 in
+f32.
 """
 
 import importlib
@@ -104,10 +108,15 @@ def test_flash_fwd_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, torch.bfloat16)
     with pytest.raises(EnforceError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tfa.flash_attention(q.requires_grad_(), k, v)
     with torch.no_grad():  # no gradient is needed: the kernel runs
         assert tfa.flash_attention(q, k, v).shape == q.shape
+    g = torch.ones_like(q)
+    with pytest.raises(EnforceError, match="contiguous"):  # the backward checks too
+        tfa._flash_bwd_dq_cuda(q, k, v, g.transpose(2, 3), torch.zeros(1, 2, 64, 1, device=cuda),
+                               torch.zeros(1, 2, 64, 1, device=cuda), True, 0.125)
+    with pytest.raises(EnforceError, match="lse"):
+        tfa._flash_bwd_dkv_cuda(q, k, v, g, torch.zeros(1, 2, 64, 1, device=cuda, dtype=torch.bfloat16),
+                                torch.zeros(1, 2, 64, 1, device=cuda), True, 0.125)
 
 
 def test_generate_on_cuda_matches_cpu(cuda):
@@ -134,3 +143,103 @@ def test_generate_on_cuda_matches_cpu(cuda):
     finally:
         set_flags(use_flash_attention=saved)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_bwd_kernels_match_plain(cuda, case):
+    """dK/dV and dQ kernels against their plain versions on the forward's
+    cases (every case keeps a live key in every row). Each kernel counts one
+    launch."""
+    name, B, H, H_kv, T, T_kv, d, dtype, kw = case
+    kw = dict(kw)
+    q, k, v = _qkv(cuda, B, H, H_kv, T, d, dtype, T_kv)
+    g = _qkv(cuda, B, H, H, T, d, dtype, seed=1)[0]
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32, device=cuda)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+    before = (tfa.FLASH_BWD_DKV.launches, tfa.FLASH_BWD_DQ.launches)
+    dq, dk, dv = tfa.flash_attention_bwd_block(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.FLASH_BWD_DKV.launches, tfa.FLASH_BWD_DQ.launches) == (before[0] + 1, before[1] + 1)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, g, lse, delta, kw.get("causal", False), 1.0 / d ** 0.5, kw.get("kv_len"),
+            kw.get("window"), kw.get("q_off", 0), kw.get("k_off", 0))
+    ref_dk, ref_dv = tfa._flash_bwd_dkv_reference(*args)
+    ref_dq = tfa._flash_bwd_dq_reference(*args)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+        assert err <= BWD_TOL[dtype], err
+
+
+def test_flash_autograd_on_cuda_matches_cpu(cuda):
+    """``flash_attention``'s autograd on the card (forward and both backward
+    kernels, f32) gives the CPU's gradients (plain versions), fused and
+    recomputed."""
+    from paddle_tpu_torch.core.config import flags, set_flags
+
+    q, k, v = _qkv(cuda, 2, 4, 2, 96, 64, torch.float32)
+    g = _qkv(cuda, 2, 4, 4, 96, 64, torch.float32, seed=2)[0]
+    saved = flags().flash_fused_bwd
+    try:
+        for fused in (True, False):
+            set_flags(flash_fused_bwd=fused)
+            grads = []
+            for dev in (cuda, torch.device("cpu")):
+                prim = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+                out = tfa.flash_attention(*prim, causal=True, window=40)
+                grads.append(torch.autograd.grad(out, prim, g.to(dev)))
+            for a, b in zip(*grads):
+                torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    finally:
+        set_flags(flash_fused_bwd=saved)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """Two Adam steps of the tiny LM on the card (flash forward and backward
+    kernels, f32) against the same steps on the CPU (plain versions), from
+    the same weights: losses and parameters within 1e-4. The k projections'
+    biases have zero gradient in exact arithmetic (softmax shift
+    invariance), and Adam's m / sqrt(v) divides out the scale of that
+    rounding noise, so they are held only to the 2 * lr a two-step run can
+    move them."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.config import flags, set_flags
+    from paddle_tpu_torch.framework import Variables
+    from paddle_tpu_torch.models import get_model
+
+    kw = dict(seq_len=64, vocab=64, d_model=64, d_inner=128, num_heads=2, n_layers=2)
+    spec = get_model("transformer_lm", device="cpu", **kw)
+    ids, labels = spec.synth_batch(2, np.random.RandomState(0))
+    params = spec.model.init(0, ids, labels, device="cpu").params
+    saved = flags().use_flash_attention
+    set_flags(use_flash_attention=True)
+    try:
+        results = []
+        for dev in (cuda, torch.device("cpu")):
+            opt = spec.optimizer()
+            variables = Variables({n: p.to(dev) for n, p in params.items()}, {})
+            state = opt.create_state(variables.params)
+            step = opt.minimize(spec.model)
+            before = tfa.FLASH_BWD_DQ.launches
+            losses = []
+            for _ in range(2):
+                out = step(variables, state, ids.to(dev), labels.to(dev))
+                variables, state = out.variables, out.opt_state
+                losses.append(float(out.loss))
+            if dev.type == "cuda":
+                assert tfa.FLASH_BWD_DQ.launches == before + 2 * kw["n_layers"]
+            results.append((losses, variables.params))
+    finally:
+        set_flags(use_flash_attention=saved)
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=0, atol=1e-4)
+    for n, p in p_cpu.items():
+        atol = 2 * 1e-3 if n.endswith("self_attn/k/b") else 1e-4
+        torch.testing.assert_close(p_gpu[n].cpu(), p, rtol=0, atol=atol)

@@ -34,6 +34,8 @@ def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "paddle_tpu_torch/ops/cuda/flash_attention.py" in names
     assert "paddle_tpu_torch/models/transformer_lm.py" in names
+    for module in ("optimizer", "backward", "lr_scheduler", "regularizer", "clip"):
+        assert f"paddle_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names and "tools/torch_profile_generate.py" in names
 
 

@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's serving slice, on one GPU.
+"""Where the time goes in the PyTorch/CUDA port's serving and training
+slices, on one GPU.
 
-    python3 tools/torch_profile_generate.py [--prompts 8] [--prompt-len 1024] [--new-tokens 32]
+    python3 tools/torch_profile_generate.py [--mode generate|train] [--prompts 8]
+                                            [--prompt-len 1024] [--new-tokens 32]
                                             [--trace-dir DIR]
 
 Runs ``paddle_tpu_torch``'s transformer LM at ``BASE_CFG`` (random weights
 from seed 0) with ``use_flash_attention`` and ``use_bf16_compute`` on, as
-``chip_smoke.py`` does, then times and profiles the two phases of
-``generate()`` separately:
+``chip_smoke.py`` does, then times and profiles its phases separately.
+
+``--mode generate`` (the default), the two phases of ``generate()``:
 
   prefill — one ``CachedDecoder.prefill`` over the prompts;
   decode  — ``new_tokens - 1`` greedy ``CachedDecoder.step`` calls.
+
+``--mode train``, one Adam step on ``prompts`` sequences of ``prompt-len``
+tokens (bench.py's LM cell at the defaults) and its two halves:
+
+  train_step     — ``opt.minimize(model)``'s step, as a trainer calls it;
+  train_fwd_bwd  — the loss and every gradient (``append_backward``);
+  train_optimizer — ``opt.apply_gradients`` on those gradients.
 
 For each phase it prints one JSON line: the wall time without the profiler
 (host clock around work that ends in ``torch.cuda.synchronize()``), the
 device time summed over the profiler's kernels (one stream, so the sum is
 the busy time), the idle share ``1 - busy / wall``, the number of kernel
-launches, and the device time by kernel class (matrix products, the flash
+launches, and the device time by kernel class (matrix products, each flash
 kernel, other) and by the top kernel names. With ``--trace-dir`` the
 Chrome trace of each phase goes to ``DIR/profile_<phase>.json``. The
 card's name and power limit are printed beside the numbers. Exits 1
@@ -37,8 +47,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _classify(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd"
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if kernel in low:
+            return kernel
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas")):
         return "matmul"
     return "other"
@@ -92,6 +103,29 @@ def _profile(fn, name: str, trace_dir) -> dict:
     }
 
 
+def _train(spec, rng, args, smi) -> None:
+    from paddle_tpu_torch.backward import append_backward
+
+    ids, labels = spec.synth_batch(args.prompts, rng)
+    variables = spec.model.init(0, ids, labels)
+    opt = spec.optimizer()
+    opt_state = opt.create_state(variables.params)
+    step = opt.minimize(spec.model)
+    grads = append_backward(spec.model, ids, labels)(variables.params)[1][0]
+    phases = (
+        ("train_step", lambda: step(variables, opt_state, ids, labels)),
+        ("train_fwd_bwd", lambda: append_backward(spec.model, ids, labels)(variables.params)),
+        ("train_optimizer", lambda: opt.apply_gradients(
+            variables.params, grads, opt_state, spec.model.param_info)),
+    )
+    for name, fn in phases:
+        line = _profile(fn, name, args.trace_dir)
+        line.update(batch=args.prompts, seq_len=args.prompt_len, card=smi)
+        if name == "train_step":
+            line["tokens_per_s"] = args.prompts * args.prompt_len / (line["wall_ms"] / 1e3)
+        print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -99,6 +133,7 @@ def main() -> int:
         print("torch_profile_generate: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("generate", "train"), default="generate")
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -122,6 +157,10 @@ def main() -> int:
     spec = get_model("transformer_lm", seq_len=args.prompt_len)
     cfg = spec.extra["cfg"]
     rng = np.random.RandomState(0)
+    if args.mode == "train":
+        _train(spec, rng, args, smi)
+        print(smi, flush=True)
+        return 0
     params = spec.model.init(0, *spec.synth_batch(1, rng)).params
     prompts = torch.as_tensor(
         rng.randint(1, cfg["vocab"], size=(args.prompts, args.prompt_len)).astype(np.int32),
