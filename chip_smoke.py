@@ -7,8 +7,12 @@ Phases, each printing JSON lines:
   1. device  — the card's name and count; nvidia-smi's name and power limit
                follow on a line of their own.
   2. build   — builds every CUDA kernel of the port with nvcc, one process
-               per source, all started together; build seconds and ptxas'
-               register/spill report.
+               per source, all started together; build seconds, ptxas'
+               register/spill report and, from cuobjdump -sass, each
+               kernel's count of wgmma (HGMMA) and TMA load (UTMALDG)
+               instructions. Fails if a bf16 instantiation of flash_fwd or
+               flash_bwd_dkv spills, or if either kernel has no HGMMA or no
+               UTMALDG: the proof that they are the wgmma + TMA designs.
   3. kernel  — each kernel against its plain PyTorch version on the card, on
                the cases listed in CASES (forward; the backward pair on the
                same cases plus BWD_BLOCK_CASE, through
@@ -16,8 +20,9 @@ Phases, each printing JSON lines:
                tolerances stated there; at the serving slice's shape also
                each kernel's time, the plain version's, one PyTorch library
                call's (F.scaled_dot_product_attention, forward or backward:
-               a yardstick the port never calls) and the bound (the least
-               time the card could take).
+               a yardstick the port never calls), the bound (the least
+               time the card could take) and the host time of one wrapper
+               call (TMA descriptors and launch included).
   4. slice   — the serving slice at the LM's published width (BASE_CFG:
                d_model 512, 8 heads, 6 layers, vocab 32000, random weights
                from a seed): get_model -> Model.init on CUDA -> generate() of
@@ -34,7 +39,8 @@ Phases, each printing JSON lines:
                step against composed attention and against the recomputed
                (unfused) flash backward.
   6. kernels — one line: each kernel with its launches in phases 4 and 5,
-               its error and times from phase 3.
+               its error and times from phase 3; before it, a line with the
+               kernels' earlier times, copied from PERF.md (not measured).
 The last line is {"ok": true, "device": {...}}. It is printed only when every
 phase passed; the exit code is 0 only then. Without CUDA the script exits 1
 and prints no result.
@@ -64,6 +70,10 @@ CASES = [
     ("kv_len", 8, 8, 8, 1024, 64, "bfloat16", True, None, True),
     ("t192_f32", 2, 8, 8, 192, 64, "float32", True, None, False),
     ("d128", 4, 8, 8, 1024, 128, "bfloat16", True, None, False),
+    # T not a multiple of the 128-row/128-key tiles (TMA zero fill), and d=32
+    # (64-byte swizzle)
+    ("t1000_bf16", 4, 8, 8, 1000, 64, "bfloat16", True, None, False),
+    ("d32_bf16", 4, 8, 8, 1024, 32, "bfloat16", True, None, False),
 ]
 # max |kernel - plain| allowed. bf16: both versions read the same bf16 inputs
 # and accumulate in f32, but round P to bf16 at different points and write a
@@ -82,6 +92,13 @@ BWD_BLOCK_CASE = ("bwd_block_offsets", 2, 8, 2, 256, 512, 64, "bfloat16", True, 
 # bf16 gradients (another 2^-9), and sum up to 1024 such terms in f32: 2e-2.
 # f32: FMA in another order than the plain version's einsums (TF32 off): 1e-4.
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Each kernel's design, and its time at the slice shape before this design,
+# copied from PERF.md section 6 (the chip runs of the earlier mma.sync
+# bodies; dQ as it is). Printed on a line of their own, never as this run's.
+DESIGNS = {"flash_fwd": "wgmma+tma", "flash_bwd_dkv": "wgmma+tma", "flash_bwd_dq": "mma.sync"}
+EARLIER_MS = {"flash_fwd": 0.0968, "flash_bwd_dkv": 0.1760, "flash_bwd_dq": 0.1188}
+# kernels that must hold wgmma and TMA instructions in their SASS
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 # first-token logits of the slice, flash on vs off: both round q/k/v to bf16
 # and accumulate in f32; they differ by where P is rounded: 2e-2 absolute
 LOGITS_TOL = 2e-2
@@ -124,6 +141,72 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time of one call of ``fn`` in microseconds: the wrapper's checks,
+    its allocations, the TMA descriptors where the kernel has them, and the
+    launch, with the card held busy by a sleep kernel so no call waits on it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
+def cuobjdump_path(nvcc: str):
+    """cuobjdump beside nvcc, else the copy in Triton's package; None if
+    neither exists."""
+    found = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if os.path.exists(found):
+        return found
+    try:
+        import triton
+    except ImportError:
+        return None
+    found = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+    return found if os.path.exists(found) else None
+
+
+def sass_counts(cuobjdump: str, lib: str) -> dict:
+    """HGMMA and UTMALDG instructions in a library's SASS, per kernel
+    function (by its demangled-enough name: the text after the last
+    'flash_')."""
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            fn = fn[fn.rfind("flash_"):]
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            counts[fn]["HGMMA"] += "HGMMA" in ln
+            counts[fn]["UTMALDG"] += "UTMALDG" in ln
+    return counts
+
+
+def ptxas_spills(nvcc_output: str) -> dict:
+    """Spill stores + loads (bytes) per kernel function, from -Xptxas -v."""
+    spills, fn = {}, None
+    for ln in nvcc_output.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            fn = fn[fn.rfind("flash_"):]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+            fn = None
+    return spills
 
 
 def live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off=0, k_off=0):
@@ -220,9 +303,25 @@ def main() -> int:
             if "registers" in ln or "spill" in ln]
         for k, r in report.items()
     }
+    spills = {k: ptxas_spills(r["nvcc_output"]) for k, r in report.items()}
+    cuobjdump = cuobjdump_path(kbuild.nvcc_path())
+    sass = {k: sass_counts(cuobjdump, str(kern.library_path())) if cuobjdump else None
+            for k, kern in kbuild.KERNELS.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_seconds": {k: round(r["seconds"], 3) for k, r in report.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spill_bytes": spills, "cuobjdump": cuobjdump, "sass_counts": sass})
+    # bf16 instantiations' totals per kernel
+    sass_totals = {k: {op: sum(c[op] for fn, c in counts.items() if "bf16" in fn)
+                       for op in ("HGMMA", "UTMALDG")}
+                   for k, counts in sass.items() if counts is not None}
+    if cuobjdump is None:
+        failures.append("build: no cuobjdump to count HGMMA/UTMALDG")
+    for k in HOPPER_KERNELS:
+        bad = {fn: n for fn, n in spills[k].items() if "bf16" in fn and n}
+        if bad:
+            failures.append(f"build: {k} spills {bad}")
+        if k in sass_totals and not all(sass_totals[k].values()):
+            failures.append(f"build: {k} has no wgmma or no TMA load: {sass_totals[k]}")
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -257,10 +356,11 @@ def main() -> int:
                 ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))
                 plain = time_ms(lambda: _reference_attention_with_lse(q, k, v, True, scale))
                 lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+                host = host_us(lambda: flash_attention_with_lse(q, k, v, causal=True))
             bms, bound_by = bound_ms(B, H, H_kv, T, d, dt, causal, window, kv_len)
             slice_numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                              "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
-            line.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+            line.update(host_us=host, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                         bound_by=bound_by, tflops=4 * d * live_pairs(T, T, True, None, None, B, H) / ms / 1e9)
         emit(line)
         if not ok:
@@ -313,6 +413,8 @@ def main() -> int:
                       "flash_bwd_dq": time_ms(lambda: _flash_bwd_dq_cuda(*args))}
                 plain = {"flash_bwd_dkv": time_ms(lambda: _flash_bwd_dkv_reference(*args), 3),
                          "flash_bwd_dq": time_ms(lambda: _flash_bwd_dq_reference(*args), 3)}
+                host = {"flash_bwd_dkv": host_us(lambda: _flash_bwd_dkv_cuda(*args)),
+                        "flash_bwd_dq": host_us(lambda: _flash_bwd_dq_cuda(*args))}
             # the library's backward computes dq, dk and dv together: forward
             # plus backward, less the forward, at the same shape
             qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -326,7 +428,7 @@ def main() -> int:
                                       "max_rel_err": max(errs[o] for o in outs),
                                       "ms": ms[kname], "plain_ms": plain[kname],
                                       "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
-            line.update(ms=ms, plain_ms=plain, library_ms_pair=lib,
+            line.update(ms=ms, plain_ms=plain, host_us=host, library_ms_pair=lib,
                         pair_ms=ms["flash_bwd_dkv"] + ms["flash_bwd_dq"],
                         bound_ms={n: bwd_numbers[n]["bound_ms"] for n in ms},
                         bound_by={n: bwd_numbers[n]["bound_by"] for n in ms})
@@ -481,23 +583,32 @@ def main() -> int:
 
     # 6. kernels
     paths = {"generate": launches, "train_step": train_launches}
+    numbers = {"flash_fwd": slice_numbers, **bwd_numbers}
+    extra = {n: {"design": DESIGNS[n],
+                 "ratio_to_library": (numbers[n]["ms"] / numbers[n]["library_ms"]
+                                      if numbers.get(n) else None),
+                 "sass": sass_totals.get(n)}
+             for n in DESIGNS}
+    emit({"earlier_ms": EARLIER_MS,
+          "earlier_ms_source": "copied from PERF.md section 6 (the mma.sync designs), not measured here"})
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:67 _flash_fwd_kernel, "
                      ":139 _flash_fwd_kernel_resident",
          "launches": train_launches["flash_fwd"],
-         "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()}, **slice_numbers},
+         "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()}, **slice_numbers,
+         **extra["flash_fwd"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:362 _flash_bwd_dkv_kernel",
          "launches": train_launches["flash_bwd_dkv"],
          "launches_by_path": {p: n["flash_bwd_dkv"] for p, n in paths.items()},
-         **bwd_numbers.get("flash_bwd_dkv", {}),
+         **bwd_numbers.get("flash_bwd_dkv", {}), **extra["flash_bwd_dkv"],
          "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dq.cu",
          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:434 _flash_bwd_dq_kernel",
          "launches": train_launches["flash_bwd_dq"],
          "launches_by_path": {p: n["flash_bwd_dq"] for p, n in paths.items()},
-         **bwd_numbers.get("flash_bwd_dq", {}),
+         **bwd_numbers.get("flash_bwd_dq", {}), **extra["flash_bwd_dq"],
          "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
     ]})
     print(smi, flush=True)

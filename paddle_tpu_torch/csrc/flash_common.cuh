@@ -1,6 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dkv.cu, flash_bwd_dq.cu): the masking semantics of
-// paddle_tpu/ops/pallas/flash_attention.py and the bf16 tensor-core helpers.
+// paddle_tpu/ops/pallas/flash_attention.py and the bf16 tensor-core fragment
+// helpers (mma.sync for dQ; the wgmma, TMA and mbarrier PTX of the forward
+// and dK/dV kernels is in hopper.cuh).
 //
 // Masks act on GLOBAL positions q_off + i / k_off + j: causal (top-left
 // aligned, q_pos >= k_pos), sliding window (q_pos - k_pos < window, causal
@@ -24,7 +26,7 @@ constexpr float kNegInf = -1.0e9f;  // core/dtypes.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInfLog2 = kNegInf * kLog2e;  // NEG_INF in log2 units
-constexpr int kBlockM = 64;                      // q rows per forward / dQ block
+constexpr int kBlockM = 64;                      // q rows per dQ / f32 forward block
 
 // Kv tiles [*lo, *hi) that hold a live key for q rows at global positions
 // [q_first, q_last] — the loop bounds of _flash_fwd_kernel_resident.
@@ -99,6 +101,56 @@ __device__ __forceinline__ float mask_score(const P& p, float s, int q_pos, int 
   return s;
 }
 
+// mask_score for a whole row of a tile at once: the live keys of the q row
+// at global position q_pos among the tile's local columns [0, bn) at local
+// key k0 are [lo, hi); columns >= end lie past T_kv. A column c then scores
+// c >= end ? -inf : (lo <= c < hi ? s : NEG_INF), as mask_score does.
+struct RowLimits {
+  int lo, hi, end;
+};
+
+template <class P>
+__device__ __forceinline__ RowLimits row_limits(const P& p, int q_pos, int k0, int bn,
+                                                int kv_limit) {
+  const int base = p.k_off + k0;  // global position of column 0
+  int lo = 0, hi = bn;
+  if (p.causal) {
+    hi = min(hi, q_pos - base + 1);
+    if (p.window > 0) lo = q_pos - p.window + 1 - base;
+  }
+  if (kv_limit >= 0) hi = min(hi, kv_limit - base);
+  return {lo, hi, p.T_kv - k0};
+}
+
+// The same for a key row of a transposed tile (S^T): the live q columns of
+// the key at local index k_idx among local q rows [q0, q0 + br) are
+// [lo, hi); a key past T_kv scores -inf in every column (end = 0).
+template <class P>
+__device__ __forceinline__ RowLimits key_limits(const P& p, int k_idx, int q0, int br,
+                                                int kv_limit) {
+  if (k_idx >= p.T_kv) return {0, 0, 0};
+  const int k_pos = p.k_off + k_idx, base = p.q_off + q0;  // global q position of column 0
+  int lo = 0, hi = br;
+  if (p.causal) {
+    lo = k_pos - base;
+    if (p.window > 0) hi = min(hi, k_pos + p.window - base);
+  }
+  if (kv_limit >= 0 && k_pos >= kv_limit) hi = lo;
+  return {lo, hi, br};
+}
+
+__device__ __forceinline__ float apply_limits(const RowLimits& r, int c, float s) {
+  return c >= r.end ? -INFINITY : (c >= r.lo && c < r.hi ? s : kNegInfLog2);
+}
+
+// 2^x on the special-function unit (ex2.approx, flushing denormals to 0):
+// the softmax exponent of the Hopper kernels, whose P is rounded to bf16.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
 }
@@ -129,16 +181,13 @@ __device__ __forceinline__ void acc_to_a(const float (*s)[4], int kk, uint32_t* 
   a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
-// The A operand of rows [r0, r0 + 16), columns [c0, c0 + 16) of a row-major
-// bf16 tile in shared memory with row pitch `pitch` (elements).
-__device__ __forceinline__ void smem_a(const __nv_bfloat16* t, int pitch, int r0, int c0,
-                                       int g, int tg, uint32_t* a) {
-  const __nv_bfloat16* lo = t + (r0 + g) * pitch + c0 + tg * 2;
-  const __nv_bfloat16* hi = lo + 8 * pitch;
-  a[0] = ld32(lo);
-  a[1] = ld32(hi);
-  a[2] = ld32(lo + 8);
-  a[3] = ld32(hi + 8);
+// The same from an m64nN wgmma accumulator d[4 * (N / 8)] (hopper.cuh):
+// k-step kk of the next product reads accumulator columns [16kk, 16kk + 16).
+__device__ __forceinline__ void wgmma_acc_to_a(const float* s, int kk, uint32_t* a) {
+  a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
 }  // namespace flash

@@ -4,8 +4,8 @@
 // paddle_tpu/ops/pallas/flash_attention.py: _flash_fwd_kernel (:67, K/V
 // streamed through the grid) and _flash_fwd_kernel_resident (:139, K/V held
 // in VMEM). Their split is a VMEM-capacity artefact; here one kernel covers
-// both: a thread block owns one (batch*head, 64-row q tile) and loops over
-// kv tiles staged in shared memory, which takes the place of the TPU's
+// both: a thread block owns one (batch*head, q tile) and loops over kv
+// tiles staged in shared memory, which takes the place of the TPU's
 // sequential kv grid axis.
 //
 // Semantics (identical to _flash_fwd, :263-359):
@@ -15,18 +15,12 @@
 //   (k_pos < kv_len[b]), GQA (query head h reads kv head h / (H / H_kv)).
 //   Masked scores take the finite NEG_INF = -1e9 (core/dtypes.py), so a row
 //   with no live key in a visited tile still adds exp(0) terms; such rows are
-//   defined only by lse < -1e8. Kv tiles that are dead under causal, window
-//   or kv_len are skipped by the loop bounds. Keys past T_kv (the ragged edge
-//   of the last tile, which the TPU kernels never had: they required T_kv to
-//   divide by the block) score -inf and add exactly nothing.
-//
-// Two instantiations:
-//   bf16 inputs: tensor-core mma.sync m16n8k16 (bf16 x bf16 -> f32). Four warps
-//     of 16 q rows each; S = Q K^T and O += P V stay in registers
-//     (FlashAttention-2 register layout: the S accumulator fragment is the A
-//     operand of the P V product), softmax in the log2 domain in f32.
-//   f32 inputs (parity runs): plain FMA, four threads per q row, online
-//     softmax one key at a time. Off the serving path.
+//   defined only by lse < -1e8, and their lse depends on which tiles the
+//   block visits (the 128-row q tile of the bf16 kernel visits other tiles
+//   than the 64-row one of the f32 kernel). Kv tiles that are dead under
+//   causal, window or kv_len are skipped by the loop bounds. Keys past T_kv
+//   (the ragged edge of the last tile, which the TPU kernels never had: they
+//   required T_kv to divide by the block) score -inf and add exactly nothing.
 //
 // Bound on an H100 SXM at the serving slice's prefill shape (B=8, H=8,
 // T=1024, d=64, bf16, causal): 4*d flops per live (q, k) pair over
@@ -34,20 +28,53 @@
 // and out written once in bf16 (8.4 MB each) plus lse in f32 = 33.8 MB,
 // 10.1 us at 3.35 TB/s. The two bounds are within 16% of each other, bytes
 // the larger: at d=64 causal attention has only ~255 flops per byte, under
-// the card's ~295. The design reads each K/V tile once per 64-row q tile
-// (from L2 after the first q tile of a head) and never writes S or P.
+// the card's ~295. So the kernel must keep the tensor cores fed from shared
+// memory while the next tiles stream in, and read K/V once per q tile.
 //
-// What this simple design leaves on the table (later work): mma.sync reaches
-// well under the wgmma peak; K/V tiles are loaded synchronously (no cp.async
-// or TMA pipeline, no double buffering), V is transposed through scalar
-// shared-memory stores instead of ldmatrix.trans, blocks are not persistent
-// and causal tiles are not ordered heaviest-first.
+// Two instantiations:
+//   bf16 inputs (the serving and training path): warp-specialised wgmma.
+//     A block of 288 threads owns 128 q rows: two consumer warpgroups of 64
+//     rows each and one producer warp. The producer loads the Q tile once
+//     and streams K and V tiles (128 keys, 64 at d=128 where registers
+//     decide) through a 3-stage ring in shared memory with TMA, each stage
+//     guarded by a "full" mbarrier (transaction bytes) and an "empty" one
+//     (one arrival per consumer warpgroup). The tensor maps are 3-D over
+//     [B*H(kv), T, d], so TMA's zero fill stops at each head's own T; tiles
+//     carry the 128-byte swizzle (64-byte at d=32), and a d=128 row is two
+//     64-column boxes. Each consumer warpgroup computes S = Q K^T with
+//     wgmma m64nNk16 from shared memory (K row-major is K-major for B),
+//     the online softmax in f32 in the log2 domain (exp2 on the special-
+//     function unit; a positive scale folded into the exponent's FFMA, any
+//     other scale applied to the scores first), then O += P V with P from
+//     registers (the S accumulator rounded to bf16, as
+//     the A operand) and V straight from its row-major tile through wgmma's
+//     transpose-B flag: no transposed copy of V is written. The next
+//     tile's S and this tile's P V are issued together, so that the
+//     softmax runs while P V is in the tensor cores (FlashAttention-3's
+//     intra-warpgroup overlap), and warpgroup 1 starts half a tile behind
+//     warpgroup 0, so that their softmaxes and products tend to alternate.
+//     Causal q tiles run heaviest first (the grid's y index is reversed),
+//     so the cheap tiles fill the tail.
+//   f32 inputs (parity runs): plain FMA, four threads per q row, online
+//     softmax one key at a time, 64-row q tiles. Off the serving path.
+//
+// What bounds it at the slice shape (H100, chip_smoke.py): not the bytes.
+// One block per SM (registers) runs its tiles as a chain whose longest
+// link is the softmax: at d=64 a tile's 16,384 exp2 on the special-
+// function unit (16 per clock per SM) take as long as its two products on
+// the tensor cores. What the design leaves on the table (later work): a
+// persistent grid, exp2 partly on the FMA units, `out` through shared
+// memory and a TMA store, FP8. (A strict ping-pong of the two warpgroups
+// around their products, FlashAttention-3's inter-warpgroup schedule, was
+// slower here than the one-time offset.)
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 struct Params {
   const void* q;
@@ -61,153 +88,250 @@ struct Params {
   float scale_log2;                  // sm_scale * log2(e)
 };
 
+// The bf16 kernel's tiling at head dim D.
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const Params p) {
-  constexpr int BN = 64;          // keys per kv tile
-  constexpr int KSTEPS = D / 16;  // k-steps of Q K^T
-  constexpr int NT = BN / 8;      // 8-key n-tiles of S
-  constexpr int ND = D / 8;       // 8-dim n-tiles of O
-  constexpr int KP = D + 8;       // padded K row (conflict-free fragment reads)
-  constexpr int VP = BN + 8;      // padded V^T row
-  __shared__ __align__(16) __nv_bfloat16 k_s[BN * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * VP];
+struct Bf16Tiles {
+  static constexpr int BM = 128;                  // q rows per block: 2 warpgroups x 64
+  static constexpr int BN = D == 128 ? 64 : 128;  // keys per kv tile
+  static constexpr int STAGES = 3;                // depth of the K/V ring
+  static constexpr int BOX_W = D < 64 ? D : 64;   // columns per TMA box: one swizzle row
+  static constexpr int ROW_B = 2 * BOX_W;         // bytes per box row
+  static constexpr int NBOX = D / BOX_W;          // boxes across the head dim
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // barriers: Q full, then full[STAGES], empty[STAGES]; plus 1 KB of slack
+  // to align the tiles to the 1024-byte swizzle atom
+  static constexpr size_t kSmemBytes = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+};
+
+constexpr int kConsumerThreads = 256;            // two warpgroups
+constexpr int kThreads = kConsumerThreads + 32;  // and one producer warp
+constexpr int kOffsetBar = 1;                    // named barrier of the warpgroups' offset
+
+struct TmaArgs {
+  CUtensorMap q, k, v;  // 3-D maps over [B*H, T, d] and [B*H_kv, T_kv, d]
+  Params p;
+};
+
+// S = Q K^T for one warpgroup's 64 rows (issued, committed, not waited).
+template <int D>
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_w, uint32_t kt) {
+  using Tl = Bf16Tiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int x = kk * 16 / Tl::BOX_W;
+    const uint32_t off = (kk * 16 % Tl::BOX_W) * 2;
+    wgmma_ss<Tl::BN>(sc, wgmma_desc(q_w + x * Tl::BM * Tl::ROW_B + off, 16, Tl::ROW_B),
+                     wgmma_desc(kt + x * Tl::BN * Tl::ROW_B + off, 16, Tl::ROW_B), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P from registers, V MN-major through the transpose flag
+// (issued, committed, not waited).
+template <int D>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4], uint32_t vt) {
+  using Tl = Bf16Tiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < Tl::BN / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < Tl::NBOX; ++x)
+      wgmma_rs_t<Tl::BOX_W>(o + x * Tl::BOX_W / 2, pa[kk],
+                            wgmma_desc(vt + x * Tl::BN * Tl::ROW_B + kk * 16 * Tl::ROW_B,
+                                       Tl::BN * Tl::ROW_B, Tl::ROW_B),
+                            1);
+  wgmma_commit();
+}
+
+// One tile's online softmax in place: the scores sc become P (f32), the row
+// max m and the partial row sums l (the 4 threads of an accumulator row
+// group share each row) move on, and alpha is the factor O must take. A
+// positive scale stays out of the scores until one FFMA in the exponent,
+// exp2(s * scale_log2 - m): the row max of unscaled scores then scales to
+// the max of scaled ones, and masked scores take NEG_INF / scale_log2. A
+// negative or zero scale, which would not keep that order, is applied to
+// each score first (one FMUL). Either way any sm_scale means what it means
+// to mask_score: NEG_INF where the mask kills a key, -inf past T_kv. The
+// mask is apply_limits written out (through the shared helper ptxas
+// spilled at d=64).
+template <int D>
+__device__ __forceinline__ void softmax_tile(const Params& p, float* sc, float* m, float* l,
+                                            float* alpha, int qw_first, int qw_last, int row,
+                                            int k0, int kv_limit, int tg) {
+  constexpr int BN = Bf16Tiles<D>::BN;
+  const bool folded = p.scale_log2 > 0.f;  // the scale goes into the exponent
+  const float pre = folded ? 1.f : p.scale_log2, post = folded ? p.scale_log2 : 1.f;
+  if (!tile_all_live(p, qw_first, qw_last, kv_limit, k0, BN)) {
+    const RowLimits lim[2] = {row_limits(p, p.q_off + row, k0, BN, kv_limit),
+                              row_limits(p, p.q_off + row + 8, k0, BN, kv_limit)};
+    const float masked = kNegInfLog2 / post;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = nt * 8 + tg * 2 + (c & 1);
+        const RowLimits& L = lim[c >> 1];
+        sc[4 * nt + c] = col >= L.end ? -INFINITY
+                         : (col >= L.lo && col < L.hi ? sc[4 * nt + c] * pre : masked);
+      }
+  } else if (!folded) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] *= pre;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+      mx = fmaxf(mx, fmaxf(sc[4 * nt + 2 * r], sc[4 * nt + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[r], mx * post);
+    alpha[r] = fast_exp2(m[r] - mx);
+    m[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      sc[4 * nt + 2 * r] = fast_exp2(fmaf(sc[4 * nt + 2 * r], post, -mx));
+      sc[4 * nt + 2 * r + 1] = fast_exp2(fmaf(sc[4 * nt + 2 * r + 1], post, -mx));
+      sum += sc[4 * nt + 2 * r] + sc[4 * nt + 2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ TmaArgs a) {
+  using Tl = Bf16Tiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, STAGES = Tl::STAGES;
+  constexpr int BOX_W = Tl::BOX_W, ROW_B = Tl::ROW_B, NBOX = Tl::NBOX;
+  const Params& p = a.p;
+  extern __shared__ uint8_t smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;  // [NBOX][BM][BOX_W]
+  const uint32_t k_s = q_s + Tl::Q_BYTES;                 // [STAGES][NBOX][BN][BOX_W]
+  const uint32_t v_s = k_s + STAGES * Tl::KV_BYTES;       // likewise
+  const uint32_t q_full = q_s + Tl::BAR_OFF;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * STAGES;  // + 8 * stage
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int kvbh = b * p.H_kv + h / (p.H / p.H_kv);
-  const int q0 = blockIdx.y * kBlockM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment row group / column pair
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.T * D;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(p.k) + (size_t)kvbh * p.T_kv * D;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(p.v) + (size_t)kvbh * p.T_kv * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal tiles first
   const int kv_limit = p.kv_len ? p.kv_len[b] : -1;
-
-  // this thread's two q rows (fragment rows g and g + 8 of its warp's 16)
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + tg * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const bool in = row[r] < p.T;
-      qa[ks][r] = in ? ld32(Q + (size_t)row[r] * D + c) : 0u;
-      qa[ks][r + 2] = in ? ld32(Q + (size_t)row[r] * D + c + 8) : 0u;
-    }
-  }
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInfLog2, kNegInfLog2};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
-
-  const int q_first = p.q_off + q0;
-  const int q_last = p.q_off + min(q0 + kBlockM, p.T) - 1;
   int lo, hi;
-  tile_range(p, q_first, q_last, kv_limit, BN, &lo, &hi);
+  tile_range(p, p.q_off + q0, p.q_off + min(q0 + BM, p.T) - 1, kv_limit, BN, &lo, &hi);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int j = lo; j < hi; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile's fragment reads are done
-    for (int idx = tid; idx < BN * D / 8; idx += 128) {
-      const int kr = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + kr < p.T_kv) {
-        kv = *reinterpret_cast<const uint4*>(K + (size_t)(k0 + kr) * D + c8);
-        vv = *reinterpret_cast<const uint4*>(V + (size_t)(k0 + kr) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(k_s + kr * KP + c8) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt_s[(c8 + i) * VP + kr] = ve[i];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (nt * 8 + g) * KP + tg * 2;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        mma_bf16(s[nt], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
-    }
-    const bool all_live = tile_all_live(p, q_first, q_last, kv_limit, k0, BN);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v = s[nt][c] * p.scale_log2;
-        if (!all_live)
-          v = mask_score(p, v, p.q_off + row[c >> 1], k0 + nt * 8 + tg * 2 + (c & 1),
-                         kv_limit);
-        s[nt][c] = v;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kConsumerThreads / 128) {
+    // producer: one thread issues every TMA load
+    if (warp == kConsumerThreads / 32 && lane == 0 && hi > lo) {
+      mbar_arrive_expect_tx(q_full, Tl::Q_BYTES);
+      for (int x = 0; x < NBOX; ++x)
+        tma_load_3d(q_s + x * BM * ROW_B, &a.q, q_full, x * BOX_W, q0, bh);
+      for (int j = lo; j < hi; ++j) {
+        const int n = j - lo, s = n % STAGES;
+        mbar_wait(empty0 + 8 * s, ((n / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full0 + 8 * s, 2 * Tl::KV_BYTES);
+        for (int x = 0; x < NBOX; ++x) {
+          const uint32_t off = s * Tl::KV_BYTES + x * BN * ROW_B;
+          tma_load_3d(k_s + off, &a.k, full0 + 8 * s, x * BOX_W, j * BN, kvbh);
+          tma_load_3d(v_s + off, &a.v, full0 + 8 * s, x * BOX_W, j * BN, kvbh);
+        }
       }
+    }
+  } else {
+    // consumer warpgroup wg: q rows [q0 + 64 wg, q0 + 64 wg + 64)
+    const int wg = role;
+    const int g = lane >> 2, tg = lane & 3;  // accumulator row group / column pair
+    const int row = q0 + wg * 64 + (warp & 3) * 16 + g;  // this thread's rows: row, row + 8
+    const int qw_first = p.q_off + q0 + wg * 64;
+    const int qw_last = p.q_off + min(q0 + wg * 64 + 64, p.T) - 1;
+    const uint32_t q_w = q_s + wg * 64 * ROW_B;  // the warpgroup's rows of each Q box
 
-    // online softmax; the 4 threads of a fragment row group share each row
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInfLog2, kNegInfLog2};
+    float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
+    if (hi > lo) {
+      // Tile lo: S, softmax, P. Then step j issues S_j = Q K_j^T and
+      // O += P_{j-1} V_{j-1} back to back and runs tile j's softmax while
+      // P V is in the tensor cores; O takes tile j's alpha once P V is done.
+      // Warpgroup 1 starts half a tile behind warpgroup 0 (its first S
+      // waits for 0's first softmax), so that one's softmax tends to run
+      // while the other's products are in the tensor cores.
+      float sc[BN / 2], alpha[2];
+      uint32_t pa[BN / 16][4];  // P rounded to bf16: the A operand of P V
+      mbar_wait(q_full, 0);
+      mbar_wait(full0, 0);
+      if (wg == 1) named_bar_sync(kOffsetBar, kConsumerThreads);
+      wgmma_fence();
+      issue_qk<D>(sc, q_w, k_s);
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(sc);
+      softmax_tile<D>(p, sc, m, l, alpha, qw_first, qw_last, row, lo * BN, kv_limit, tg);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_acc_to_a(sc, kk, pa[kk]);
+      if (wg == 0) named_bar_arrive(kOffsetBar, kConsumerThreads);
+      for (int j = lo + 1; j < hi; ++j) {
+        const int n = j - lo, s = n % STAGES, sp = (n - 1) % STAGES;
+        mbar_wait(full0 + 8 * s, (n / STAGES) & 1);
+        wgmma_fence();
+        issue_qk<D>(sc, q_w, k_s + s * Tl::KV_BYTES);
+        issue_pv<D>(o, pa, v_s + sp * Tl::KV_BYTES);
+        wgmma_wait<1>();
+        fence_regs<BN / 2>(sc);
+        softmax_tile<D>(p, sc, m, l, alpha, qw_first, qw_last, row, j * BN, kv_limit, tg);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * sp);  // tile j-1 is done
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          o[4 * nd] *= alpha[0];
+          o[4 * nd + 1] *= alpha[0];
+          o[4 * nd + 2] *= alpha[1];
+          o[4 * nd + 3] *= alpha[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_acc_to_a(sc, kk, pa[kk]);
+      }
+      const int sl = (hi - lo - 1) % STAGES;
+      wgmma_fence();
+      issue_pv<D>(o, pa, v_s + sl * Tl::KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * sl);
+    }
+
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.T * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float l_safe = fmaxf(lr, 1e-20f);
+      const float inv = 1.f / l_safe;
+      const int qr = row + 8 * r;
+      if (qr < p.T) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = exp2f(m[r] - mx);
-      m[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - mx);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mx);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
+        for (int nd = 0; nd < D / 8; ++nd)
+          *reinterpret_cast<uint32_t*>(O + (size_t)qr * D + nd * 8 + tg * 2) =
+              pack_bf16(o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+        if (tg == 0) p.lse[(size_t)bh * p.T + qr] = m[r] * kLn2 + logf(l_safe);
       }
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][2 * r] *= alpha;
-        o[n][2 * r + 1] *= alpha;
-      }
-    }
-
-    // O += P V: the S fragments of key tiles 2kk, 2kk+1 form P's A operand
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vr = vt_s + (n * 8 + g) * VP + kk * 16 + tg * 2;
-        mma_bf16(o[n], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.T * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float l_safe = fmaxf(lr, 1e-20f);
-    const float inv = 1.f / l_safe;
-    if (row[r] < p.T) {
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<uint32_t*>(O + (size_t)row[r] * D + n * 8 + tg * 2) =
-            pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-      if (tg == 0) p.lse[(size_t)bh * p.T + row[r]] = m[r] * kLn2 + logf(l_safe);
     }
   }
 }
@@ -284,13 +408,36 @@ __global__ void __launch_bounds__(256) flash_fwd_f32_kernel(const Params p) {
   }
 }
 
+// The TMA descriptors of a->p's q, k and v (built per call: they hold the
+// data pointers).
+template <int D>
+bool encode_maps(TmaArgs* a) {
+  using Tl = Bf16Tiles<D>;
+  const Params& p = a->p;
+  return encode_rows_map(&a->q, p.q, p.B * p.H, p.T, D, Tl::BM) &&
+         encode_rows_map(&a->k, p.k, p.B * p.H_kv, p.T_kv, D, Tl::BN) &&
+         encode_rows_map(&a->v, p.v, p.B * p.H_kv, p.T_kv, D, Tl::BN);
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  using Tl = Bf16Tiles<D>;
+  TmaArgs a;
+  a.p = p;
+  if (!encode_maps<D>(&a)) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.B * p.H, (p.T + Tl::BM - 1) / Tl::BM);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, Tl::kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Params& p, bool bf16, cudaStream_t stream) {
+  if (bf16) return launch_bf16<D>(p, stream);
   const dim3 grid(p.B * p.H, (p.T + kBlockM - 1) / kBlockM);
-  if (bf16)
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(p);
-  else
-    flash_fwd_f32_kernel<D><<<grid, 256, 0, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -298,7 +445,8 @@ cudaError_t launch(const Params& p, bool bf16, cudaStream_t stream) {
 
 // q [B*H, T, d], k/v [B*H_kv, T_kv, d] contiguous, bf16 (is_bf16=1) or f32;
 // out like q; lse [B*H, T] f32; kv_len [B] int32 or null. Launches on
-// `stream` and returns the launch's cudaError_t (0 = success).
+// `stream` and returns the launch's cudaError_t (0 = success; bf16 inputs
+// whose TMA descriptors cannot be encoded return cudaErrorInvalidValue).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                          float* lse, const int* kv_len, int B, int H, int H_kv,
                          int T, int T_kv, int d, int is_bf16, int causal,

@@ -7,7 +7,8 @@ PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -p no:cacheprovider
 
-Tolerances: bf16 ``out`` 2e-2 absolute (the kernel rounds P to bf16 inside
+Run on the card, the tests cover the bf16 kernels' wgmma + TMA tilings
+(:data:`TILING_CASES`). Tolerances: bf16 ``out`` 2e-2 absolute (the kernel rounds P to bf16 inside
 its tensor-core product and stores ``out`` in bf16), ``lse`` 1e-3; f32 1e-4
 (FMA order differs from the plain version's einsum; TF32 is off). The
 backward pair: max |kernel - plain| / max |plain| on each of dq, dk, dv,
@@ -117,6 +118,32 @@ def test_flash_fwd_refuses_what_it_does_not_take(cuda):
     with pytest.raises(EnforceError, match="lse"):
         tfa._flash_bwd_dkv_cuda(q, k, v, g, torch.zeros(1, 2, 64, 1, device=cuda, dtype=torch.bfloat16),
                                 torch.zeros(1, 2, 64, 1, device=cuda), True, 0.125)
+
+
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0])
+def test_flash_kernels_take_any_scale(cuda, sm_scale):
+    """A negative or zero sm_scale means what it means to the plain version:
+    the bf16 forward scales before it takes the row max. T = 200 with a
+    window gives masked, partly live and ragged tiles. At scale 0, dq and dk
+    are exactly 0 in both versions."""
+    q, k, v = _qkv(cuda, 2, 4, 2, 200, 64, torch.bfloat16)
+    g = _qkv(cuda, 2, 4, 4, 200, 64, torch.bfloat16, seed=1)[0]
+    kw = dict(causal=True, window=70, sm_scale=sm_scale)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+    dq, dk, dv = tfa.flash_attention_bwd_block(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa._reference_attention_with_lse(q, k, v, True, sm_scale, None, 70)
+    tol, tol_lse = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=tol_lse)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1, keepdim=True), True, sm_scale,
+            None, 70, 0, 0)
+    ref_dk, ref_dv = tfa._flash_bwd_dkv_reference(*args)
+    ref_dq = tfa._flash_bwd_dq_reference(*args)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max() / max(float(want.float().abs().max()), 1e-30))
+        assert err <= BWD_TOL[torch.bfloat16], err
 
 
 def test_generate_on_cuda_matches_cpu(cuda):
@@ -243,3 +270,47 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     for n, p in p_cpu.items():
         atol = 2 * 1e-3 if n.endswith("self_attn/k/b") else 1e-4
         torch.testing.assert_close(p_gpu[n].cpu(), p, rtol=0, atol=atol)
+
+
+# The tilings of the wgmma + TMA kernels (forward: 128-row q tiles of 128 keys,
+# 64 at d=128; dK/dV: 128-key tiles stepping 64 q rows, the head dim split
+# across two blocks at d=128): T on and off the tile edges, every head dim,
+# GQA, a window, ragged kv_len, one (B, H) = (1, 1) call and the block
+# backward at q_off = 256. (case, B, H, H_kv, T, T_kv, d, kwargs)
+TILING_CASES = [
+    (f"t{t}_d{d}", 2, 4, 4, t, t, d, dict(causal=True)) for t in (192, 1000, 1024) for d in (32, 64, 128)
+] + [
+    ("gqa_hkv2", 2, 8, 2, 1024, 1024, 64, dict(causal=True)),
+    ("window200", 2, 4, 4, 1000, 1000, 64, dict(causal=True, window=200)),
+    ("ragged_kv_len", 3, 4, 4, 1024, 1024, 64, dict(causal=True, kv_len=[1024, 1, 333])),
+    ("b1h1", 1, 1, 1, 1000, 1000, 64, dict(causal=True)),
+    ("block_q_off256", 2, 8, 2, 256, 512, 64, dict(causal=True, window=200, q_off=256)),
+]
+
+
+@pytest.mark.parametrize("case", TILING_CASES, ids=[c[0] for c in TILING_CASES])
+def test_hopper_kernel_tilings_match_plain(cuda, case):
+    """The bf16 forward, dK/dV and dQ kernels against their plain versions at
+    chip_smoke.py's tolerances (every case keeps a live key in every row)."""
+    name, B, H, H_kv, T, T_kv, d, kw = case
+    kw = dict(kw)
+    q, k, v = _qkv(cuda, B, H, H_kv, T, d, torch.bfloat16, T_kv)
+    g = _qkv(cuda, B, H, H, T, d, torch.bfloat16, seed=1)[0]
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32, device=cuda)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+    dq, dk, dv = tfa.flash_attention_bwd_block(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1, keepdim=True), True, 1.0 / d ** 0.5,
+            kw.get("kv_len"), kw.get("window"), kw.get("q_off", 0), 0)
+    ref, ref_lse = tfa._reference_attention_with_lse(q, k, v, True, 1.0 / d ** 0.5, kw.get("kv_len"),
+                                                     kw.get("window"), kw.get("q_off", 0))
+    tol, tol_lse = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=tol_lse)
+    ref_dk, ref_dv = tfa._flash_bwd_dkv_reference(*args)
+    ref_dq = tfa._flash_bwd_dq_reference(*args)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        assert err <= BWD_TOL[torch.bfloat16], err

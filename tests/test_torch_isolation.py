@@ -1,5 +1,5 @@
 """The PyTorch/CUDA port stands alone: no file of ``paddle_tpu_torch/``, nor
-``chip_smoke.py`` or ``tools/torch_profile_generate.py``, imports ``jax``
+``chip_smoke.py`` or the port's tools (``tools/torch_*.py``), imports ``jax``
 or the JAX package ``paddle_tpu`` (not even one of its jax-free modules),
 checked on the source's AST so that imports inside functions count too.
 Only the tests import both."""
@@ -10,8 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_generate.py"]
+SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "tools").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -37,6 +37,7 @@ def test_sources_found():
     for module in ("optimizer", "backward", "lr_scheduler", "regularizer", "clip"):
         assert f"paddle_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names and "tools/torch_profile_generate.py" in names
+    assert "tools/torch_time_flash.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
