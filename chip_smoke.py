@@ -10,9 +10,10 @@ Phases, each printing JSON lines:
                per source, all started together; build seconds, ptxas'
                register/spill report and, from cuobjdump -sass, each
                kernel's count of wgmma (HGMMA) and TMA load (UTMALDG)
-               instructions. Fails if a bf16 instantiation of flash_fwd or
-               flash_bwd_dkv spills, or if either kernel has no HGMMA or no
-               UTMALDG: the proof that they are the wgmma + TMA designs.
+               instructions. Fails if a bf16 instantiation of flash_fwd,
+               flash_bwd_dkv or flash_bwd_dq spills, or if any of them has no
+               HGMMA or no UTMALDG: the proof that they are the wgmma + TMA
+               designs.
   3. kernel  — each kernel against its plain PyTorch version on the card, on
                the cases listed in CASES (forward; the backward pair on the
                same cases plus BWD_BLOCK_CASE, through
@@ -94,11 +95,11 @@ BWD_BLOCK_CASE = ("bwd_block_offsets", 2, 8, 2, 256, 512, 64, "bfloat16", True, 
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Each kernel's design, and its time at the slice shape before this design,
 # copied from PERF.md section 6 (the chip runs of the earlier mma.sync
-# bodies; dQ as it is). Printed on a line of their own, never as this run's.
-DESIGNS = {"flash_fwd": "wgmma+tma", "flash_bwd_dkv": "wgmma+tma", "flash_bwd_dq": "mma.sync"}
+# bodies). Printed on a line of their own, never as this run's.
+DESIGNS = {"flash_fwd": "wgmma+tma", "flash_bwd_dkv": "wgmma+tma", "flash_bwd_dq": "wgmma+tma"}
 EARLIER_MS = {"flash_fwd": 0.0968, "flash_bwd_dkv": 0.1760, "flash_bwd_dq": 0.1188}
 # kernels that must hold wgmma and TMA instructions in their SASS
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # first-token logits of the slice, flash on vs off: both round q/k/v to bf16
 # and accumulate in f32; they differ by where P is rounded: 2e-2 absolute
 LOGITS_TOL = 2e-2

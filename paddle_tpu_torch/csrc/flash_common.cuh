@@ -1,8 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dkv.cu, flash_bwd_dq.cu): the masking semantics of
-// paddle_tpu/ops/pallas/flash_attention.py and the bf16 tensor-core fragment
-// helpers (mma.sync for dQ; the wgmma, TMA and mbarrier PTX of the forward
-// and dK/dV kernels is in hopper.cuh).
+// paddle_tpu/ops/pallas/flash_attention.py, the softmax exponent, and the
+// conversion of a wgmma accumulator into a register A operand (the wgmma,
+// TMA and mbarrier PTX of the bf16 kernels is in hopper.cuh).
 //
 // Masks act on GLOBAL positions q_off + i / k_off + j: causal (top-left
 // aligned, q_pos >= k_pos), sliding window (q_pos - k_pos < window, causal
@@ -26,7 +26,7 @@ constexpr float kNegInf = -1.0e9f;  // core/dtypes.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInfLog2 = kNegInf * kLog2e;  // NEG_INF in log2 units
-constexpr int kBlockM = 64;                      // q rows per dQ / f32 forward block
+constexpr int kBlockM = 64;                      // q rows per f32 block (forward, dQ)
 
 // Kv tiles [*lo, *hi) that hold a live key for q rows at global positions
 // [q_first, q_last] — the loop bounds of _flash_fwd_kernel_resident.
@@ -151,38 +151,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d[0..3] += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A operand (16x16, row-major) of an m16n8k16 product from an
-// accumulator tile pair: the f32 fragments s[2kk], s[2kk+1] of a 16-row
-// product whose columns are this product's k dimension, rounded to bf16
-// (the FlashAttention-2 register reuse: P and dS never touch shared memory).
-__device__ __forceinline__ void acc_to_a(const float (*s)[4], int kk, uint32_t* a) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// The same from an m64nN wgmma accumulator d[4 * (N / 8)] (hopper.cuh):
-// k-step kk of the next product reads accumulator columns [16kk, 16kk + 16).
+// The A operand of the next product (its k dimension = the accumulator's
+// columns), rounded to bf16, from an m64nN wgmma accumulator d[4 * (N / 8)]
+// (hopper.cuh): P and dS never touch shared memory (FlashAttention-2's
+// register reuse). k-step kk reads accumulator columns [16kk, 16kk + 16).
 __device__ __forceinline__ void wgmma_acc_to_a(const float* s, int kk, uint32_t* a) {
   a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
   a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);

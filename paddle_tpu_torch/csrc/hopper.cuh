@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// flash_fwd.cu and flash_bwd_dkv.cu, in raw PTX: mbarriers, named barriers,
+// flash_fwd.cu, flash_bwd_dkv.cu and flash_bwd_dq.cu, in raw PTX: mbarriers, named barriers,
 // TMA tile loads, wgmma products and register reallocation, plus the
 // host-side encoding of the TMA tensor maps.
 //
@@ -14,8 +14,8 @@
 //     16 rows; SBO = 8 rows; LBO = the distance to the next box along N.
 // The accumulator of an m64nN product holds, in thread t of warp w of the
 // warpgroup, rows 16w + t/4 (+8) and columns 8i + 2(t%4) (+1) at d[4i..4i+3]
-// (the mma.sync m16n8 C layout, once per 8 columns); a register A operand
-// is the mma.sync m16n8k16 A fragment of the warp's 16 rows.
+// (the warp-level m16n8 C fragment, once per 8 columns); a register A
+// operand is the warp-level m16n8k16 A fragment of the warp's 16 rows.
 
 #pragma once
 

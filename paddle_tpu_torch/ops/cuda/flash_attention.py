@@ -19,7 +19,7 @@ under ``flags().flash_fused_bwd``, else autograd through
 :func:`_reference_attention` (the recomputed backward, no kernel).
 
 Block sizes: the Hopper kernels tile q rows and keys themselves (bf16: the
-forward 128 q rows, dK/dV 128 keys, dQ 64 q rows) and take any T and
+forward and dQ 128 q rows, dK/dV 128 keys) and take any T and
 T_kv. ``block_q``/``block_k`` and the :func:`resolve_blocks`/
 :func:`fit_block` chain keep the JAX signature and resolution order, so
 callers run unchanged; they size the TPU's VMEM tiles and do not change the

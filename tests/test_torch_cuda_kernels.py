@@ -274,12 +274,15 @@ def test_train_step_on_cuda_matches_cpu(cuda):
 
 # The tilings of the wgmma + TMA kernels (forward: 128-row q tiles of 128 keys,
 # 64 at d=128; dK/dV: 128-key tiles stepping 64 q rows, the head dim split
-# across two blocks at d=128): T on and off the tile edges, every head dim,
-# GQA, a window, ragged kv_len, one (B, H) = (1, 1) call and the block
-# backward at q_off = 256. (case, B, H, H_kv, T, T_kv, d, kwargs)
+# across two blocks at d=128; dQ: 128-row q tiles, one 64-row warpgroup each,
+# of 64 keys at every d): T on and off the tile edges (T = 130: the last q
+# tile holds two rows, whose lse and Delta do not start 16-byte aligned),
+# every head dim, GQA, a window, ragged kv_len, one (B, H) = (1, 1) call and
+# the block backward at q_off = 256. (case, B, H, H_kv, T, T_kv, d, kwargs)
 TILING_CASES = [
     (f"t{t}_d{d}", 2, 4, 4, t, t, d, dict(causal=True)) for t in (192, 1000, 1024) for d in (32, 64, 128)
 ] + [
+    ("t130_d64", 2, 4, 4, 130, 130, 64, dict(causal=True)),
     ("gqa_hkv2", 2, 8, 2, 1024, 1024, 64, dict(causal=True)),
     ("window200", 2, 4, 4, 1000, 1000, 64, dict(causal=True, window=200)),
     ("ragged_kv_len", 3, 4, 4, 1024, 1024, 64, dict(causal=True, kv_len=[1024, 1, 333])),
