@@ -39,7 +39,21 @@ Phases, each printing JSON lines:
                steps), and the loss and gradients of one
                step against composed attention and against the recomputed
                (unfused) flash backward.
-  6. kernels — one line: each kernel with its launches in phases 4 and 5,
+  6. trainer — the trainer slice through Trainer(...).train(), flash + bf16
+               + check_nan_inf on. The LM at BASE_CFG: a reader of 4 batches
+               of 8 x 1024 tokens, 2 epochs, CheckpointConfig(step_interval=4,
+               max_num_checkpoints=2) in a temporary directory; launch counts
+               set to 0 just before train() and read around every step (6 of
+               each kernel per step); the first step's loss against a direct
+               minimize step on the same weights and batch; a fresh Trainer
+               that auto-resumes from a copy of the directory taken at the
+               epoch boundary ends epoch 1 with the uninterrupted run's
+               parameters and Adam slots; the Trainer's step ms against the
+               direct step's; checkpoint save and load seconds and bytes;
+               peak memory. Then the MNIST conv net (get_model("mnist"),
+               f32) through the Trainer, batch 64, 8 steps on one batch: the
+               loss falls.
+  7. kernels — one line: each kernel with its launches in phases 4, 5 and 6,
                its error and times from phase 3; before it, a line with the
                kernels' earlier times, copied from PERF.md (not measured).
 The last line is {"ok": true, "device": {...}}. It is printed only when every
@@ -107,6 +121,15 @@ NEW_TOKENS = 32
 PROMPTS, PROMPT_LEN = 8, 1024
 # the training slice: bench.py's LM cell (8 sequences x 1024 tokens)
 TRAIN_BATCH, TRAIN_STEPS = 8, 8
+# the trainer slice: a reader of 4 such batches, 2 epochs, a checkpoint
+# every 4 steps (one per epoch), 2 kept; the MNIST net: batch 64, 8 steps
+TRAINER_BATCHES, TRAINER_EPOCHS, TRAINER_CKPT_STEPS = 4, 2, 4
+MNIST_BATCH, MNIST_STEPS = 64, 8
+# A resumed run against the uninterrupted one: the same weights, Adam state
+# and batches through the same kernels, none of which sums with atomics, so
+# the two must agree bit for bit (max |difference| = 0 over every
+# parameter and Adam slot).
+RESUME_TOL = 0.0
 # One step's loss, flash attention vs composed attention (and vs the
 # recomputed flash backward): both round q/k/v and P to bf16 and accumulate
 # in f32; the kernel sums in another order and stores `out` in bf16, which
@@ -255,6 +278,191 @@ def bwd_bound_ms(kernel, B, H, H_kv, T, T_kv, d, dtype, causal, window, kv_len, 
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def state_max_abs_diff(a, b) -> float:
+    """Largest |difference| over every parameter and optimizer slot of two
+    (Variables, OptState) training states on the card (inf if they differ
+    in structure or step)."""
+    import torch
+
+    from paddle_tpu_torch.core import tree
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    worst = 0.0
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+        elif x != y:
+            return float("inf")
+    return worst
+
+
+def trainer_phase(smi: str):
+    """Phase 6: the LM at BASE_CFG and the MNIST net through the Trainer.
+    Returns the LM run's kernel launches and the phase's checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.checkpoint import latest_checkpoint
+    from paddle_tpu_torch.core import profiler as prof
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+    from paddle_tpu_torch.trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                                          EndStepEvent, Trainer)
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    spec = get_model("transformer_lm")  # BASE_CFG, seq_len 1024, on CUDA
+    rng = np.random.RandomState(0)
+    batches = [spec.synth_batch(TRAIN_BATCH, rng) for _ in range(TRAINER_BATCHES)]
+    init_vars = spec.model.init(0, *batches[0])
+    init_state = spec.optimizer().create_state(init_vars.params)
+    step = spec.optimizer().minimize(spec.model)
+
+    def direct_epoch():
+        """minimize's step over the batches from the initial state, each step
+        read as the Trainer reads it (loss and finite flag): the losses and
+        the ms of steps 2..4 (the host clock between step ends)."""
+        losses, t = [], [time.perf_counter()]
+        v, st = init_vars, init_state
+        for b in batches:
+            out = step(v, st, *b)
+            losses.append(float(out.loss))
+            bool(out.finite)
+            t.append(time.perf_counter())
+            v, st = out.variables, out.opt_state
+        return losses, [1e3 * (b - a) for a, b in zip(t[1:-1], t[2:])]
+
+    def trainer_epoch():
+        """The same epoch through a Trainer with no checkpoint: the ms
+        between its EndStepEvents (steps 2..4)."""
+        t = Trainer(lambda: spec.model, spec.optimizer)
+        t.variables, t.opt_state = init_vars, init_state
+        ends = []
+        t.train(num_epochs=1, reader=lambda: iter(batches),
+                event_handler=lambda ev: ends.append(time.perf_counter())
+                if isinstance(ev, EndStepEvent) else None)
+        return [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+
+    direct_losses, _ = direct_epoch()
+
+    def kernel_counts():
+        return {n: k.launches for n, k in kbuild.KERNELS.items()}
+
+    def make_trainer(root):
+        return Trainer(lambda: spec.model, spec.optimizer, checkpoint_config=CheckpointConfig(
+            root, step_interval=TRAINER_CKPT_STEPS, max_num_checkpoints=2))
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        root, copy = os.path.join(work, "ckpt"), os.path.join(work, "resume")
+        trainer = make_trainer(root)
+        trainer.variables, trainer.opt_state = init_vars, init_state
+        losses, per_step, marks = [], [], {}
+
+        def handler(ev):
+            if isinstance(ev, BeginStepEvent):
+                marks["counts"] = kernel_counts()
+            elif isinstance(ev, EndStepEvent):
+                losses.append(ev.metrics)
+                now = kernel_counts()
+                per_step.append({n: now[n] - marks["counts"][n] for n in now})
+            elif isinstance(ev, BeginEpochEvent) and ev.epoch == 1:
+                # the epoch boundary's state: checkpoint_0 with next_epoch 1
+                shutil.copytree(root, copy)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof.reset_metrics()
+        for kern in kbuild.KERNELS.values():
+            kern.launches = 0
+        trainer.train(num_epochs=TRAINER_EPOCHS, event_handler=handler, reader=lambda: iter(batches))
+        torch.cuda.synchronize()
+        trainer_launches = kernel_counts()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        saves = prof.histograms().get("checkpoint.save_seconds", {})
+        shard = os.path.join(latest_checkpoint(root), "shard_0.npz")
+        ckpt_bytes = os.path.getsize(shard)
+
+        resumed = make_trainer(copy)
+        resumed_losses = []
+        resumed.train(num_epochs=TRAINER_EPOCHS, reader=lambda: iter(batches),
+                      event_handler=lambda ev: resumed_losses.append(ev.metrics)
+                      if isinstance(ev, EndStepEvent) else None)
+        loads = prof.histograms().get("checkpoint.load_seconds", {})
+        resume_diff = state_max_abs_diff((trainer.variables, trainer.opt_state),
+                                         (resumed.variables, resumed.opt_state))
+        resumed_step = resumed.global_step
+        del resumed
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the Trainer's host cost: its step ms against the direct step's, in
+    # turns (direct, trainer, direct, trainer), steps 2..4 of each epoch
+    direct_ms, trainer_ms = [], []
+    for _ in range(2):
+        direct_ms += direct_epoch()[1]
+        trainer_ms += trainer_epoch()
+    n_layers = spec.extra["cfg"]["n_layers"]
+    lm_checks = {
+        "six_launches_of_each_kernel_every_step": all(
+            c[k] == n_layers for c in per_step for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+        "steps": trainer.global_step == TRAINER_BATCHES * TRAINER_EPOCHS == len(per_step),
+        "first_loss_equals_direct_step": losses[0] == direct_losses[0],
+        "epoch0_losses_equal_direct_steps": losses[:TRAINER_BATCHES] == direct_losses,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "resumed_at_epoch_boundary": len(resumed_losses) == TRAINER_BATCHES
+        and resumed_step == trainer.global_step,
+        "resumed_losses_equal": resumed_losses == losses[TRAINER_BATCHES:],
+        "resumed_state_within_tol": resume_diff <= RESUME_TOL,
+        "checkpoints_saved": saves.get("count", 0) == 2,
+    }
+    emit({"phase": "trainer", "model": "transformer_lm", "params": sum(
+              p.numel() for p in init_vars.params.values()),
+          "batch": TRAIN_BATCH, "seq_len": spec.extra["seq_len"], "batches": TRAINER_BATCHES,
+          "epochs": TRAINER_EPOCHS, "launches": trainer_launches, "launches_per_step": per_step,
+          "losses": losses, "direct_losses": direct_losses,
+          "first_loss_minus_direct": losses[0] - direct_losses[0],
+          "resumed_losses": resumed_losses, "resume_max_abs_diff": resume_diff,
+          "resume_tol": RESUME_TOL,
+          "trainer_step_ms": trainer_ms, "direct_step_ms": direct_ms,
+          "trainer_step_ms_median": float(np.median(trainer_ms)),
+          "direct_step_ms_median": float(np.median(direct_ms)),
+          "trainer_over_direct_ms": float(np.median(trainer_ms) - np.median(direct_ms)),
+          "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": saves,
+          "checkpoint_load_s": loads, "peak_memory_bytes": peak_bytes, "card": smi,
+          "checks": lm_checks})
+    del trainer, init_vars, init_state, batches
+
+    # the MNIST conv net, f32
+    set_flags(use_bf16_compute=False)
+    mspec = get_model("mnist")
+    mbatch = mspec.synth_batch(MNIST_BATCH, np.random.RandomState(0))
+    mnist = Trainer(lambda: mspec.model, mspec.optimizer)
+    mlosses, mt = [], []
+
+    def mhandler(ev):
+        if isinstance(ev, EndStepEvent):
+            mt.append(time.perf_counter())
+            mlosses.append(ev.metrics)
+
+    mnist.train(num_epochs=1, reader=lambda: iter([mbatch] * MNIST_STEPS), event_handler=mhandler)
+    mnist_ms = [1e3 * (b - a) for a, b in zip(mt[:-1], mt[1:])]
+    mnist_checks = {"mnist_loss_falls": mlosses[-1] < mlosses[0],
+                    "mnist_losses_finite": bool(np.isfinite(mlosses).all()),
+                    "mnist_steps": len(mlosses) == MNIST_STEPS}
+    emit({"phase": "trainer", "model": "mnist", "batch": MNIST_BATCH, "losses": mlosses,
+          "step_ms": mnist_ms, "step_ms_median": float(np.median(mnist_ms)),
+          "params": sum(p.numel() for p in mnist.variables.params.values()), "card": smi,
+          "checks": mnist_checks})
+    set_flags(use_bf16_compute=True)
+    return trainer_launches, {**lm_checks, **mnist_checks}
 
 
 def main() -> int:
@@ -582,8 +790,12 @@ def main() -> int:
           "grad_floor": TRAIN_GRAD_FLOOR, "card": smi, "checks": train_checks})
     failures += [f"train check {k}" for k, good in train_checks.items() if not good]
 
-    # 6. kernels
-    paths = {"generate": launches, "train_step": train_launches}
+    # 6. the trainer slice
+    trainer_launches, trainer_checks = trainer_phase(smi)
+    failures += [f"trainer check {k}" for k, good in trainer_checks.items() if not good]
+
+    # 7. kernels
+    paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches}
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers}
     extra = {n: {"design": DESIGNS[n],
                  "ratio_to_library": (numbers[n]["ms"] / numbers[n]["library_ms"]

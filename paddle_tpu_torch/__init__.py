@@ -7,12 +7,15 @@ port reaches is a hand-written CUDA C++ kernel under ``csrc/``, built with
 ``paddle_tpu``; the JAX package is the reference it is tested against
 (same parameter names, same inputs, outputs compared with a tolerance).
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``. Ported
-so far: the serving slice — ``models.get_model("transformer_lm")`` →
-``Model.init`` → ``models.transformer_lm.generate`` with flash-attention
-prefill — and the training slice — ``Model.init`` →
-``spec.optimizer().minimize(spec.model)`` steps with the flash-attention
-forward and backward kernels.
+Entry points run on CUDA unless the caller passes ``device="cpu"`` (or
+``place="cpu"``). Ported so far: the serving slice —
+``models.get_model("transformer_lm")`` → ``Model.init`` →
+``models.transformer_lm.generate`` with flash-attention prefill — the
+training slice — ``Model.init`` → ``spec.optimizer().minimize(spec.model)``
+steps with the flash-attention forward and backward kernels — and the
+trainer slice — ``trainer.Trainer(...).train(num_epochs, event_handler,
+reader)`` through the ``executor.Executor``, with CRC'd checkpoints in the
+JAX package's format and auto-resume, on the LM and the MNIST conv net.
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401
@@ -30,4 +33,7 @@ from paddle_tpu_torch.framework import (  # noqa: F401
 )
 from paddle_tpu_torch import initializer, layers, models, ops  # noqa: F401
 from paddle_tpu_torch import backward, clip, lr_scheduler, optimizer, regularizer  # noqa: F401
+from paddle_tpu_torch import (  # noqa: F401
+    checkpoint, dataset, executor, io, metrics, nets, observability, reader, resilience, trainer,
+)
 from paddle_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: F401

@@ -5,19 +5,23 @@ Both packages name parameters identically (``framework.name_scope``), so a
 flat ``{name: array}`` dict moves across unchanged: this is how the tests
 run the two packages on identical weights, and how a checkpoint written by
 one loads into the other. Optimizer state moves the same way: its step and
-its slot dicts (``{slot: {param name: array}}``).
+its slot dicts (``{slot: {param name: array}}``). A whole training state
+``(Variables, OptState)`` moves with :func:`train_state_from_jax`, and
+:func:`train_state_leaves` lists it in checkpoint leaf order
+(``jax.tree_util.tree_leaves`` order) as numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.config import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax", "opt_state_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax", "opt_state_to_numpy",
+           "train_state_from_jax", "train_state_leaves"]
 
 
 def _to_tensor(value, device: torch.device) -> torch.Tensor:
@@ -65,3 +69,35 @@ def opt_state_to_numpy(state) -> Dict[str, Any]:
     array}}}`` on the host."""
     return {"step": int(np.asarray(state.step)),
             "slots": {s: params_to_numpy(d) for s, d in state.slots.items()}}
+
+
+def train_state_from_jax(tree: Any, device="cuda"):
+    """A training state ``(variables, opt_state)`` of the JAX package (its
+    ``Variables`` and ``OptState``, or the same pairs of numpy dicts) →
+    ``(Variables, OptState)`` of the port on ``device`` (default CUDA;
+    raises if CUDA is absent unless ``device="cpu"``): parameters, mutable
+    state, the optimizer's step and every slot."""
+    from paddle_tpu_torch.framework import Variables
+
+    (params, state), opt_state = tree
+    return (Variables(params_from_jax(params, device), params_from_jax(state, device)),
+            opt_state_from_jax(opt_state, device))
+
+
+def train_state_leaves(tree: Any) -> List[np.ndarray]:
+    """The leaves of a training state of either package as numpy arrays, in
+    checkpoint order: parameters by name, state by name, the step (0-d
+    int32), then the slots by slot name and parameter name."""
+    from paddle_tpu_torch.core import tree as tree_mod
+
+    def host(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return params_to_numpy({"_": leaf})["_"]
+        if isinstance(leaf, int):
+            return np.asarray(leaf, np.int32)
+        return np.asarray(leaf)
+
+    (params, state), opt_state = tree
+    step, slots = (opt_state["step"], opt_state["slots"]) if isinstance(opt_state, Mapping) else (
+        opt_state.step, opt_state.slots)
+    return [host(l) for l in tree_mod.leaves(((params, state), (step, slots)))]

@@ -1,3 +1,6 @@
-"""Core runtime: flags and devices, dtypes, enforcement, naming, logging."""
+"""Core runtime: flags and devices, dtypes, enforcement, naming, logging,
+locks, retries and the metrics registry."""
 
-from paddle_tpu_torch.core import config, dtypes, enforce, logging, unique_name  # noqa: F401
+from paddle_tpu_torch.core import (  # noqa: F401
+    config, dtypes, enforce, locks, logging, profiler, retry, unique_name,
+)

@@ -28,6 +28,12 @@ class Flags:
     # numeric sanitizer: Optimizer.minimize's step reports in
     # StepOutput.finite whether the loss and every gradient are finite
     check_nan_inf: bool = False
+    # what the Trainer does with a non-finite step when check_nan_inf is on:
+    # "raise" | "skip_step" | "rollback" (see resilience.ResilienceConfig)
+    check_nan_inf_policy: str = "raise"
+    # consecutive bad steps before the "rollback" policy restores the last
+    # good checkpoint
+    nan_rollback_after: int = 3
     # mixed precision: bf16 tensor-core operands, f32 accumulation
     use_bf16_compute: bool = False
     # route unmasked/causal attention through the hand-written flash kernel
@@ -40,6 +46,9 @@ class Flags:
     autotune: bool = False
     # default seed for parameter initialization when none is given
     seed: int = 0
+    # host data pipeline: batches the Trainer's prefetcher keeps in flight
+    # (reference double_buffer reader, operators/reader/buffered_reader.cc)
+    prefetch_depth: int = 2
 
     @staticmethod
     def _coerce(value: str, typ):

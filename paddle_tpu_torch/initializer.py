@@ -73,3 +73,22 @@ class Xavier(Initializer):
             std = math.sqrt(2.0 / (fin + fout))
             x = std * torch.randn(tuple(shape), generator=generator, dtype=torch.float32)
         return x.to(device=device, dtype=dtype)
+
+
+class MSRA(Initializer):
+    """He init (reference MSRAInitializer), fan_in scaled."""
+
+    def __init__(self, uniform: bool = True, fan_in: Optional[int] = None):
+        self.uniform = uniform
+        self.fan_in = fan_in
+
+    def __call__(self, generator, shape, dtype, device):
+        fin, _ = _fan_in_out(tuple(shape))
+        fin = self.fan_in or fin
+        if self.uniform:
+            limit = math.sqrt(6.0 / fin)
+            x = torch.rand(tuple(shape), generator=generator, dtype=torch.float32) * (2 * limit) - limit
+        else:
+            std = math.sqrt(2.0 / fin)
+            x = std * torch.randn(tuple(shape), generator=generator, dtype=torch.float32)
+        return x.to(device=device, dtype=dtype)

@@ -1,24 +1,41 @@
 """Declarative layer API — the subset of ``paddle_tpu.layers`` the ported
-slice uses: ``fc``, ``embedding``, ``layer_norm``, ``dropout``, ``relu``.
+slices use: ``fc``, ``embedding``, ``conv2d``, ``pool2d``, ``layer_norm``,
+``dropout``, ``relu``, and the functional ops re-exported under
+``layers.*`` (``softmax_with_cross_entropy``, ``reduce_mean``,
+``accuracy``, ...).
 
 Each layer function creates/fetches its named parameters through
 :mod:`paddle_tpu_torch.framework` (the JAX package's names) and returns the
-computed tensor.
+computed tensor. Images are NHWC; ``data_format="NCHW"`` inputs are
+transposed on entry, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
 from paddle_tpu_torch import framework, initializer as init_mod
 from paddle_tpu_torch.core.dtypes import f32_matmul, mxu_operands
+from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import create_parameter, name_scope
 from paddle_tpu_torch.ops import nn as on
-from paddle_tpu_torch.ops.math import relu
+from paddle_tpu_torch.ops.math import reduce_mean, relu
+# functional ops re-exported under layers.* for fluid.layers parity
+from paddle_tpu_torch.ops.nn import (  # noqa: F401
+    accuracy,
+    cross_entropy,
+    softmax,
+    softmax_with_cross_entropy,
+    square_error_cost,
+)
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "relu"]
+__all__ = [
+    "fc", "embedding", "conv2d", "pool2d", "layer_norm", "dropout", "relu",
+    "reduce_mean", "accuracy", "cross_entropy", "softmax", "softmax_with_cross_entropy",
+    "square_error_cost",
+]
 
 _ACTS = {None: lambda x: x, "relu": relu}
 
@@ -27,6 +44,14 @@ def _act(x, act: Optional[str]):
     if act not in _ACTS:
         raise KeyError(f"unknown activation {act!r}; ported: {sorted(k for k in _ACTS if k)}")
     return _ACTS[act](x)
+
+
+def _to_nhwc(x, data_format: str):
+    return x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
+
+
+def _from_nhwc(x, data_format: str):
+    return x.permute(0, 3, 1, 2) if data_format == "NCHW" else x
 
 
 def fc(
@@ -73,6 +98,60 @@ def embedding(
             list(size), dtype, name="w", attr=param_attr, default_initializer=init_mod.Xavier()
         )
         return on.embedding_lookup(table, input, padding_idx=padding_idx)
+
+
+def conv2d(
+    input: torch.Tensor,
+    num_filters: int,
+    filter_size: Union[int, Sequence[int]],
+    stride: Union[int, Sequence[int]] = 1,
+    padding: Union[int, Sequence[int], str] = 0,
+    dilation: Union[int, Sequence[int]] = 1,
+    groups: int = 1,
+    param_attr=None,
+    bias_attr=None,
+    act: Optional[str] = None,
+    data_format: str = "NHWC",
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """2-D convolution layer: ``w`` [kh, kw, Cin/groups, num_filters] (HWIO,
+    He-normal init) and ``b`` [num_filters]."""
+    with name_scope(name or "conv2d"):
+        x = _to_nhwc(input, data_format)
+        kh, kw = (filter_size, filter_size) if isinstance(filter_size, int) else tuple(filter_size)
+        cin = x.shape[-1]
+        enforce(cin % groups == 0, f"channels {cin} not divisible by groups {groups}")
+        w = create_parameter(
+            [kh, kw, cin // groups, num_filters], x.dtype, name="w", attr=param_attr,
+            default_initializer=init_mod.MSRA(uniform=False),
+        )
+        out = on.conv2d(x, w, stride=stride, padding=padding, dilation=dilation, groups=groups)
+        if bias_attr is not False:
+            b = create_parameter(
+                [num_filters], x.dtype, name="b", attr=bias_attr,
+                default_initializer=init_mod.Constant(0.0),
+            )
+            out = out + b
+        return _from_nhwc(_act(out, act), data_format)
+
+
+def pool2d(
+    input: torch.Tensor,
+    pool_size: Union[int, Sequence[int]] = 2,
+    pool_type: str = "max",
+    pool_stride: Union[int, Sequence[int]] = 1,
+    pool_padding: Union[int, Sequence[int]] = 0,
+    global_pooling: bool = False,
+    ceil_mode: bool = False,
+    exclusive: bool = True,
+    data_format: str = "NHWC",
+) -> torch.Tensor:
+    out = on.pool2d(
+        _to_nhwc(input, data_format), pool_size=pool_size, pool_type=pool_type,
+        pool_stride=pool_stride, pool_padding=pool_padding, ceil_mode=ceil_mode,
+        exclusive=exclusive, global_pooling=global_pooling,
+    )
+    return _from_nhwc(out, data_format)
 
 
 def layer_norm(

@@ -1,5 +1,5 @@
 """Model zoo — ``get_model(name, **cfg) -> ModelSpec``, as in
-``paddle_tpu.models``. Ported so far: ``transformer_lm``."""
+``paddle_tpu.models``. Ported so far: ``mnist`` and ``transformer_lm``."""
 
 from __future__ import annotations
 
@@ -35,6 +35,12 @@ def get_model(name: str, **cfg) -> ModelSpec:
     return MODELS[name](**cfg)
 
 
+def _mnist(**cfg):
+    from paddle_tpu_torch.models import mnist
+
+    return mnist.get_model(**cfg)
+
+
 def _transformer_lm(**cfg):
     from paddle_tpu_torch.models import transformer_lm
 
@@ -42,5 +48,6 @@ def _transformer_lm(**cfg):
 
 
 MODELS: Dict[str, Callable[..., ModelSpec]] = {
+    "mnist": _mnist,
     "transformer_lm": _transformer_lm,
 }

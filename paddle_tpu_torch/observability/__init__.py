@@ -1,0 +1,5 @@
+"""Observability — the structured run log (:mod:`.runlog`). The rest of the
+JAX package's observability stack (exporter, MFU, goodput, roofline, fleet
+rollup) waits for its own slice (``ROADMAP.md``)."""
+
+from paddle_tpu_torch.observability import runlog  # noqa: F401

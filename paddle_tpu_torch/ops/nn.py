@@ -1,13 +1,180 @@
-"""Neural-network ops — the subset of ``paddle_tpu.ops.nn`` the ported slice
-uses: layer norm, embedding lookup and eval-mode dropout."""
+"""Neural-network ops — the subset of ``paddle_tpu.ops.nn`` the ported slices
+use: conv and pooling, softmax and losses, accuracy, layer norm, embedding
+lookup and eval-mode dropout.
+
+Images are NHWC and conv weights HWIO at the API, as in the JAX package
+(``paddle_tpu/ops/nn.py:10,89``); the conv and pooling ops permute to
+PyTorch's NCHW/OIHW at their boundary and run cuDNN's kernels on the card
+(the JAX package leaves them to XLA, so no hand-written kernel is owed).
+Padding, stride and dilation read as the reference reads them: an int or
+pair pads both sides of each axis, ``"SAME"``/``"VALID"`` as in XLA (SAME
+puts the odd extra row on the high side). Losses reduce in f32.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["layer_norm", "embedding_lookup", "dropout"]
+__all__ = [
+    "conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
+    "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
+]
+
+_IntOrPair = Union[int, Sequence[int]]
+
+
+def _pair(v: _IntOrPair) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+def _same_pads(size: int, k: int, s: int, d: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis: output ceil(size / s), the odd extra
+    row on the high side."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    stride: _IntOrPair = 1,
+    padding: Union[str, _IntOrPair] = 0,
+    dilation: _IntOrPair = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """2-D convolution, NHWC activations × HWIO weights (reference
+    ``operators/conv_op.cc``): ``F.conv2d`` on the operands in the compute
+    dtype (bf16 under ``use_bf16_compute``), result in x's dtype. f32
+    convolutions on the card follow ``torch.backends.cudnn.allow_tf32``."""
+    from paddle_tpu_torch.core.dtypes import mxu_operands
+
+    xc, wc = mxu_operands(x, weight)
+    sh, sw = _pair(stride)
+    dh, dw = _pair(dilation)
+    xn = xc.permute(0, 3, 1, 2)
+    wn = wc.permute(3, 2, 0, 1)
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME', 'VALID' or ints, got {padding!r}")
+        pad = (0, 0)
+        if mode == "SAME":
+            ph = _same_pads(x.shape[1], weight.shape[0], sh, dh)
+            pw = _same_pads(x.shape[2], weight.shape[1], sw, dw)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                pad = (ph[0], pw[0])
+            else:
+                xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]))
+    else:
+        pad = _pair(padding)
+    out = F.conv2d(xn, wn, stride=(sh, sw), padding=pad, dilation=(dh, dw), groups=groups)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def pool2d(
+    x: torch.Tensor,
+    pool_size: _IntOrPair = 2,
+    pool_type: str = "max",
+    pool_stride: _IntOrPair = 1,
+    pool_padding: _IntOrPair = 0,
+    ceil_mode: bool = False,
+    exclusive: bool = True,
+    global_pooling: bool = False,
+) -> torch.Tensor:
+    """Max/avg pooling over NHWC (reference ``pool_op.cc`` semantics incl.
+    ``exclusive`` average counting): the input is padded explicitly (-inf
+    for max, 0 for avg; ``ceil_mode`` pads the high side until the last
+    window is complete), then pooled with no further padding."""
+    if global_pooling:
+        pool_size = (x.shape[1], x.shape[2])
+        pool_padding = 0
+    kh, kw = _pair(pool_size)
+    sh, sw = _pair(pool_stride)
+    ph, pw = _pair(pool_padding)
+    if ceil_mode:
+        def extra(size, k, s, p):
+            out = -(-(size + 2 * p - k) // s) + 1  # ceil
+            return max(0, (out - 1) * s + k - (size + 2 * p))
+
+        eh, ew = extra(x.shape[1], kh, sh, ph), extra(x.shape[2], kw, sw, pw)
+    else:
+        eh = ew = 0
+    pads = (pw, pw + ew, ph, ph + eh)  # F.pad order: W low/high, then H
+    xn = x.permute(0, 3, 1, 2)
+    if pool_type == "max":
+        padded = F.pad(xn, pads, value=-float("inf")) if any(pads) else xn
+        out = F.max_pool2d(padded, (kh, kw), (sh, sw))
+    elif pool_type == "avg":
+        padded = F.pad(xn.float(), pads, value=0.0) if any(pads) else xn.float()
+        summed = F.avg_pool2d(padded, (kh, kw), (sh, sw), divisor_override=1)
+        if exclusive and (ph or pw or eh or ew):
+            ones = F.pad(torch.ones((1, 1) + tuple(x.shape[1:3]), device=x.device), pads)
+            counts = F.avg_pool2d(ones, (kh, kw), (sh, sw), divisor_override=1)
+            out = summed / counts
+        else:
+            out = summed / float(kh * kw)
+        out = out.to(x.dtype)
+    else:
+        raise ValueError(f"pool_type must be 'max' or 'avg', got {pool_type!r}")
+    return out.permute(0, 2, 3, 1)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x.float(), dim=axis).to(x.dtype)
+
+
+def _hard_labels(label: torch.Tensor, ref_dim: int) -> torch.Tensor:
+    return label.squeeze(-1) if (label.dim() == ref_dim and label.shape[-1] == 1) else label
+
+
+def cross_entropy(probs, label, soft_label: bool = False, ignore_index: int = -100, axis: int = -1):
+    """NLL on probabilities (reference ``cross_entropy_op.cc``): input is a
+    probability distribution (post-softmax); label is int ids or soft dist.
+    Returns per-example loss with a trailing 1 dim (fluid convention)."""
+    logp = torch.log(torch.clamp_min(probs.float(), 1e-10))
+    if soft_label:
+        return -torch.sum(label.float() * logp, dim=axis, keepdim=True)
+    lab = _hard_labels(label, probs.dim())
+    keep = lab != ignore_index
+    picked = torch.gather(logp, axis, torch.where(keep, lab, 0)[..., None].long())
+    return torch.where(keep[..., None], -picked, 0.0)
+
+
+def softmax_with_cross_entropy(
+    logits, label, soft_label: bool = False, ignore_index: int = -100, return_softmax: bool = False
+):
+    """Fused, numerically-stable version (reference
+    ``softmax_with_cross_entropy_op.cc``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if soft_label:
+        loss = -torch.sum(label.float() * logp, dim=-1, keepdim=True)
+    else:
+        lab = _hard_labels(label, logits.dim())
+        keep = lab != ignore_index  # ignored rows gather class 0, then read 0
+        picked = torch.gather(logp, -1, torch.where(keep, lab, 0)[..., None].long())
+        loss = torch.where(keep[..., None], -picked, 0.0)
+    if return_softmax:
+        return loss, torch.exp(logp).to(logits.dtype)
+    return loss
+
+
+def square_error_cost(input, label):
+    return torch.square(input.float() - label.float())
+
+
+def accuracy(logits_or_topk, label, k: int = 1):
+    """Reference ``accuracy_op.cc``: fraction of rows whose top-k contains
+    the label."""
+    lab = label.squeeze(-1) if (label.dim() >= 2 and label.shape[-1] == 1) else label
+    idx = torch.topk(logits_or_topk, k, dim=-1).indices
+    correct = torch.any(idx == lab[..., None].long(), dim=-1)
+    return torch.mean(correct.float())
 
 
 def layer_norm(x, scale=None, bias=None, begin_norm_axis: int = -1, epsilon: float = 1e-5):

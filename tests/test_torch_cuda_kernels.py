@@ -14,7 +14,9 @@ its tensor-core product and stores ``out`` in bf16), ``lse`` 1e-3; f32 1e-4
 backward pair: max |kernel - plain| / max |plain| on each of dq, dk, dv,
 2e-2 in bf16 (the kernels round P and dS to bf16 as tensor-core operands,
 where the plain version keeps f32, and store bf16 gradients) and 1e-4 in
-f32.
+f32. The trainer slice's CUDA paths: the DevicePrefetcher's copies from
+pinned memory on a side stream give every batch bit for bit, and a
+prefetched Trainer run gives the losses of an unprefetched one exactly.
 """
 
 import importlib
@@ -317,3 +319,50 @@ def test_hopper_kernel_tilings_match_plain(cuda, case):
         assert bool(torch.isfinite(got).all())
         err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
         assert err <= BWD_TOL[torch.bfloat16], err
+
+
+def test_device_prefetcher_on_cuda_bit_exact(cuda):
+    import numpy as np
+
+    from paddle_tpu_torch.reader import DevicePrefetcher
+
+    rng = np.random.RandomState(0)
+    batches = [(rng.randn(64, 1024).astype(np.float32),
+                rng.randint(0, 32000, (64, 128)).astype(np.int32)) for _ in range(8)]
+    got = []
+    for x, ids in DevicePrefetcher(iter(batches), device=cuda, depth=3):
+        assert x.is_cuda and ids.dtype == torch.int32
+        got.append(((x * 2).cpu(), ids.cpu()))  # work on the consumer stream
+    assert len(got) == len(batches)
+    for (x2, ids), (x, i) in zip(got, batches):
+        assert torch.equal(x2, torch.from_numpy(x) * 2)
+        assert torch.equal(ids, torch.from_numpy(i))
+
+
+def test_trainer_prefetch_on_cuda_matches_plain(cuda):
+    import numpy as np
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.trainer import EndStepEvent, Trainer
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True)
+    try:
+        spec = get_model("transformer_lm", seq_len=256, n_layers=2)
+        rng = np.random.RandomState(0)
+        batches = [tuple(t.cpu().numpy() for t in spec.synth_batch(4, rng)) for _ in range(3)]
+        init = spec.model.init(0, *spec.synth_batch(4, rng))
+
+        def run(prefetch):
+            t = Trainer(lambda: spec.model, spec.optimizer, prefetch=prefetch)
+            t.variables, t.opt_state = init, t.optimizer.create_state(init.params)
+            losses = []
+            t.train(num_epochs=2, reader=lambda: iter(batches),
+                    event_handler=lambda ev: losses.append(ev.metrics)
+                    if isinstance(ev, EndStepEvent) else None)
+            return losses
+
+        plain, prefetched = run(False), run(True)
+        assert len(plain) == 6 and plain == prefetched
+    finally:
+        set_flags(use_flash_attention=False, use_bf16_compute=False)

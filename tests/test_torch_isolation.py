@@ -1,10 +1,13 @@
 """The PyTorch/CUDA port stands alone: no file of ``paddle_tpu_torch/``, nor
 ``chip_smoke.py`` or the port's tools (``tools/torch_*.py``), imports ``jax``
 or the JAX package ``paddle_tpu`` (not even one of its jax-free modules),
-checked on the source's AST so that imports inside functions count too.
-Only the tests import both."""
+checked on the source's AST so that imports inside functions count too, and
+every module of the port imports in a fresh interpreter where ``jax`` and
+``paddle_tpu`` cannot be imported. Only the tests import both."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -38,6 +41,10 @@ def test_sources_found():
         assert f"paddle_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names and "tools/torch_profile_generate.py" in names
     assert "tools/torch_time_flash.py" in names
+    for module in ("trainer", "executor", "checkpoint", "io", "metrics", "nets", "reader/__init__",
+                   "reader/feeder", "dataset/digits", "models/mnist", "resilience/faults",
+                   "observability/runlog", "core/profiler", "core/retry", "core/locks"):
+        assert f"paddle_tpu_torch/{module}.py" in names, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -63,3 +70,21 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     roots = [m.split(".")[0] for _, m in _imported_roots(src)]
     assert roots.count("jax") == 1 and roots.count("paddle_tpu") == 2
     assert "paddle_tpu_torch" in roots
+
+
+def test_every_module_imports_with_jax_and_paddle_tpu_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in SOURCES if p.is_relative_to(ROOT / "paddle_tpu_torch"))
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+        "    sys.modules[name] = None  # any import of them raises ImportError\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(len([m for m in sys.modules if m.startswith('paddle_tpu_torch')]))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert int(r.stdout.split()[-1]) >= len(modules)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's serving and training
-slices, on one GPU.
+"""Where the time goes in the PyTorch/CUDA port's serving, training and
+trainer slices, on one GPU.
 
-    python3 tools/torch_profile_generate.py [--mode generate|train] [--prompts 8]
+    python3 tools/torch_profile_generate.py [--mode generate|train|trainer] [--prompts 8]
                                             [--prompt-len 1024] [--new-tokens 32]
                                             [--trace-dir DIR]
 
@@ -22,8 +22,17 @@ tokens (bench.py's LM cell at the defaults) and its two halves:
   train_fwd_bwd  — the loss and every gradient (``append_backward``);
   train_optimizer — ``opt.apply_gradients`` on those gradients.
 
+``--mode trainer``, the same step driven two ways with ``check_nan_inf``
+on, each call one step on one batch:
+
+  trainer_step — ``Trainer.train`` over a one-batch reader: events, the
+                 Executor, the step, ``float(loss)`` and ``bool(finite)``;
+  direct_step  — the step of ``minimize`` called directly, with the same
+                 two reads of the loss and the finite flag.
+
 For each phase it prints one JSON line: the wall time without the profiler
-(host clock around work that ends in ``torch.cuda.synchronize()``), the
+(host clock around work that ends in ``torch.cuda.synchronize()``, the
+median of five calls after a warm-up call, each call's time beside it), the
 device time summed over the profiler's kernels (one stream, so the sum is
 the busy time), the idle share ``1 - busy / wall``, the number of kernel
 launches, and the device time by kernel class (matrix products, each flash
@@ -43,6 +52,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# calls timed without the profiler; wall_ms is their median
+WALL_RUNS = 5
 
 
 def _classify(name: str) -> str:
@@ -68,10 +79,13 @@ def _profile(fn, name: str, trace_dir) -> dict:
 
     fn()  # warm
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
+    wall_runs = []
+    for _ in range(WALL_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_runs.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = sorted(wall_runs)[len(wall_runs) // 2]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -82,9 +96,11 @@ def _profile(fn, name: str, trace_dir) -> dict:
     rows = []
     launches = 0
     for evt in prof.key_averages():
-        # kernels only: a CPU op's self device time repeats its kernels'
+        # kernels only: a CPU op's self device time repeats its kernels', and
+        # a record_function range's device-side span covers them again
         us = _device_us(evt)
-        if us <= 0 or "CUDA" not in str(getattr(evt, "device_type", "")):
+        if (us <= 0 or "CUDA" not in str(getattr(evt, "device_type", ""))
+                or getattr(evt, "is_user_annotation", False)):
             continue
         launches += evt.count
         cls = _classify(evt.key)
@@ -95,6 +111,7 @@ def _profile(fn, name: str, trace_dir) -> dict:
     return {
         "phase": name,
         "wall_ms": wall_ms,
+        "wall_ms_runs": wall_runs,
         "device_busy_ms": busy_ms,
         "idle_share": (1.0 - busy_ms / wall_ms) if wall_ms > 0 and busy_ms > 0 else None,
         "kernel_launches": launches,
@@ -126,6 +143,34 @@ def _train(spec, rng, args, smi) -> None:
         print(json.dumps(line), flush=True)
 
 
+def _trainer(spec, rng, args, smi) -> None:
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.trainer import Trainer
+
+    set_flags(check_nan_inf=True)
+    batch = spec.synth_batch(args.prompts, rng)
+    trainer = Trainer(lambda: spec.model, spec.optimizer)
+    trainer.variables = spec.model.init(0, *batch)
+    trainer.opt_state = trainer.optimizer.create_state(trainer.variables.params)
+    step = spec.optimizer().minimize(spec.model)
+    state = {"v": trainer.variables, "s": trainer.opt_state}
+
+    def direct():
+        out = step(state["v"], state["s"], *batch)
+        float(out.loss), bool(out.finite)
+        state["v"], state["s"] = out.variables, out.opt_state
+
+    phases = (
+        ("trainer_step", lambda: trainer.train(num_epochs=1, reader=lambda: iter([batch]))),
+        ("direct_step", direct),
+    )
+    for name, fn in phases:
+        line = _profile(fn, name, args.trace_dir)
+        line.update(batch=args.prompts, seq_len=args.prompt_len, check_nan_inf=True, card=smi)
+        line["tokens_per_s"] = args.prompts * args.prompt_len / (line["wall_ms"] / 1e3)
+        print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -133,7 +178,7 @@ def main() -> int:
         print("torch_profile_generate: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("generate", "train"), default="generate")
+    ap.add_argument("--mode", choices=("generate", "train", "trainer"), default="generate")
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -157,8 +202,8 @@ def main() -> int:
     spec = get_model("transformer_lm", seq_len=args.prompt_len)
     cfg = spec.extra["cfg"]
     rng = np.random.RandomState(0)
-    if args.mode == "train":
-        _train(spec, rng, args, smi)
+    if args.mode in ("train", "trainer"):
+        (_train if args.mode == "train" else _trainer)(spec, rng, args, smi)
         print(smi, flush=True)
         return 0
     params = spec.model.init(0, *spec.synth_batch(1, rng)).params
