@@ -21,6 +21,7 @@ dtype JAX gives it. A bfloat16 leaf has no npz dtype and is refused.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -200,10 +201,13 @@ def _load_serial(path: str, trainer_id: int) -> Tuple[List[np.ndarray], dict]:
     # CRC recorded at save time (absent on pre-integrity checkpoints:
     # verify what we can, stay loadable)
     expected = (meta.get("crc32") or {}).get(shard_name)
+    # one read: the CRC is taken over the very bytes np.load parses
+    with open(shard_path, "rb") as f:
+        data = f.read()
     if expected is not None:
-        integrity.verify_crc(shard_path, expected, what=shard_path)
+        integrity.verify_crc_bytes(data, expected, what=shard_path)
     try:
-        with np.load(shard_path) as z:
+        with np.load(io.BytesIO(data)) as z:
             leaves = [z[f"leaf_{i}"] for i in range(meta["num_leaves"])]
     except (ValueError, KeyError, OSError, EOFError) as e:
         # truncated zip / missing member / bad pickle header all land here

@@ -4,8 +4,10 @@ port.
 Both packages name parameters identically (``framework.name_scope``), so a
 flat ``{name: array}`` dict moves across unchanged: this is how the tests
 run the two packages on identical weights, and how a checkpoint written by
-one loads into the other. Optimizer state moves the same way: its step and
-its slot dicts (``{slot: {param name: array}}``). A whole training state
+one loads into the other. Mutable state (BatchNorm's moving statistics) is
+a second such dict: :func:`variables_from_jax` carries ``Variables(params,
+state)``. Optimizer state moves the same way: its step and its slot dicts
+(``{slot: {param name: array}}``). A whole training state
 ``(Variables, OptState)`` moves with :func:`train_state_from_jax`, and
 :func:`train_state_leaves` lists it in checkpoint leaf order
 (``jax.tree_util.tree_leaves`` order) as numpy arrays.
@@ -20,8 +22,8 @@ import torch
 
 from paddle_tpu_torch.core.config import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax", "opt_state_to_numpy",
-           "train_state_from_jax", "train_state_leaves"]
+__all__ = ["params_from_jax", "params_to_numpy", "variables_from_jax", "opt_state_from_jax",
+           "opt_state_to_numpy", "train_state_from_jax", "train_state_leaves"]
 
 
 def _to_tensor(value, device: torch.device) -> torch.Tensor:
@@ -51,6 +53,16 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
     return out
 
 
+def variables_from_jax(variables: Any, device="cuda"):
+    """The JAX package's ``Variables(params, state)`` (or a ``(params,
+    state)`` pair of dicts) → the port's ``Variables`` on ``device``
+    (default CUDA; raises if CUDA is absent unless ``device="cpu"``)."""
+    from paddle_tpu_torch.framework import Variables
+
+    params, state = variables
+    return Variables(params_from_jax(params, device), params_from_jax(state, device))
+
+
 def opt_state_from_jax(state: Any, device="cuda"):
     """An optimizer state with ``step`` and ``slots`` (the JAX package's
     ``OptState``, or the dict :func:`opt_state_to_numpy` returns) → the
@@ -77,11 +89,8 @@ def train_state_from_jax(tree: Any, device="cuda"):
     ``(Variables, OptState)`` of the port on ``device`` (default CUDA;
     raises if CUDA is absent unless ``device="cpu"``): parameters, mutable
     state, the optimizer's step and every slot."""
-    from paddle_tpu_torch.framework import Variables
-
-    (params, state), opt_state = tree
-    return (Variables(params_from_jax(params, device), params_from_jax(state, device)),
-            opt_state_from_jax(opt_state, device))
+    variables, opt_state = tree
+    return variables_from_jax(variables, device), opt_state_from_jax(opt_state, device)
 
 
 def train_state_leaves(tree: Any) -> List[np.ndarray]:

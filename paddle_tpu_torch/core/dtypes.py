@@ -3,9 +3,18 @@
 The port of ``paddle_tpu.core.dtypes``: the same dtype names, resolved to
 ``torch.dtype``s, and the same policy — parameters f32, tensor-core operands
 bf16 under ``flags().use_bf16_compute``, products accumulated in f32.
+
+The f32 rule: f32 operands give f32 products, for matrix products and
+convolutions alike, on the card as on the CPU. PyTorch's defaults let cuDNN
+run f32 convolutions in TF32 (``torch.backends.cudnn.allow_tf32`` is True);
+the port does not follow that process-wide switch: its f32 products on CUDA
+run under :func:`ieee_f32`, in the forward and in the backward alike
+(:func:`f32_matmul`, ``ops.nn.conv2d``), whatever the flags say.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -54,13 +63,68 @@ def mxu_operands(*xs):
     )
 
 
+@contextlib.contextmanager
+def ieee_f32():
+    """Run the enclosed f32 matrix products and cuDNN convolutions in full
+    f32 (no TF32), restoring both of PyTorch's TF32 switches on exit. The
+    switches are read when each kernel runs, so a backward that autograd
+    runs later needs its own ``with`` (see :class:`_TensorCoreMatmul`)."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 2-D product with an f32 result on the card: bf16/fp16 operands on
+    the tensor cores with f32 accumulation (``mm``'s ``out_dtype``), f32
+    operands in full f32."""
+    if a.dtype == torch.float32:
+        with ieee_f32():
+            return torch.mm(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _TensorCoreMatmul(torch.autograd.Function):
+    """``a @ b`` on CUDA with an f32 result, operands as given. The backward
+    rounds the f32 cotangent to the operands' dtype and runs both products
+    (``dA = dC Bᵀ``, ``dB = Aᵀ dC``) the same way; the gradients come back
+    in the operands' dtype, as autograd gives them through a cast."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32_out(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gc = g.to(a.dtype)
+        da = _mm_f32_out(gc, b.t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = _mm_f32_out(a.t(), gc).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
 def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with f32 products and accumulation and an f32 result, on
-    operands already rounded to the compute dtype — the JAX package's
+    """``a @ b`` with f32 accumulation and an f32 result, on operands
+    already rounded to the compute dtype — the JAX package's
     ``jnp.matmul(..., preferred_element_type=f32)``. A bf16-output matmul
     would also round the result to bf16, which the reference never does.
-    On CUDA this relies on ``torch.backends.cuda.matmul.allow_tf32`` being
-    False (PyTorch's default)."""
+
+    On CUDA, 2-D operands go to :class:`_TensorCoreMatmul`: bf16 operands
+    run on the tensor cores (forward and backward), f32 operands in full
+    f32 (:func:`ieee_f32`). On the CPU the operands are cast to f32 and
+    multiplied there (the CPU has no ``out_dtype`` kernel)."""
+    if a.is_cuda:
+        if a.dim() != 2 or b.dim() != 2 or a.dtype != b.dtype:
+            raise ValueError(
+                f"f32_matmul on CUDA takes two 2-D operands of one dtype, got "
+                f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}")
+        return _TensorCoreMatmul.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
 

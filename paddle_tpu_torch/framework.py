@@ -9,8 +9,14 @@ packages (checkpoints and the tests address parameters by name).
 
 PyTorch runs eagerly, so ``init`` runs the function once and keeps the
 tensors it created, and ``apply`` runs it again reading them. Mutable
-non-trainable state (BatchNorm statistics) is not ported yet: the ported
-slice has none, and ``Variables.state`` stays empty.
+non-trainable state (BatchNorm's moving statistics) lives in
+``Variables.state``, a second flat dict of named tensors:
+:func:`create_state` creates an entry at init and reads it at apply,
+:func:`update_state` records its new value, and ``apply`` returns the
+given state with the recorded values merged in. State names follow the
+parameters' scopes, byte for byte the JAX package's. Randomness in a
+training-mode apply (dropout) draws from the ``torch.Generator`` given as
+``rng`` (:func:`next_rng`).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, U
 import torch
 
 from paddle_tpu_torch.core import dtypes as dtypes_mod
+from paddle_tpu_torch.core import logging as ptlog
 from paddle_tpu_torch.core import unique_name
 from paddle_tpu_torch.core.config import flags, resolve_device
 from paddle_tpu_torch.core.enforce import EnforceError
@@ -81,10 +88,13 @@ class Variables(NamedTuple):
 
 
 class _Frame:
-    def __init__(self, mode: str, params, device: torch.device, generator, is_train: bool):
+    def __init__(self, mode: str, params, device: torch.device, generator, is_train: bool,
+                 state=None):
         assert mode in ("init", "apply")
         self.mode = mode
         self.params: Dict[str, torch.Tensor] = params
+        self.state: Dict[str, torch.Tensor] = {} if state is None else state
+        self.new_state: Dict[str, torch.Tensor] = {}
         self.param_info: Dict[str, ParamInfo] = {}
         self.device = device
         self.generator: Optional[torch.Generator] = generator
@@ -121,6 +131,21 @@ def current_device() -> torch.device:
     """The device the current Model.init/apply runs on: init's ``device``,
     or the device of the parameters apply was given."""
     return _current_frame().device
+
+
+def next_rng() -> torch.Generator:
+    """The ``torch.Generator`` of a training-mode apply's random draws
+    (dropout): the ``rng`` given to ``Model.apply``. Successive draws
+    advance it, so one seed gives one stream per run. The JAX package's
+    ``next_rng_key`` (``paddle_tpu/framework.py:357``) raises the same
+    error when no ``rng`` was given."""
+    frame = _current_frame()
+    if frame.generator is None:
+        raise EnforceError(
+            "this program uses randomness (dropout/random ops): pass rng= to "
+            "Model.init/Model.apply"
+        )
+    return frame.generator
 
 
 @contextlib.contextmanager
@@ -185,6 +210,53 @@ def create_parameter(
     return value
 
 
+def create_state(name: str, shape: Sequence[int], dtype="float32", init=None) -> torch.Tensor:
+    """Create (init mode) or fetch (apply mode) a mutable, non-trainable
+    state entry, e.g. BatchNorm's moving mean, named in the current scope.
+    ``init(shape, dtype)`` makes its initial value (zeros by default; it is
+    moved to the frame's device). In apply mode a value recorded earlier in
+    the same run with :func:`update_state` is returned."""
+    frame = _current_frame()
+    t_dtype = dtypes_mod.convert(dtype)
+    full = _full_name(frame, name, name)
+    shape = tuple(int(s) for s in shape)
+    if frame.mode == "init":
+        value = (init or (lambda s, d: torch.zeros(s, dtype=d)))(shape, t_dtype)
+        frame.state[full] = value.to(frame.device)
+        return frame.state[full]
+    if full not in frame.state:
+        raise EnforceError(f"state {full!r} missing from provided state dict")
+    return frame.new_state.get(full, frame.state[full])
+
+
+def update_state(name: str, value: torch.Tensor) -> None:
+    """Record a new value for a state entry, addressed by the local name it
+    was created with in the same scope. The value should carry no autograd
+    graph (compute it under ``torch.no_grad()``).
+
+    A bare name that misses in the current scope falls back to the root
+    name, as in the JAX package; since that can silently update a different
+    layer's state when names collide across scopes, the fallback warns once
+    per key."""
+    frame = _current_frame()
+    scoped = "/".join(frame.name_stack + [name])
+    full = scoped if (scoped in frame.state or scoped in frame.new_state) else name
+    if full is name and scoped != name and name in frame.state:
+        ptlog.warn_once(
+            ("update_state-cross-scope", scoped),
+            "update_state(%r): no state entry at scope %r; falling back to the "
+            "root-level name %r — a cross-scope state update resolves by "
+            "accident when names collide. Address state from within the "
+            "name_scope that created it.",
+            name, scoped, name,
+        )
+    if full not in frame.state:
+        raise EnforceError(f"unknown state {name!r} (create_state first)")
+    if frame.mode == "init":
+        return  # init keeps the initial value
+    frame.new_state[full] = value
+
+
 @contextlib.contextmanager
 def _enter(frame: _Frame):
     prev = getattr(_tls, "frame", None)
@@ -219,7 +291,7 @@ class Model:
         with _enter(frame), torch.no_grad():
             self._fn(*args, **kwargs)
         self.param_info = frame.param_info
-        return Variables(params=frame.params, state={})
+        return Variables(params=frame.params, state=frame.state)
 
     def apply(
         self,
@@ -230,10 +302,13 @@ class Model:
         **kwargs,
     ):
         """Run the program against ``variables``. Returns ``(output,
-        new_state)``; it runs on the device that holds the parameters.
+        new_state)``: the given state with the entries this run updated
+        (BatchNorm's moving statistics in training mode) replaced. It runs
+        on the device that holds the parameters.
 
         ``rng``: the ``torch.Generator`` of a training-mode run's random
-        draws (dropout); None when nothing random runs.
+        draws (dropout), on the device the draws should run on; None when
+        nothing random runs.
         Gradients flow: apply does not disable autograd, so a loss it
         returns differentiates with respect to the parameters given."""
         if isinstance(variables, Variables):
@@ -245,12 +320,13 @@ class Model:
         if not params:
             raise EnforceError("Model.apply: no parameters given (run Model.init first)")
         device = next(iter(params.values())).device
-        frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train)
+        frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train,
+                       state=state)
         with _enter(frame):
             out = self._fn(*args, **kwargs)
         if not self.param_info:
             self.param_info = frame.param_info
-        return out, dict(state)
+        return out, {**state, **frame.new_state}
 
 
 def build(fn: Callable, name: Optional[str] = None) -> Model:

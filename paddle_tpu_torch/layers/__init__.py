@@ -1,8 +1,8 @@
 """Declarative layer API — the subset of ``paddle_tpu.layers`` the ported
-slices use: ``fc``, ``embedding``, ``conv2d``, ``pool2d``, ``layer_norm``,
-``dropout``, ``relu``, and the functional ops re-exported under
-``layers.*`` (``softmax_with_cross_entropy``, ``reduce_mean``,
-``accuracy``, ...).
+slices use: ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
+``batch_norm``, ``layer_norm``, ``dropout``, the
+activations, and the functional ops re-exported under ``layers.*``
+(``softmax_with_cross_entropy``, ``reduce_mean``, ``accuracy``, ...).
 
 Each layer function creates/fetches its named parameters through
 :mod:`paddle_tpu_torch.framework` (the JAX package's names) and returns the
@@ -19,9 +19,20 @@ import torch
 from paddle_tpu_torch import framework, initializer as init_mod
 from paddle_tpu_torch.core.dtypes import f32_matmul, mxu_operands
 from paddle_tpu_torch.core.enforce import enforce
-from paddle_tpu_torch.framework import create_parameter, name_scope
+from paddle_tpu_torch.framework import create_parameter, create_state, name_scope, update_state
+from paddle_tpu_torch.ops import math as om
 from paddle_tpu_torch.ops import nn as on
-from paddle_tpu_torch.ops.math import reduce_mean, relu
+from paddle_tpu_torch.ops.math import (  # noqa: F401
+    elu,
+    gelu,
+    leaky_relu,
+    reduce_mean,
+    relu,
+    relu6,
+    sigmoid,
+    swish,
+    tanh,
+)
 # functional ops re-exported under layers.* for fluid.layers parity
 from paddle_tpu_torch.ops.nn import (  # noqa: F401
     accuracy,
@@ -32,17 +43,29 @@ from paddle_tpu_torch.ops.nn import (  # noqa: F401
 )
 
 __all__ = [
-    "fc", "embedding", "conv2d", "pool2d", "layer_norm", "dropout", "relu",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "relu", "relu6", "sigmoid", "tanh", "gelu", "leaky_relu", "swish", "elu",
     "reduce_mean", "accuracy", "cross_entropy", "softmax", "softmax_with_cross_entropy",
     "square_error_cost",
 ]
 
-_ACTS = {None: lambda x: x, "relu": relu}
+_ACTS = {
+    None: lambda x: x,
+    "relu": om.relu,
+    "relu6": om.relu6,
+    "sigmoid": om.sigmoid,
+    "tanh": om.tanh,
+    "softmax": on.softmax,
+    "gelu": om.gelu,
+    "leaky_relu": om.leaky_relu,
+    "swish": om.swish,
+    "elu": om.elu,
+}
 
 
 def _act(x, act: Optional[str]):
     if act not in _ACTS:
-        raise KeyError(f"unknown activation {act!r}; ported: {sorted(k for k in _ACTS if k)}")
+        raise KeyError(f"unknown activation {act!r}; known: {sorted(k for k in _ACTS if k)}")
     return _ACTS[act](x)
 
 
@@ -154,6 +177,42 @@ def pool2d(
     return _from_nhwc(out, data_format)
 
 
+def batch_norm(
+    input: torch.Tensor,
+    act: Optional[str] = None,
+    momentum: float = 0.9,
+    epsilon: float = 1e-5,
+    param_attr=None,
+    bias_attr=None,
+    is_test: Optional[bool] = None,
+    data_format: str = "NHWC",
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """BatchNorm (reference ``operators/batch_norm_op.cc``): ``scale`` and
+    ``bias`` parameters, ``moving_mean`` and ``moving_variance`` in the
+    state collection (fluid kept them as persistable variables updated in
+    place; here they thread through ``apply``'s new state). Training mode
+    normalizes with the batch statistics and records the moving averages;
+    eval mode (``is_test``, or an apply that is not training) reads them."""
+    with name_scope(name or "batch_norm"):
+        x = _to_nhwc(input, data_format)
+        c = x.shape[-1]
+        scale = create_parameter([c], "float32", name="scale", attr=param_attr,
+                                 default_initializer=init_mod.Constant(1.0))
+        bias = create_parameter([c], "float32", name="bias", attr=bias_attr,
+                                default_initializer=init_mod.Constant(0.0))
+        mean = create_state("moving_mean", [c], "float32", init=lambda s, d: torch.zeros(s, dtype=d))
+        var = create_state("moving_variance", [c], "float32", init=lambda s, d: torch.ones(s, dtype=d))
+        training = framework.is_training() if is_test is None else (not is_test)
+        if training:
+            y, new_mean, new_var, _, _ = on.batch_norm_train(x, scale, bias, mean, var, momentum, epsilon)
+            update_state("moving_mean", new_mean)
+            update_state("moving_variance", new_var)
+        else:
+            y = on.batch_norm_infer(x, scale, bias, mean, var, epsilon)
+        return _from_nhwc(_act(y, act), data_format)
+
+
 def layer_norm(
     input: torch.Tensor,
     scale: bool = True,
@@ -187,5 +246,7 @@ def layer_norm(
 
 
 def dropout(x: torch.Tensor, dropout_prob: float, is_test: Optional[bool] = None, name=None) -> torch.Tensor:
+    """Dropout with the reference's 'upscale_in_train' implementation; in a
+    training-mode apply the mask comes from the apply's ``rng``."""
     training = framework.is_training() if is_test is None else (not is_test)
     return on.dropout(x, dropout_prob, is_test=not training)

@@ -1,5 +1,7 @@
 """Model zoo — ``get_model(name, **cfg) -> ModelSpec``, as in
-``paddle_tpu.models``. Ported so far: ``mnist`` and ``transformer_lm``."""
+``paddle_tpu.models``. Ported so far: ``mnist``, ``resnet``, ``se_resnext``,
+``vgg`` and ``transformer_lm``; ``transformer``, ``stacked_dynamic_lstm`` and
+``machine_translation`` are not (ROADMAP.md §A)."""
 
 from __future__ import annotations
 
@@ -41,6 +43,24 @@ def _mnist(**cfg):
     return mnist.get_model(**cfg)
 
 
+def _resnet(**cfg):
+    from paddle_tpu_torch.models import resnet
+
+    return resnet.get_model(**cfg)
+
+
+def _se_resnext(**cfg):
+    from paddle_tpu_torch.models import se_resnext
+
+    return se_resnext.get_model(**cfg)
+
+
+def _vgg(**cfg):
+    from paddle_tpu_torch.models import vgg
+
+    return vgg.get_model(**cfg)
+
+
 def _transformer_lm(**cfg):
     from paddle_tpu_torch.models import transformer_lm
 
@@ -49,5 +69,8 @@ def _transformer_lm(**cfg):
 
 MODELS: Dict[str, Callable[..., ModelSpec]] = {
     "mnist": _mnist,
+    "resnet": _resnet,
+    "se_resnext": _se_resnext,
+    "vgg": _vgg,
     "transformer_lm": _transformer_lm,
 }

@@ -143,7 +143,8 @@ def scaled_dot_product_attention(
         mask = wmask if mask is None else mask + wmask
     if dropout_rate > 0.0 and not is_test:
         raise NotImplementedError(
-            "attention dropout in training mode is ported with the training slice"
+            "attention dropout in training mode is not ported to paddle_tpu_torch yet "
+            "(ROADMAP.md §A item 3, with the NMT Transformer)"
         )
 
     out_dtype = q.dtype

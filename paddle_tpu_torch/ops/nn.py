@@ -1,6 +1,6 @@
 """Neural-network ops — the subset of ``paddle_tpu.ops.nn`` the ported slices
-use: conv and pooling, softmax and losses, accuracy, layer norm, embedding
-lookup and eval-mode dropout.
+use: conv, pooling and adaptive pooling, batch norm, softmax and losses,
+accuracy, layer norm, embedding lookup and dropout.
 
 Images are NHWC and conv weights HWIO at the API, as in the JAX package
 (``paddle_tpu/ops/nn.py:10,89``); the conv and pooling ops permute to
@@ -8,7 +8,10 @@ PyTorch's NCHW/OIHW at their boundary and run cuDNN's kernels on the card
 (the JAX package leaves them to XLA, so no hand-written kernel is owed).
 Padding, stride and dilation read as the reference reads them: an int or
 pair pads both sides of each axis, ``"SAME"``/``"VALID"`` as in XLA (SAME
-puts the odd extra row on the high side). Losses reduce in f32.
+puts the odd extra row on the high side). Losses reduce in f32. Batch
+norm keeps its statistics in f32 over N·H·W with the biased variance, as
+the reference does; on the card it runs PyTorch's fused kernel and takes
+the moving statistics from the batch statistics that kernel saves.
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core.dtypes import compute_dtype, ieee_f32
+
 __all__ = [
     "conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
     "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
+    "adaptive_pool2d", "batch_norm_train", "batch_norm_infer",
 ]
 
 _IntOrPair = Union[int, Sequence[int]]
@@ -40,6 +46,30 @@ def _same_pads(size: int, k: int, s: int, d: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class _F32Conv(torch.autograd.Function):
+    """An f32 convolution on CUDA whose forward and backward both run under
+    :func:`~paddle_tpu_torch.core.dtypes.ieee_f32`: cuDNN reads its TF32
+    switch when each kernel runs, and autograd runs the backward after any
+    ``with`` around the forward has exited."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+        with ieee_f32():
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with ieee_f32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, False, [0, 0], groups, mask)
+        return dx, dw, None, None, None, None
+
+
 def conv2d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -51,14 +81,18 @@ def conv2d(
     """2-D convolution, NHWC activations × HWIO weights (reference
     ``operators/conv_op.cc``): ``F.conv2d`` on the operands in the compute
     dtype (bf16 under ``use_bf16_compute``), result in x's dtype. f32
-    convolutions on the card follow ``torch.backends.cudnn.allow_tf32``."""
-    from paddle_tpu_torch.core.dtypes import mxu_operands
+    operands on CUDA convolve in full f32, forward and backward
+    (:class:`_F32Conv`; the rule is in :mod:`paddle_tpu_torch.core.dtypes`).
 
-    xc, wc = mxu_operands(x, weight)
+    Layout: the NHWC activation seen as NCHW is a channels-last view, and
+    the weight is cast and copied once into OHWI order, so that its OIHW
+    view is channels-last too: cuDNN takes both without another copy."""
+    cdt = compute_dtype()
+    xc = x.to(cdt) if x.is_floating_point() else x
     sh, sw = _pair(stride)
     dh, dw = _pair(dilation)
     xn = xc.permute(0, 3, 1, 2)
-    wn = wc.permute(3, 2, 0, 1)
+    wn = weight.permute(3, 0, 1, 2).to(cdt, memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
     if isinstance(padding, str):
         mode = padding.upper()
         if mode not in ("SAME", "VALID"):
@@ -73,7 +107,11 @@ def conv2d(
                 xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]))
     else:
         pad = _pair(padding)
-    out = F.conv2d(xn, wn, stride=(sh, sw), padding=pad, dilation=(dh, dw), groups=groups)
+    conf = ((sh, sw), pad, (dh, dw), groups)
+    if xn.is_cuda and xn.dtype == torch.float32:
+        out = _F32Conv.apply(xn, wn, *conf)
+    else:
+        out = F.conv2d(xn, wn, None, *conf)
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
@@ -123,6 +161,95 @@ def pool2d(
     else:
         raise ValueError(f"pool_type must be 'max' or 'avg', got {pool_type!r}")
     return out.permute(0, 2, 3, 1)
+
+
+def adaptive_pool2d(x: torch.Tensor, output_size: _IntOrPair, pool_type: str = "avg") -> torch.Tensor:
+    """Reference ``pool_op.cc`` adaptive mode over NHWC: output bin i spans
+    [floor(i*H/oh), ceil((i+1)*H/oh)). Divisible sizes are a plain strided
+    pool; other sizes take the JAX package's exact paths: avg contracts
+    each axis with a bin-membership matrix whose rows are scaled by
+    1/bin size, max gathers each bin padded to the longest bin by repeating
+    an in-bin element (duplicates never change a max)."""
+    oh, ow = _pair(output_size)
+    h, w = x.shape[1], x.shape[2]
+    if h % oh == 0 and w % ow == 0:
+        return pool2d(x, (h // oh, w // ow), pool_type, (h // oh, w // ow))
+
+    def edges(in_size, out_size):
+        return [((i * in_size) // out_size, -(-((i + 1) * in_size) // out_size))
+                for i in range(out_size)]
+
+    eh, ew = edges(h, oh), edges(w, ow)
+    if pool_type == "avg":
+        def weight(in_size, bins):
+            m = torch.zeros((len(bins), in_size), dtype=torch.float32)
+            for i, (s, e) in enumerate(bins):
+                m[i, s:e] = 1.0 / (e - s)
+            return m.to(x.device)
+
+        out = torch.einsum("ih,bhwc->biwc", weight(h, eh), x.float())
+        out = torch.einsum("jw,biwc->bijc", weight(w, ew), out)
+        return out.to(x.dtype)
+    if pool_type == "max":
+        def gather_max(arr, axis, bins):
+            longest = max(e - s for s, e in bins)
+            idx = torch.tensor([[min(s + l, e - 1) for l in range(longest)] for s, e in bins],
+                               device=x.device)
+            g = torch.index_select(arr, axis, idx.reshape(-1))
+            g = g.reshape(arr.shape[:axis] + idx.shape + arr.shape[axis + 1:])
+            return g.amax(dim=axis + 1)
+
+        return gather_max(gather_max(x, 1, eh), 2, ew)
+    raise ValueError(f"pool_type must be 'max' or 'avg', got {pool_type!r}")
+
+
+def _batch_norm_stats_plain(x, scale, bias, epsilon):
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + epsilon) * scale.float() + bias.float()
+    return y, mean, var
+
+
+def _batch_norm_stats_fused(x, scale, bias, epsilon):
+    """The same on the card: PyTorch's fused batch norm over the channels-last
+    NCHW view of the NHWC input (no running statistics passed, so none are
+    updated); the batch variance is recovered from the saved inverse
+    standard deviation, 1/sqrt(var + eps), which holds the biased one."""
+    xn = x.float().movedim(-1, 1)
+    y, mean, invstd = torch.ops.aten.native_batch_norm(
+        xn, scale.float(), bias.float(), None, None, True, 0.0, epsilon)
+    with torch.no_grad():
+        var = invstd.reciprocal().square() - epsilon
+    return y.movedim(1, -1), mean, var
+
+
+def batch_norm_train(x, scale, bias, moving_mean, moving_var, momentum: float = 0.9,
+                     epsilon: float = 1e-5):
+    """Training-mode BN over all but the channel (last) axis. Returns
+    ``(y, new_moving_mean, new_moving_var, batch_mean, batch_var)`` — the
+    functional split of the reference's in-place statistics update
+    (``operators/batch_norm_op.cc``): f32 statistics over N·H·W, the biased
+    variance, ``new = momentum * old + (1 - momentum) * batch``. The
+    statistics carry no graph: gradients flow through ``y`` only (through
+    the batch statistics inside it, as in the reference). CUDA tensors take
+    :func:`_batch_norm_stats_fused`, CPU tensors the plain composition."""
+    fn = _batch_norm_stats_fused if x.is_cuda else _batch_norm_stats_plain
+    y, mean, var = fn(x, scale, bias, epsilon)
+    with torch.no_grad():
+        mean, var = mean.detach(), var.detach()
+        new_mean = momentum * moving_mean + (1 - momentum) * mean
+        new_var = momentum * moving_var + (1 - momentum) * var
+    return y.to(x.dtype), new_mean, new_var, mean, var
+
+
+def batch_norm_infer(x, scale, bias, moving_mean, moving_var, epsilon: float = 1e-5):
+    """Inference-mode BN with the moving statistics, in f32, result in x's
+    dtype."""
+    inv = torch.rsqrt(moving_var.float() + epsilon)
+    y = (x.float() - moving_mean.float()) * inv * scale.float() + bias.float()
+    return y.to(x.dtype)
 
 
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -194,17 +321,32 @@ def layer_norm(x, scale=None, bias=None, begin_norm_axis: int = -1, epsilon: flo
     return y.to(x.dtype)
 
 
-def dropout(x, dropout_prob: float, is_test: bool = False, upscale_in_train: bool = True):
-    """Reference ``dropout_op.cc``, eval mode ('upscale_in_train' leaves x
-    unchanged). Training-mode dropout needs the framework's random stream,
-    which comes with the training slice."""
+def dropout(x, dropout_prob: float, is_test: bool = False, generator=None,
+            upscale_in_train: bool = True):
+    """Reference ``dropout_op.cc``. ``upscale_in_train`` is the
+    'upscale_in_train' dropout_implementation (the modern default): kept
+    entries are divided by the keep rate in training, and eval leaves x
+    unchanged. The mask is Bernoulli(1 - dropout_prob) from ``generator``,
+    by default the frame's (``framework.next_rng``, which raises when the
+    training-mode apply was given no ``rng``); it is drawn on the
+    generator's device. ``Model.init`` draws nothing: its outputs are
+    discarded."""
     if is_test:
         return x if upscale_in_train else x * (1.0 - dropout_prob)
     if dropout_prob == 0.0:
         return x
-    raise NotImplementedError(
-        "training-mode dropout is ported with the training slice of paddle_tpu_torch"
-    )
+    if generator is None:
+        from paddle_tpu_torch import framework
+
+        if framework.is_initializing():
+            return x
+        generator = framework.next_rng()
+    keep = 1.0 - dropout_prob
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    mask = (u < keep).to(x.device)
+    if upscale_in_train:
+        return torch.where(mask, x / keep, 0).to(x.dtype)
+    return torch.where(mask, x, 0).to(x.dtype)
 
 
 def embedding_lookup(table, ids, padding_idx: Optional[int] = None):

@@ -57,6 +57,23 @@ def _stack(outs):
     return torch.tensor(outs)
 
 
+def all_finite(grads, loss: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whether every gradient entry (and ``loss``, if given) is finite, as a
+    0-dim bool tensor, in a constant number of launches over all the
+    gradients. Multiplying by 0 maps each finite entry to 0 and each inf or
+    NaN to NaN (exact, unlike a norm: a finite 1e30 squares to inf); one
+    ``_foreach`` norm of those products is then finite exactly when all of
+    them are 0. The reference's predicate (``jnp.all(jnp.isfinite(g))`` per
+    leaf)."""
+    grads = [g for g in grads if g.numel()]
+    total = torch.stack(torch._foreach_norm(torch._foreach_mul(grads, 0.0))).sum() if grads else None
+    if loss is not None:
+        total = loss * 0.0 if total is None else total + loss * 0.0
+    if total is None:
+        return torch.tensor(True)
+    return torch.isfinite(total)
+
+
 class Optimizer:
     """Base optimizer. Subclasses define slot init + per-leaf update."""
 
@@ -162,9 +179,7 @@ class Optimizer:
             from paddle_tpu_torch.core import config as _cfg
 
             if _cfg.flags().check_nan_inf:
-                finite = torch.isfinite(loss)
-                for g in grads.values():
-                    finite = finite & torch.isfinite(g).all()
+                finite = all_finite(grads.values(), loss)
             return StepOutput(Variables(new_params, new_state), new_opt, loss, outputs, finite)
 
         def step_fn(variables: Variables, opt_state: OptState, *batch, rng=None):

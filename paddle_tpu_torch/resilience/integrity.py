@@ -32,6 +32,7 @@ __all__ = [
     "CheckpointCorruptError",
     "crc32_file",
     "verify_crc",
+    "verify_crc_bytes",
     "fsync_file",
     "fsync_dir",
     "write_json_durable",
@@ -62,11 +63,18 @@ def verify_crc(path: str, expected: int, what: Optional[str] = None) -> None:
     """Raise :class:`CheckpointCorruptError` unless ``path``'s CRC32 matches
     ``expected`` (a truncated write, bit rot, or a torn copy all land
     here)."""
-    actual = crc32_file(path)
+    _check_crc(crc32_file(path), expected, what or os.path.basename(path))
+
+
+def verify_crc_bytes(data: bytes, expected: int, what: str) -> None:
+    """:func:`verify_crc` on bytes already read (the file is read once)."""
+    _check_crc(zlib.crc32(data) & 0xFFFFFFFF, expected, what)
+
+
+def _check_crc(actual: int, expected: int, what: str) -> None:
     if actual != int(expected):
         raise CheckpointCorruptError(
-            f"{what or os.path.basename(path)}: crc32 mismatch "
-            f"(expected {int(expected):#010x}, got {actual:#010x})"
+            f"{what}: crc32 mismatch (expected {int(expected):#010x}, got {actual:#010x})"
         )
 
 

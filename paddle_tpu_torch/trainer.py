@@ -236,6 +236,9 @@ class Trainer:
                         # (reference BeginStepEvent.fetch_metrics, trainer.py:158)
                         metrics = float(out.loss) if begin_ev.fetch_metrics else None
                         self._record_step(epoch_id, batch, time.perf_counter() - t_step, metrics)
+                    # the step's outputs (an LM's logits) must not live
+                    # through the next step
+                    del out
                     handler(EndStepEvent(epoch_id, step_id, metrics))
                     if self._preempt_requested:
                         self._preemption_save(next_epoch=epoch_id)

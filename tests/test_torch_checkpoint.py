@@ -9,7 +9,9 @@ Tolerances: leaves written by the two packages from the same state are
 equal exactly; training continued in the other package after a resume
 matches training continued in the same package at rtol 1e-5 on the losses
 and atol 1e-5 on every leaf (the linear-regression model and reader of
-``tests/test_torch_trainer.py``, Adam at lr 0.05).
+``tests/test_torch_trainer.py``, Adam at lr 0.05; and a conv + BatchNorm
+net, whose BN moving statistics are checkpoint leaves, Momentum at lr
+0.01).
 """
 
 import glob
@@ -208,19 +210,44 @@ def _reader():
     return reader
 
 
-def _make(pkg_name, root):
+def _convbn(pkg, mean):
+    def model():
+        def net(x, y):
+            h = pkg.layers.batch_norm(pkg.layers.conv2d(x, 4, 3, padding=1), act="relu")
+            return mean(pkg.ops.nn.square_error_cost(pkg.layers.fc(h, size=1), y))
+
+        return net
+
+    return model
+
+
+def _image_reader():
+    def reader():
+        rng = np.random.RandomState(0)
+        for _ in range(2):
+            x = rng.rand(8, 5, 5, 2).astype(np.float32)
+            yield x, x.sum(axis=(1, 2, 3))[:, None] * 0.1
+
+    return reader
+
+
+def _make(pkg_name, root, net="linreg"):
     cfg_cls = CheckpointConfig if pkg_name == "torch" else jtrainer.CheckpointConfig
     cfg = cfg_cls(root, step_interval=2, max_num_checkpoints=4)
+    pkg, mean = (pt, torch.mean) if pkg_name == "torch" else (jpt, jnp.mean)
+    if net == "linreg":
+        model, opt = _linreg(pkg, mean), lambda: pkg.optimizer.Adam(learning_rate=0.05)
+    else:
+        model = _convbn(pkg, mean)
+        opt = lambda: pkg.optimizer.Momentum(learning_rate=0.01, momentum=0.9)  # noqa: E731
     if pkg_name == "torch":
-        return Trainer(_linreg(pt, torch.mean), lambda: pt.optimizer.Adam(learning_rate=0.05),
-                       place="cpu", checkpoint_config=cfg)
-    return jtrainer.Trainer(_linreg(jpt, jnp.mean), lambda: jpt.optimizer.Adam(learning_rate=0.05),
-                            checkpoint_config=cfg)
+        return Trainer(model, opt, place="cpu", checkpoint_config=cfg)
+    return jtrainer.Trainer(model, opt, checkpoint_config=cfg)
 
 
-def _train(t, epochs):
+def _train(t, epochs, reader=None):
     losses = []
-    t.train(num_epochs=epochs, reader=_reader(),
+    t.train(num_epochs=epochs, reader=reader or _reader(),
             event_handler=lambda ev: losses.append(ev.metrics)
             if type(ev).__name__ == "EndStepEvent" else None)
     return losses
@@ -251,5 +278,34 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, writer, reader_pkg):
     b = convert.train_state_leaves(state_cont) if writer == "torch" \
         else [np.asarray(l) for l in jax.tree_util.tree_leaves(state_cont)]
     assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-5, err_msg=f"leaf {i}")
+
+
+@pytest.mark.parametrize("writer, reader_pkg", [("jax", "torch"), ("torch", "jax")],
+                         ids=["jax_to_torch", "torch_to_jax"])
+def test_checkpoint_with_bn_state_resumes_in_the_other_package(tmp_path, writer, reader_pkg):
+    """As above, for a model with BatchNorm state: the moving statistics are
+    checkpoint leaves (after the parameters, by name) in both packages, and
+    the resumed run continues them."""
+    root = str(tmp_path / "ckpt")
+    first = _make(writer, root, net="convbn")
+    losses = _train(first, 2, _image_reader())
+    assert first.global_step == 4 and len(losses) == 4
+    assert sorted(first.variables.state) == ["batch_norm/moving_mean", "batch_norm/moving_variance"]
+    state_cont = (first.variables, first.opt_state)
+
+    resume_root = str(tmp_path / "resume")
+    os.makedirs(resume_root)
+    os.rename(os.path.join(root, "checkpoint_0"), os.path.join(resume_root, "checkpoint_0"))
+    resumed = _make(reader_pkg, resume_root, net="convbn")
+    res_losses = _train(resumed, 2, _image_reader())
+    assert resumed.global_step == 4 and len(res_losses) == 2
+    np.testing.assert_allclose(res_losses, losses[2:], rtol=1e-5)
+    a = convert.train_state_leaves((resumed.variables, resumed.opt_state)) if reader_pkg == "torch" \
+        else [np.asarray(l) for l in jax.tree_util.tree_leaves((resumed.variables, resumed.opt_state))]
+    b = convert.train_state_leaves(state_cont) if writer == "torch" \
+        else [np.asarray(l) for l in jax.tree_util.tree_leaves(state_cont)]
+    assert len(a) == len(b) == 6 + 2 + 1 + 6  # 6 params, 2 BN statistics, step, 6 velocities
     for i, (x, y) in enumerate(zip(a, b)):
         np.testing.assert_allclose(x, y, rtol=0, atol=1e-5, err_msg=f"leaf {i}")

@@ -10,13 +10,21 @@ PyTorch is installed:
 Run on the card, the tests cover the bf16 kernels' wgmma + TMA tilings
 (:data:`TILING_CASES`). Tolerances: bf16 ``out`` 2e-2 absolute (the kernel rounds P to bf16 inside
 its tensor-core product and stores ``out`` in bf16), ``lse`` 1e-3; f32 1e-4
-(FMA order differs from the plain version's einsum; TF32 is off). The
+(FMA order differs from the plain version's einsum; f32 matrix products
+run in full f32, PyTorch's default, which no test here changes). The
 backward pair: max |kernel - plain| / max |plain| on each of dq, dk, dv,
 2e-2 in bf16 (the kernels round P and dS to bf16 as tensor-core operands,
 where the plain version keeps f32, and store bf16 gradients) and 1e-4 in
 f32. The trainer slice's CUDA paths: the DevicePrefetcher's copies from
 pinned memory on a side stream give every batch bit for bit, and a
 prefetched Trainer run gives the losses of an unprefetched one exactly.
+The conv zoo's library paths: ``f32_matmul`` on bf16 operands (tensor
+cores, f32 result) against the f32 product of the same bf16 values, 1e-2
+relative L2 forward and backward (the backward rounds the cotangent to bf16,
+2^-8); an f32 convolution, forward and backward, with both TF32 switches
+left at PyTorch's defaults, against the CPU at 1e-5 relative L2 (TF32 would
+give ~1e-3); the fused batch norm against the CPU's plain one at 1e-5
+relative and absolute (the scale gradient sums 1568 terms in f32).
 """
 
 import importlib
@@ -35,7 +43,6 @@ TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -366,3 +373,67 @@ def test_trainer_prefetch_on_cuda_matches_plain(cuda):
         assert len(plain) == 6 and plain == prefetched
     finally:
         set_flags(use_flash_attention=False, use_bf16_compute=False)
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def test_f32_matmul_runs_bf16_on_tensor_cores_with_f32_result(cuda):
+    from paddle_tpu_torch.core.dtypes import f32_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(512, 256, generator=g, device=cuda).bfloat16().requires_grad_()
+    b = torch.randn(256, 384, generator=g, device=cuda).bfloat16().requires_grad_()
+    dc = torch.randn(512, 384, generator=g, device=cuda)
+    out = f32_matmul(a, b)
+    assert out.dtype == torch.float32 and out.shape == (512, 384)
+    da, db = torch.autograd.grad(out, (a, b), dc)
+    assert da.dtype == db.dtype == torch.bfloat16 and da.shape == a.shape and db.shape == b.shape
+    # the f32 path: the same bf16 values multiplied in f32 (full f32 by default)
+    af, bf = a.detach().float().requires_grad_(), b.detach().float().requires_grad_()
+    ref = af @ bf
+    rda, rdb = torch.autograd.grad(ref, (af, bf), dc)
+    assert _rel_l2(out, ref) <= 1e-2
+    assert _rel_l2(da, rda) <= 1e-2 and _rel_l2(db, rdb) <= 1e-2
+    with pytest.raises(ValueError, match="2-D"):
+        f32_matmul(a[None], b)
+
+
+def test_f32_conv_with_default_tf32_flags_matches_cpu(cuda):
+    from paddle_tpu_torch.core.config import flags
+    from paddle_tpu_torch.ops import nn as tnn
+
+    defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    assert defaults == (False, True) and not flags().use_bf16_compute
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 28, 28, 64, generator=g)
+    w = torch.randn(3, 3, 64, 96, generator=g) * 0.05
+    dy = torch.randn(4, 14, 14, 96, generator=g)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ws = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        y = tnn.conv2d(xs, ws, stride=2, padding=1)
+        res.append((y, *torch.autograd.grad(y, (xs, ws), dy.to(dev))))
+    for a, b in zip(*res):
+        assert _rel_l2(a, b) <= 1e-5
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == defaults
+
+
+def test_batch_norm_fused_on_cuda_matches_plain_cpu(cuda):
+    from paddle_tpu_torch.ops import nn as tnn
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 14, 14, 32, generator=g) * 2 + 1
+    scale, bias = torch.randn(32, generator=g), torch.randn(32, generator=g)
+    mm, mv = torch.zeros(32), torch.ones(32)
+    dy = torch.randn(8, 14, 14, 32, generator=g)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ss = x.to(dev).requires_grad_(), scale.to(dev).requires_grad_()
+        y, nm, nv, _, _ = tnn.batch_norm_train(xs, ss, bias.to(dev), mm.to(dev), mv.to(dev))
+        assert nm.grad_fn is None and nv.grad_fn is None
+        res.append((y, nm, nv, *torch.autograd.grad(y, (xs, ss), dy.to(dev))))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)

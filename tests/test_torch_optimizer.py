@@ -290,3 +290,47 @@ def test_accum_steps_matches_full_batch_and_jax():
                                    atol=1e-5, err_msg=n)
     with pytest.raises(Exception, match="divisible"):
         to.minimize(tspec.model, accum_steps=3)(Variables(tparams, {}), t_state, *batch)
+
+
+@pytest.fixture
+def nan_guard_on():
+    from paddle_tpu.core import config as jconfig
+    from paddle_tpu_torch.core import config as tconfig
+
+    saved = (jconfig.flags().check_nan_inf, tconfig.flags().check_nan_inf)
+    jconfig.set_flags(check_nan_inf=True)
+    tconfig.set_flags(check_nan_inf=True)
+    yield
+    jconfig.set_flags(check_nan_inf=saved[0])
+    tconfig.set_flags(check_nan_inf=saved[1])
+
+
+@pytest.mark.parametrize("value, finite", [(1e30, True), (float("inf"), False), (float("nan"), False)],
+                         ids=["huge_finite", "inf", "nan"])
+def test_nan_guard_matches_jax(value, finite, nan_guard_on):
+    """``check_nan_inf``'s finite flag, port and JAX package, on a step whose
+    weight gradient is the input: a finite 1e30 (whose square overflows, so
+    a norm-based guard would flag it) is not flagged; one inf or NaN entry
+    in one gradient is. Then the predicate itself on many gradients."""
+    import jax.numpy as jnp
+
+    import paddle_tpu as jpt
+    import paddle_tpu_torch as tpt
+
+    x = np.array([[1.0, 2.0, value, 3.0]], np.float32)
+    fns = ((jpt, lambda h: jnp.mean(h)), (tpt, lambda h: torch.mean(h)))
+    flags = []
+    for pkg, mean in fns:
+        model = pkg.build(lambda x, pkg=pkg, mean=mean: mean(pkg.layers.fc(x, 1)))
+        xin = x if pkg is jpt else torch.from_numpy(x)
+        v = model.init(0, xin) if pkg is jpt else model.init(0, xin, device="cpu")
+        opt = pkg.optimizer.SGD(learning_rate=0.1)
+        flags.append(bool(opt.minimize(model)(v, opt.create_state(v.params), xin).finite))
+    assert flags == [finite, finite]
+    grads = [torch.ones(3), torch.full((5, 2), 1e30), torch.zeros(0), torch.ones(2, dtype=torch.bfloat16)]
+    assert bool(topt.all_finite(grads, torch.tensor(2.0)))
+    for i in (0, 1, 3):
+        bad = [g.clone() for g in grads]
+        bad[i].view(-1)[-1] = value
+        assert bool(topt.all_finite(bad)) is finite
+    assert not bool(topt.all_finite(grads, torch.tensor(float("inf"))))

@@ -2,8 +2,9 @@
 """Where the time goes in the PyTorch/CUDA port's serving, training and
 trainer slices, on one GPU.
 
-    python3 tools/torch_profile_generate.py [--mode generate|train|trainer] [--prompts 8]
-                                            [--prompt-len 1024] [--new-tokens 32]
+    python3 tools/torch_profile_generate.py [--mode generate|train|trainer|resnet]
+                                            [--prompts 8] [--prompt-len 1024]
+                                            [--new-tokens 32] [--batch 64]
                                             [--trace-dir DIR]
 
 Runs ``paddle_tpu_torch``'s transformer LM at ``BASE_CFG`` (random weights
@@ -29,6 +30,16 @@ on, each call one step on one batch:
                  Executor, the step, ``float(loss)`` and ``bool(finite)``;
   direct_step  — the step of ``minimize`` called directly, with the same
                  two reads of the loss and the finite flag.
+
+``--mode resnet``, ResNet-50 at bench.py's cell (224×224, 1000 classes,
+bf16 compute, Momentum, ``--batch`` images, random weights from seed 0):
+
+  resnet_step      — ``opt.minimize(model)``'s step, BN state included;
+  resnet_fwd_bwd   — the loss and every gradient (``append_backward``);
+  resnet_optimizer — ``opt.apply_gradients`` on those gradients;
+
+with the device time by class. The optimizer's share of a step is its own
+phase's busy time.
 
 For each phase it prints one JSON line: the wall time without the profiler
 (host clock around work that ends in ``torch.cuda.synchronize()``, the
@@ -61,8 +72,37 @@ def _classify(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         if kernel in low:
             return kernel
-    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas")):
+    # cuDNN's convolution kernels (their names also say gemm/xmma), before
+    # the dense products
+    if any(s in low for s in ("conv2d", "convolution", "fprop", "dgrad", "wgrad", "cudnn",
+                              "implicit", "winograd")):
+        return "conv"
+    if "batch_norm" in low:
+        return "bn"
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas", "nvjet")):
         return "matmul"
+    if any(s in low for s in ("copy", "transpose", "nchwtonhwc", "nhwctonchw", "permute")):
+        return "copy"
+    return "other"
+
+
+def _op_class(evt) -> str:
+    """The class of the PyTorch op that launched a kernel: the innermost op,
+    or for an op of no class the nearest ancestor that has one (cuDNN runs
+    some 1x1 convolutions as cuBLAS GEMMs, so kernel names alone would put
+    them with the dense products)."""
+    node = evt
+    while node is not None:
+        low = node.name.lower()
+        if "convolution" in low:
+            return "conv"
+        if "batch_norm" in low:
+            return "bn"
+        if low in ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"):
+            return "matmul"
+        if low in ("aten::copy_", "aten::_to_copy", "aten::clone", "aten::contiguous"):
+            return "copy"
+        node = node.cpu_parent
     return "other"
 
 
@@ -93,6 +133,7 @@ def _profile(fn, name: str, trace_dir) -> dict:
     if trace_dir:
         prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{name}.json"))
     by_class: dict = {}
+    matmul_kernels: dict = {}
     rows = []
     launches = 0
     for evt in prof.key_averages():
@@ -105,9 +146,16 @@ def _profile(fn, name: str, trace_dir) -> dict:
         launches += evt.count
         cls = _classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+        if cls == "matmul":
+            matmul_kernels[evt.key[:120]] = matmul_kernels.get(evt.key[:120], 0) + evt.count
         rows.append((us / 1e3, evt.count, evt.key[:120]))
     rows.sort(reverse=True)
     busy_ms = sum(by_class.values())
+    by_op: dict = {}
+    for evt in prof.events():
+        for kern in getattr(evt, "kernels", ()):
+            cls = _op_class(evt)
+            by_op[cls] = by_op.get(cls, 0.0) + kern.duration / 1e3
     return {
         "phase": name,
         "wall_ms": wall_ms,
@@ -116,6 +164,8 @@ def _profile(fn, name: str, trace_dir) -> dict:
         "idle_share": (1.0 - busy_ms / wall_ms) if wall_ms > 0 and busy_ms > 0 else None,
         "kernel_launches": launches,
         "device_ms_by_class": by_class,
+        "device_ms_by_launching_op": by_op,
+        "matmul_kernels": matmul_kernels,
         "top_kernels": [{"ms": ms, "count": n, "name": k} for ms, n, k in rows[:8]],
     }
 
@@ -171,6 +221,34 @@ def _trainer(spec, rng, args, smi) -> None:
         print(json.dumps(line), flush=True)
 
 
+def _resnet(args, smi) -> None:
+    import numpy as np
+
+    from paddle_tpu_torch.backward import append_backward
+    from paddle_tpu_torch.models import get_model
+
+    spec = get_model("resnet", dataset="flowers", depth=50, class_dim=1000)
+    x, y = spec.synth_batch(args.batch, np.random.RandomState(0))
+    variables = spec.model.init(0, x, y)
+    opt = spec.optimizer()
+    opt_state = opt.create_state(variables.params)
+    step = opt.minimize(spec.model)
+    grads = append_backward(spec.model, x, y, state=variables.state)(variables.params)[1][0]
+    phases = (
+        ("resnet_step", lambda: step(variables, opt_state, x, y)),
+        ("resnet_fwd_bwd", lambda: append_backward(spec.model, x, y, state=variables.state)(
+            variables.params)),
+        ("resnet_optimizer", lambda: opt.apply_gradients(
+            variables.params, grads, opt_state, spec.model.param_info)),
+    )
+    for name, fn in phases:
+        line = _profile(fn, name, args.trace_dir)
+        line.update(batch=args.batch, image_size=224, card=smi)
+        if name == "resnet_step":
+            line["images_per_s"] = args.batch / (line["wall_ms"] / 1e3)
+        print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -178,7 +256,8 @@ def main() -> int:
         print("torch_profile_generate: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("generate", "train", "trainer"), default="generate")
+    ap.add_argument("--mode", choices=("generate", "train", "trainer", "resnet"), default="generate")
+    ap.add_argument("--batch", type=int, default=64, help="images per ResNet-50 step (--mode resnet)")
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -199,6 +278,10 @@ def main() -> int:
     print(smi, flush=True)
 
     set_flags(use_flash_attention=True, use_bf16_compute=True)
+    if args.mode == "resnet":
+        _resnet(args, smi)
+        print(smi, flush=True)
+        return 0
     spec = get_model("transformer_lm", seq_len=args.prompt_len)
     cfg = spec.extra["cfg"]
     rng = np.random.RandomState(0)
