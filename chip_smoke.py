@@ -18,12 +18,15 @@ Phases, each printing JSON lines:
                the cases listed in CASES (forward; the backward pair on the
                same cases plus BWD_BLOCK_CASE, through
                flash_attention_bwd_block at global offsets), with the
-               tolerances stated there; at the serving slice's shape also
-               each kernel's time, the plain version's, one PyTorch library
-               call's (F.scaled_dot_product_attention, forward or backward:
-               a yardstick the port never calls), the bound (the least
-               time the card could take) and the host time of one wrapper
-               call (TMA descriptors and launch included).
+               tolerances stated there; at the serving slice's shape and at
+               the NMT Transformer's two (nmt_enc: non-causal with ragged
+               kv_len, nmt_dec: causal; 32 x 8 x 256 x 64) also each
+               kernel's time, the plain version's, one PyTorch library
+               call's (F.scaled_dot_product_attention, forward or backward,
+               with a key mask for kv_len: a yardstick the port never
+               calls), the bound (the least time the card could take) and
+               the host time of one wrapper call (TMA descriptors and
+               launch included).
   4. slice   — the serving slice at the LM's published width (BASE_CFG:
                d_model 512, 8 heads, 6 layers, vocab 32000, random weights
                from a seed): get_model -> Model.init on CUDA -> generate() of
@@ -76,8 +79,34 @@ Phases, each printing JSON lines:
                amp_minimize step of ResNet-50 against the bf16 minimize
                step on the same batch and weights (those after (a)'s 8
                steps).
-  8. kernels — one line: each kernel with its launches in phases 4, 5 and 6,
-               its error and times from phase 3; before it, a line with the
+  8. nmt     — the NMT Transformer at bench.py's cell: get_model("transformer",
+               seq_len=256, scan_layers=True), BASE_CFG at full depth and
+               width, batch 32, bf16 compute and flash on, Adam + Noam.
+               (a) the published dropouts (0.1) through minimize's step with
+               a CUDA generator: 0 flash launches (attention composes), the
+               loss falls over 8 steps, step ms (best of 3 after a warm
+               step), tokens/s, MFU against the bf16 dense peak (FLOPs
+               counted from the shapes), peak memory, and no f32 GEMM
+               kernel among the step's products (torch.profiler); (b) every
+               dropout at 0: 18 launches of each kernel per step, and the
+               loss and gradients of flash (structural masks) against
+               composed attention (additive masks); (c) eval at the
+               published config: 18 forward launches, and the loss and the
+               non-pad logits flash against composed; (d) attention dropout:
+               the keep rate of one call's mask and the expectation over
+               mask draws, each within 4 sigma.
+  9. rnn     — stacked_dynamic_lstm and machine_translation at their
+               get_model defaults, batch 32, f32: the loss falls over 8
+               Adam steps, step ms (best of 3), words/s, kernel launches per
+               step, peak memory; then machine_translation's beam-search
+               model (beam 4, 32 steps) on the trained weights, on the card
+               and on the CPU in lockstep: the tokens are equal, or where a
+               row first differs the two candidates' scores are within
+               BEAM_TIE_TOL (a near tie); the entry point's result equals
+               the card's lockstep result.
+ 10. kernels — one line: each kernel with its launches on every path
+               (phases 4-6 and 8), its error and times at the slice shape
+               and at the NMT cases from phase 3; before it, a line with the
                kernels' earlier times, copied from PERF.md (not measured).
 The last line is {"ok": true, "device": {...}}. It is printed only when every
 phase passed; the exit code is 0 only then. Without CUDA the script exits 1
@@ -100,7 +129,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# (name, B, H, H_kv, T, d, dtype, causal, window, ragged kv_len)
+# (name, B, H, H_kv, T, d, dtype, causal, window, ragged kv_len): ragged is
+# False (no kv_len), True (kv_len drawn in [1, T]) or (lo, hi) (drawn in
+# [lo, hi]). nmt_enc and nmt_dec are the NMT Transformer's attention at
+# bench.py's cell (batch 32, seq 256, 8 heads of 64): its encoder
+# self-attention and cross-attention (non-causal, per-row kv_len of the
+# synthetic batch's lengths in [T/2, T]) and its decoder self-attention.
 CASES = [
     ("slice", 8, 8, 8, 1024, 64, "bfloat16", True, None, False),
     ("gqa", 8, 8, 2, 1024, 64, "bfloat16", True, None, False),
@@ -112,7 +146,11 @@ CASES = [
     # (64-byte swizzle)
     ("t1000_bf16", 4, 8, 8, 1000, 64, "bfloat16", True, None, False),
     ("d32_bf16", 4, 8, 8, 1024, 32, "bfloat16", True, None, False),
+    ("nmt_enc", 32, 8, 8, 256, 64, "bfloat16", False, None, (128, 256)),
+    ("nmt_dec", 32, 8, 8, 256, 64, "bfloat16", True, None, False),
 ]
+# the cases timed (kernel, plain version and library) besides checked
+TIMED_CASES = ("slice", "nmt_enc", "nmt_dec")
 # max |kernel - plain| allowed. bf16: both versions read the same bf16 inputs
 # and accumulate in f32, but round P to bf16 at different points and write a
 # bf16 output (2^-8 relative ~ 4e-3 at |out| ~ 1): 2e-2 on out; lse is f32
@@ -191,6 +229,24 @@ CONV_PARITY_LOSS, CONV_PARITY_MIN, CONV_PARITY_SPREAD = 1e-5, 1e-4, 4.0
 # weights and batch: the loss, absolute (BN's scale and bias and the fc
 # bias are rounded to bf16 too)
 AMP_LOSS_TOL = 2e-2
+# The NMT Transformer at bench.py's cell (bench.py:484-496): batch 32 of 256
+# tokens, BASE_CFG at full depth and width, bf16 compute and flash on;
+# 8 steps for "the loss falls"
+NMT_BATCH, NMT_SEQ, NMT_STEPS = 32, 256, 8
+# eval, flash against composed attention: the loss and the logits at
+# non-pad positions, absolute. Both round q/k/v and P to bf16 and
+# accumulate in f32, at other points (the kernel stores its output in
+# bf16); through 12 layers of post-LN that moves logits of ~unit scale by
+# a few 1e-3
+NMT_EVAL_TOL = 2e-2
+# attention dropout's expectation: mask draws averaged
+NMT_DROP_DRAWS = 64
+# stacked_dynamic_lstm and machine_translation at their get_model defaults,
+# f32; the beam-search model at beam 4, 32 steps. Where the card's beam and
+# the CPU's first differ, the two candidates' scores must be a near tie:
+# f32 products summed in another order move a log-prob by ~1e-6
+RNN_BATCH, RNN_STEPS = 32, 8
+BEAM, BEAM_LEN, BEAM_TIE_TOL = 4, 32, 1e-4
 
 
 def emit(obj) -> None:
@@ -280,6 +336,28 @@ def ptxas_spills(nvcc_output: str) -> dict:
     return spills
 
 
+def draw_kv_len(ragged, B, T, gen):
+    """A case's kv_len: None, or [B] int32 on the card drawn from ``gen`` in
+    [1, T] (ragged True: every row keeps key 0 live, so every row is
+    compared) or in [lo, hi] (ragged a pair)."""
+    import torch
+
+    if not ragged:
+        return None
+    lo, hi = (1, T) if ragged is True else ragged
+    return torch.randint(lo, hi + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+
+
+def sdpa_mask(kv_len, T_kv):
+    """F.scaled_dot_product_attention's boolean mask for kv_len (True =
+    attend), [B, 1, 1, T_kv]; None without kv_len."""
+    import torch
+
+    if kv_len is None:
+        return None
+    return (torch.arange(T_kv, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+
+
 def live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off=0, k_off=0):
     """Live (q, k) pairs of the call, as the masks define them."""
     import torch
@@ -297,13 +375,19 @@ def live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off=0, k_off=0):
     return int(per_b.sum()) * H
 
 
+def kv_rows(B, T_kv, kv_len):
+    """Key rows the call needs per kv head: B * T_kv, or sum(kv_len) when
+    keys past a row's kv_len are dead."""
+    return B * T_kv if kv_len is None else int(kv_len.clamp(max=T_kv).sum())
+
+
 def bound_ms(B, H, H_kv, T, d, dtype, causal, window, kv_len):
     """The larger of: the operations (4*d flops per live pair: Q K^T and
-    P V) over the dtype's peak, and the bytes (q, k, v read once, out and
-    lse written once) over the memory rate."""
+    P V) over the dtype's peak, and the bytes (q, live k and v rows read
+    once, out and lse written once) over the memory rate."""
     esize = 2 if dtype == "bfloat16" else 4
     flops = 4 * d * live_pairs(T, T, causal, window, kv_len, B, H)
-    nbytes = esize * d * (2 * B * H * T + 2 * B * H_kv * T) + 4 * B * H * T
+    nbytes = esize * d * (2 * B * H * T + 2 * H_kv * kv_rows(B, T, kv_len)) + 4 * B * H * T
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -312,14 +396,14 @@ def bound_ms(B, H, H_kv, T, d, dtype, causal, window, kv_len):
 def bwd_bound_ms(kernel, B, H, H_kv, T, T_kv, d, dtype, causal, window, kv_len, q_off=0, k_off=0):
     """The bound of one backward kernel: operations per live pair (dK/dV:
     S, dP, dV, dK = 8*d; dQ: S, dP, dQ = 6*d) over the dtype's peak, against
-    bytes (q, k, v, dO read once, lse and Delta in f32, then dk and dv, or
-    dq, written once) over the memory rate."""
+    bytes (q, live k and v rows, dO read once, lse and Delta in f32, then
+    dk and dv, or dq, written once) over the memory rate."""
     esize = 2 if dtype == "bfloat16" else 4
     pairs = live_pairs(T, T_kv, causal, window, kv_len, B, H, q_off, k_off)
-    q_like, kv_like = esize * B * H * T * d, esize * B * H_kv * T_kv * d
+    q_like, kv_like = esize * B * H * T * d, esize * H_kv * kv_rows(B, T_kv, kv_len) * d
     nbytes = 2 * q_like + 2 * kv_like + 2 * 4 * B * H * T
     if kernel == "flash_bwd_dkv":
-        flops, nbytes = 8 * d * pairs, nbytes + 2 * kv_like
+        flops, nbytes = 8 * d * pairs, nbytes + 2 * esize * B * H_kv * T_kv * d
     else:
         flops, nbytes = 6 * d * pairs, nbytes + q_like
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
@@ -783,6 +867,374 @@ def conv_phase(smi: str):
     return checks
 
 
+def nmt_train_flops(cfg, batch, seq_len):
+    """FLOPs of one NMT training step, counted from the model's shapes:
+    2 per multiply-add, 3x the forward (forward + two backward products).
+    Projections per token: the encoder layer's q/k/v/out (4 d^2) and FFN
+    (2 d d_inner), the decoder layer's self and cross q/k/v/out (8 d^2) and
+    FFN, and the vocabulary projection (d V); attention per layer and call:
+    Q K^T and P V over every (query, key) pair, B T^2 d each, for the
+    3 calls a layer pair makes. Padding is counted as the dense shapes
+    compute it."""
+    d, di, n = cfg["d_model"], cfg["d_inner"], cfg["n_layers"]
+    tokens = batch * seq_len
+    proj_macs = tokens * (n * (4 * d * d + 2 * d * di + 8 * d * d + 2 * d * di) + d * cfg["trg_vocab"])
+    attn_macs = 3 * n * 2 * batch * seq_len * seq_len * d
+    return 6 * proj_macs, 6 * attn_macs
+
+
+def kernel_launch_counts():
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+
+    return {n: k.launches for n, k in kbuild.KERNELS.items()}
+
+
+def zero_kernel_counts():
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+
+    for kern in kbuild.KERNELS.values():
+        kern.launches = 0
+
+
+def profiled_gemms(fn):
+    """Run ``fn`` once under torch.profiler: ``(kernel launches, {GEMM kernel
+    name: count})``, a GEMM being a kernel whose name says gemm/gemv,
+    cutlass, xmma, nvjet or cublas."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, gemms = 0, {}
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")) or getattr(evt, "is_user_annotation", False):
+            continue
+        launches += evt.count
+        low = evt.key.lower()
+        if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
+            gemms[evt.key[:120]] = gemms.get(evt.key[:120], 0) + evt.count
+    return launches, gemms
+
+
+def is_f32_gemm(name: str) -> bool:
+    """A GEMM kernel on f32 operands: cuBLAS's SIMT sgemm, an xmma f32f32
+    GEMM, or an nvjet kernel whose operand type letter is s (f32)."""
+    low = name.lower()
+    return "sgemm" in low or "f32f32" in low or low.startswith("nvjet_s")
+
+
+def best_step_ms(fn, runs: int = 3) -> list:
+    """Host-clock ms of ``runs`` calls of ``fn``, each ending in a sync."""
+    import torch
+
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def grads_agreement(g, g_ref, floor_frac):
+    """Per-parameter |g - g_ref|_2 / max(|g_ref|_2, floor_frac * the
+    largest |g_ref|_2): the worst, its parameter and the median."""
+    import numpy as np
+
+    norms = {n: float(x.float().norm()) for n, x in g_ref.items()}
+    floor = floor_frac * max(norms.values())
+    rel = {n: float((g[n].float() - x.float()).norm()) / max(norms[n], floor)
+           for n, x in g_ref.items()}
+    worst = max(rel, key=rel.get)
+    return {"grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+            "grad_rel_l2_median": float(np.median(list(rel.values())))}
+
+
+def nmt_phase(smi: str):
+    """Phase 8: the NMT Transformer at bench.py's cell. Returns its kernel
+    launches by path and its checks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.backward import append_backward
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=False)
+    spec = get_model("transformer", seq_len=NMT_SEQ, scan_layers=True)
+    cfg = spec.extra["cfg"]
+    batch = spec.synth_batch(NMT_BATCH, np.random.RandomState(0))
+    variables = spec.model.init(0, *batch)
+    n_attn = 3 * cfg["n_layers"]
+    checks, paths = {}, {}
+
+    # (a) the published dropouts (0.1), Adam with Noam through minimize's
+    # step with a CUDA generator; one seed per step, so every step draws
+    # the same masks and the loss moves only with the parameters
+    opt = spec.optimizer()
+    opt_state = opt.create_state(variables.params)
+    step = opt.minimize(spec.model)
+
+    def run(v, st):
+        return step(v, st, *batch, rng=torch.Generator(device="cuda").manual_seed(0))
+
+    zero_kernel_counts()
+    out = run(variables, opt_state)
+    torch.cuda.synchronize()
+    paths["nmt_train_published"] = kernel_launch_counts()
+    losses = [float(out.loss)]
+    v, st = out.variables, out.opt_state
+    for _ in range(NMT_STEPS - 1):
+        out = run(v, st)
+        v, st = out.variables, out.opt_state
+        losses.append(float(out.loss))
+    del out, v, st
+    torch.cuda.reset_peak_memory_stats()
+    run(variables, opt_state)  # warm
+    step_ms = best_step_ms(lambda: run(variables, opt_state))
+    peak = torch.cuda.max_memory_allocated()
+    launches, gemms = profiled_gemms(lambda: run(variables, opt_state))
+    proj_flops, attn_flops = nmt_train_flops(cfg, NMT_BATCH, NMT_SEQ)
+    best = min(step_ms)
+    checks["a_no_flash_launch_with_attention_dropout"] = all(
+        n == 0 for n in paths["nmt_train_published"].values())
+    checks["a_loss_falls"] = losses[-1] < losses[0]
+    checks["a_losses_finite"] = bool(np.isfinite(losses).all())
+    checks["a_no_f32_gemm"] = bool(gemms) and not any(is_f32_gemm(k) for k in gemms)
+    emit({"phase": "nmt", "part": "a_published_dropout", "model": "transformer",
+          "cfg": {k: cfg[k] for k in ("d_model", "d_inner", "num_heads", "n_layers", "src_vocab",
+                                      "trg_vocab", "attn_dropout", "relu_dropout",
+                                      "residual_dropout", "scan_layers")},
+          "params": sum(p.numel() for p in variables.params.values()), "batch": NMT_BATCH,
+          "seq_len": NMT_SEQ, "optimizer": "Adam+NoamDecay", "losses": losses,
+          "launches": paths["nmt_train_published"], "step_ms": best, "step_ms_runs": step_ms,
+          "tokens_per_s": NMT_BATCH * NMT_SEQ / (best / 1e3),
+          "flops_per_step": proj_flops + attn_flops, "projection_flops": proj_flops,
+          "attention_flops": attn_flops,
+          "mfu": (proj_flops + attn_flops) / (best / 1e3) / PEAK_BF16_FLOPS,
+          "peak_memory_bytes": peak, "kernel_launches_per_step": launches, "gemm_kernels": gemms,
+          "card": smi})
+    del opt_state
+
+    # (b) every dropout at 0: flash (structural masks) against composed
+    # attention (additive masks), the loss and every gradient of one step
+    spec0 = get_model("transformer", seq_len=NMT_SEQ, scan_layers=True, attn_dropout=0.0,
+                      relu_dropout=0.0, residual_dropout=0.0)
+
+    def loss_and_grads(flash):
+        set_flags(use_flash_attention=flash)
+        loss, (grads, _, _) = append_backward(spec0.model, *batch)(variables.params)
+        return float(loss), grads
+
+    zero_kernel_counts()
+    loss_flash, g_flash = loss_and_grads(True)
+    torch.cuda.synchronize()
+    paths["nmt_train_dropout0"] = kernel_launch_counts()
+    loss_comp, g_comp = loss_and_grads(False)
+    agree = grads_agreement(g_flash, g_comp, TRAIN_GRAD_FLOOR)
+    del g_flash, g_comp
+    checks["b_launches_18_18_18"] = all(
+        paths["nmt_train_dropout0"][k] == n_attn for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    checks["b_loss_flash_vs_composed_within_tol"] = abs(loss_flash - loss_comp) <= TRAIN_LOSS_TOL
+    checks["b_grads_flash_vs_composed_within_tol"] = agree["grad_rel_l2_max"] <= TRAIN_GRAD_TOL
+    emit({"phase": "nmt", "part": "b_dropout0_flash_vs_composed",
+          "launches": paths["nmt_train_dropout0"], "loss_flash": loss_flash,
+          "loss_composed": loss_comp, "loss_abs_err": abs(loss_flash - loss_comp),
+          "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL, "grad_floor": TRAIN_GRAD_FLOOR,
+          **agree, "card": smi})
+
+    # (c) eval at the published config: flash against composed, the loss and
+    # the logits at non-pad positions (pad queries differ on purpose)
+    with torch.no_grad():
+        set_flags(use_flash_attention=True)
+        zero_kernel_counts()
+        (l_flash, _, lg_flash), _ = spec.model.apply(variables, *batch)
+        torch.cuda.synchronize()
+        paths["nmt_eval"] = kernel_launch_counts()
+        set_flags(use_flash_attention=False)
+        (l_comp, _, lg_comp), _ = spec.model.apply(variables, *batch)
+        set_flags(use_flash_attention=True)
+        valid = ~batch[3]
+        logits_err = float((lg_flash[valid] - lg_comp[valid]).abs().max())
+        del lg_flash, lg_comp
+    checks["c_eval_forward_launches_18"] = paths["nmt_eval"]["flash_fwd"] == n_attn and (
+        paths["nmt_eval"]["flash_bwd_dkv"] == paths["nmt_eval"]["flash_bwd_dq"] == 0)
+    checks["c_eval_loss_within_tol"] = abs(float(l_flash) - float(l_comp)) <= NMT_EVAL_TOL
+    checks["c_eval_logits_within_tol"] = logits_err <= NMT_EVAL_TOL
+    emit({"phase": "nmt", "part": "c_eval_flash_vs_composed", "launches": paths["nmt_eval"],
+          "loss_flash": float(l_flash), "loss_composed": float(l_comp),
+          "loss_abs_err": abs(float(l_flash) - float(l_comp)),
+          "logits_max_abs_err_non_pad": logits_err, "tol": NMT_EVAL_TOL, "card": smi})
+
+    # (d) attention dropout on the card. Keep rate: q = k = 0 gives uniform
+    # weights 1/T, and v = I (T x T) makes each output row the dropped
+    # weight row, so out * T * keep rounds to the keep mask. Expectation:
+    # over NMT_DROP_DRAWS masks the mean output minus the undropped one, its
+    # total and a random-sign projection, each within 4 sigma of 0 (sigma
+    # from the draws' spread).
+    B, H, T, dh = NMT_BATCH, cfg["num_heads"], NMT_SEQ, cfg["d_model"] // cfg["num_heads"]
+    rate = cfg["attn_dropout"]
+    set_flags(use_flash_attention=False)  # the undropped reference composes too
+    keep = 1.0 - rate
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        zeros = torch.zeros(B, H, T, dh, device="cuda")
+        eye = torch.eye(T, device="cuda").expand(B, H, T, T).contiguous()
+        out = scaled_dot_product_attention(zeros, zeros, eye, dropout_rate=rate, is_test=False,
+                                           dropout_generator=gen)
+        mask = out.float() * T * keep
+        mask_err = float((mask - mask.round()).abs().max())
+        kept = float(mask.round().sum())
+        n = mask.numel()
+        keep_rate = kept / n
+        keep_sigma = (keep * rate / n) ** 0.5
+        del zeros, eye, out, mask
+        g2 = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v = (torch.randn(B, H, T, dh, generator=g2, device="cuda") for _ in range(3))
+        ref = scaled_dot_product_attention(q, k, v).float()
+        signs = torch.randint(0, 2, ref.shape, generator=g2, device="cuda").float() * 2 - 1
+        stats = []
+        for _ in range(NMT_DROP_DRAWS):
+            diff = scaled_dot_product_attention(q, k, v, dropout_rate=rate, is_test=False,
+                                                dropout_generator=gen).float() - ref
+            stats.append([float(diff.sum()), float((diff * signs).sum())])
+        del q, k, v, ref, signs, diff
+    stats = np.asarray(stats)
+    z = stats.mean(0) / (stats.std(0, ddof=1) / np.sqrt(len(stats)))
+    checks["d_mask_recovered"] = mask_err < 0.05
+    checks["d_keep_rate_within_4_sigma"] = abs(keep_rate - keep) <= 4 * keep_sigma
+    checks["d_expectation_within_4_sigma"] = bool(np.all(np.abs(z) <= 4))
+    emit({"phase": "nmt", "part": "d_attention_dropout", "shape": [B, H, T, dh], "rate": rate,
+          "keep_rate": keep_rate, "keep_expected": keep, "keep_sigma": keep_sigma,
+          "mask_round_err": mask_err, "draws": NMT_DROP_DRAWS,
+          "expectation_z": z.tolist(), "card": smi})
+    set_flags(use_flash_attention=True)
+    emit({"phase": "nmt", "checks": checks})
+    return paths, checks
+
+
+def beam_lockstep(mt, cf, dims, params_gpu, src, lens, beam, max_len, bos, eos):
+    """The machine_translation beam search on the card and on the CPU in
+    lockstep, from the same weights: per step, each row's chosen candidates
+    (source beam * V + token, best first). At the first step where a row's
+    choice differs, the gap on the CPU's scores between the two candidates
+    at the first differing rank is kept and the row is no longer compared.
+    Returns (card result, CPU result, {row: (step, gap)})."""
+    import functools
+
+    import torch
+
+    from paddle_tpu_torch import framework
+
+    dec = framework.build(functools.partial(mt.infer_decoder, **dims, beam_size=beam))
+    params_cpu = {n: p.cpu() for n, p in params_gpu.items()}
+    B, V = src.shape[0], dims["vocab_size"]
+    kw = dict(batch_size=B, beam_size=beam)
+    sides = {}
+    with torch.no_grad():
+        for name, params, dev in (("gpu", params_gpu, "cuda"), ("cpu", params_cpu, "cpu")):
+            (step_fn, carry), _ = dec.apply(params, src.to(dev), lens.to(dev))
+            sides[name] = [step_fn, cf.beam_init(carry, **kw, bos_id=bos), [], []]
+        diverged = {}
+        for s in range(max_len):
+            chosen = {}
+            for name, side in sides.items():
+                step_fn, state, toks, ptrs = side
+                state, tok, src_beam, total = cf.beam_step(step_fn, state, **kw, vocab_size=V,
+                                                           eos_id=eos)
+                side[1] = state
+                toks.append(tok)
+                ptrs.append(src_beam)
+                chosen[name] = ((src_beam.long() * V + tok.long()).cpu(), total.cpu())
+            (idx_g, _), (idx_c, tot_c) = chosen["gpu"], chosen["cpu"]
+            for b in range(B):
+                if b in diverged or torch.equal(idx_g[b], idx_c[b]):
+                    continue
+                r = int((idx_g[b] != idx_c[b]).nonzero()[0])
+                a, c = int(idx_c[b, r]), int(idx_g[b, r])
+                diverged[b] = (s, abs(float(tot_c[b, a]) - float(tot_c[b, c])))
+        results = {name: cf.beam_finish(side[1], side[2], side[3], eos)
+                   for name, side in sides.items()}
+    return results["gpu"], results["cpu"], diverged
+
+
+def rnn_phase(smi: str):
+    """Phase 9: stacked_dynamic_lstm and machine_translation at their
+    get_model defaults, f32, and the beam search on the card against the
+    CPU. Returns the phase's checks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model, machine_translation
+    from paddle_tpu_torch.ops import control_flow as cf
+
+    set_flags(use_bf16_compute=False, use_flash_attention=True, check_nan_inf=False)
+    checks = {}
+    trained = {}
+    for name in ("stacked_dynamic_lstm", "machine_translation"):
+        spec = get_model(name)
+        batch = spec.synth_batch(RNN_BATCH, np.random.RandomState(0))
+        variables = spec.model.init(0, *batch)
+        opt = spec.optimizer()
+        opt_state = opt.create_state(variables.params)
+        step = opt.minimize(spec.model)
+        losses, v, st = [], variables, opt_state
+        for _ in range(RNN_STEPS):
+            out = step(v, st, *batch)
+            v, st = out.variables, out.opt_state
+            losses.append(float(out.loss))
+        trained[name] = (spec, v, batch)
+        del out, st
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = best_step_ms(lambda: step(variables, opt_state, *batch))
+        peak = torch.cuda.max_memory_allocated()
+        launches, _ = profiled_gemms(lambda: step(variables, opt_state, *batch))
+        best = min(step_ms)
+        words = RNN_BATCH * spec.examples_per_row
+        checks[f"{name}_loss_falls"] = losses[-1] < losses[0]
+        checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
+        emit({"phase": "rnn", "model": name, "batch": RNN_BATCH, "seq_len": spec.examples_per_row,
+              "params": sum(p.numel() for p in variables.params.values()), "dtype": "float32",
+              "losses": losses, "step_ms": best, "step_ms_runs": step_ms,
+              "words_per_s": words / (best / 1e3), "kernel_launches_per_step": launches,
+              "peak_memory_bytes": peak, "card": smi})
+        del variables, opt_state
+
+    # the beam-search inference model, card against CPU, on the trained
+    # machine_translation weights
+    spec, v, batch = trained["machine_translation"]
+    dims = {k: spec.extra[k] for k in ("vocab_size", "emb_dim", "hidden_dim")}
+    src, lens = batch[0], batch[1]
+    infer = spec.extra["make_infer_model"](beam_size=BEAM, max_len=BEAM_LEN)
+    t0 = time.perf_counter()
+    (seqs, scores), _ = infer.apply(v.params, src, lens)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    (g_seqs, g_scores), (c_seqs, c_scores), diverged = beam_lockstep(
+        machine_translation, cf, dims, v.params, src, lens, BEAM, BEAM_LEN, 0, 1)
+    same_rows = [b for b in range(src.shape[0]) if b not in diverged]
+    checks["beam_entry_point_equals_lockstep"] = torch.equal(seqs, g_seqs)
+    checks["beam_tokens_equal_or_near_tie"] = (
+        torch.equal(g_seqs[same_rows].cpu(), c_seqs[same_rows])
+        and all(gap < BEAM_TIE_TOL for _, gap in diverged.values()))
+    checks["beam_shape"] = tuple(seqs.shape) == (RNN_BATCH, BEAM, BEAM_LEN)
+    emit({"phase": "rnn", "part": "beam_search", "beam": BEAM, "max_len": BEAM_LEN,
+          "batch": RNN_BATCH, "infer_s": infer_s,
+          "rows_equal": len(same_rows), "diverged": {str(b): {"step": s, "gap": g}
+                                                     for b, (s, g) in diverged.items()},
+          "tie_tol": BEAM_TIE_TOL,
+          "scores_max_abs_diff_equal_rows": float((g_scores[same_rows].cpu()
+                                                   - c_scores[same_rows]).abs().max()),
+          "card": smi})
+    set_flags(use_bf16_compute=True)
+    emit({"phase": "rnn", "checks": checks})
+    return checks
+
+
 def main() -> int:
     import torch
 
@@ -851,7 +1303,7 @@ def main() -> int:
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
-    slice_numbers = {}
+    case_numbers = {}
     for case, B, H, H_kv, T, d, dt, causal, window, ragged in CASES:
         dtype = getattr(torch, dt)
 
@@ -859,9 +1311,7 @@ def main() -> int:
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
         q, k, v = rand(B, H, T, d), rand(B, H_kv, T, d), rand(B, H_kv, T, d)
-        kv_len = None
-        if ragged:  # every row keeps key 0 live, so every row is compared
-            kv_len = torch.randint(1, T + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+        kv_len = draw_kv_len(ragged, B, T, gen)
         scale = 1.0 / d ** 0.5
         with torch.no_grad():
             out, lse = flash_attention_with_lse(q, k, v, causal=causal, kv_len=kv_len, window=window)
@@ -877,17 +1327,20 @@ def main() -> int:
                 "window": window, "kv_len": kv_len.tolist() if ragged else None,
                 "max_abs_err": err, "max_abs_err_lse": err_lse,
                 "tol": tol, "tol_lse": tol_lse, "ok": ok}
-        if case == "slice":
+        if case in TIMED_CASES:
+            lib_mask = sdpa_mask(kv_len, T)
             with torch.no_grad():
-                ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))
-                plain = time_ms(lambda: _reference_attention_with_lse(q, k, v, True, scale))
-                lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-                host = host_us(lambda: flash_attention_with_lse(q, k, v, causal=True))
+                ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=causal, kv_len=kv_len))
+                plain = time_ms(lambda: _reference_attention_with_lse(q, k, v, causal, scale, kv_len))
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask, is_causal=causal))
+                host = host_us(lambda: flash_attention_with_lse(q, k, v, causal=causal, kv_len=kv_len))
             bms, bound_by = bound_ms(B, H, H_kv, T, d, dt, causal, window, kv_len)
-            slice_numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
+            case_numbers[case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                  "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
             line.update(host_us=host, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                        bound_by=bound_by, tflops=4 * d * live_pairs(T, T, True, None, None, B, H) / ms / 1e9)
+                        bound_by=bound_by, tflops=4 * d * live_pairs(
+                            T, T, causal, None, kv_len, B, H) / ms / 1e9)
         emit(line)
         if not ok:
             failures.append(f"kernel case {case}: err {err} (tol {tol}), lse err {err_lse} "
@@ -908,9 +1361,7 @@ def main() -> int:
 
         q, k, v = rand(B, H, T, d), rand(B, H_kv, T_kv, d), rand(B, H_kv, T_kv, d)
         g = rand(B, H, T, d)
-        kv_len = None
-        if ragged:  # every row keeps key 0 live, so every row is compared
-            kv_len = torch.randint(1, T_kv + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+        kv_len = draw_kv_len(ragged, B, T_kv, gen)
         scale = 1.0 / d ** 0.5
         mask = dict(kv_len=kv_len, window=window, q_off=q_off, k_off=k_off)
         with torch.no_grad():
@@ -933,7 +1384,7 @@ def main() -> int:
                 "window": window, "q_off": q_off, "k_off": k_off,
                 "kv_len": kv_len.tolist() if ragged else None,
                 "max_abs_err": abs_errs, "max_rel_err": errs, "tol": tol, "ok": ok}
-        if case == "slice":
+        if case in TIMED_CASES:
             with torch.no_grad():
                 ms = {"flash_bwd_dkv": time_ms(lambda: _flash_bwd_dkv_cuda(*args)),
                       "flash_bwd_dq": time_ms(lambda: _flash_bwd_dq_cuda(*args))}
@@ -944,20 +1395,26 @@ def main() -> int:
             # the library's backward computes dq, dk and dv together: forward
             # plus backward, less the forward, at the same shape
             qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-            fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, is_causal=True))
-            both_lib = time_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qr, kr, vr, is_causal=True), (qr, kr, vr), g))
+            lib_mask = sdpa_mask(kv_len, T_kv)
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=lib_mask,
+                                                      is_causal=causal)
+
+            fwd_lib = time_ms(lib_fwd)
+            both_lib = time_ms(lambda: torch.autograd.grad(lib_fwd(), (qr, kr, vr), g))
             lib = both_lib - fwd_lib
+            numbers = bwd_numbers.setdefault(case, {})
             for kname, outs in (("flash_bwd_dkv", ("dk", "dv")), ("flash_bwd_dq", ("dq",))):
                 bms, bound_by = bwd_bound_ms(kname, B, H, H_kv, T, T_kv, d, dt, causal, window, kv_len)
-                bwd_numbers[kname] = {"max_abs_err": max(abs_errs[o] for o in outs),
-                                      "max_rel_err": max(errs[o] for o in outs),
-                                      "ms": ms[kname], "plain_ms": plain[kname],
-                                      "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
+                numbers[kname] = {"max_abs_err": max(abs_errs[o] for o in outs),
+                                  "max_rel_err": max(errs[o] for o in outs),
+                                  "ms": ms[kname], "plain_ms": plain[kname],
+                                  "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
             line.update(ms=ms, plain_ms=plain, host_us=host, library_ms_pair=lib,
                         pair_ms=ms["flash_bwd_dkv"] + ms["flash_bwd_dq"],
-                        bound_ms={n: bwd_numbers[n]["bound_ms"] for n in ms},
-                        bound_by={n: bwd_numbers[n]["bound_by"] for n in ms})
+                        bound_ms={n: numbers[n]["bound_ms"] for n in ms},
+                        bound_by={n: numbers[n]["bound_by"] for n in ms})
             del qr, kr, vr
         emit(line)
         if not ok:
@@ -1115,9 +1572,19 @@ def main() -> int:
     conv_checks = conv_phase(smi)
     failures += [f"conv check {k}" for k, good in conv_checks.items() if not good]
 
-    # 8. kernels
-    paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches}
-    numbers = {"flash_fwd": slice_numbers, **bwd_numbers}
+    # 8. the NMT Transformer
+    nmt_paths, nmt_checks = nmt_phase(smi)
+    failures += [f"nmt check {k}" for k, good in nmt_checks.items() if not good]
+
+    # 9. the LSTM models and the beam search
+    rnn_checks = rnn_phase(smi)
+    failures += [f"rnn check {k}" for k, good in rnn_checks.items() if not good]
+
+    # 10. kernels
+    paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
+             **nmt_paths}
+    slice_numbers = case_numbers["slice"]
+    numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],
                  "ratio_to_library": (numbers[n]["ms"] / numbers[n]["library_ms"]
                                       if numbers.get(n) else None),
@@ -1131,19 +1598,22 @@ def main() -> int:
                      ":139 _flash_fwd_kernel_resident",
          "launches": train_launches["flash_fwd"],
          "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()}, **slice_numbers,
-         **extra["flash_fwd"]},
+         **extra["flash_fwd"],
+         "cases": {c: case_numbers[c] for c in TIMED_CASES if c != "slice"}},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:362 _flash_bwd_dkv_kernel",
          "launches": train_launches["flash_bwd_dkv"],
          "launches_by_path": {p: n["flash_bwd_dkv"] for p, n in paths.items()},
-         **bwd_numbers.get("flash_bwd_dkv", {}), **extra["flash_bwd_dkv"],
-         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
+         **bwd_numbers["slice"]["flash_bwd_dkv"], **extra["flash_bwd_dkv"],
+         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)",
+         "cases": {c: bwd_numbers[c]["flash_bwd_dkv"] for c in TIMED_CASES if c != "slice"}},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_bwd_dq.cu",
          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:434 _flash_bwd_dq_kernel",
          "launches": train_launches["flash_bwd_dq"],
          "launches_by_path": {p: n["flash_bwd_dq"] for p, n in paths.items()},
-         **bwd_numbers.get("flash_bwd_dq", {}), **extra["flash_bwd_dq"],
-         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)"},
+         **bwd_numbers["slice"]["flash_bwd_dq"], **extra["flash_bwd_dq"],
+         "library_of": "F.scaled_dot_product_attention backward (dq, dk and dv together)",
+         "cases": {c: bwd_numbers[c]["flash_bwd_dq"] for c in TIMED_CASES if c != "slice"}},
     ]})
     print(smi, flush=True)
 

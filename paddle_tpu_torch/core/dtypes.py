@@ -9,7 +9,8 @@ convolutions alike, on the card as on the CPU. PyTorch's defaults let cuDNN
 run f32 convolutions in TF32 (``torch.backends.cudnn.allow_tf32`` is True);
 the port does not follow that process-wide switch: its f32 products on CUDA
 run under :func:`ieee_f32`, in the forward and in the backward alike
-(:func:`f32_matmul`, ``ops.nn.conv2d``), whatever the flags say.
+(:func:`f32_matmul`, :func:`f32_bmm`, ``ops.nn.conv2d``), whatever the
+flags say.
 """
 
 from __future__ import annotations
@@ -125,6 +126,56 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 f"f32_matmul on CUDA takes two 2-D operands of one dtype, got "
                 f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}")
         return _TensorCoreMatmul.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def f32_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] @ ``w`` [K, N] → [..., N] f32 (:func:`f32_matmul` on
+    the flattened rows), the two operands first promoted to one dtype as
+    ``jnp.matmul`` promotes them."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    out = f32_matmul(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _bmm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_mm_f32_out` over a batch: [N, M, K] × [N, K, P] → [N, M, P] f32."""
+    if a.dtype == torch.float32:
+        with ieee_f32():
+            return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _TensorCoreBmm(torch.autograd.Function):
+    """:class:`_TensorCoreMatmul` over a batch of products."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32_out(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gc = g.to(a.dtype)
+        da = _bmm_f32_out(gc, b.transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = _bmm_f32_out(a.transpose(1, 2), gc).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def f32_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`f32_matmul`: ``a`` [N, M, K] × ``b`` [N, K, P] → [N, M, P]
+    f32 — the JAX package's batched ``einsum``/``matmul`` with
+    ``preferred_element_type=f32``. On CUDA (:class:`_TensorCoreBmm`) bf16
+    operands run on the tensor cores with f32 accumulation and f32 operands
+    in full f32, forward and backward; on the CPU the operands are cast to
+    f32 and multiplied there."""
+    if a.is_cuda:
+        if a.dim() != 3 or b.dim() != 3 or a.dtype != b.dtype:
+            raise ValueError(
+                f"f32_bmm on CUDA takes two 3-D operands of one dtype, got "
+                f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}")
+        return _TensorCoreBmm.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
 

@@ -25,6 +25,15 @@ class Generator:
     def reset(self):
         self._counters.clear()
 
+    def snapshot(self) -> dict:
+        """The counters as they stand (for :meth:`restore`)."""
+        return dict(self._counters)
+
+    def restore(self, snapshot: dict) -> None:
+        """Return the counters to a :meth:`snapshot`: names generated after
+        it are generated again."""
+        self._counters = defaultdict(int, snapshot)
+
 
 _tls = threading.local()
 

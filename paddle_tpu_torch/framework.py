@@ -16,7 +16,9 @@ non-trainable state (BatchNorm's moving statistics) lives in
 given state with the recorded values merged in. State names follow the
 parameters' scopes, byte for byte the JAX package's. Randomness in a
 training-mode apply (dropout) draws from the ``torch.Generator`` given as
-``rng`` (:func:`next_rng`).
+``rng`` (:func:`next_rng`). :func:`checkpoint` rematerializes a block of
+layers in the backward pass (``jax.checkpoint``), replaying its names and
+random draws.
 """
 
 from __future__ import annotations
@@ -266,6 +268,63 @@ def _enter(frame: _Frame):
             yield
     finally:
         _tls.frame = prev
+
+
+class _Replay:
+    """What a block of layer calls reads from its frame when it starts: the
+    name stack, the name counters and the generator's state. Entering it
+    runs the block again as it first ran (same parameter names, same random
+    draws), on whatever thread, and puts the frame back as it was after."""
+
+    def __init__(self, frame: _Frame):
+        self.frame = frame
+        self.name_stack = list(frame.name_stack)
+        self.counters = frame.names.snapshot()
+        gen = frame.generator
+        self.gen_state = gen.get_state() if gen is not None else None
+
+    @contextlib.contextmanager
+    def replay(self):
+        frame, gen = self.frame, self.frame.generator
+        stack, counters = frame.name_stack, frame.names.snapshot()
+        gen_state = gen.get_state() if gen is not None else None
+        frame.name_stack = list(self.name_stack)
+        frame.names.restore(self.counters)
+        if gen is not None:
+            gen.set_state(self.gen_state)
+        try:
+            with _enter(frame):
+                yield
+        finally:
+            frame.name_stack = stack
+            frame.names.restore(counters)
+            if gen is not None:
+                gen.set_state(gen_state)
+
+
+def checkpoint(fn: Callable, *args):
+    """``fn(*args)`` rematerialized: its activations are not kept for the
+    backward pass but recomputed there (``torch.utils.checkpoint``, the
+    JAX package's ``jax.checkpoint``), so training memory holds one block's
+    activations instead of all of them. ``torch.utils.checkpoint`` restores
+    only PyTorch's global generators, and the backward may run on another
+    thread after ``Model.apply`` has returned; so the recompute re-enters
+    this frame with the name scopes and counters it started with (the same
+    parameter names) and the frame's generator at the state it started from
+    (the same dropout masks), then restores all three."""
+    from torch.utils import checkpoint as tcp
+
+    replay = _Replay(_current_frame())
+    runs = [0]
+
+    def run(*xs):
+        runs[0] += 1
+        if runs[0] == 1:
+            return fn(*xs)
+        with replay.replay():
+            return fn(*xs)
+
+    return tcp.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Model:

@@ -1,8 +1,9 @@
 """Declarative layer API — the subset of ``paddle_tpu.layers`` the ported
 slices use: ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
-``batch_norm``, ``layer_norm``, ``dropout``, the
+``batch_norm``, ``layer_norm``, ``dropout``, ``dynamic_lstm``, the
 activations, and the functional ops re-exported under ``layers.*``
-(``softmax_with_cross_entropy``, ``reduce_mean``, ``accuracy``, ...).
+(``softmax_with_cross_entropy``, ``reduce_mean``, ``accuracy``,
+``one_hot``, ``label_smooth``, the sequence ops, ...).
 
 Each layer function creates/fetches its named parameters through
 :mod:`paddle_tpu_torch.framework` (the JAX package's names) and returns the
@@ -22,6 +23,7 @@ from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import create_parameter, create_state, name_scope, update_state
 from paddle_tpu_torch.ops import math as om
 from paddle_tpu_torch.ops import nn as on
+from paddle_tpu_torch.ops import rnn as orn
 from paddle_tpu_torch.ops.math import (  # noqa: F401
     elu,
     gelu,
@@ -37,16 +39,39 @@ from paddle_tpu_torch.ops.math import (  # noqa: F401
 from paddle_tpu_torch.ops.nn import (  # noqa: F401
     accuracy,
     cross_entropy,
+    label_smooth,
+    one_hot,
     softmax,
     softmax_with_cross_entropy,
     square_error_cost,
 )
+from paddle_tpu_torch.ops.sequence import (  # noqa: F401
+    sequence_concat,
+    sequence_enumerate,
+    sequence_expand,
+    sequence_expand_as,
+    sequence_first_step,
+    sequence_last_step,
+    sequence_mask,
+    sequence_pad,
+    sequence_pool,
+    sequence_reshape,
+    sequence_reverse,
+    sequence_scatter,
+    sequence_slice,
+    sequence_softmax,
+)
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "relu", "relu6", "sigmoid", "tanh", "gelu", "leaky_relu", "swish", "elu",
+    "dropout", "dynamic_lstm",
+    "relu", "relu6", "sigmoid", "tanh", "gelu", "leaky_relu", "swish", "elu",
     "reduce_mean", "accuracy", "cross_entropy", "softmax", "softmax_with_cross_entropy",
-    "square_error_cost",
+    "square_error_cost", "one_hot", "label_smooth",
+    "sequence_pool", "sequence_softmax", "sequence_reverse", "sequence_first_step",
+    "sequence_last_step", "sequence_expand", "sequence_pad", "sequence_concat",
+    "sequence_enumerate", "sequence_expand_as", "sequence_mask", "sequence_reshape",
+    "sequence_scatter", "sequence_slice",
 ]
 
 _ACTS = {
@@ -250,3 +275,39 @@ def dropout(x: torch.Tensor, dropout_prob: float, is_test: Optional[bool] = None
     training-mode apply the mask comes from the apply's ``rng``."""
     training = framework.is_training() if is_test is None else (not is_test)
     return on.dropout(x, dropout_prob, is_test=not training)
+
+
+def dynamic_lstm(
+    input: torch.Tensor,
+    size: int,
+    lengths: Optional[torch.Tensor] = None,
+    param_attr=None,
+    bias_attr=None,
+    is_reverse: bool = False,
+    proj_input: bool = True,
+    name: Optional[str] = None,
+):
+    """LSTM over padded [B, T, D] (reference ``dynamic_lstm`` layer; here
+    ``size`` is the hidden size H, weights [D,4H]/[H,4H]). Returns
+    (hidden [B,T,H], (h_final, c_final)).
+
+    ``proj_input=False`` reproduces fluid semantics exactly: the input must
+    already be fc-projected to [B, T, 4H] and no w_ih is created (reference
+    dynamic_lstm has only recurrent weights — the preceding fc IS the input
+    projection)."""
+    with name_scope(name or "lstm"):
+        d = input.shape[-1]
+        if proj_input:
+            w_ih = create_parameter([d, 4 * size], input.dtype, name="w_ih", attr=param_attr)
+        else:
+            enforce(d == 4 * size, f"proj_input=False expects input dim {4*size}, got {d}")
+            w_ih = None
+        w_hh = create_parameter([size, 4 * size], input.dtype, name="w_hh", attr=param_attr)
+        b = (
+            create_parameter([4 * size], input.dtype, name="b", attr=bias_attr,
+                             default_initializer=init_mod.Constant(0.0))
+            if bias_attr is not False
+            else None
+        )
+        return orn.dynamic_lstm(input, w_ih, w_hh, b, lengths=lengths, reverse=is_reverse)
+

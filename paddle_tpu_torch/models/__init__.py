@@ -1,7 +1,8 @@
 """Model zoo — ``get_model(name, **cfg) -> ModelSpec``, as in
-``paddle_tpu.models``. Ported so far: ``mnist``, ``resnet``, ``se_resnext``,
-``vgg`` and ``transformer_lm``; ``transformer``, ``stacked_dynamic_lstm`` and
-``machine_translation`` are not (ROADMAP.md §A)."""
+``paddle_tpu.models``: all eight of its models — ``mnist``, ``resnet``,
+``se_resnext``, ``vgg``, ``transformer`` (the NMT encoder-decoder),
+``transformer_lm``, ``stacked_dynamic_lstm`` and ``machine_translation``
+(with its beam-search inference model, ``extra["make_infer_model"]``)."""
 
 from __future__ import annotations
 
@@ -61,6 +62,24 @@ def _vgg(**cfg):
     return vgg.get_model(**cfg)
 
 
+def _transformer(**cfg):
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.get_model(**cfg)
+
+
+def _stacked_lstm(**cfg):
+    from paddle_tpu_torch.models import stacked_lstm
+
+    return stacked_lstm.get_model(**cfg)
+
+
+def _machine_translation(**cfg):
+    from paddle_tpu_torch.models import machine_translation
+
+    return machine_translation.get_model(**cfg)
+
+
 def _transformer_lm(**cfg):
     from paddle_tpu_torch.models import transformer_lm
 
@@ -72,5 +91,8 @@ MODELS: Dict[str, Callable[..., ModelSpec]] = {
     "resnet": _resnet,
     "se_resnext": _se_resnext,
     "vgg": _vgg,
+    "transformer": _transformer,
     "transformer_lm": _transformer_lm,
+    "stacked_dynamic_lstm": _stacked_lstm,
+    "machine_translation": _machine_translation,
 }

@@ -1,7 +1,24 @@
-"""Transformer building blocks — the parts of ``paddle_tpu/models/transformer.py``
-(:40-176) that the decoder-only LM uses: projections, multi-head attention,
-the position-wise FFN, post-LN residual blocks and the sinusoid embedding.
-Parameter names and sharding annotations match the JAX package."""
+"""Transformer NMT — port of ``paddle_tpu/models/transformer.py``: the
+building blocks the decoder-only LM shares (projections, multi-head
+attention with a decode-time k/v cache, the position-wise FFN, post-LN
+residual blocks, the sinusoid embedding), the encoder-decoder itself
+(:func:`encode`, :func:`decode`, :func:`transformer_forward`),
+``BASE_CFG`` and :func:`get_model`. Parameter names and sharding
+annotations match the JAX package.
+
+Reference: the Transformer of ``benchmark/fluid`` (post-LN encoder-decoder,
+d_model 512, 8 heads, ffn 2048, 6+6 layers, label smoothing 0.1, Adam +
+Noam warmup). Padded [B, T] batches with pad flags replace LoD. With
+``flags().use_flash_attention`` on, padding travels as per-row ``kv_len``
+bounds and the decoder's causality as the kernel's structure
+(:func:`_structural_masking`), so eval and dropout-free training run the
+hand-written flash kernels on their non-causal ``kv_len`` path (encoder
+self-attention, cross-attention) and their causal path (decoder
+self-attention); training with attention dropout composes attention, as
+the JAX package routes it. ``cfg["scan_layers"]`` runs as the plain layer
+loop: the JAX package's ``scan_layer_stack`` reads the same per-layer
+parameters (``enc_layer_{i}``/``dec_layer_{i}``), so names and math are
+identical."""
 
 from __future__ import annotations
 
@@ -12,9 +29,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch import framework, layers
+from paddle_tpu_torch import framework, layers, lr_scheduler, optimizer
+from paddle_tpu_torch.core.config import resolve_device
 from paddle_tpu_torch.framework import ParamAttr, name_scope
+from paddle_tpu_torch.models import ModelSpec
 from paddle_tpu_torch.ops import attention as oattn
+from paddle_tpu_torch.ops import nn as onn
 
 # canonical tensor-parallel mesh axis name (recorded in ParamAttr.sharding)
 TP = "model"
@@ -42,6 +62,7 @@ def multi_head_attention(
     num_heads: int,
     mask=None,
     dropout_rate: float = 0.0,
+    cache: Optional[dict] = None,
     name: str = "mha",
     causal: bool = False,
     core=None,
@@ -50,6 +71,8 @@ def multi_head_attention(
     window: Optional[int] = None,
 ):
     """Projected multi-head attention (q/k/v/out linear maps + fused core).
+    ``cache`` (decode-time) holds the accumulated k/v, ``{"k": [B,N,T,D],
+    "v": ...}``: the new k/v are appended and written back into the dict.
     ``core`` overrides the attention core ``(qh, kh, vh, kv_len=None) -> ctx``
     (the RoPE core). ``num_kv_heads`` < num_heads is grouped-query
     attention."""
@@ -64,13 +87,19 @@ def multi_head_attention(
         qh = oattn.split_heads(q, num_heads)
         kh = oattn.split_heads(k, h_kv)
         vh = oattn.split_heads(v, h_kv)
+        if cache is not None:
+            kh = torch.cat([cache["k"], kh], dim=2)
+            vh = torch.cat([cache["v"], vh], dim=2)
+            cache["k"], cache["v"] = kh, vh
         if core is not None:
             from paddle_tpu_torch.core.enforce import enforce
 
             enforce(
-                mask is None and (dropout_rate == 0.0 or not framework.is_training()),
+                mask is None
+                and cache is None
+                and (dropout_rate == 0.0 or not framework.is_training()),
                 "multi_head_attention: a custom attention core supports neither "
-                "an additive mask nor attention dropout",
+                "an additive mask, nor a decode-time k/v cache, nor attention dropout",
             )
             ctx = core(qh, kh, vh, kv_len=kv_len)
         else:
@@ -143,3 +172,177 @@ def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate, name,
         if dropout_rate:
             emb = layers.dropout(emb, dropout_rate)
         return emb
+
+
+def encoder_layer(x, self_mask, cfg, name, kv_len=None):
+    with name_scope(name):
+        attn = multi_head_attention(
+            x, x, x, cfg["d_model"], cfg["num_heads"], mask=self_mask,
+            dropout_rate=cfg["attn_dropout"], name="self_attn", kv_len=kv_len,
+        )
+        x = _post_process(x, attn, cfg["residual_dropout"])
+        ffn = positionwise_ffn(x, cfg["d_inner"], cfg["d_model"], cfg["relu_dropout"])
+        return _post_process(x, ffn, cfg["residual_dropout"])
+
+
+def decoder_layer(x, enc_out, self_mask, cross_mask, cfg, name, cache=None,
+                  self_causal=False, cross_kv_len=None):
+    with name_scope(name):
+        attn = multi_head_attention(
+            x, x, x, cfg["d_model"], cfg["num_heads"], mask=self_mask,
+            dropout_rate=cfg["attn_dropout"], cache=cache, name="self_attn",
+            causal=self_causal,
+        )
+        x = _post_process(x, attn, cfg["residual_dropout"])
+        cross = multi_head_attention(
+            x, enc_out, enc_out, cfg["d_model"], cfg["num_heads"], mask=cross_mask,
+            dropout_rate=cfg["attn_dropout"], name="cross_attn",
+            kv_len=cross_kv_len,
+        )
+        x = _post_process(x, cross, cfg["residual_dropout"])
+        ffn = positionwise_ffn(x, cfg["d_inner"], cfg["d_model"], cfg["relu_dropout"])
+        return _post_process(x, ffn, cfg["residual_dropout"])
+
+
+def _pad_mask(pad_flags):
+    """[B, T] bool (True = padding) → additive [B, 1, 1, T]."""
+    return torch.where(pad_flags, -torch.inf, 0.0).float()[:, None, None, :]
+
+
+def _structural_masking() -> bool:
+    """With the flash flag on, padding travels as per-row kv_len bounds and
+    causality as the kernel's block structure — no additive [T, T] masks.
+    Valid because padding is a SUFFIX and the loss zero-weights pad
+    positions: pad QUERIES may compute values that never reach the loss,
+    while pad KEYS are excluded for every valid query."""
+    from paddle_tpu_torch.core import config as _cfg
+
+    return _cfg.flags().use_flash_attention
+
+
+def _lens(pad_flags):
+    return (~pad_flags).sum(1).to(torch.int32)
+
+
+def _on_device(x):
+    return torch.as_tensor(x, device=framework.current_device())
+
+
+def encode(src_ids, src_pad, cfg):
+    src_ids, src_pad = _on_device(src_ids), _on_device(src_pad)
+    structural = _structural_masking()
+    self_mask = None if structural else _pad_mask(src_pad)
+    src_len = _lens(src_pad) if structural else None
+    x = prepare_embedding(
+        src_ids, cfg["src_vocab"], cfg["d_model"], cfg["max_len"],
+        cfg["residual_dropout"], name="src_emb",
+    )
+    for i in range(cfg["n_layers"]):
+        x = encoder_layer(x, self_mask, cfg, name=f"enc_layer_{i}", kv_len=src_len)
+    return x
+
+
+def decode(trg_ids, trg_pad, enc_out, src_pad, cfg, caches=None, pos_offset: int = 0):
+    """Decoder logits [B, T, trg_vocab]. ``caches`` (one ``{"k", "v"}`` dict
+    per layer) runs incremental decoding: each layer's self-attention
+    appends this call's k/v to its cache, and the target positions start at
+    ``pos_offset``."""
+    trg_ids, trg_pad, src_pad = _on_device(trg_ids), _on_device(trg_pad), _on_device(src_pad)
+    t = trg_ids.shape[1]
+    structural = _structural_masking() and caches is None
+    if caches is not None or structural:
+        # causal alone suffices for decoder self-attention: pad keys sit at
+        # positions >= len, and every valid query q has q < len <= pad key
+        # positions, so causality already excludes them
+        self_mask = None
+    else:
+        self_mask = (oattn.causal_mask(t, t, device=trg_ids.device)[None, None]
+                     + _pad_mask(trg_pad))
+    cross_mask = None if structural else _pad_mask(src_pad)
+    cross_len = _lens(src_pad) if structural else None
+    x = prepare_embedding(
+        trg_ids, cfg["trg_vocab"], cfg["d_model"], cfg["max_len"],
+        cfg["residual_dropout"], name="trg_emb",
+        pos_offset=pos_offset if caches is not None else 0,
+    )
+    for i in range(cfg["n_layers"]):
+        cache = caches[i] if caches is not None else None
+        x = decoder_layer(
+            x, enc_out, self_mask, cross_mask, cfg, name=f"dec_layer_{i}",
+            cache=cache, self_causal=structural, cross_kv_len=cross_len,
+        )
+    with name_scope("project"):
+        logits = _proj(x, cfg["trg_vocab"], shard_out=True, name="logits", bias=False)
+    return logits
+
+
+def transformer_forward(src_ids, src_pad, trg_ids, trg_pad, labels, label_pad, *, cfg):
+    """Training forward: returns (avg_loss, token_count, logits).
+
+    Loss = label-smoothed softmax CE, averaged over non-pad tokens
+    (reference transformer label_smooth eps=0.1)."""
+    enc_out = encode(src_ids, src_pad, cfg)
+    logits = decode(trg_ids, trg_pad, enc_out, src_pad, cfg)
+    labels, label_pad = _on_device(labels), _on_device(label_pad)
+    smooth = onn.label_smooth(onn.one_hot(labels, cfg["trg_vocab"]), cfg["label_smooth_eps"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_loss = -(smooth * logp).sum(-1)  # [B, T]
+    weight = 1.0 - label_pad.float()
+    n_tok = torch.clamp_min(weight.sum(), 1.0)
+    avg_loss = (tok_loss * weight).sum() / n_tok
+    return avg_loss, n_tok, logits
+
+
+BASE_CFG = dict(
+    src_vocab=10000,
+    trg_vocab=10000,
+    d_model=512,
+    d_inner=2048,
+    num_heads=8,
+    n_layers=6,
+    max_len=256,
+    attn_dropout=0.1,
+    relu_dropout=0.1,
+    residual_dropout=0.1,
+    label_smooth_eps=0.1,
+    scan_layers=False,  # runs as the plain layer loop (identical math)
+)
+
+
+def get_model(seq_len: int = 64, learning_rate: float = 2.0, warmup_steps: int = 8000,
+              device="cuda", **overrides):
+    """The NMT Transformer's spec at ``BASE_CFG`` with ``overrides``: Adam
+    (0.9, 0.98, 1e-9) with Noam decay. ``device`` (default CUDA; raises if
+    CUDA is absent unless ``device="cpu"``) is where ``synth_batch`` puts
+    its tensors: ``(src, src_pad, trg, trg_pad, labels, label_pad)`` with
+    ragged lengths in [seq_len/2, seq_len] as suffix padding."""
+    dev = resolve_device(device)
+    cfg = dict(BASE_CFG)
+    cfg.update({k: v for k, v in overrides.items() if k in cfg})
+
+    model = framework.build(functools.partial(transformer_forward, cfg=cfg), name="transformer")
+
+    def synth_batch(batch_size: int, rng: np.random.RandomState):
+        src = rng.randint(1, cfg["src_vocab"], size=(batch_size, seq_len)).astype(np.int32)
+        trg = rng.randint(1, cfg["trg_vocab"], size=(batch_size, seq_len)).astype(np.int32)
+        labels = rng.randint(1, cfg["trg_vocab"], size=(batch_size, seq_len)).astype(np.int32)
+        lens = rng.randint(seq_len // 2, seq_len + 1, size=(batch_size,))
+        src_pad = np.arange(seq_len)[None, :] >= lens[:, None]
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in (src, src_pad, trg, src_pad.copy(), labels, src_pad.copy()))
+
+    def make_optimizer():
+        return optimizer.Adam(
+            learning_rate=lr_scheduler.NoamDecay(cfg["d_model"], warmup_steps, learning_rate),
+            beta1=0.9, beta2=0.98, epsilon=1e-9,
+        )
+
+    return ModelSpec(
+        name="transformer",
+        model=model,
+        synth_batch=synth_batch,
+        optimizer=make_optimizer,
+        unit="tokens/sec",
+        examples_per_row=seq_len,
+        extra={"cfg": cfg, "seq_len": seq_len, "device": dev},
+    )

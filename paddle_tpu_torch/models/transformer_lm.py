@@ -11,11 +11,13 @@ the forward, and in training the dK/dV and dQ backward kernels). Decode
 steps compose attention against the cache from einsums, as in the JAX
 package.
 
-Not ported yet (they raise ``NotImplementedError``): sequence parallelism
-(``ring_mesh``/``ulysses_mesh``), pipeline parallelism (``pipe_mesh``),
-mixture-of-experts FFNs, rematerialization (``remat``) in training, beam
-search and the paged serving functions. ``scan_layers`` runs as the plain
-layer loop, whose math is identical.
+``remat`` recomputes each layer in the backward pass
+(:func:`~paddle_tpu_torch.framework.checkpoint`, replaying its names and
+dropout masks). Not ported yet (they raise ``NotImplementedError``):
+sequence parallelism (``ring_mesh``/``ulysses_mesh``), pipeline
+parallelism (``pipe_mesh``), mixture-of-experts FFNs, beam search and the
+paged serving functions. ``scan_layers`` runs as the plain layer loop,
+whose math is identical.
 """
 
 from __future__ import annotations
@@ -105,12 +107,6 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     attention masks key positions >= seq_lens[b] and the loss averages only
     positions p < seq_lens[b] - 1."""
     _check_ported(cfg)
-    if cfg.get("remat") and framework.is_training() and not framework.is_initializing():
-        raise NotImplementedError(
-            "transformer_lm cfg['remat']: per-layer rematerialization "
-            "(torch.utils.checkpoint) is not ported to paddle_tpu_torch yet; "
-            "train with remat=False"
-        )
     dev = framework.current_device()
     ids = torch.as_tensor(ids, device=dev)
     labels = torch.as_tensor(labels, device=dev)
@@ -121,8 +117,15 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
         cfg["residual_dropout"], name="emb",
         add_position_encoding=cfg.get("pos_encoding", "sinusoid") != "rope",
     )
+    # remat only matters for the backward pass: init creates the parameters
+    # and an eval apply keeps no activations
+    remat = cfg.get("remat") and framework.is_training() and not framework.is_initializing()
     for i in range(cfg["n_layers"]):
-        x = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
+        if remat:
+            x = framework.checkpoint(functools.partial(
+                lm_block, cfg=cfg, name=f"layer_{i}", kv_len=seq_lens), x)
+        else:
+            x = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
     x = layers.layer_norm(x, begin_norm_axis=x.dim() - 1)
     with name_scope("project"):
         logits = _proj(x, cfg["vocab"], shard_out=True, name="logits", bias=False)

@@ -76,6 +76,7 @@ def scaled_dot_product_attention(
     causal: bool = False,
     kv_len: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention over [..., T, D] tensors. ``mask`` is additive, broadcastable
     to [..., Tq, Tk] (0 keep, -inf drop); ``causal=True`` masks structurally
@@ -84,12 +85,18 @@ def scaled_dot_product_attention(
     ``window`` keys.
 
     Softmax in f32; Q K^T and P V with operands in the compute dtype and f32
-    accumulation. With ``flags().use_flash_attention``, the mask-free 4-D
-    case routes through the flash kernel when the block tiling divides the
+    accumulation (:func:`~paddle_tpu_torch.core.dtypes.f32_bmm`: on the card
+    bf16 operands on the tensor cores, f32 operands in full f32). With
+    ``dropout_rate`` > 0 and not ``is_test``, dropout (``ops.nn.dropout``)
+    masks the softmax weights before the P V product, drawing from
+    ``dropout_generator`` (the JAX package's ``dropout_key``), by default
+    the frame's generator (``framework.next_rng``). With
+    ``flags().use_flash_attention``, the mask-free 4-D case without dropout
+    routes through the flash kernel when the block tiling divides the
     sequence lengths — the JAX package's conditions, verbatim.
     """
     from paddle_tpu_torch.core import config as _cfg
-    from paddle_tpu_torch.core.dtypes import NEG_INF, mxu_operands
+    from paddle_tpu_torch.core.dtypes import NEG_INF, f32_bmm, mxu_operands
     from paddle_tpu_torch.core.enforce import enforce
 
     d = q.shape[-1]
@@ -141,39 +148,51 @@ def scaled_dot_product_attention(
         jpos = torch.arange(t_k, device=q.device)[None, :]
         wmask = torch.where(i - jpos < window, 0.0, -math.inf)
         mask = wmask if mask is None else mask + wmask
-    if dropout_rate > 0.0 and not is_test:
-        raise NotImplementedError(
-            "attention dropout in training mode is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md §A item 3, with the NMT Transformer)"
-        )
-
     out_dtype = q.dtype
     q, k, v = mxu_operands(q, k, v)
+    drop = dropout_rate > 0.0 and not is_test
+
+    def dropped(weights):
+        if not drop:
+            return weights
+        from paddle_tpu_torch.ops.nn import dropout
+
+        return dropout(weights, dropout_rate, is_test=False, generator=dropout_generator)
 
     if q.dim() == 4 and k.dim() == 4 and k.shape[1] != q.shape[1]:
-        # grouped-query attention: grouped einsums keep K/V at H_kv heads
+        # grouped-query attention: each kv head's query group is one batch
+        # entry of the products, so K/V stay at H_kv heads
         b, h, t_q, d_ = q.shape
-        h_kv = k.shape[1]
+        h_kv, t_k = k.shape[1], k.shape[2]
         if h % h_kv:
             raise ValueError(f"GQA: {h} query heads not divisible by {h_kv} kv heads")
         if mask is not None and mask.dim() >= 3 and mask.shape[-3] not in (1, h_kv):
             raise ValueError("GQA: per-query-head masks are unsupported; use a "
                              "head-broadcastable mask (head dim 1)")
         g = h // h_kv
-        qg = q.reshape(b, h_kv, g, t_q, d_)
-        logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * scale
+        qg = q.reshape(b * h_kv, g * t_q, d_)
+        kt = k.reshape(b * h_kv, t_k, d_).transpose(1, 2)
+        logits = f32_bmm(qg, kt).reshape(b, h_kv, g, t_q, t_k) * scale
         if mask is not None:
             m = mask.float()
             if m.dim() >= 3:  # insert the group dim after the (1|h_kv) head dim
                 m = m.unsqueeze(-3)
             logits = logits + m
-        weights = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bkgqt,bktd->bkgqd", weights.to(v.dtype).float(), v.float())
-        return out.reshape(b, h, t_q, d_).to(out_dtype)
+        weights = dropped(torch.softmax(logits, dim=-1))
+        out = f32_bmm(weights.to(v.dtype).reshape(b * h_kv, g * t_q, t_k),
+                      v.reshape(b * h_kv, t_k, v.shape[-1]))
+        return out.reshape(b, h, t_q, v.shape[-1]).to(out_dtype)
 
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    def batched(x, lead):  # [..., R, C] broadcast to `lead` -> [N, R, C]
+        return x.expand(*lead, *x.shape[-2:]).reshape(-1, *x.shape[-2:])
+
+    t_q, t_k = q.shape[-2], k.shape[-2]
+    lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+    logits = f32_bmm(batched(q, lead), batched(k, lead).transpose(1, 2))
+    logits = logits.reshape(*lead, t_q, t_k) * scale
     if mask is not None:
         logits = logits + mask.float()
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.matmul(weights.to(v.dtype).float(), v.float())
-    return out.to(out_dtype)
+    weights = dropped(torch.softmax(logits, dim=-1))
+    lead = torch.broadcast_shapes(weights.shape[:-2], v.shape[:-2])
+    out = f32_bmm(batched(weights.to(v.dtype), lead), batched(v, lead))
+    return out.reshape(*lead, t_q, v.shape[-1]).to(out_dtype)

@@ -1,6 +1,7 @@
 """Neural-network ops — the subset of ``paddle_tpu.ops.nn`` the ported slices
 use: conv, pooling and adaptive pooling, batch norm, softmax and losses,
-accuracy, layer norm, embedding lookup and dropout.
+accuracy, layer norm, embedding lookup, dropout, one-hot and label
+smoothing.
 
 Images are NHWC and conv weights HWIO at the API, as in the JAX package
 (``paddle_tpu/ops/nn.py:10,89``); the conv and pooling ops permute to
@@ -26,7 +27,7 @@ from paddle_tpu_torch.core.dtypes import compute_dtype, ieee_f32
 __all__ = [
     "conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
     "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
-    "adaptive_pool2d", "batch_norm_train", "batch_norm_infer",
+    "adaptive_pool2d", "batch_norm_train", "batch_norm_infer", "one_hot", "label_smooth",
 ]
 
 _IntOrPair = Union[int, Sequence[int]]
@@ -293,6 +294,25 @@ def softmax_with_cross_entropy(
 
 def square_error_cost(input, label):
     return torch.square(input.float() - label.float())
+
+
+def one_hot(x, depth: int, dtype="float32"):
+    """Reference ``one_hot_op.cc``: int ids (a trailing 1 dim allowed) →
+    [..., depth] in ``dtype``; ids outside [0, depth) give all-zero rows, as
+    ``jax.nn.one_hot`` does."""
+    from paddle_tpu_torch.core.dtypes import convert
+
+    ids = x.squeeze(-1) if (x.dim() >= 2 and x.shape[-1] == 1) else x
+    ids = torch.as_tensor(ids).long()
+    classes = torch.arange(depth, device=ids.device)
+    return (ids[..., None] == classes).to(convert(dtype))
+
+
+def label_smooth(label, epsilon: float = 0.1):
+    """Reference ``label_smooth_op.cc``: ``(1 - eps) * label + eps / K``
+    over the last (class) axis of K."""
+    k = label.shape[-1]
+    return (1 - epsilon) * label + epsilon / k
 
 
 def accuracy(logits_or_topk, label, k: int = 1):

@@ -181,3 +181,124 @@ def test_split_combine_heads_match_jax():
     th = tattn.split_heads(torch.from_numpy(x), 3)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jattn.split_heads(jnp.asarray(x), 3)))
     np.testing.assert_array_equal(tattn.combine_heads(th).numpy(), x)
+
+
+def _composed_before_r1(q, k, v, mask=None, scale=None):
+    """The composed attention as the port computed it before its products
+    moved to ``f32_bmm``: f32 einsums on f32 copies of the operands."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    if k.shape[1] != q.shape[1]:
+        b, h, t, d = q.shape
+        g = h // k.shape[1]
+        logits = torch.einsum("bkgqd,bktd->bkgqt", q.reshape(b, k.shape[1], g, t, d).float(),
+                              k.float()) * scale
+        if mask is not None:
+            logits = logits + mask.float().unsqueeze(-3)
+        w = torch.softmax(logits, dim=-1)
+        return torch.einsum("bkgqt,bktd->bkgqd", w, v.float()).reshape(b, h, t, -1)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    return torch.matmul(torch.softmax(logits, dim=-1), v.float())
+
+
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+def test_composed_products_unchanged_on_cpu(set_both_flags, h_kv):
+    """The composed products run through ``f32_bmm`` (tensor cores on the
+    card); on the CPU the result and the gradients of q, k and v are the
+    f32 einsums' to f32 rounding."""
+    set_both_flags(use_flash_attention=False)
+    arrays = _qkv(8, 2, 4, h_kv, 16, 8, T_kv=12)
+    mask = np.where(np.random.RandomState(9).rand(2, 1, 16, 12) < 0.2, -np.inf, 0.0).astype(np.float32)
+    mask[..., 0] = 0.0
+    g = torch.from_numpy(np.random.RandomState(10).randn(2, 4, 16, 8).astype(np.float32))
+    outs, grads = [], []
+    for fn in (tattn.scaled_dot_product_attention, _composed_before_r1):
+        qkv = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        out = fn(*qkv, mask=torch.from_numpy(mask))
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, qkv, g))
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=1e-6, atol=1e-6)
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_sdpa_broadcast_leading_dims_match_jax():
+    """Plain (non-GQA) composed attention over 3-D inputs, with k/v
+    broadcast along a leading dim."""
+    rng = np.random.RandomState(11)
+    q = rng.randn(3, 5, 4).astype(np.float32)
+    k, v = rng.randn(1, 6, 4).astype(np.float32), rng.randn(1, 6, 4).astype(np.float32)
+    j, t = _run((q, k, v))
+    np.testing.assert_allclose(t, j, **F32_TOL)
+
+
+# attention dropout's statistics (the two packages' random streams differ):
+# q = k = 0 gives uniform weights 1/T_k over the keys, and v = I (T_k = D)
+# makes each output row the dropped weight row itself, so out * T_k * keep
+# is the keep mask, exactly.
+DROP_B, DROP_H, DROP_T, DROP_RATE = 4, 4, 64, 0.1
+
+
+@pytest.mark.parametrize("h_kv", [DROP_H, 1], ids=["mha", "mqa"])
+def test_attention_dropout_keep_rate(set_both_flags, flash_calls, h_kv):
+    set_both_flags(use_flash_attention=True)
+    q = torch.zeros(DROP_B, DROP_H, DROP_T, DROP_T)
+    k = torch.zeros(DROP_B, h_kv, DROP_T, DROP_T)
+    v = torch.eye(DROP_T).expand(DROP_B, h_kv, DROP_T, DROP_T).contiguous()
+    keep = 1.0 - DROP_RATE
+    gen = torch.Generator().manual_seed(0)
+    out = tattn.scaled_dot_product_attention(q, k, v, dropout_rate=DROP_RATE, is_test=False,
+                                             dropout_generator=gen)
+    mask = out * DROP_T * keep
+    np.testing.assert_allclose(mask.numpy(), np.round(mask.numpy()), atol=1e-5)
+    n = mask.numel()
+    rate = float(mask.sum()) / n
+    assert abs(rate - keep) <= 4 * np.sqrt(keep * (1 - keep) / n), rate
+    assert flash_calls == []  # training-mode dropout composes attention
+    # the same seed draws the same mask; is_test drops nothing
+    again = tattn.scaled_dot_product_attention(q, k, v, dropout_rate=DROP_RATE, is_test=False,
+                                               dropout_generator=torch.Generator().manual_seed(0))
+    assert torch.equal(out, again)
+    plain = tattn.scaled_dot_product_attention(q, k, v, dropout_rate=DROP_RATE, is_test=True)
+    np.testing.assert_allclose(plain.numpy(), 1.0 / DROP_T, rtol=1e-6)
+
+
+def test_attention_dropout_expectation_is_the_undropped_output(set_both_flags):
+    """Over many mask draws the mean output is the undropped output: the
+    total and a random-sign projection of the difference, each within 4
+    sigma of 0 (sigma from the draws' spread)."""
+    set_both_flags(use_flash_attention=False)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(12, 2, 2, 2, 16, 8))
+    ref = tattn.scaled_dot_product_attention(q, k, v)
+    signs = torch.from_numpy(np.random.RandomState(13).choice([-1.0, 1.0], size=ref.shape)
+                             .astype(np.float32))
+    gen = torch.Generator().manual_seed(1)
+    stats = []
+    for _ in range(400):
+        d = tattn.scaled_dot_product_attention(q, k, v, dropout_rate=0.3, is_test=False,
+                                               dropout_generator=gen) - ref
+        stats.append([float(d.sum()), float((d * signs).sum())])
+    stats = np.asarray(stats)
+    z = stats.mean(0) / (stats.std(0, ddof=1) / np.sqrt(len(stats)))
+    assert np.all(np.abs(z) <= 4), z
+
+
+def test_attention_dropout_draws_from_the_frame_generator():
+    """Inside a training apply, attention dropout draws from the apply's
+    ``rng`` (none given: the framework's error), and init draws nothing."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    q = torch.from_numpy(_qkv(14, 1, 2, 2, 8, 4)[0])
+    model = framework.build(lambda x: tattn.scaled_dot_product_attention(
+        x, x, x, dropout_rate=0.5, is_test=not framework.is_training()))
+    params = {"unused": torch.zeros(1)}
+    model.init(0, q, device="cpu")
+    a, _ = model.apply(params, q, is_train=True, rng=torch.Generator().manual_seed(2))
+    b, _ = model.apply(params, q, is_train=True, rng=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b)
+    with pytest.raises(EnforceError, match="rng"):
+        model.apply(params, q, is_train=True)
+    ev, _ = model.apply(params, q)
+    assert torch.equal(ev, tattn.scaled_dot_product_attention(q, q, q))

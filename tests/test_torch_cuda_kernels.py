@@ -25,6 +25,11 @@ relative L2 forward and backward (the backward rounds the cotangent to bf16,
 left at PyTorch's defaults, against the CPU at 1e-5 relative L2 (TF32 would
 give ~1e-3); the fused batch norm against the CPU's plain one at 1e-5
 relative and absolute (the scale gradient sums 1568 terms in f32).
+The sequence models: ``f32_bmm`` as ``f32_matmul`` (bf16 at 1e-2), and in
+f32 with ``allow_tf32`` switched on against the CPU at 1e-5; composed
+attention with dropout off, the small NMT Transformer (flash, f32), the
+stacked LSTM and machine_translation against the CPU (loss 1e-5 relative,
+gradients 1e-4 relative L2), and the beam search token for token.
 """
 
 import importlib
@@ -64,6 +69,9 @@ CASES = [
     ("window", 1, 4, 4, 300, 300, 64, torch.bfloat16, dict(causal=True, window=70)),
     ("kv_len", 3, 2, 2, 256, 256, 64, torch.bfloat16, dict(causal=True, kv_len=[256, 1, 130])),
     ("kv_len_noncausal", 2, 2, 1, 64, 200, 32, torch.bfloat16, dict(kv_len=[3, 199])),
+    # the NMT encoder's path: non-causal, lengths in [T/2, T] on both sides
+    # of the 128-key tile
+    ("kv_len_nmt", 4, 8, 8, 256, 256, 64, torch.bfloat16, dict(kv_len=[128, 129, 200, 256])),
     ("q_off", 1, 2, 2, 64, 192, 64, torch.bfloat16, dict(causal=True, q_off=128)),
     ("d32", 1, 2, 2, 128, 128, 32, torch.bfloat16, dict(causal=True)),
     ("d128", 1, 2, 2, 130, 130, 128, torch.bfloat16, dict(causal=True)),
@@ -437,3 +445,121 @@ def test_batch_norm_fused_on_cuda_matches_plain_cpu(cuda):
         res.append((y, nm, nv, *torch.autograd.grad(y, (xs, ss), dy.to(dev))))
     for a, b in zip(*res):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_f32_bmm_tensor_cores_and_full_f32(cuda):
+    """bf16 operands: tensor cores with an f32 result, forward and backward,
+    against the f32 product of the same values; f32 operands: full f32
+    even with PyTorch's TF32 switch on, against the CPU."""
+    from paddle_tpu_torch.core.dtypes import f32_bmm
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(6, 96, 64, generator=g, device=cuda)
+    b = torch.randn(6, 64, 80, generator=g, device=cuda)
+    dc = torch.randn(6, 96, 80, generator=g, device=cuda)
+    ab, bb = (t.bfloat16().requires_grad_() for t in (a, b))
+    out = f32_bmm(ab, bb)
+    assert out.dtype == torch.float32
+    da, db = torch.autograd.grad(out, (ab, bb), dc)
+    assert da.dtype == db.dtype == torch.bfloat16
+    af, bf = (t.detach().float().requires_grad_() for t in (ab, bb))
+    ref = torch.bmm(af, bf)
+    rda, rdb = torch.autograd.grad(ref, (af, bf), dc)
+    assert _rel_l2(out, ref) <= 1e-2 and _rel_l2(da, rda) <= 1e-2 and _rel_l2(db, rdb) <= 1e-2
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        a32, b32 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out32 = f32_bmm(a32, b32)
+        g32 = torch.autograd.grad(out32, (a32, b32), dc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ac, bc = a.cpu().requires_grad_(), b.cpu().requires_grad_()
+    refc = torch.bmm(ac, bc)
+    gc = torch.autograd.grad(refc, (ac, bc), dc.cpu())
+    assert _rel_l2(out32.cpu(), refc) <= 1e-5
+    assert all(_rel_l2(x.cpu(), y) <= 1e-5 for x, y in zip(g32, gc))
+    with pytest.raises(ValueError, match="3-D"):
+        f32_bmm(a[0], b[0])
+
+
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+def test_composed_attention_on_cuda_matches_cpu(cuda, h_kv):
+    """f32 composed attention (an additive mask, so no flash) on the card
+    against the CPU, with the TF32 switch on: 1e-5 relative L2 on the
+    output and q/k/v gradients."""
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention as sdpa
+
+    q, k, v = _qkv(cuda, 2, 4, h_kv, 64, 32, torch.float32, T_kv=48, seed=3)
+    mask = torch.zeros(2, 1, 64, 48, device=cuda)
+    mask[..., 40:] = -torch.inf
+    g = torch.randn(2, 4, 64, 32, device=cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        res = {}
+        for dev in (cuda, torch.device("cpu")):
+            qkv = [t.to(dev).requires_grad_() for t in (q, k, v)]
+            out = sdpa(*qkv, mask=mask.to(dev))
+            res[dev.type] = (out, *torch.autograd.grad(out, qkv, g.to(dev)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for x, y in zip(res["cuda"], res["cpu"]):
+        assert _rel_l2(x.cpu(), y) <= 1e-5
+
+
+def _model_on(name, dev, **kw):
+    import numpy as np
+
+    from paddle_tpu_torch.models import get_model
+
+    spec = get_model(name, device=dev, **kw)
+    batch = spec.synth_batch(3, np.random.RandomState(0))
+    return spec, batch
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("transformer", dict(seq_len=64, src_vocab=64, trg_vocab=64, d_model=64, d_inner=128,
+                         num_heads=2, n_layers=2, attn_dropout=0.0, relu_dropout=0.0,
+                         residual_dropout=0.0)),
+    ("stacked_dynamic_lstm", dict(vocab_size=50, emb_dim=32, hidden_dim=32, stacked_num=2,
+                                  seq_len=12)),
+    ("machine_translation", dict(vocab_size=50, emb_dim=32, hidden_dim=32, seq_len=12)),
+], ids=["transformer", "stacked_dynamic_lstm", "machine_translation"])
+def test_sequence_model_on_cuda_matches_cpu(cuda, name, kw):
+    """f32, flash on: the card's loss and every gradient against the CPU's
+    (the flash kernels against their plain versions for the Transformer)."""
+    from paddle_tpu_torch.backward import append_backward
+    from paddle_tpu_torch.core.config import flags, set_flags
+
+    saved = flags().use_flash_attention
+    set_flags(use_flash_attention=True)
+    try:
+        spec_c, batch = _model_on(name, "cpu", **kw)
+        params = spec_c.model.init(0, *batch, device="cpu").params
+        loss_c, (g_c, _, _) = append_backward(spec_c.model, *batch)(params)
+        spec_g, batch_g = _model_on(name, cuda, **kw)
+        loss_g, (g_g, _, _) = append_backward(spec_g.model, *batch_g)(
+            {n: p.to(cuda) for n, p in params.items()})
+    finally:
+        set_flags(use_flash_attention=saved)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    norms = {n: float(x.norm()) for n, x in g_c.items()}
+    floor = 1e-2 * max(norms.values())
+    for n, x in g_c.items():
+        assert float((g_g[n].cpu() - x).norm()) / max(norms[n], floor) <= 1e-4, n
+
+
+def test_beam_search_on_cuda_matches_cpu(cuda):
+    from paddle_tpu_torch.models import get_model
+
+    kw = dict(vocab_size=40, emb_dim=32, hidden_dim=32, seq_len=10)
+    spec_c, batch = _model_on("machine_translation", "cpu", **kw)
+    params = spec_c.model.init(0, *batch, device="cpu").params
+    infer = get_model("machine_translation", device="cpu", **kw).extra["make_infer_model"](
+        beam_size=3, max_len=6)
+    (seq_c, sc_c), _ = infer.apply(params, batch[0], batch[1])
+    (seq_g, sc_g), _ = infer.apply({n: p.to(cuda) for n, p in params.items()},
+                                   batch[0].to(cuda), batch[1].to(cuda))
+    assert torch.equal(seq_g.cpu(), seq_c)
+    assert float((sc_g.cpu() - sc_c).abs().max()) <= 1e-4

@@ -227,3 +227,65 @@ def test_params_round_trip_through_numpy():
     bf = convert.params_from_jax({"w": np.asarray(jnp.ones((2, 3), jnp.bfloat16) * 1.5)}, "cpu")
     assert bf["w"].dtype == torch.bfloat16 and float(bf["w"][0, 0]) == 1.5
     assert convert.params_to_numpy(bf)["w"].dtype == np.float32
+
+
+@pytest.mark.parametrize("dropout,flash", [(0.0, True), (0.1, True), (0.1, False)],
+                         ids=["dropout0_flash", "dropout_flash_flag", "dropout_composed"])
+def test_remat_matches_plain_exactly(set_both_flags, monkeypatch, dropout, flash):
+    """cfg remat=True recomputes each layer in the backward pass with the
+    same parameter names and the same dropout masks (the generator is
+    replayed): the loss and every gradient equal the plain model's, bit for
+    bit, with one generator seed. At dropout 0 with flash on, the recompute
+    shows as a second flash call per layer."""
+    import importlib
+
+    from paddle_tpu_torch import backward as tbackward
+
+    tfa = importlib.import_module("paddle_tpu_torch.ops.cuda.flash_attention")
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, "flash_attention", lambda *a, **k: calls.append(1) or real(*a, **k))
+    set_both_flags(use_flash_attention=flash)
+    drops = dict(attn_dropout=dropout, relu_dropout=dropout, residual_dropout=dropout)
+    out, n_calls = {}, {}
+    for remat in (False, True):
+        tspec = tmodels.get_model("transformer_lm", device="cpu", remat=remat, **SMALL, **drops)
+        ids, labels = tspec.synth_batch(2, np.random.RandomState(15))
+        params = tspec.model.init(0, ids, labels, device="cpu").params
+        calls.clear()
+        out[remat] = tbackward.append_backward(
+            tspec.model, ids, labels, rng=torch.Generator().manual_seed(4))(params)
+        n_calls[remat] = len(calls)
+    (l0, (g0, _, _)), (l1, (g1, _, _)) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+    if dropout == 0.0:
+        assert n_calls == {False: SMALL["n_layers"], True: 2 * SMALL["n_layers"]}
+    else:
+        assert n_calls == {False: 0, True: 0}
+        # the masks matter: another seed gives another loss
+        other = tbackward.append_backward(tspec.model, ids, labels,
+                                          rng=torch.Generator().manual_seed(5))(params)[0]
+        assert not torch.equal(other, l1)
+
+
+def test_remat_matches_jax_at_dropout0(set_both_flags):
+    """The remat model's gradients against the JAX package's remat model
+    (dropout 0, f32): rel L2 1e-4 per parameter, floored at 1e-2 of the
+    largest norm for the k biases' rounding noise."""
+    from paddle_tpu import backward as jbackward
+
+    from paddle_tpu_torch import backward as tbackward
+
+    set_both_flags(use_flash_attention=True)
+    jspec, tspec, jvars, tparams, (ids, labels) = _models("base", remat=True)
+    jloss, (jgrads, _, _) = jbackward.append_backward(jspec.model, ids, labels)(jvars.params)
+    tloss, (tgrads, _, _) = tbackward.append_backward(
+        tspec.model, torch.from_numpy(ids), torch.from_numpy(labels))(tparams)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    norms = {n: np.linalg.norm(np.asarray(g)) for n, g in jgrads.items()}
+    floor = 1e-2 * max(norms.values())
+    for n, g in jgrads.items():
+        rel = np.linalg.norm(tgrads[n].numpy() - np.asarray(g)) / max(norms[n], floor)
+        assert rel <= 1e-4, (n, rel)

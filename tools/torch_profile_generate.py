@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port's serving, training and
 trainer slices, on one GPU.
 
-    python3 tools/torch_profile_generate.py [--mode generate|train|trainer|resnet]
+    python3 tools/torch_profile_generate.py [--mode generate|train|trainer|resnet|nmt]
                                             [--prompts 8] [--prompt-len 1024]
                                             [--new-tokens 32] [--batch 64]
                                             [--trace-dir DIR]
@@ -40,6 +40,25 @@ bf16 compute, Momentum, ``--batch`` images, random weights from seed 0):
 
 with the device time by class. The optimizer's share of a step is its own
 phase's busy time.
+
+``--mode nmt``, the NMT Transformer at bench.py's cell (``BASE_CFG``, 32
+sequences of 256 tokens, bf16 compute, flash on, Adam + Noam, random
+weights from seed 0):
+
+  nmt_step          — ``minimize``'s step at the published dropouts (0.1),
+                      drawing from a CUDA generator: attention composes;
+  nmt_step_dropout0 — the same step with every dropout at 0: attention
+                      runs the flash kernels;
+  nmt_eval          — ``Model.apply`` with ``is_train=False`` (flash).
+
+Each also splits the device time by the layer that ran it (``by_layer``):
+composed attention (``ops.attention.scaled_dot_product_attention`` less
+its dropout), projections (``layers.fc``'s product), dropout
+(``ops.nn.dropout``), LayerNorm (``ops.nn.layer_norm``), the flash
+kernels, and other (embeddings, residual adds, the loss, the optimizer).
+A forward kernel belongs to the innermost of those calls that launched
+it; a backward kernel to the call whose forward op created its autograd
+node (the profiler's sequence numbers link the two).
 
 For each phase it prints one JSON line: the wall time without the profiler
 (host clock around work that ends in ``torch.cuda.synchronize()``, the
@@ -113,7 +132,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(fn, name: str, trace_dir) -> dict:
+def _profile(fn, name: str, trace_dir, by_layer: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,6 +149,7 @@ def _profile(fn, name: str, trace_dir) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    layer_ms = _by_layer(prof) if by_layer else None
     if trace_dir:
         prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{name}.json"))
     by_class: dict = {}
@@ -156,7 +176,7 @@ def _profile(fn, name: str, trace_dir) -> dict:
         for kern in getattr(evt, "kernels", ()):
             cls = _op_class(evt)
             by_op[cls] = by_op.get(cls, 0.0) + kern.duration / 1e3
-    return {
+    out = {
         "phase": name,
         "wall_ms": wall_ms,
         "wall_ms_runs": wall_runs,
@@ -168,6 +188,9 @@ def _profile(fn, name: str, trace_dir) -> dict:
         "matmul_kernels": matmul_kernels,
         "top_kernels": [{"ms": ms, "count": n, "name": k} for ms, n, k in rows[:8]],
     }
+    if layer_ms is not None:
+        out["device_ms_by_layer"] = layer_ms
+    return out
 
 
 def _train(spec, rng, args, smi) -> None:
@@ -249,6 +272,113 @@ def _resnet(args, smi) -> None:
         print(json.dumps(line), flush=True)
 
 
+_LAYER_PREFIX = "layer."
+
+
+def _wrap_layers():
+    """Wrap the NMT's layer entry points in profiler ranges named
+    ``layer.<name>``; returns a function that undoes it."""
+    import torch
+
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.ops import attention, nn
+
+    targets = [(attention, "scaled_dot_product_attention", "attention"),
+               (nn, "dropout", "dropout"), (nn, "layer_norm", "layer_norm"),
+               (layers, "f32_matmul", "projection")]
+    saved = []
+    for mod, attr, label in targets:
+        real = getattr(mod, attr)
+
+        def wrapped(*a, _real=real, _label=label, **k):
+            with torch.profiler.record_function(_LAYER_PREFIX + _label):
+                return _real(*a, **k)
+
+        saved.append((mod, attr, real))
+        setattr(mod, attr, wrapped)
+
+    def undo():
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+    return undo
+
+
+def _by_layer(prof) -> dict:
+    """Device ms by layer: each kernel goes to the innermost ``layer.*``
+    range around the op that launched it, or, for a backward kernel, to the
+    range around the forward op whose sequence number its autograd node
+    carries; flash kernels by their names."""
+    events = prof.events()
+
+    def label_of(evt):
+        node = evt
+        while node is not None:
+            if node.name.startswith(_LAYER_PREFIX):
+                return node.name[len(_LAYER_PREFIX):]
+            node = node.cpu_parent
+        return None
+
+    fwd_label = {}
+    for evt in events:
+        seq = getattr(evt, "sequence_nr", -1)
+        if seq >= 0 and not evt.name.startswith("autograd::engine"):
+            label = label_of(evt)
+            if label is not None:
+                fwd_label.setdefault(seq, label)
+    out: dict = {}
+    for evt in events:
+        for kern in getattr(evt, "kernels", ()):
+            name = kern.name.lower()
+            label = "flash" if "flash_" in name else label_of(evt)
+            if label is None:
+                node = evt
+                while node is not None and not node.name.startswith("autograd::engine::evaluate_function"):
+                    node = node.cpu_parent
+                if node is not None:
+                    label = fwd_label.get(getattr(node, "sequence_nr", -1))
+            label = label or "other"
+            out[label] = out.get(label, 0.0) + kern.duration / 1e3
+    return out
+
+
+def _nmt(args, smi) -> None:
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import get_model
+
+    seq_len, batch_size = 256, 32
+    spec = get_model("transformer", seq_len=seq_len, scan_layers=True)
+    spec0 = get_model("transformer", seq_len=seq_len, scan_layers=True, attn_dropout=0.0,
+                      relu_dropout=0.0, residual_dropout=0.0)
+    batch = spec.synth_batch(batch_size, np.random.RandomState(0))
+    variables = spec.model.init(0, *batch)
+    opt = spec.optimizer()
+    opt_state = opt.create_state(variables.params)
+    step, step0 = opt.minimize(spec.model), opt.minimize(spec0.model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def evaluate():
+        with torch.no_grad():
+            return spec.model.apply(variables, *batch)
+
+    phases = (
+        ("nmt_step", lambda: step(variables, opt_state, *batch, rng=gen)),
+        ("nmt_step_dropout0", lambda: step0(variables, opt_state, *batch)),
+        ("nmt_eval", evaluate),
+    )
+    for name, fn in phases:
+        undo = _wrap_layers()
+        try:
+            line = _profile(fn, name, args.trace_dir, by_layer=True)
+        finally:
+            undo()
+        line.update(batch=batch_size, seq_len=seq_len, card=smi)
+        line["tokens_per_s"] = batch_size * seq_len / (line["wall_ms"] / 1e3)
+        print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -256,7 +386,8 @@ def main() -> int:
         print("torch_profile_generate: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("generate", "train", "trainer", "resnet"), default="generate")
+    ap.add_argument("--mode", choices=("generate", "train", "trainer", "resnet", "nmt"),
+                    default="generate")
     ap.add_argument("--batch", type=int, default=64, help="images per ResNet-50 step (--mode resnet)")
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
@@ -278,8 +409,8 @@ def main() -> int:
     print(smi, flush=True)
 
     set_flags(use_flash_attention=True, use_bf16_compute=True)
-    if args.mode == "resnet":
-        _resnet(args, smi)
+    if args.mode in ("resnet", "nmt"):
+        (_resnet if args.mode == "resnet" else _nmt)(args, smi)
         print(smi, flush=True)
         return 0
     spec = get_model("transformer_lm", seq_len=args.prompt_len)
