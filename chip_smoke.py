@@ -104,10 +104,30 @@ Phases, each printing JSON lines:
                row first differs the two candidates' scores are within
                BEAM_TIE_TOL (a near tie); the entry point's result equals
                the card's lockstep result.
- 10. kernels — one line: each kernel with its launches on every path
-               (phases 4-6 and 8), its error and times at the slice shape
-               and at the NMT cases from phase 3; before it, a line with the
-               kernels' earlier times, copied from PERF.md (not measured).
+ 10. serve   — decode serving at BASE_CFG (f32 weights and pages, greedy)
+               through DecodeEngine(max_slots=16, page_size=16,
+               max_context=1024, prefill_chunk=256): (a) 48 requests
+               submitted together (prompt lengths uniform in [16, 768],
+               max_new_tokens in [8, 128], numpy seed 0): generated tokens/s,
+               TTFT and per-token latency p50/p99 from the waterfall, the
+               decode step's ms at full occupancy and its launches, the idle
+               share (the same burst again under torch.profiler),
+               preemptions, peak memory, one step shape, 0 flash launches
+               (the engine composes attention), and 12 requests against
+               generate() with flash off; (b) the burst on a starved pool
+               (3 slots' pages + scratch): preemptions > 0; (c) 16 requests
+               sharing a 512-token prefix, with the prefix cache (hits >= 15
+               x 512 tokens) and without; (d) 8 requests with spec_tokens 4,
+               the target as its own draft: acceptance rate; (e)
+               generate_beam (batch 4, prompts of 257, beam 4, 32 tokens):
+               6 flash-forward launches, flash against composed in lockstep.
+               Tokens of two runs are equal, or first differ at a near tie
+               (SERVE_TIE_TOL); no page leaks after any run.
+ 11. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8 and 10), its error and times at the slice
+               shape and at the NMT cases from phase 3; before it, a line
+               with the kernels' earlier times, copied from PERF.md (not
+               measured).
 The last line is {"ok": true, "device": {...}}. It is printed only when every
 phase passed; the exit code is 0 only then. Without CUDA the script exits 1
 and prints no result.
@@ -141,6 +161,8 @@ CASES = [
     ("window", 8, 8, 8, 1024, 64, "bfloat16", True, 256, False),
     ("kv_len", 8, 8, 8, 1024, 64, "bfloat16", True, None, True),
     ("t192_f32", 2, 8, 8, 192, 64, "float32", True, None, False),
+    # generate_beam's f32 prefill in phase serve (batch 4, 256 tokens)
+    ("beam_prefill", 4, 8, 8, 256, 64, "float32", True, None, False),
     ("d128", 4, 8, 8, 1024, 128, "bfloat16", True, None, False),
     # T not a multiple of the 128-row/128-key tiles (TMA zero fill), and d=32
     # (64-byte swizzle)
@@ -247,6 +269,30 @@ NMT_DROP_DRAWS = 64
 # f32 products summed in another order move a log-prob by ~1e-6
 RNN_BATCH, RNN_STEPS = 32, 8
 BEAM, BEAM_LEN, BEAM_TIE_TOL = 4, 32, 1e-4
+# Decode serving: DecodeEngine over the LM at BASE_CFG, f32 weights and
+# pages, greedy. (a) a burst of 48 requests submitted together, prompt
+# lengths uniform in [16, 768] and max_new_tokens in [8, 128] (numpy seed 0);
+# 12 of them held against generate() with flash off; (b) the same burst on a
+# starved pool of 3 slots' pages + scratch; (c) 16 requests sharing a
+# 512-token prefix, tails of 16-64 tokens, 32 new tokens each; (d) 8 of the
+# requests with spec_tokens 4 and the target as its own draft; (e)
+# generate_beam, batch 4, beam 4, 32 new tokens, prompts of 257 tokens (a
+# 256-position prefill, which the flash tiling divides: one forward launch a
+# layer). Tokens that differ between two runs must differ first at a near
+# tie: the two candidates within SERVE_TIE_TOL in the reference's logits
+# (f32 sums in another order move a logit by ~1e-6).
+SERVE_CONFIG = dict(max_slots=16, page_size=16, max_context=1024, prefill_chunk=256)
+SERVE_REQUESTS, SERVE_CHECKED = 48, 12
+SERVE_PROMPT_LEN, SERVE_NEW_TOKENS = (16, 768), (8, 128)
+SERVE_PREFIX, SERVE_PREFIX_TAIL, SERVE_PREFIX_REQUESTS, SERVE_PREFIX_NEW = 512, (16, 64), 16, 32
+SERVE_SPEC_REQUESTS, SERVE_SPEC_TOKENS = 8, 4
+SERVE_BEAM_BATCH, SERVE_BEAM_PROMPT = 4, 257
+SERVE_TIE_TOL = 1e-4
+SERVE_WAIT_S = 600
+# DecodeEngine counters that must stay 0 on a clean run: the recovery ladder
+# re-prefills a slot whose step raised and still returns the right tokens, so
+# only these show that a step failed on the card
+SERVE_FAULT_COUNTERS = ("step_faults_total", "errors_total", "retries_exhausted_total")
 
 
 def emit(obj) -> None:
@@ -1235,6 +1281,389 @@ def rnn_phase(smi: str):
     return checks
 
 
+def greedy_gap(params, cfg, prompt, ref, got):
+    """Where two greedy continuations of ``prompt`` first differ: (index,
+    the reference's logit of its own token minus its logit of the other's)
+    along the reference's path (CachedDecoder, composed f32); None if equal
+    over their common length."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import transformer_lm as tlm
+
+    from paddle_tpu_torch.core.config import set_flags
+
+    n = min(len(ref), len(got))
+    diff = np.nonzero(np.asarray(ref[:n]) != np.asarray(got[:n]))[0]
+    if not len(diff):
+        return None
+    j = int(diff[0])
+    set_flags(use_flash_attention=False)
+    with torch.no_grad():
+        dec = tlm.CachedDecoder(params, cfg, 1, len(prompt) + j + 1)
+        logits = dec.prefill(torch.as_tensor(prompt[None], device="cuda"))
+        for s in range(j):
+            logits = dec.step(torch.tensor([int(ref[s])], dtype=torch.int32, device="cuda"),
+                              len(prompt) + s)
+    set_flags(use_flash_attention=True)
+    return j, float(logits[0, int(ref[j])] - logits[0, int(got[j])])
+
+
+def serve_burst(params, cfg, reqs, decode_kw, profile=False, **engine_kw):
+    """One DecodeEngine run: ``reqs`` [(prompt, max_new_tokens)] submitted
+    together, launch counts set to 0 just before and read just after.
+    Returns (outputs, stats); the engine is closed and its pages checked for
+    leaks. With ``profile`` the burst runs under torch.profiler (CUDA
+    kernels), for the busy time and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    from paddle_tpu_torch.tracing import waterfall
+
+    engine = DecodeEngine(params, cfg, decode=DecodeConfig(**decode_kw), **engine_kw)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()  # the weights, the pages, earlier phases' leftovers
+        zero_kernel_counts()
+        prof = tprofile(activities=[ProfilerActivity.CUDA]) if profile else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, n) for p, n in reqs]
+        outs = [h.result(timeout=SERVE_WAIT_S) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t_post = time.perf_counter()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        launches = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        docs = [waterfall.doc(h._req.rid) for h in handles]
+        snap = engine.metrics.snapshot()
+        step_p50 = obs_metrics.default_registry().quantile(
+            "serving.decode.step_seconds", 0.5, {"engine": engine.metrics.engine_label})
+        sizes = (engine.decode_step_cache_size(), engine.prefill_cache_size(),
+                 engine.verify_step_cache_size())
+        accept = engine.metrics.spec_accept_rate()
+    finally:
+        unjoined = engine.close(timeout=SERVE_WAIT_S)
+    engine.kv.assert_no_leaks()
+    stats = {"faults": {k: snap[k] for k in SERVE_FAULT_COUNTERS}, "wall_s": wall, "launches": launches, "peak_memory_bytes": peak,
+             "burst_memory_bytes": peak - before, "docs": docs,
+             "metrics": snap, "step_p50_s_histogram": step_p50, "step_sizes": sizes,
+             "spec_accept_rate": accept, "unjoined": unjoined, "no_leaks": True}
+    if prof is not None:
+        try:  # the raw device events: building the profiler's event tree
+            # for the burst's ~10^5 kernels would take ~20 s of host time
+            busy_us = 1e-3 * sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                                 if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
+        except AttributeError:
+            busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                          if "CUDA" in str(getattr(evt, "device_type", ""))
+                          and not getattr(evt, "is_user_annotation", False))
+        stats["busy_ms"] = busy_us / 1e3
+        stats["idle_share"] = 1.0 - busy_us / 1e6 / wall if busy_us else None
+        stats["profiler_post_s"] = time.perf_counter() - t_post
+    return outs, stats
+
+
+def held_against(params, cfg, prompts, refs, outs):
+    """(all equal or near ties, {request: (index, gap)} where they differ)."""
+    gaps = {}
+    for i, (prompt, ref, out) in enumerate(zip(prompts, refs, outs)):
+        g = greedy_gap(params, cfg, prompt, ref, out)
+        if g is not None or len(ref) != len(out):
+            gaps[i] = g if g is not None else (min(len(ref), len(out)), float("inf"))
+    return all(abs(g) <= SERVE_TIE_TOL for _, g in gaps.values()), gaps
+
+
+def beam_flash_lockstep(params, cfg, prompt, beam, max_len):
+    """generate_beam's search with the prefill flash-routed and composed, in
+    lockstep (the decode steps are the same math either way): per step,
+    each row's chosen candidates. At the first step where a row's choice
+    differs, the gap on the composed side's scores between the two
+    candidates at the first differing rank is kept and the row is no longer
+    compared. Returns (flash result, composed result, {row: (step, gap)})."""
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import transformer_lm as tlm
+    from paddle_tpu_torch.ops import control_flow as cf
+
+    B, tp = prompt.shape
+    V = cfg["vocab"]
+    kw = dict(batch_size=B, beam_size=beam)
+    sides = {}
+    with torch.no_grad():
+        for name, flash in (("flash", True), ("composed", False)):
+            set_flags(use_flash_attention=flash)
+            dec = tlm.CachedDecoder(params, cfg, B, tp + max_len)
+            dec.fill(prompt[:, :tp - 1])
+            t = [tp - 1]
+
+            def step_fn(carry, tokens, dec=dec, t=t):
+                dec.k_cache, dec.v_cache = carry["k"].transpose(0, 1), carry["v"].transpose(0, 1)
+                logits = dec.step(tokens, t[0])
+                t[0] += 1
+                return carry, torch.log_softmax(logits.float(), -1)
+
+            carry = {"k": dec.k_cache.transpose(0, 1), "v": dec.v_cache.transpose(0, 1)}
+            sides[name] = [step_fn, cf.beam_init(carry, **kw, bos_id=prompt[:, -1]), [], []]
+        set_flags(use_flash_attention=True)
+        diverged = {}
+        for s in range(max_len):
+            chosen = {}
+            for name, side in sides.items():
+                step_fn, state, toks, ptrs = side
+                state, tok, src_beam, total = cf.beam_step(step_fn, state, **kw, vocab_size=V,
+                                                           eos_id=1)
+                side[1] = state
+                toks.append(tok)
+                ptrs.append(src_beam)
+                chosen[name] = ((src_beam.long() * V + tok.long()).cpu(), total.cpu())
+            (idx_f, _), (idx_c, tot_c) = chosen["flash"], chosen["composed"]
+            for b in range(B):
+                if b in diverged or torch.equal(idx_f[b], idx_c[b]):
+                    continue
+                r = int((idx_f[b] != idx_c[b]).nonzero()[0])
+                a, c = int(idx_c[b, r]), int(idx_f[b, r])
+                diverged[b] = (s, abs(float(tot_c[b, a]) - float(tot_c[b, c])))
+        results = {name: cf.beam_finish(side[1], side[2], side[3], 1) for name, side in sides.items()}
+    return results["flash"], results["composed"], diverged
+
+
+def serve_phase(smi: str):
+    """Phase 10: decode serving at BASE_CFG through DecodeEngine, and
+    generate_beam. Returns its kernel launches by path and its checks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model, transformer_lm as tlm
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    from paddle_tpu_torch.serving.metrics import _percentile
+
+    set_flags(use_flash_attention=True, use_bf16_compute=False, check_nan_inf=False)
+    marks = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the previous lap (the part's host time)."""
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    spec = get_model("transformer_lm")  # BASE_CFG on CUDA
+    cfg = spec.extra["cfg"]
+    params = spec.model.init(0, *spec.synth_batch(1, np.random.RandomState(0))).params
+    setup_s = lap()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.RandomState(0)
+    lens = rng.randint(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, size=SERVE_REQUESTS)
+    mnts = rng.randint(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, size=SERVE_REQUESTS)
+    prompts = [rng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32) for n in lens]
+    reqs = [(p, int(n)) for p, n in zip(prompts, mnts)]
+    checks, paths = {}, {}
+
+    # (a) the mixed burst, then the same burst under the profiler
+    outs_a, a = serve_burst(params, cfg, reqs, SERVE_CONFIG)
+    outs_prof, a_prof = serve_burst(params, cfg, reqs, SERVE_CONFIG, profile=True)
+    paths["serve"] = a["launches"]
+    toks_a = [o.tokens for o in outs_a]
+    # the profiled run batches the requests as its own timing falls, so its
+    # steps may sum in another order: held to the near-tie rule too
+    ok_prof, gaps_prof = held_against(params, cfg, prompts, toks_a, [o.tokens for o in outs_prof])
+    set_flags(use_flash_attention=False)
+    refs = [tlm.generate(params, torch.as_tensor(p[None], device="cuda"), n, cfg)[0].cpu().numpy()
+            for p, n in reqs[:SERVE_CHECKED]]
+    set_flags(use_flash_attention=True)
+    ok_a, gaps_a = held_against(params, cfg, prompts, refs, toks_a[:SERVE_CHECKED])
+    ttft = sorted(d["ttft_s"] for d in a["docs"])
+    tpot = sorted(x for d in a["docs"] for x in d["tpot_s"])
+    generated = sum(len(t) for t in toks_a)
+    # one decode step at full occupancy, as the engine runs it: inputs to
+    # the card, the step, the sampled tokens back (host clock + sync)
+    engine = DecodeEngine(params, cfg, decode=DecodeConfig(**SERVE_CONFIG))
+    try:
+        S, P = SERVE_CONFIG["max_slots"], SERVE_CONFIG["max_context"] // SERVE_CONFIG["page_size"]
+        tables = (1 + np.arange(S * P, dtype=np.int32)).reshape(S, P)
+        positions = np.full((S,), SERVE_CONFIG["max_context"] * 11 // 16, np.int32)
+        tokens = rng.randint(1, cfg["vocab"], size=(S,)).astype(np.int32)
+
+        def one_step():
+            with torch.no_grad():
+                nxt = engine._step_call(engine._model, engine._dev(tokens), engine._dev(positions),
+                                        engine._dev(tables), engine._k_pages, engine._v_pages)
+                return nxt.cpu()
+
+        step_ms = best_step_ms(one_step, runs=21)
+        step_launches, step_gemms = profiled_gemms(one_step)
+    finally:
+        engine.close(timeout=SERVE_WAIT_S)
+    engine.kv.assert_no_leaks()
+    checks.update({
+        "a_tokens_equal_generate_or_near_tie": ok_a,
+        "a_decode_step_one_shape": a["step_sizes"][0] == 1,
+        "a_flash_launches_0": a["launches"]["flash_fwd"] == 0,
+        "a_all_finished": all(o.finish_reason == "length" for o in outs_a),
+        "a_lengths": [len(t) for t in toks_a] == [n for _, n in reqs],
+        "a_profiled_run_equal_or_near_tie": ok_prof,
+        "a_no_leaks": a["no_leaks"] and not a["unjoined"],
+        "a_no_step_faults": not any(a["faults"].values()) and not any(a_prof["faults"].values()),
+    })
+    emit({"phase": "serve", "part": "a_mixed_burst", "setup_s": setup_s, "part_s": lap(),
+          "profiler_post_s": a_prof.get("profiler_post_s"),
+          "model": "transformer_lm", "params": n_params,
+          "config": SERVE_CONFIG, "requests": SERVE_REQUESTS, "dtype": "float32",
+          "prompt_len_mean": float(np.mean(lens)), "new_tokens_mean": float(np.mean(mnts)),
+          "generated_tokens": generated, "wall_s": a["wall_s"],
+          "generated_tokens_per_s": generated / a["wall_s"],
+          "ttft_ms_p50": 1e3 * _percentile(ttft, 50), "ttft_ms_p99": 1e3 * _percentile(ttft, 99),
+          "tpot_ms_p50": 1e3 * _percentile(tpot, 50), "tpot_ms_p99": 1e3 * _percentile(tpot, 99),
+          "decode_step_ms_median": float(np.median(step_ms)), "decode_step_ms_runs": step_ms,
+          "decode_step_ms_p50_engine_histogram": 1e3 * (a["step_p50_s_histogram"] or 0.0),
+          "launches_per_decode_step": step_launches, "decode_step_gemms": step_gemms,
+          "busy_ms_profiled": a_prof.get("busy_ms"), "wall_s_profiled": a_prof["wall_s"],
+          "idle_share": a_prof.get("idle_share"),
+          "faults": a["faults"], "faults_profiled": a_prof["faults"],
+          "preemptions": a["metrics"]["preempted_total"],
+          "steps": a["metrics"]["steps_total"], "prefill_chunks": a["metrics"]["prefill_chunks_total"],
+          "peak_memory_bytes": a["peak_memory_bytes"],
+          "burst_memory_bytes": a["burst_memory_bytes"],
+          "profiled_run_first_differences": {str(i): {"index": j, "gap": g}
+                                             for i, (j, g) in gaps_prof.items()},
+          "decode_step_cache_size": a["step_sizes"][0], "prefill_cache_size": a["step_sizes"][1],
+          "flash_launches": a["launches"]["flash_fwd"],
+          "checked_vs_generate": SERVE_CHECKED,
+          "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_a.items()},
+          "tie_tol": SERVE_TIE_TOL, "card": smi})
+
+    # (b) the same burst on a starved page pool
+    starved = dict(SERVE_CONFIG, num_pages=3 * (SERVE_CONFIG["max_context"]
+                                                // SERVE_CONFIG["page_size"]) + 1)
+    outs_b, b = serve_burst(params, cfg, reqs, starved)
+    ok_b, gaps_b = held_against(params, cfg, prompts, toks_a, [o.tokens for o in outs_b])
+    checks.update({
+        "b_preemptions": b["metrics"]["preempted_total"] > 0,
+        "b_tokens_equal_a_or_near_tie": ok_b,
+        "b_decode_step_one_shape": b["step_sizes"][0] == 1,
+        "b_no_leaks": b["no_leaks"] and not b["unjoined"],
+        "b_no_step_faults": not any(b["faults"].values()),
+    })
+    emit({"phase": "serve", "part": "b_starved_pool", "part_s": lap(), "num_pages": starved["num_pages"],
+          "wall_s": b["wall_s"], "generated_tokens_per_s": generated / b["wall_s"],
+          "preemptions": b["metrics"]["preempted_total"],
+          "resumes": b["metrics"]["resumed_total"], "flash_launches": b["launches"]["flash_fwd"],
+          "faults": b["faults"],
+          "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_b.items()},
+          "card": smi})
+
+    # (c) a shared 512-token prefix: the first request prefills it (and the
+    # tree takes its pages) before the other 15 arrive, with the cache and
+    # without
+    shared = rng.randint(1, cfg["vocab"], size=(SERVE_PREFIX,)).astype(np.int32)
+    tails = rng.randint(SERVE_PREFIX_TAIL[0], SERVE_PREFIX_TAIL[1] + 1, size=SERVE_PREFIX_REQUESTS)
+    pprompts = [np.concatenate([shared, rng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32)])
+                for n in tails]
+    preqs = [(p, SERVE_PREFIX_NEW) for p in pprompts]
+    outs_c, c, walls_c = {}, {}, {}
+    for cached in (True, False):
+        engine = DecodeEngine(params, cfg, decode=DecodeConfig(**SERVE_CONFIG, prefix_cache=cached))
+        try:
+            t0 = time.perf_counter()
+            h0 = engine.submit(*preqs[0])
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while not h0._req.generated and not h0.done():
+                if time.monotonic() > deadline:
+                    raise TimeoutError("serve (c): the first request never prefilled")
+                time.sleep(0.001)
+            handles = [h0] + [engine.submit(p, n) for p, n in preqs[1:]]
+            outs_c[cached] = [h.result(timeout=SERVE_WAIT_S).tokens for h in handles]
+            torch.cuda.synchronize()
+            walls_c[cached] = time.perf_counter() - t0
+            c[cached] = engine.metrics.snapshot()
+        finally:
+            unjoined = engine.close(timeout=SERVE_WAIT_S)
+        engine.kv.assert_no_leaks()
+        side = "cached" if cached else "uncached"
+        checks[f"c_{side}_no_leaks"] = not unjoined
+        checks[f"c_{side}_no_step_faults"] = not any(c[cached][k] for k in SERVE_FAULT_COUNTERS)
+    ok_c, gaps_c = held_against(params, cfg, pprompts, outs_c[False], outs_c[True])
+    checks.update({
+        "c_prefix_hit_tokens": c[True]["prefix_hit_tokens_total"] >= (SERVE_PREFIX_REQUESTS - 1)
+        * SERVE_PREFIX,
+        "c_tokens_equal_uncached_or_near_tie": ok_c,
+    })
+    emit({"phase": "serve", "part": "c_prefix_cache", "part_s": lap(), "prefix": SERVE_PREFIX,
+          "requests": SERVE_PREFIX_REQUESTS, "new_tokens": SERVE_PREFIX_NEW,
+          "prefix_hit_tokens": c[True]["prefix_hit_tokens_total"],
+          "saved_chunks": c[True]["prefix_saved_chunks_total"],
+          "cow_copies": c[True]["cow_copies_total"],
+          "prefill_chunks_cached": c[True]["prefill_chunks_total"],
+          "prefill_chunks_uncached": c[False]["prefill_chunks_total"],
+          "wall_s_cached": walls_c[True], "wall_s_uncached": walls_c[False],
+          "faults": {side: {k: c[cached][k] for k in SERVE_FAULT_COUNTERS}
+                     for side, cached in (("cached", True), ("uncached", False))},
+          "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_c.items()},
+          "card": smi})
+
+    # (d) speculative decoding, the target as its own draft
+    sreqs = reqs[:SERVE_SPEC_REQUESTS]
+    outs_d, d = serve_burst(params, cfg, sreqs, dict(SERVE_CONFIG, spec_tokens=SERVE_SPEC_TOKENS),
+                            draft_variables=params)
+    ok_d, gaps_d = held_against(params, cfg, prompts, toks_a[:SERVE_SPEC_REQUESTS],
+                                [o.tokens for o in outs_d])
+    checks.update({
+        "d_tokens_equal_a_or_near_tie": ok_d,
+        "d_verify_step_one_shape": d["step_sizes"][2] == 1,
+        "d_no_leaks": d["no_leaks"] and not d["unjoined"],
+        "d_no_step_faults": not any(d["faults"].values()),
+    })
+    emit({"phase": "serve", "part": "d_speculative", "part_s": lap(), "requests": SERVE_SPEC_REQUESTS,
+          "spec_tokens": SERVE_SPEC_TOKENS, "acceptance_rate": d["spec_accept_rate"],
+          "verify_steps": d["metrics"]["verify_steps_total"],
+          "tokens_per_verify_step": (d["metrics"]["spec_tokens_total"]
+                                     / max(d["metrics"]["verify_steps_total"], 1)),
+          "wall_s": d["wall_s"], "faults": d["faults"],
+          "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_d.items()},
+          "card": smi})
+
+    # (e) generate_beam, flash prefill
+    bprompt = torch.as_tensor(rng.randint(2, cfg["vocab"], size=(SERVE_BEAM_BATCH, SERVE_BEAM_PROMPT))
+                              .astype(np.int32), device="cuda")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    seqs, scores = tlm.generate_beam(params, bprompt, BEAM_LEN, cfg, beam_size=BEAM)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    paths["generate_beam"] = kernel_launch_counts()
+    (f_seqs, _), (c_seqs, c_scores), diverged = beam_flash_lockstep(params, cfg, bprompt, BEAM, BEAM_LEN)
+    same = [r for r in range(SERVE_BEAM_BATCH) if r not in diverged]
+    # the flash-routed entry point's scores against the composed search's,
+    # on the rows whose beams agree
+    scores_diff = float((scores[same] - c_scores[same]).abs().max()) if same else None
+    checks.update({
+        "e_flash_launches_eq_n_layers": paths["generate_beam"]["flash_fwd"] == cfg["n_layers"],
+        "e_entry_point_equals_lockstep": torch.equal(seqs, f_seqs),
+        "e_flash_equals_composed_or_near_tie": (
+            torch.equal(f_seqs[same], c_seqs[same])
+            and all(g < BEAM_TIE_TOL for _, g in diverged.values())),
+        "e_shape": tuple(seqs.shape) == (SERVE_BEAM_BATCH, BEAM, BEAM_LEN),
+        "e_scores_equal_rows_within_tol": scores_diff is None or scores_diff <= BEAM_TIE_TOL,
+    })
+    emit({"phase": "serve", "part": "e_generate_beam", "part_s": lap(), "batch": SERVE_BEAM_BATCH,
+          "prompt_len": SERVE_BEAM_PROMPT, "beam": BEAM, "new_tokens": BEAM_LEN,
+          "flash_launches": paths["generate_beam"]["flash_fwd"], "seconds": beam_s,
+          "rows_equal": len(same),
+          "diverged": {str(r): {"step": st, "gap": g} for r, (st, g) in diverged.items()},
+          "scores_max_abs_diff_equal_rows": scores_diff,
+          "tie_tol": BEAM_TIE_TOL, "card": smi})
+    emit({"phase": "serve", "seconds": marks[-1] - marks[0], "checks": checks})
+    set_flags(use_bf16_compute=True)
+    return paths, checks
+
+
 def main() -> int:
     import torch
 
@@ -1580,9 +2009,13 @@ def main() -> int:
     rnn_checks = rnn_phase(smi)
     failures += [f"rnn check {k}" for k, good in rnn_checks.items() if not good]
 
-    # 10. kernels
+    # 10. decode serving and generate_beam
+    serve_paths, serve_checks = serve_phase(smi)
+    failures += [f"serve check {k}" for k, good in serve_checks.items() if not good]
+
+    # 11. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths}
+             **nmt_paths, **serve_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

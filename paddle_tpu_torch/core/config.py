@@ -49,6 +49,16 @@ class Flags:
     # host data pipeline: batches the Trainer's prefetcher keeps in flight
     # (reference double_buffer reader, operators/reader/buffered_reader.cc)
     prefetch_depth: int = 2
+    # multi-tenant serving (serving.admission / serving.scheduler):
+    # per-tenant queued-request quota
+    tenant_queue_capacity: int = 64
+    # per-tenant queued-payload byte quota (0 = unlimited)
+    tenant_byte_quota: int = 0
+    # priority class of a request submitted without one
+    tenant_default_class: str = "interactive"
+    # batch-class drain share the scheduler guarantees under interactive
+    # pressure
+    tenant_batch_min_share: float = 0.1
 
     @staticmethod
     def _coerce(value: str, typ):

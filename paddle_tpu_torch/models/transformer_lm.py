@@ -1,23 +1,26 @@
 """Decoder-only causal language model (GPT-style) — port of
 ``paddle_tpu/models/transformer_lm.py``: the training forward
 (:func:`lm_forward`, trained through ``get_model(...).optimizer()``'s
-``minimize``) and static-cache autoregressive decoding (:func:`generate`),
-with the same parameter names, configuration and math.
+``minimize``), static-cache autoregressive decoding (:func:`generate`,
+:func:`generate_beam`) and the paged-cache functions the decode engine
+serves through (:func:`paged_prefill_chunk`, :func:`paged_decode_step`,
+:func:`paged_verify_step`), with the same parameter names, configuration
+and math.
 
 Causal masking is structural: with ``flags().use_flash_attention`` the
-prompt's attention (``lm_forward``, and ``generate``'s prefill, once per
-layer) runs the hand-written flash kernels (``ops/cuda/flash_attention.py``:
-the forward, and in training the dK/dV and dQ backward kernels). Decode
-steps compose attention against the cache from einsums, as in the JAX
-package.
+prompt's attention (``lm_forward``, and the prefill of ``generate`` and
+``generate_beam``, once per layer) runs the hand-written flash kernels
+(``ops/cuda/flash_attention.py``: the forward, and in training the dK/dV
+and dQ backward kernels). Decode steps and the paged functions compose
+attention from einsums, as in the JAX package. The decoders' f32 products
+run in full f32 on the card (``core/dtypes.py::ieee_f32``).
 
 ``remat`` recomputes each layer in the backward pass
 (:func:`~paddle_tpu_torch.framework.checkpoint`, replaying its names and
 dropout masks). Not ported yet (they raise ``NotImplementedError``):
 sequence parallelism (``ring_mesh``/``ulysses_mesh``), pipeline
-parallelism (``pipe_mesh``), mixture-of-experts FFNs, beam search and the
-paged serving functions. ``scan_layers`` runs as the plain layer loop,
-whose math is identical.
+parallelism (``pipe_mesh``) and mixture-of-experts FFNs. ``scan_layers``
+runs as the plain layer loop, whose math is identical.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import framework, layers, optimizer
 from paddle_tpu_torch.core.config import on_device, resolve_device
+from paddle_tpu_torch.core.dtypes import ieee_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import name_scope
 from paddle_tpu_torch.models import ModelSpec
 from paddle_tpu_torch.models.transformer import (
+    _position_table,
     _post_process,
     _proj,
     multi_head_attention,
@@ -48,7 +53,11 @@ from paddle_tpu_torch.ops.attention import (
     scaled_dot_product_attention,
 )
 
-__all__ = ["get_model", "lm_forward", "generate", "CachedDecoder", "BASE_CFG"]
+__all__ = [
+    "get_model", "lm_forward", "generate", "generate_beam", "CachedDecoder", "PagedDecoder",
+    "paged_cache_shape", "paged_prefill_chunk", "paged_decode_step", "paged_verify_step",
+    "BASE_CFG",
+]
 
 
 def _check_ported(cfg: dict) -> None:
@@ -153,9 +162,10 @@ def _decode_ffn_fn(proj, swiglu: bool):
     return ffn
 
 
-def _live_mask(t_max: int, t: int, window, device=None):
+def _live_mask(t_max: int, t, window, device=None):
     """[t_max] bool mask of cache positions a token at position ``t`` may
-    attend: <= t, and within the last ``window`` positions when sliding."""
+    attend: <= t, and within the last ``window`` positions when sliding
+    (``t`` an int, or a tensor of positions [..., 1] for a mask [..., t_max])."""
     pos = torch.arange(t_max, device=device)
     live = pos <= t
     if window is not None:
@@ -163,19 +173,14 @@ def _live_mask(t_max: int, t: int, window, device=None):
     return live
 
 
-class CachedDecoder:
-    """The static k/v-cache decoder behind :func:`generate`.
+class _DecoderOps:
+    """The parameters, position tables and per-layer math shared by the
+    cached decoders (:class:`CachedDecoder`, :class:`PagedDecoder`): the
+    same parameter names and operations as the JAX package's inline copies
+    in ``generate``, ``generate_beam`` and ``_paged_ops``. ``t_max`` is the
+    longest position the tables must cover."""
 
-    Holds the parameters and a cache of ``[L, B, H_kv, t_max, dh]`` keys and
-    values (``cache_dtype``, default f32). :meth:`prefill` runs the full
-    causal pass over the prompt (flash-routed attention, once per layer),
-    fills cache positions [0, Tp) and returns the next-token logits;
-    :meth:`step` decodes one token at position ``t`` against the cache. The
-    JAX package threads an immutable cache through ``lax.scan``; here the
-    cache is updated in place, which saves a copy per token.
-    """
-
-    def __init__(self, params: dict, cfg: dict, batch: int, t_max: int, cache_dtype=None):
+    def __init__(self, params: dict, cfg: dict, t_max: int):
         _check_ported(cfg)
         self.params, self.cfg = params, cfg
         D, H, L = cfg["d_model"], cfg["num_heads"], cfg["n_layers"]
@@ -188,14 +193,11 @@ class CachedDecoder:
         self.rope = cfg.get("pos_encoding", "sinusoid") == "rope"
         dev = params["emb/embedding/word_emb"].device
         self.device = dev
-        self.pe = sinusoid_position_encoding(max(cfg["max_len"], t_max), D, device=dev)
+        n_pos = max(cfg["max_len"], t_max)
+        self.pe = _position_table(n_pos, D, torch.float32, dev)
         if self.rope:
-            self.rope_cos, self.rope_sin = rope_tables(self.dh, max(cfg["max_len"], t_max), device=dev)
+            self.rope_cos, self.rope_sin = rope_tables(self.dh, n_pos, device=dev)
         self.scale = 1.0 / np.sqrt(self.dh)
-        cdt = cache_dtype or torch.float32
-        shape = (L, batch, self.H_kv, t_max, self.dh)
-        self.k_cache = torch.zeros(shape, dtype=cdt, device=dev)
-        self.v_cache = torch.zeros(shape, dtype=cdt, device=dev)
         self.ffn = _decode_ffn_fn(self.proj, cfg.get("ffn_activation", "relu") == "swiglu")
 
     def ln(self, x, pfx):
@@ -206,6 +208,30 @@ class CachedDecoder:
     def proj(self, x, pfx, bias=True):
         out = x @ self.params[f"{pfx}/w"]
         return out + self.params[f"{pfx}/b"] if bias else out
+
+    def logits_of(self, x_last):  # [..., D] -> [..., vocab]
+        return self.ln(x_last, "layer_norm") @ self.params["project/logits/w"]
+
+
+class CachedDecoder(_DecoderOps):
+    """The static k/v-cache decoder behind :func:`generate` and
+    :func:`generate_beam`.
+
+    Holds the parameters and a cache of ``[L, B, H_kv, t_max, dh]`` keys and
+    values (``cache_dtype``, default f32). :meth:`prefill` runs the full
+    causal pass over the prompt (flash-routed attention, once per layer),
+    fills cache positions [0, Tp) and returns the next-token logits;
+    :meth:`step` decodes one token at position ``t`` against the cache. The
+    JAX package threads an immutable cache through ``lax.scan``; here the
+    cache is updated in place, which saves a copy per token.
+    """
+
+    def __init__(self, params: dict, cfg: dict, batch: int, t_max: int, cache_dtype=None):
+        super().__init__(params, cfg, t_max)
+        cdt = cache_dtype or torch.float32
+        shape = (self.L, batch, self.H_kv, t_max, self.dh)
+        self.k_cache = torch.zeros(shape, dtype=cdt, device=self.device)
+        self.v_cache = torch.zeros(shape, dtype=cdt, device=self.device)
 
     def heads(self, x, n):  # [B, T, n*dh] -> [B, n, T, dh]
         return x.reshape(x.shape[0], x.shape[1], n, self.dh).permute(0, 2, 1, 3)
@@ -235,12 +261,9 @@ class CachedDecoder:
         x = self.ln(x + self.proj(ctx, f"{pfx}/out"), f"layer_{i}/layer_norm")
         return self.ln(x + self.ffn(x, i), f"layer_{i}/layer_norm_1")
 
-    def logits_of(self, x_last):  # [B, D] -> [B, vocab]
-        return self.ln(x_last, "layer_norm") @ self.params["project/logits/w"]
-
-    def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+    def fill(self, prompt: torch.Tensor) -> torch.Tensor:
         """Full causal pass over ``prompt`` [B, Tp]; fills the cache at
-        [0, Tp) and returns the logits [B, vocab] for position Tp."""
+        [0, Tp) and returns the last layer's hidden states [B, Tp, D]."""
         tp = prompt.shape[1]
 
         def attend(q, k, v, i):
@@ -251,7 +274,11 @@ class CachedDecoder:
         x = self.embed(prompt, 0)
         for i in range(self.L):
             x = self.block(x, i, attend, pos0=0)
-        return self.logits_of(x[:, -1])
+        return x
+
+    def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+        """:meth:`fill`, then the logits [B, vocab] for position Tp."""
+        return self.logits_of(self.fill(prompt)[:, -1])
 
     def step(self, tok: torch.Tensor, t: int) -> torch.Tensor:
         """One token ``tok`` [B] at position ``t`` against the cache; returns
@@ -295,6 +322,15 @@ def _sample(logits, temperature: float, top_k, top_p, generator):
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def _params_on(variables, dev: torch.device, where: str) -> dict:
+    params = variables.params if hasattr(variables, "params") else variables
+    for name, value in params.items():
+        enforce(on_device(value, dev),
+                f"{where}: parameter {name!r} is on {value.device}, not {dev}")
+    return params
+
+
+
 def generate(
     variables,
     prompt,
@@ -323,13 +359,10 @@ def generate(
         "a silent fixed default would return identical 'samples' every call",
     )
     dev = resolve_device(device)
-    params = variables.params if hasattr(variables, "params") else variables
-    for name, value in params.items():
-        enforce(on_device(value, dev),
-                f"generate: parameter {name!r} is on {value.device}, not {dev}")
+    params = _params_on(variables, dev, "generate")
     prompt = torch.as_tensor(prompt, device=dev)
     B, tp = prompt.shape
-    with torch.no_grad():
+    with torch.no_grad(), ieee_f32():
         dec = CachedDecoder(params, cfg, B, tp + max_new_tokens, cache_dtype)
         tok = _sample(dec.prefill(prompt), temperature, top_k, top_p, generator)
         toks = [tok]
@@ -337,6 +370,247 @@ def generate(
             tok = _sample(dec.step(tok, tp + s), temperature, top_k, top_p, generator)
             toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+def generate_beam(
+    variables,
+    prompt,
+    max_new_tokens: int,
+    cfg: dict,
+    beam_size: int = 4,
+    eos_id: int = 1,
+    length_penalty_alpha: float = 0.0,
+    cache_dtype: Optional[torch.dtype] = None,
+    device="cuda",
+):
+    """Beam-search continuation of ``prompt`` [B, Tp]: returns
+    ``(sequences [B, beam, max_new_tokens], scores [B, beam])`` best-first.
+
+    Built on :func:`~paddle_tpu_torch.ops.control_flow.beam_search` over the
+    same static k/v cache as :func:`generate` (:class:`CachedDecoder`): the
+    prompt minus its last token is prefilled into the cache (one causal,
+    flash-routed attention call per layer, so with
+    ``flags().use_flash_attention`` and a prefill length the flash tiling
+    divides, one flash-forward launch per layer), each row's last prompt
+    token seeds its beams, and every step attends against cache[0..t]. The
+    cache's layer axis moves behind the batch axis, which the search tiles
+    and reorders across beams. ``device`` as in :func:`generate`. The JAX
+    package's ``stacked_params`` (for its layer scan) has no counterpart:
+    ``scan_layers`` runs as the plain layer loop."""
+    from paddle_tpu_torch.ops import control_flow as ocf
+
+    enforce(max_new_tokens >= 1, f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    dev = resolve_device(device)
+    params = _params_on(variables, dev, "generate_beam")
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, tp = prompt.shape
+    enforce(tp >= 1, "generate_beam needs a non-empty prompt")
+    thead = tp - 1
+    with torch.no_grad(), ieee_f32():
+        dec = CachedDecoder(params, cfg, B, tp + max_new_tokens, cache_dtype)
+        if thead > 0:
+            dec.fill(prompt[:, :thead])
+        t = thead
+
+        def step_fn(carry, tokens):
+            # the step writes position t of the beams' caches in place, then
+            # the search gathers the carry into new tensors
+            nonlocal t
+            dec.k_cache, dec.v_cache = carry["k"].transpose(0, 1), carry["v"].transpose(0, 1)
+            logits = dec.step(tokens, t)
+            t += 1
+            return carry, torch.log_softmax(logits.float(), -1)
+
+        return ocf.beam_search(
+            step_fn,
+            {"k": dec.k_cache.transpose(0, 1), "v": dec.v_cache.transpose(0, 1)},
+            batch_size=B,
+            beam_size=beam_size,
+            vocab_size=cfg["vocab"],
+            max_len=max_new_tokens,
+            bos_id=prompt[:, -1],
+            eos_id=eos_id,
+            length_penalty_alpha=length_penalty_alpha,
+        )
+
+
+# ---- paged decode (serving.kv_cache / serving.decode) ---------------------
+#
+# The paged variant of generate()'s cache read/write: K/V live in fixed-size
+# pages ([L, num_pages, H_kv, page_size, dh]) and each sequence maps logical
+# positions to physical pages through an int32 page-table row. Every tensor
+# shape below is a function of static config (slot count, table width, page
+# size), never of which requests are in flight, so continuous batching
+# (admit/evict between steps) keeps one step shape. The JAX package threads
+# the pages through each call functionally; here they are written in place
+# and returned for the same call signature.
+
+
+def paged_cache_shape(cfg: dict, num_pages: int, page_size: int):
+    """Shape of ``k_pages``/``v_pages`` for ``cfg``:
+    ``[L, num_pages, H_kv, page_size, dh]``."""
+    H = cfg["num_heads"]
+    H_kv = cfg.get("num_kv_heads") or H
+    return (cfg["n_layers"], num_pages, H_kv, page_size, cfg["d_model"] // H)
+
+
+class PagedDecoder(_DecoderOps):
+    """The paged-cache decoder behind ``serving.DecodeEngine``: one model's
+    parameters and position tables for pages of ``page_size`` positions
+    and page tables ``table_width`` wide.
+
+    Every entry point takes ``N`` sequences of ``Q`` new tokens at absolute
+    positions ``pos`` [N, Q], writes their K/V into their pages through
+    ``tables`` [N, P] (pre-rotated K under RoPE, as :func:`generate` stores
+    it), gathers each sequence's whole logical context back through its
+    table and attends over it, masked by position (causal, and the sliding
+    window when configured): a prefill chunk is N = 1, Q = C; a decode step
+    Q = 1; a verify block Q = K + 1. Attention composes from einsums, as in
+    the JAX package, which has no paged-attention kernel
+    (``paddle_tpu/models/transformer_lm.py:867-870``). The gather
+    materializes each sequence's ``[H_kv, P * page_size, dh]`` context per
+    layer. Pages may be bf16 (storage); the math is f32."""
+
+    def __init__(self, params: dict, cfg: dict, page_size: int, table_width: int):
+        enforce(not cfg.get("scan_layers"),
+                "paged decode: scan_layers is not supported in the paged path (as in "
+                "the JAX package); use generate() for scan-layers decode")
+        enforce(not cfg.get("moe_experts"),
+                "paged decode: MoE FFNs are not supported in the cached decoders — "
+                "use a dense-FFN config")
+        super().__init__(params, cfg, table_width * page_size)
+        self.page_size = page_size
+        self.t_eff = table_width * page_size
+
+    def run(self, tokens, pos, tables, k_pages, v_pages) -> torch.Tensor:
+        """``tokens``/``pos`` [N, Q], ``tables`` [N, P] → the last layer's
+        hidden states [N, Q, D]; the pages are written in place."""
+        N, Q = pos.shape
+        D, H, H_kv, G, dh = self.D, self.H, self.H_kv, self.G, self.dh
+        tables = tables.long()
+        pos = pos.long()
+        x = self.params["emb/embedding/word_emb"][tokens.long()] * (D ** 0.5)
+        if self.rope:
+            cos, sin = self.rope_cos[pos][:, :, None], self.rope_sin[pos][:, :, None]
+
+            def rot(y):  # [N, Q, n, dh] rotated at each token's own position
+                half = dh // 2
+                y1, y2 = y[..., :half].float(), y[..., half:].float()
+                return torch.cat([y1 * cos - y2 * sin, y1 * sin + y2 * cos], -1).to(y.dtype)
+        else:
+            x = x + self.pe[pos]
+        phys = torch.gather(tables, 1, pos // self.page_size)  # [N, Q]
+        off = pos % self.page_size
+        live = _live_mask(self.t_eff, pos[..., None], self.window, self.device)[:, None, None]
+        cdt = k_pages.dtype
+        for i in range(self.L):
+            pfx = f"layer_{i}/self_attn"
+            q = self.proj(x, f"{pfx}/q").reshape(N, Q, H, dh)
+            k = self.proj(x, f"{pfx}/k").reshape(N, Q, H_kv, dh)
+            v = self.proj(x, f"{pfx}/v").reshape(N, Q, H_kv, dh)
+            if self.rope:
+                q, k = rot(q), rot(k)
+            # advanced indices around a slice: the indexed shape is
+            # [N, Q, H_kv, dh], as NumPy's and JAX's ``.at[...]`` give it
+            k_pages[i][phys, :, off] = k.to(cdt)
+            v_pages[i][phys, :, off] = v.to(cdt)
+            kl = k_pages[i][tables].permute(0, 2, 1, 3, 4).reshape(N, H_kv, self.t_eff, dh)
+            vl = v_pages[i][tables].permute(0, 2, 1, 3, 4).reshape(N, H_kv, self.t_eff, dh)
+            qg = q.permute(0, 2, 1, 3).reshape(N, H_kv, G, Q, dh)
+            s = torch.einsum("nkgqd,nktd->nkgqt", qg, kl.to(q.dtype)) * self.scale
+            s = torch.where(live, s, -1e9)
+            ctx = torch.einsum("nkgqt,nktd->nkgqd", torch.softmax(s, -1), vl.to(q.dtype))
+            ctx = ctx.reshape(N, H, Q, dh).permute(0, 2, 1, 3).reshape(N, Q, D)
+            x = self.ln(x + self.proj(ctx, f"{pfx}/out"), f"layer_{i}/layer_norm")
+            x = self.ln(x + self.ffn(x, i), f"layer_{i}/layer_norm_1")
+        return x
+
+    def prefill_chunk(self, tokens, pos0: int, last_index: int, page_table, k_pages, v_pages):
+        """One sequence's chunk ``tokens`` [C] at positions [pos0, pos0+C)
+        through ``page_table`` [P]: the logits [vocab] at chunk index
+        ``last_index``, clamped into [0, C) as the JAX package's dynamic
+        index clamps it (a chunk before the prompt's last ignores them)."""
+        C = tokens.shape[0]
+        pos = (pos0 + torch.arange(C, device=self.device))[None]
+        x = self.run(tokens[None], pos, page_table[None], k_pages, v_pages)
+        return self.logits_of(x[0, min(max(last_index, 0), C - 1)])
+
+    def decode_step(self, tokens, positions, page_tables, k_pages, v_pages):
+        """``tokens``/``positions`` [S], ``page_tables`` [S, P]: the logits
+        [S, vocab] after each slot's token."""
+        x = self.run(tokens[:, None], positions[:, None], page_tables, k_pages, v_pages)
+        return self.logits_of(x[:, 0])
+
+    def verify_step(self, tokens, positions, page_tables, k_pages, v_pages):
+        """``tokens`` [S, K+1] at positions ``positions[s] .. +K``: the greedy
+        argmax [S, K+1] after each position."""
+        pos = positions.long()[:, None] + torch.arange(tokens.shape[1], device=self.device)
+        x = self.run(tokens, pos, page_tables, k_pages, v_pages)
+        return torch.argmax(self.logits_of(x), -1).to(torch.int32)
+
+
+def _paged_sampling(temperature: float, generator) -> None:
+    enforce(temperature == 0.0 or generator is not None,
+            "paged decode: sampling (temperature > 0) needs an explicit torch.Generator")
+
+
+def paged_prefill_chunk(params, tokens, pos0, last_index, page_table, k_pages, v_pages,
+                        generator: Optional[torch.Generator] = None, *, cfg: dict,
+                        page_size: int, temperature: float = 0.0, top_k=None, top_p=None):
+    """Prefill ONE sequence's chunk into its pages: ``tokens`` [C] int at
+    absolute positions ``[pos0, pos0+C)``, mapped through ``page_table``
+    [P]. Returns ``(next_token, k_pages, v_pages)``: ``next_token`` (0-d
+    int32) is sampled from the logits at chunk index ``last_index`` —
+    meaningful only on the prompt's final chunk; the pages are the ones
+    given, written in place. Queries at padded positions (>= the prompt
+    end) write K/V that decode overwrites before ever attending to them,
+    and their outputs are discarded. Greedy at ``temperature=0``, else
+    sampled from ``generator`` (as :func:`generate`)."""
+    params = params.params if hasattr(params, "params") else params
+    _paged_sampling(temperature, generator)
+    with torch.no_grad(), ieee_f32():
+        dec = PagedDecoder(params, cfg, page_size, page_table.shape[0])
+        logits = dec.prefill_chunk(tokens, int(pos0), int(last_index), page_table, k_pages, v_pages)
+        tok = _sample(logits[None], temperature, top_k, top_p, generator)[0]
+    return tok, k_pages, v_pages
+
+
+def paged_decode_step(params, tokens, positions, page_tables, k_pages, v_pages,
+                      generator: Optional[torch.Generator] = None, *, cfg: dict,
+                      page_size: int, temperature: float = 0.0, top_k=None, top_p=None):
+    """One decode iteration for ``S`` independent sequences against the
+    paged cache: embed ``tokens`` [S] at per-slot absolute ``positions``
+    [S], write each token's K/V into its slot's pages, attend over each
+    slot's gathered context, and sample the next token. Returns
+    ``(next_tokens [S] int32, k_pages, v_pages)``. Shapes depend only on
+    (S, table width, page size, model config); inactive slots point at the
+    scratch page, and their writes and outputs are garbage the engine
+    ignores."""
+    params = params.params if hasattr(params, "params") else params
+    _paged_sampling(temperature, generator)
+    with torch.no_grad(), ieee_f32():
+        dec = PagedDecoder(params, cfg, page_size, page_tables.shape[1])
+        logits = dec.decode_step(tokens, positions, page_tables, k_pages, v_pages)
+        nxt = _sample(logits, temperature, top_k, top_p, generator)
+    return nxt, k_pages, v_pages
+
+
+def paged_verify_step(params, tokens, positions, page_tables, k_pages, v_pages, *,
+                      cfg: dict, page_size: int):
+    """One speculative verify iteration for ``S`` sequences: ``tokens``
+    [S, K+1] holds slot ``s``'s last sampled token followed by its ``K``
+    draft proposals, at positions ``positions[s] .. positions[s]+K``. All
+    K+1 K/V rows are written, the block attends causally over the gathered
+    context, and ``out`` [S, K+1] is the greedy argmax after each position:
+    ``out[s, j]`` is what sequential decode would sample after consuming
+    ``tokens[s, :j+1]``. Returns ``(out, k_pages, v_pages)``. Greedy only.
+    Rejected draft positions need no rollback: their rows sit past the
+    accepted frontier, masked until the next block overwrites them."""
+    params = params.params if hasattr(params, "params") else params
+    with torch.no_grad(), ieee_f32():
+        dec = PagedDecoder(params, cfg, page_size, page_tables.shape[1])
+        out = dec.verify_step(tokens, positions, page_tables, k_pages, v_pages)
+    return out, k_pages, v_pages
 
 
 BASE_CFG = dict(

@@ -30,6 +30,11 @@ f32 with ``allow_tf32`` switched on against the CPU at 1e-5; composed
 attention with dropout off, the small NMT Transformer (flash, f32), the
 stacked LSTM and machine_translation against the CPU (loss 1e-5 relative,
 gradients 1e-4 relative L2), and the beam search token for token.
+Decode serving: the engine's paged decode step on the card against the
+CPU (logits and written pages 1e-4), the engine on the card (starved page
+pool, speculative self-draft) against the card's ``generate()`` token for
+token, and ``generate_beam`` with its flash prefill against the CPU (the
+same beams, scores 1e-4).
 """
 
 import importlib
@@ -561,5 +566,110 @@ def test_beam_search_on_cuda_matches_cpu(cuda):
     (seq_c, sc_c), _ = infer.apply(params, batch[0], batch[1])
     (seq_g, sc_g), _ = infer.apply({n: p.to(cuda) for n, p in params.items()},
                                    batch[0].to(cuda), batch[1].to(cuda))
+    assert torch.equal(seq_g.cpu(), seq_c)
+    assert float((sc_g.cpu() - sc_c).abs().max()) <= 1e-4
+
+
+def _tiny_lm(**extra):
+    import numpy as np
+
+    from paddle_tpu_torch.models import get_model
+
+    # head dim 32: the flash kernel's smallest
+    kw = dict(seq_len=64, vocab=64, d_model=128, d_inner=128, num_heads=4, n_layers=2, **extra)
+    spec = get_model("transformer_lm", device="cpu", **kw)
+    rng = np.random.RandomState(0)
+    params = spec.model.init(0, *spec.synth_batch(2, rng), device="cpu").params
+    return spec.extra["cfg"], params, rng
+
+
+@pytest.mark.parametrize("extra", [{}, dict(num_kv_heads=2, pos_encoding="rope", attention_window=9)],
+                         ids=["base", "gqa_rope_window"])
+def test_paged_decode_step_on_cuda_matches_cpu(cuda, extra):
+    """The decode engine's step (``PagedDecoder.decode_step``, f32 pages,
+    composed attention in full f32) on the card against the same step on
+    the CPU: logits and every written page within 1e-4 (f32 sums in
+    another order through two layers), and the same scratch-page
+    discipline (idle slots at position 0 on page 0)."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import transformer_lm as tlm
+
+    cfg, params, rng = _tiny_lm(**extra)
+    shape = tlm.paged_cache_shape(cfg, 24, 4)
+    g = torch.Generator().manual_seed(0)
+    k, v = torch.randn(*shape, generator=g), torch.randn(*shape, generator=g)
+    tables = torch.from_numpy(np.array([[3, 7, 1, 9, 2, 5], [0] * 6, [13, 14, 15, 16, 17, 18]],
+                                       np.int32))
+    tokens = torch.from_numpy(rng.randint(1, 64, size=(3,)).astype(np.int32))
+    pos = torch.tensor([13, 0, 22], dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        dec = tlm.PagedDecoder({n: p.to(dev) for n, p in params.items()}, cfg, 4, 6)
+        kd, vd = k.to(dev), v.to(dev)
+        with torch.no_grad():
+            logits = dec.decode_step(tokens.to(dev), pos.to(dev), tables.to(dev), kd, vd)
+        outs[str(dev)] = (logits.cpu(), kd.cpu(), vd.cpu())
+    (lc, kc, vc), (lg, kg, vg) = outs["cpu"], outs[str(cuda)]
+    assert float((lg - lc).abs().max()) <= 1e-4
+    live = [p for p in range(1, 24)]  # page 0 takes the idle slot's garbage
+    assert float((kg[:, live] - kc[:, live]).abs().max()) <= 1e-4
+    assert float((vg[:, live] - vc[:, live]).abs().max()) <= 1e-4
+    assert torch.equal(torch.argmax(lg, -1)[[0, 2]], torch.argmax(lc, -1)[[0, 2]])
+
+
+def test_decode_engine_on_cuda_matches_generate(cuda):
+    """The engine on the card (continuous batching through a starved page
+    pool, so requests are preempted and resumed, and speculative
+    self-draft) gives the card's own ``generate()`` tokens."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import transformer_lm as tlm
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg, params, rng = _tiny_lm()
+    params = {n: p.to(cuda) for n, p in params.items()}
+    cases = [(rng.randint(1, 64, size=(tp,)).astype(np.int32), n)
+             for tp, n in ((5, 20), (9, 14), (11, 23), (5, 12))]
+    refs = [tlm.generate(params, torch.from_numpy(p[None]), n, cfg)[0].cpu().numpy()
+            for p, n in cases]
+    for spec in (False, True):
+        engine = DecodeEngine(
+            params, cfg, decode=DecodeConfig(max_slots=3, page_size=4, max_context=40,
+                                             prefill_chunk=8, num_pages=14, spec_tokens=3),
+            draft_variables=params if spec else None)
+        try:
+            assert engine.device.type == "cuda" and engine._k_pages.is_cuda
+            outs = [h.result(timeout=120) for h in [engine.submit(p, n) for p, n in cases]]
+            for ref, out in zip(refs, outs):
+                np.testing.assert_array_equal(out.tokens, ref)
+            assert engine.metrics.snapshot()["preempted_total"] >= 1
+            assert engine.decode_step_cache_size() == 1
+        finally:
+            assert engine.close(timeout=120) == []
+        engine.kv.assert_no_leaks()
+
+
+def test_generate_beam_on_cuda_matches_cpu(cuda):
+    """``generate_beam`` with the flash prefill on the card (one forward
+    launch per layer, f32) against the CPU's plain version: the same
+    beams, scores within 1e-4."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.config import flags, set_flags
+    from paddle_tpu_torch.models import transformer_lm as tlm
+
+    cfg, params, rng = _tiny_lm()
+    prompt = torch.from_numpy(rng.randint(2, 64, size=(2, 33)).astype(np.int32))
+    saved = flags().use_flash_attention
+    set_flags(use_flash_attention=True)
+    try:
+        seq_c, sc_c = tlm.generate_beam(params, prompt, 6, cfg, beam_size=3, device="cpu")
+        before = tfa.FLASH_FWD.launches
+        seq_g, sc_g = tlm.generate_beam({n: p.to(cuda) for n, p in params.items()}, prompt, 6,
+                                        cfg, beam_size=3)
+        assert tfa.FLASH_FWD.launches == before + cfg["n_layers"]
+    finally:
+        set_flags(use_flash_attention=saved)
     assert torch.equal(seq_g.cpu(), seq_c)
     assert float((sc_g.cpu() - sc_c).abs().max()) <= 1e-4

@@ -43,7 +43,11 @@ def test_sources_found():
     assert "tools/torch_time_flash.py" in names
     for module in ("trainer", "executor", "checkpoint", "io", "metrics", "nets", "reader/__init__",
                    "reader/feeder", "dataset/digits", "models/mnist", "resilience/faults",
-                   "observability/runlog", "core/profiler", "core/retry", "core/locks"):
+                   "observability/runlog", "core/profiler", "core/retry", "core/locks",
+                   "concurrency", "observability/metrics", "tracing/waterfall", "serving/__init__",
+                   "serving/kv_cache", "serving/prefix_cache", "serving/scheduler",
+                   "serving/admission", "serving/metrics", "serving/engine", "serving/recovery",
+                   "serving/decode"):
         assert f"paddle_tpu_torch/{module}.py" in names, module
 
 

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port's serving, training and
 trainer slices, on one GPU.
 
-    python3 tools/torch_profile_generate.py [--mode generate|train|trainer|resnet|nmt]
+    python3 tools/torch_profile_generate.py [--mode generate|train|trainer|resnet|nmt|serve]
                                             [--prompts 8] [--prompt-len 1024]
                                             [--new-tokens 32] [--batch 64]
                                             [--trace-dir DIR]
@@ -51,7 +51,25 @@ weights from seed 0):
                       runs the flash kernels;
   nmt_eval          — ``Model.apply`` with ``is_train=False`` (flash).
 
-Each also splits the device time by the layer that ran it (``by_layer``):
+``--mode serve``, decode serving through ``serving.DecodeEngine`` at
+``chip_smoke.py`` phase ``serve``'s configuration (f32 weights and pages,
+greedy; ``max_slots=16, page_size=16, max_context=1024,
+prefill_chunk=256``) and traffic (``--requests`` prompts of lengths uniform
+in [16, 768] with max_new_tokens uniform in [8, 128], numpy seed 0):
+
+  serve_burst       — every request submitted together to one engine, and
+                      all of them waited for: prefill chunks and decode
+                      steps interleaved on the engine's loop thread;
+  serve_decode_step — one decode step at full occupancy (16 slots), as the
+                      engine runs it: the inputs to the card, the step, the
+                      sampled tokens back;
+
+with the device time by kernel class: GEMMs, the page gather and the
+page writes (indexing kernels), softmax, copies (the gathered context's
+permute), other.
+
+Each of ``--mode nmt``'s phases also splits the device time by the layer
+that ran it (``by_layer``):
 composed attention (``ops.attention.scaled_dot_product_attention`` less
 its dropout), projections (``layers.fc``'s product), dropout
 (``ops.nn.dropout``), LayerNorm (``ops.nn.layer_norm``), the flash
@@ -132,7 +150,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(fn, name: str, trace_dir, by_layer: bool = False) -> dict:
+def _serve_classify(name: str) -> str:
+    """Kernel classes of the decode engine's work."""
+    low = name.lower()
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "sm90_", "cublas", "nvjet")):
+        return "gemm"
+    if any(s in low for s in ("index", "gather", "scatter")):
+        return "page_gather"
+    if "softmax" in low:
+        return "softmax"
+    if any(s in low for s in ("copy", "transpose", "permute")):
+        return "copy"
+    return "other"
+
+
+def _profile(fn, name: str, trace_dir, by_layer: bool = False, classify=_classify) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,9 +196,9 @@ def _profile(fn, name: str, trace_dir, by_layer: bool = False) -> dict:
                 or getattr(evt, "is_user_annotation", False)):
             continue
         launches += evt.count
-        cls = _classify(evt.key)
+        cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-        if cls == "matmul":
+        if cls in ("matmul", "gemm"):
             matmul_kernels[evt.key[:120]] = matmul_kernels.get(evt.key[:120], 0) + evt.count
         rows.append((us / 1e3, evt.count, evt.key[:120]))
     rows.sort(reverse=True)
@@ -379,6 +411,63 @@ def _nmt(args, smi) -> None:
         print(json.dumps(line), flush=True)
 
 
+def _serve(args, smi) -> None:
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    set_flags(use_bf16_compute=False)  # the reference serves in f32
+    spec = get_model("transformer_lm")
+    cfg = spec.extra["cfg"]
+    params = spec.model.init(0, *spec.synth_batch(1, np.random.RandomState(0))).params
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 769, size=args.requests)
+    mnts = rng.randint(8, 129, size=args.requests)
+    reqs = [(rng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32), int(m))
+            for n, m in zip(lens, mnts)]
+    dconf = DecodeConfig(max_slots=16, page_size=16, max_context=1024, prefill_chunk=256)
+    engine = DecodeEngine(params, cfg, decode=dconf)
+    S, P = dconf.max_slots, dconf.max_context // dconf.page_size
+    tables = (1 + np.arange(S * P, dtype=np.int32)).reshape(S, P)
+    positions = np.full((S,), dconf.max_context * 11 // 16, np.int32)
+    tokens = rng.randint(1, cfg["vocab"], size=(S,)).astype(np.int32)
+
+    def burst():
+        handles = [engine.submit(p, n) for p, n in reqs]
+        for h in handles:
+            h.result(timeout=600)
+
+    def one_step():
+        with torch.no_grad():
+            return engine._step_call(engine._model, engine._dev(tokens), engine._dev(positions),
+                                     engine._dev(tables), engine._k_pages,
+                                     engine._v_pages).cpu()
+
+    try:
+        before = engine.metrics.snapshot()
+        line = _profile(burst, "serve_burst", args.trace_dir, classify=_serve_classify)
+        after = engine.metrics.snapshot()
+        runs = 1 + WALL_RUNS + 1  # warm-up, timed, profiled
+        generated = int(sum(mnts))
+        line.update(requests=args.requests, generated_tokens=generated,
+                    generated_tokens_per_s=generated / (line["wall_ms"] / 1e3),
+                    decode_steps_per_burst=(after["steps_total"] - before["steps_total"]) / runs,
+                    prefill_chunks_per_burst=(after["prefill_chunks_total"]
+                                              - before["prefill_chunks_total"]) / runs,
+                    preemptions_per_burst=(after["preempted_total"]
+                                           - before["preempted_total"]) / runs, card=smi)
+        print(json.dumps(line), flush=True)
+        line = _profile(one_step, "serve_decode_step", args.trace_dir, classify=_serve_classify)
+        line.update(slots=S, table_width=P, position=int(positions[0]), card=smi)
+        print(json.dumps(line), flush=True)
+    finally:
+        engine.close(timeout=600)
+    engine.kv.assert_no_leaks()
+
+
 def main() -> int:
     import torch
 
@@ -386,8 +475,9 @@ def main() -> int:
         print("torch_profile_generate: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("generate", "train", "trainer", "resnet", "nmt"),
+    ap.add_argument("--mode", choices=("generate", "train", "trainer", "resnet", "nmt", "serve"),
                     default="generate")
+    ap.add_argument("--requests", type=int, default=48, help="requests per burst (--mode serve)")
     ap.add_argument("--batch", type=int, default=64, help="images per ResNet-50 step (--mode resnet)")
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
@@ -409,8 +499,8 @@ def main() -> int:
     print(smi, flush=True)
 
     set_flags(use_flash_attention=True, use_bf16_compute=True)
-    if args.mode in ("resnet", "nmt"):
-        (_resnet if args.mode == "resnet" else _nmt)(args, smi)
+    if args.mode in ("resnet", "nmt", "serve"):
+        {"resnet": _resnet, "nmt": _nmt, "serve": _serve}[args.mode](args, smi)
         print(smi, flush=True)
         return 0
     spec = get_model("transformer_lm", seq_len=args.prompt_len)
