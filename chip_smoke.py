@@ -123,8 +123,43 @@ Phases, each printing JSON lines:
                6 flash-forward launches, flash against composed in lockstep.
                Tokens of two runs are equal, or first differ at a near tie
                (SERVE_TIE_TOL); no page leaks after any run.
- 11. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8 and 10), its error and times at the slice
+ 11. dp      — data parallelism (paddle_tpu_torch.parallel): (a) the LM at
+               BASE_CFG (8 x 1024, flash + bf16, Adam) on one rank of a real
+               NCCL process group (a FileStore in a temporary directory):
+               DataParallel's step against minimize's on the same weights
+               and batch, bit for bit (loss, every parameter, both Adam
+               slots), with and without ZeRO-1, 6 launches of each kernel;
+               step ms (best of 3, in turns with the direct step), the NCCL
+               kernels' device ms (torch.profiler), the gathered logits'
+               bytes, peak memory; (b) two ranks spawned on the one card
+               over gloo (each cuda:0, 4 x 1024 rows), 3 steps plain and
+               with ZeRO-1, against the one-rank run on the same 8 x 1024
+               batch: losses within TRAIN_LOSS_TOL; per parameter, Adam's
+               first moment (a running mean of the reduced gradients)
+               within TRAIN_GRAD_TOL and the update (the distance from the
+               one-rank run's parameters over how far that run moved them)
+               within DP_MOVEMENT_TOL (see dp_agreement), limits that a
+               control, rank 0's rows alone with no reduction, must
+               exceed; the replicas bit-equal, ZeRO-1 bit-equal to plain
+               with half the slot bytes; the ZeRO-1 run saves a sharded
+               checkpoint, sync and async, timed (with several ranks an
+               async save blocks the step for the whole save); (c)
+               ResNet-50 at 64 x 64, batch 8, f32, one step on two gloo
+               ranks (BN statistics over both) against one rank: the loss
+               (CONV_PARITY_LOSS), the new BN statistics and the
+               parameters' movement within CONV_PARITY_* of the card's own
+               spread under a 1e-7 input perturbation; (d) with two or more
+               cards, (b) over NCCL with one rank per card (up to 4) and
+               the all-reduce's device ms, else a line saying it did not
+               run; (e) the LM through Trainer(parallel=True) with
+               CheckpointConfig(sharded=True, async_save=True), 4 batches x
+               2 epochs at one rank: launches, a resumed Trainer bit-equal
+               to the uninterrupted one, sync save seconds and bytes, the
+               seconds an async save blocks the step and its writer's,
+               load seconds, and (b)'s two-rank checkpoint loaded at one
+               rank equal leaf for leaf.
+ 12. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8, 10 and 11), its error and times at the slice
                shape and at the NMT cases from phase 3; before it, a line
                with the kernels' earlier times, copied from PERF.md (not
                measured).
@@ -293,6 +328,23 @@ SERVE_WAIT_S = 600
 # re-prefills a slot whose step raised and still returns the right tokens, so
 # only these show that a step failed on the card
 SERVE_FAULT_COUNTERS = ("step_faults_total", "errors_total", "retries_exhausted_total")
+# Data parallelism (phase dp): DataParallel steps of the LM at BASE_CFG;
+# ResNet-50 at 64 x 64, batch 8, f32 for BN across ranks. At one rank the
+# DP step runs minimize's very operations, so it must equal that step bit
+# for bit (loss, every parameter, both Adam slots), with and without ZeRO-1.
+DP_STEPS = 3
+DP_RESNET_SIZE, DP_RESNET_BATCH = 64, 8
+DP_ONE_RANK_TOL = 0.0
+# Phase dp (b)/(d), per parameter: |p - p_ref|_2 / |p_ref - p_init|_2, the
+# distance of a data-parallel run's parameters from the one-rank run's
+# after DP_STEPS Adam steps, over how far the one-rank run moved them. Adam's
+# first steps move each entry by ~lr x the sign of its gradient, so a
+# near-zero gradient entry whose sign bf16 rounding at another GEMM tiling
+# flips moves 2 lr the other way: sound runs read up to 7.95e-2 (2 ranks)
+# and 0.13 (4 cards) at their worst parameter; the control (rank 0's rows
+# alone, as if the all-reduce did nothing) 0.85 at its median one (PERF.md
+# section 6, PR 9), and it must read above the limit in every run.
+DP_MOVEMENT_TOL = 0.25
 
 
 def emit(obj) -> None:
@@ -1664,6 +1716,507 @@ def serve_phase(smi: str):
     return paths, checks
 
 
+def tree_digest(tree) -> str:
+    """sha256 over the bytes of every tensor leaf of ``tree`` in checkpoint
+    order (and of the int leaves): two ranks' states are bit-equal exactly
+    when their digests are."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch.core import tree as tree_mod
+
+    h = hashlib.sha256()
+    for leaf in tree_mod.leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            h.update(leaf.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(leaf).encode())
+    return h.hexdigest()
+
+
+def dp_agreement(params, moment1, ref, init):
+    """How a data-parallel run's state after DP_STEPS Adam steps stands
+    against the one-rank run's (``ref``: its ``params`` and ``moment1``).
+    - ``moment1``: Adam's first moment, a running mean of the reduced
+      gradients: per parameter |m - m_ref|_2 / max(|m_ref|_2, TRAIN_GRAD_FLOOR
+      x the largest |m_ref|_2), held to TRAIN_GRAD_TOL as phase train holds
+      gradients. It also checks the gradients' scale, which Adam's update
+      does not see.
+    - ``movement``: the update, per parameter |p - p_ref|_2 / |p_ref -
+      p_init|_2, held to DP_MOVEMENT_TOL. The attention k biases are left
+      out: their gradient is zero in exact arithmetic (a constant added to
+      all of a row's scores cancels in the softmax), so Adam moves them by
+      ~lr in the direction of rounding noise in either run.
+    Returns {metric: (worst value, its parameter, the median value)}."""
+    import numpy as np
+
+    def worst(rel):
+        k = max(rel, key=rel.get)
+        return rel[k], k, float(np.median(list(rel.values())))
+
+    def norm(t):
+        return float(t.float().norm())
+
+    kbias = [k for k in ref["params"] if k.endswith("self_attn/k/b")]
+    m_norm = {k: norm(t) for k, t in ref["moment1"].items()}
+    m_floor = TRAIN_GRAD_FLOOR * max(m_norm.values())
+    moved = {k: norm(ref["params"][k] - init[k]) for k in ref["params"] if k not in kbias}
+    return {
+        "moment1": worst({k: norm(moment1[k] - t) / max(m_norm[k], m_floor)
+                          for k, t in ref["moment1"].items()}),
+        "movement": worst({k: norm(params[k] - ref["params"][k]) / moved[k] for k in moved}),
+    }
+
+
+def nccl_kernel_ms(prof) -> dict:
+    """Each NCCL event of a torch.profiler run, by name: its device ms (the
+    kernels; c10d's ``nccl:*`` ranges carry their kernels' time) and its
+    host ms."""
+    out = {}
+    for evt in prof.key_averages():
+        if "nccl" in evt.key.lower():
+            out[evt.key[:80]] = {"device_ms": evt.device_time_total / 1e3,
+                                 "host_ms": evt.cpu_time_total / 1e3, "count": evt.count}
+    return out
+
+
+def dp_lm_rank(rank, work, profile):
+    """One rank of phase dp (b)/(d): DataParallel steps of the LM at
+    BASE_CFG on this rank's rows of the 8 x 1024 batch, plain and with
+    ZeRO-1, from the seeded init; held against the one-rank run's
+    parameters and Adam first moments in ``work/ref.pt``. The ZeRO-1 run
+    saves a sharded checkpoint in ``work/ckpt``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import checkpoint_sharded as cks
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+    from paddle_tpu_torch.parallel import DataParallel
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    spec = get_model("transformer_lm")
+    ids, labels = spec.synth_batch(TRAIN_BATCH, np.random.RandomState(0))
+    v0 = spec.model.init(0, ids, labels)
+    ref = torch.load(os.path.join(work, "ref.pt"), map_location=torch.device("cuda"))
+    out = {"device": str(torch.cuda.current_device())}
+    for zero in (False, True):
+        dp = DataParallel(spec.model, spec.optimizer(), zero_shard_optimizer=zero)
+        v, o = dp.init(0, ids, labels, variables=v0)
+        losses, finite = [], []
+        for kern in kbuild.KERNELS.values():
+            kern.launches = 0
+        for i in range(DP_STEPS):
+            r = dp.step(v, o, ids, labels)
+            v, o = r.variables, r.opt_state
+            losses.append(float(r.loss))
+            finite.append(bool(r.finite))
+            if i == 0:
+                first = {n: k.launches for n, k in kbuild.KERNELS.items()}
+        slot_bytes = sum(t.numel() * t.element_size() for d in o.slots.values() for t in d.values())
+        full = dp.full_state(v, o)[1]  # ZeRO-1's slots gathered whole
+        res = out["zero1" if zero else "plain"] = {
+            "losses": losses, "finite": all(finite), "launches_first_step": first,
+            "rows": int(dp.put_batch(ids, labels)[0].shape[0]),
+            "params_digest": tree_digest(v.params), "state_digest": tree_digest((v, full)),
+            "agreement": dp_agreement(v.params, full.slots["moment1"], ref, v0.params),
+            "slot_bytes": slot_bytes, "n_layers": spec.extra["cfg"]["n_layers"]}
+        del full
+        if zero:
+            # with several ranks an async save is the sync save (the publish
+            # barrier stays on the main thread): both timed here
+            template = dp.state_template(v, o)
+            t0 = time.perf_counter()
+            path = cks.save_sharded(os.path.join(work, "ckpt"), (v, o), step=DP_STEPS,
+                                    template=template)
+            res["sync_save_s"] = time.perf_counter() - t0
+            res["shard_bytes"] = os.path.getsize(os.path.join(path, f"shards_p{rank}.npz"))
+            t0 = time.perf_counter()
+            handle = cks.save_sharded_async(os.path.join(work, "ckpt_async"), (v, o),
+                                            step=DP_STEPS, template=template)
+            res["async_save_blocked_s"] = time.perf_counter() - t0
+            res["async_save_published"] = os.path.isdir(handle.result(timeout=600))
+        elif profile:
+            from torch.profiler import ProfilerActivity, profile as tprofile
+
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dp.step(v, o, ids, labels)
+                torch.cuda.synchronize()
+            out["nccl_ms"] = nccl_kernel_ms(prof)
+        del dp, v, o, r
+    return out
+
+
+def rel_l2_from(a: dict, b: dict, base: dict) -> float:
+    """|a - b|_2 over |b - base|_2, over every tensor of the dicts together
+    (in f64): how far ``a`` is from ``b``, against how far ``b`` moved."""
+    num = sum(float((a[k].double() - b[k].double()).norm()) ** 2 for k in b)
+    den = sum(float((b[k].double() - base[k].double()).norm()) ** 2 for k in b)
+    return (num / den) ** 0.5
+
+
+def dp_resnet_rank(rank, work):
+    """One rank of phase dp (c): one DataParallel step of ResNet-50 (64 x 64,
+    f32) on this rank's 4 rows of the batch of 8, BN statistics over both
+    ranks; the loss, the new BN state and the parameters' movement held
+    against the one-rank step in ``work/resnet_ref.pt``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.parallel import DataParallel
+
+    set_flags(use_bf16_compute=False, check_nan_inf=True)
+    spec = get_model("resnet", dataset="flowers", depth=50, class_dim=1000,
+                     image_size=DP_RESNET_SIZE)
+    x, y = spec.synth_batch(DP_RESNET_BATCH, np.random.RandomState(1))
+    v0 = spec.model.init(0, x, y)
+    ref = torch.load(os.path.join(work, "resnet_ref.pt"), map_location=torch.device("cuda"))
+    dp = DataParallel(spec.model, spec.optimizer())
+    v, o = dp.init(0, x, y, variables=v0)
+    r = dp.step(v, o, x, y)
+    zeros = {k: torch.zeros_like(t) for k, t in ref["state"].items()}
+    return {"loss": float(r.loss), "finite": bool(r.finite),
+            "movement_rel_l2": rel_l2_from(r.variables.params, ref["params"], v0.params),
+            "state_rel_l2": rel_l2_from(r.variables.state, ref["state"], zeros),
+            "state_changed": all(not torch.equal(r.variables.state[k], v0.state[k])
+                                 for k in v0.state),
+            "digest": tree_digest(r.variables)}
+
+
+def dp_reference(work: str):
+    """The one-rank run phase dp (b) and (d) are held against: DP_STEPS of
+    minimize's step of the LM at BASE_CFG on the 8 x 1024 batch from the
+    seeded init; its parameters and Adam first moments go to
+    ``work/ref.pt``. Then the control: the same steps on rank 0's rows
+    alone (what a rank computes when the reduction does nothing), read by
+    ``dp_agreement``. Returns the losses and the control's agreement."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    spec = get_model("transformer_lm")
+    ids, labels = spec.synth_batch(TRAIN_BATCH, np.random.RandomState(0))
+    v0 = spec.model.init(0, ids, labels)
+    opt = spec.optimizer()
+    step, losses = opt.minimize(spec.model), []
+    v, o = v0, opt.create_state(v0.params)
+    for _ in range(DP_STEPS):
+        r = step(v, o, ids, labels)
+        v, o = r.variables, r.opt_state
+        losses.append(float(r.loss))
+    ref = {"params": v.params, "moment1": o.slots["moment1"]}
+    os.makedirs(work, exist_ok=True)
+    torch.save(ref, os.path.join(work, "ref.pt"))
+    half = TRAIN_BATCH // 2
+    v, o = v0, opt.create_state(v0.params)
+    for _ in range(DP_STEPS):
+        r = step(v, o, ids[:half], labels[:half])
+        v, o = r.variables, r.opt_state
+    control = dp_agreement(v.params, o.slots["moment1"], ref, v0.params)
+    del v, o, r, ref, v0
+    torch.cuda.empty_cache()
+    return losses, control
+
+
+def dp_control_exceeds_limits(control: dict) -> bool:
+    """Whether the control run (rank 0's rows, no reduction) reads above
+    both of phase dp's limits on its median parameter: a reduction that
+    did nothing would fail them on most parameters, not on one."""
+    return control["moment1"][2] > TRAIN_GRAD_TOL and control["movement"][2] > DP_MOVEMENT_TOL
+
+
+def dp_held(res: dict, name: str, losses) -> dict:
+    """Phase dp's checks of one rank's run (``dp_lm_rank``) against the
+    one-rank run (``dp_reference``)."""
+    return {
+        f"{name}_losses_within_tol": all(
+            abs(x - y) <= TRAIN_LOSS_TOL for x, y in zip(res["losses"], losses)),
+        f"{name}_moment1_within_tol": res["agreement"]["moment1"][0] <= TRAIN_GRAD_TOL,
+        f"{name}_movement_within_tol": res["agreement"]["movement"][0] <= DP_MOVEMENT_TOL,
+        f"{name}_finite": res["finite"],
+        f"{name}_six_launches_of_each_kernel": all(
+            res["launches_first_step"][k] == res["n_layers"] for k in HOPPER_KERNELS)}
+
+
+def dp_multi_card(smi: str, work: str, losses, control) -> dict:
+    """Phase dp (d): one rank per card over NCCL (up to 4 cards), the LM
+    plain and with ZeRO-1, held as (b) is; the NCCL kernels' device ms of
+    one step. Returns its checks."""
+    import torch
+
+    from paddle_tpu_torch.parallel import launch
+
+    n_cards = min(4, torch.cuda.device_count())
+    ranks = launch.spawn(dp_lm_rank, n_cards, args=(work, True), device="cuda")
+    checks = {}
+    for r_i, res in enumerate(ranks):
+        for name in ("plain", "zero1"):
+            checks.update(dp_held(res[name], f"d_rank{r_i}_{name}", losses))
+    checks["d_replicas_bit_equal"] = len({r["plain"]["params_digest"] for r in ranks}) == 1
+    checks["d_zero1_equals_plain"] = all(
+        r["zero1"]["params_digest"] == r["plain"]["params_digest"] for r in ranks)
+    checks["d_one_rank_per_card"] = len({r["device"] for r in ranks}) == n_cards
+    checks["d_control_exceeds_limits"] = dp_control_exceeds_limits(control)
+    checks["d_async_saves_published"] = all(r["zero1"]["async_save_published"] for r in ranks)
+    emit({"phase": "dp", "part": "d_nccl_multi", "cards": n_cards,
+          "per_rank_batch": TRAIN_BATCH // n_cards, "one_rank_losses": losses, "ranks": ranks,
+          "control": control, "loss_tol": TRAIN_LOSS_TOL, "moment1_tol": TRAIN_GRAD_TOL,
+          "movement_tol": DP_MOVEMENT_TOL, "card": smi})
+    return checks
+
+
+def dp_phase(smi: str):
+    """Phase 11: data parallelism. Returns its kernel launches by path and
+    its checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from paddle_tpu_torch import checkpoint_sharded as cks
+    from paddle_tpu_torch.core import profiler as prof
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+    from paddle_tpu_torch.parallel import DataParallel, launch
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                                          EndStepEvent, Trainer)
+
+    def counts():
+        return {n: k.launches for n, k in kbuild.KERNELS.items()}
+
+    def zero_counts():
+        for kern in kbuild.KERNELS.values():
+            kern.launches = 0
+
+    checks, paths = {}, {}
+    n_layers = None
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    mesh_mod.initialize_distributed(init_method=f"file://{work}/store", num_processes=1,
+                                    process_id=0)
+    try:
+        # (a) one rank over NCCL: DataParallel's step against minimize's
+        set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+        spec = get_model("transformer_lm")  # BASE_CFG, seq_len 1024, on CUDA
+        n_layers = spec.extra["cfg"]["n_layers"]
+        ids, labels = spec.synth_batch(TRAIN_BATCH, np.random.RandomState(0))
+        v0 = spec.model.init(0, ids, labels)
+        opt = spec.optimizer()
+        o0 = opt.create_state(v0.params)
+        direct = opt.minimize(spec.model)
+        ref = direct(v0, o0, ids, labels)
+        a = {}
+        for zero in (False, True):
+            dp = DataParallel(spec.model, spec.optimizer(), zero_shard_optimizer=zero)
+            v, o = dp.init(0, ids, labels, variables=v0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            out = dp.step(v, o, ids, labels)
+            torch.cuda.synchronize()
+            name = "zero1" if zero else "plain"
+            a[name] = {"launches": counts(), "loss": float(out.loss),
+                       "loss_equal": float(out.loss) == float(ref.loss),
+                       "finite": bool(out.finite),
+                       "state_max_abs_diff": state_max_abs_diff(
+                           (out.variables, out.opt_state), (ref.variables, ref.opt_state)),
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            if not zero:
+                paths["dp_step"] = a[name]["launches"]
+                logits = out.outputs[2]
+                a[name]["gathered_logits"] = {"shape": list(logits.shape),
+                                              "bytes": logits.numel() * logits.element_size()}
+                set_flags(check_nan_inf=False)  # timed as bench.py steps
+                dp_ms, direct_ms = [], []
+                for _ in range(3):  # in turns: direct, dp, direct, dp, ...
+                    for fn, acc in ((lambda: direct(v0, o0, ids, labels), direct_ms),
+                                    (lambda: dp.step(v, o, ids, labels), dp_ms)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        acc.append(1e3 * (time.perf_counter() - t0))
+                with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                    dp.step(v, o, ids, labels)
+                    torch.cuda.synchronize()
+                set_flags(check_nan_inf=True)
+                a[name].update(step_ms=min(dp_ms), step_ms_runs=dp_ms, direct_step_ms=min(direct_ms),
+                               direct_step_ms_runs=direct_ms,
+                               dp_minus_direct_ms=min(dp_ms) - min(direct_ms),
+                               nccl_device_ms=nccl_kernel_ms(p))
+            del dp, v, o, out
+        for name, res in a.items():
+            checks[f"a_{name}_bit_equal_to_minimize"] = res["loss_equal"] and \
+                res["state_max_abs_diff"] == DP_ONE_RANK_TOL
+            checks[f"a_{name}_six_launches_of_each_kernel"] = all(
+                res["launches"][k] == n_layers for k in HOPPER_KERNELS)
+            checks[f"a_{name}_finite"] = res["finite"]
+        checks["a_nccl_kernels_ran"] = bool(a["plain"]["nccl_device_ms"])
+        emit({"phase": "dp", "part": "a_one_rank_nccl", "model": "transformer_lm",
+              "batch": TRAIN_BATCH, "seq_len": spec.extra["seq_len"], **a, "card": smi})
+
+        del ref
+        torch.cuda.empty_cache()
+        # (b) two ranks on the one card over gloo
+        b_dir = os.path.join(work, "b")
+        losses, control = dp_reference(b_dir)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(dp_lm_rank, 2, args=(b_dir, False), device="cuda:0", backend="gloo")
+        b_s = time.perf_counter() - t0
+        for r_i, res in enumerate(ranks):
+            for name in ("plain", "zero1"):
+                checks.update(dp_held(res[name], f"b_rank{r_i}_{name}", losses))
+        checks["b_replicas_bit_equal"] = len({r["plain"]["params_digest"] for r in ranks}) == 1
+        checks["b_zero1_equals_plain"] = all(
+            r["zero1"]["params_digest"] == r["plain"]["params_digest"] for r in ranks)
+        checks["b_zero1_slots_halved"] = all(
+            2 * r["zero1"]["slot_bytes"] <= 1.01 * r["plain"]["slot_bytes"] for r in ranks)
+        checks["b_rows_per_rank"] = all(r["plain"]["rows"] == TRAIN_BATCH // 2 for r in ranks)
+        checks["b_control_exceeds_limits"] = dp_control_exceeds_limits(control)
+        checks["b_async_saves_published"] = all(r["zero1"]["async_save_published"] for r in ranks)
+        emit({"phase": "dp", "part": "b_two_ranks_gloo_one_card", "per_rank_batch": TRAIN_BATCH // 2,
+              "one_rank_losses": losses, "ranks": ranks, "control": control, "seconds": b_s,
+              "loss_tol": TRAIN_LOSS_TOL, "moment1_tol": TRAIN_GRAD_TOL,
+              "movement_tol": DP_MOVEMENT_TOL, "card": smi,
+              "note": "gloo carries every collective of this part on CUDA tensors (all_reduce, "
+                      "broadcast, ZeRO-1's all_gather, barrier): it fails where one is refused"})
+
+        # (c) BN across ranks: ResNet-50, 64 x 64, batch 8, f32
+        set_flags(use_bf16_compute=False)
+        rspec = get_model("resnet", dataset="flowers", depth=50, class_dim=1000,
+                          image_size=DP_RESNET_SIZE)
+        x, y = rspec.synth_batch(DP_RESNET_BATCH, np.random.RandomState(1))
+        rv0 = rspec.model.init(0, x, y)
+        ropt = rspec.optimizer()
+        rstep = ropt.minimize(rspec.model)
+        r1 = rstep(rv0, ropt.create_state(rv0.params), x, y)
+        noise = torch.from_numpy(np.random.RandomState(2).randn(*x.shape).astype(np.float32))
+        r2 = rstep(rv0, ropt.create_state(rv0.params), x * (1 + 1e-7 * noise.cuda()), y)
+
+        zeros = {k: torch.zeros_like(t) for k, t in r1.variables.state.items()}
+        spread = {"movement_rel_l2": rel_l2_from(r2.variables.params, r1.variables.params,
+                                                 rv0.params),
+                  "state_rel_l2": rel_l2_from(r2.variables.state, r1.variables.state, zeros)}
+        c_dir = os.path.join(work, "c")
+        os.makedirs(c_dir)
+        torch.save({"params": r1.variables.params, "state": r1.variables.state},
+                   os.path.join(c_dir, "resnet_ref.pt"))
+        c_loss = float(r1.loss)
+        del r1, r2, rv0, rstep, ropt, x, y
+        torch.cuda.empty_cache()
+        cranks = launch.spawn(dp_resnet_rank, 2, args=(c_dir,), device="cuda:0", backend="gloo")
+        c_tol = {k: max(CONV_PARITY_MIN, CONV_PARITY_SPREAD * v) for k, v in spread.items()}
+        for r_i, res in enumerate(cranks):
+            checks[f"c_rank{r_i}_loss"] = abs(res["loss"] - c_loss) / abs(c_loss) <= CONV_PARITY_LOSS
+            checks[f"c_rank{r_i}_params"] = res["movement_rel_l2"] <= c_tol["movement_rel_l2"]
+            checks[f"c_rank{r_i}_bn_state"] = res["state_rel_l2"] <= c_tol["state_rel_l2"]
+            checks[f"c_rank{r_i}_bn_state_changed"] = res["state_changed"] and res["finite"]
+        checks["c_replicas_bit_equal"] = cranks[0]["digest"] == cranks[1]["digest"]
+        emit({"phase": "dp", "part": "c_bn_two_ranks", "model": "resnet50",
+              "image_size": DP_RESNET_SIZE, "batch": DP_RESNET_BATCH, "one_rank_loss": c_loss,
+              "card_spread": spread, "tol": c_tol, "loss_tol": CONV_PARITY_LOSS, "ranks": cranks,
+              "card": smi})
+        set_flags(use_bf16_compute=True)
+
+        # (d) one rank per card over NCCL
+        if torch.cuda.device_count() >= 2:
+            d_dir = os.path.join(work, "d")
+            os.makedirs(d_dir)
+            shutil.copy(os.path.join(b_dir, "ref.pt"), d_dir)
+            checks.update(dp_multi_card(smi, d_dir, losses, control))
+        else:
+            emit({"phase": "dp", "nccl_multi": "not run: 1 device"})
+
+        # (e) the LM through Trainer(parallel=True), sharded + async checkpoints
+        rng = np.random.RandomState(0)
+        batches = [spec.synth_batch(TRAIN_BATCH, rng) for _ in range(TRAINER_BATCHES)]
+        root, copy = os.path.join(work, "e_ckpt"), os.path.join(work, "e_resume")
+
+        def make_trainer(d):
+            return Trainer(lambda: spec.model, spec.optimizer, parallel=True,
+                           checkpoint_config=CheckpointConfig(
+                               d, step_interval=TRAINER_CKPT_STEPS, max_num_checkpoints=2,
+                               sharded=True, async_save=True))
+
+        def handler(ev):
+            if isinstance(ev, BeginStepEvent):
+                marks["counts"] = counts()
+            elif isinstance(ev, EndStepEvent):
+                e_losses.append(ev.metrics)
+                now = counts()
+                per_step.append({n: now[n] - marks["counts"][n] for n in now})
+            elif isinstance(ev, BeginEpochEvent) and ev.epoch == 1:
+                shutil.copytree(root, copy)  # the epoch boundary's checkpoint
+
+        e_losses, per_step, marks = [], [], {}
+        trainer = make_trainer(root)
+        prof.reset_metrics()
+        zero_counts()
+        trainer.train(num_epochs=TRAINER_EPOCHS, event_handler=handler,
+                      reader=lambda: iter(batches))
+        torch.cuda.synchronize()
+        paths["dp_trainer"] = counts()
+        writer_s = prof.histograms().get("checkpoint.async_write_seconds", {})
+        resumed = make_trainer(copy)
+        r_losses = []
+        resumed.train(num_epochs=TRAINER_EPOCHS, reader=lambda: iter(batches),
+                      event_handler=lambda ev: r_losses.append(ev.metrics)
+                      if isinstance(ev, EndStepEvent) else None)
+        resume_diff = state_max_abs_diff((trainer.variables, trainer.opt_state),
+                                         (resumed.variables, resumed.opt_state))
+        load_s = prof.histograms().get("checkpoint.load_seconds", {})
+        tree = (trainer.variables, trainer.opt_state)
+        template = trainer._dp.state_template(*tree)
+        t0 = time.perf_counter()
+        sync_dir = cks.save_sharded(os.path.join(work, "e_sync"), tree, step=99, template=template)
+        sync_s = time.perf_counter() - t0
+        sync_bytes = sum(os.path.getsize(os.path.join(sync_dir, f)) for f in os.listdir(sync_dir))
+        t0 = time.perf_counter()
+        handle = cks.save_sharded_async(os.path.join(work, "e_async"), tree, step=99,
+                                        template=template)
+        blocked_s = time.perf_counter() - t0
+        handle.result(timeout=600)
+        async_write = prof.histograms()["checkpoint.async_write_seconds"]
+        # (b)'s two-rank ZeRO-1 checkpoint at one rank: every leaf whole
+        (bv, bo), manifest = cks.load_sharded(os.path.join(b_dir, "ckpt"),
+                                              (v0, opt.create_state(v0.params)))
+        b_loaded = tree_digest((bv, bo)) == ranks[0]["plain"]["state_digest"]
+        e_checks = {
+            "e_steps": trainer.global_step == TRAINER_BATCHES * TRAINER_EPOCHS,
+            "e_losses_finite": bool(np.isfinite(e_losses).all()),
+            "e_six_launches_of_each_kernel_every_step": len(per_step) == len(e_losses) and all(
+                c[k] == n_layers for c in per_step for k in HOPPER_KERNELS),
+            "e_resumed_losses_equal": r_losses == e_losses[TRAINER_BATCHES:],
+            "e_resumed_state_bit_equal": resume_diff == RESUME_TOL,
+            "e_async_saves_published": writer_s.get("count", 0) >= 2,
+            "e_two_rank_checkpoint_loads_at_one_rank": b_loaded and manifest["num_processes"] == 2,
+        }
+        checks.update(e_checks)
+        emit({"phase": "dp", "part": "e_trainer_sharded_async", "batches": TRAINER_BATCHES,
+              "epochs": TRAINER_EPOCHS, "launches": paths["dp_trainer"],
+              "launches_per_step": per_step, "losses": e_losses,
+              "resumed_losses": r_losses, "resume_max_abs_diff": resume_diff,
+              "sync_save_s": sync_s, "sync_save_bytes": sync_bytes,
+              "async_save_blocked_s": blocked_s, "async_writer_s": async_write.get("max"),
+              "async_writer_s_in_training": writer_s, "load_s": load_s, "card": smi})
+        del trainer, resumed, tree, template, bv, bo, v0, o0
+    finally:
+        mesh_mod.shutdown_distributed()
+        shutil.rmtree(work, ignore_errors=True)
+    return paths, checks
+
+
 def main() -> int:
     import torch
 
@@ -2013,9 +2566,13 @@ def main() -> int:
     serve_paths, serve_checks = serve_phase(smi)
     failures += [f"serve check {k}" for k, good in serve_checks.items() if not good]
 
-    # 11. kernels
+    # 11. data parallelism
+    dp_paths, dp_checks = dp_phase(smi)
+    failures += [f"dp check {k}" for k, good in dp_checks.items() if not good]
+
+    # 12. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths, **serve_paths}
+             **nmt_paths, **serve_paths, **dp_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

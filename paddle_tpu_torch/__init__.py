@@ -15,7 +15,11 @@ training slice — ``Model.init`` → ``spec.optimizer().minimize(spec.model)``
 steps with the flash-attention forward and backward kernels — and the
 trainer slice — ``trainer.Trainer(...).train(num_epochs, event_handler,
 reader)`` through the ``executor.Executor``, with CRC'd checkpoints in the
-JAX package's format and auto-resume, on the LM and the MNIST conv net.
+JAX package's format and auto-resume, on the LM and the MNIST conv net —
+and data parallelism: ``parallel.DataParallel`` and
+``Trainer(parallel=True)`` over ``torch.distributed`` (one rank per card,
+NCCL; gloo on the CPU), ZeRO-1, and sharded/async checkpoints
+(``checkpoint_sharded``) in the JAX package's format.
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401
@@ -34,6 +38,7 @@ from paddle_tpu_torch.framework import (  # noqa: F401
 from paddle_tpu_torch import initializer, layers, models, ops  # noqa: F401
 from paddle_tpu_torch import backward, clip, lr_scheduler, optimizer, regularizer  # noqa: F401
 from paddle_tpu_torch import (  # noqa: F401
-    checkpoint, dataset, executor, io, metrics, nets, observability, reader, resilience, trainer,
+    checkpoint, checkpoint_sharded, dataset, executor, io, metrics, nets, observability, parallel,
+    reader, resilience, trainer, transpiler,
 )
 from paddle_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: F401

@@ -47,9 +47,12 @@ _META = "checkpoint.json"
 
 
 class CheckpointConfig:
-    """Mirrors reference CheckpointConfig (trainer.py:100). The JAX
-    package's sharded layout and asynchronous saves
-    (``checkpoint_sharded.py``) are not ported yet."""
+    """Mirrors reference CheckpointConfig (trainer.py:100). ``sharded``:
+    None picks the sharded layout (:mod:`paddle_tpu_torch.checkpoint_sharded`,
+    one shard file per rank) when the world has more than one rank, this
+    module's single-file layout otherwise; ``async_save`` overlaps the file
+    writing with training (sharded layout only; at one rank only: with
+    several ranks the save is synchronous, see ``save_sharded_async``)."""
 
     def __init__(
         self,
@@ -60,16 +63,25 @@ class CheckpointConfig:
         sharded: Optional[bool] = None,
         async_save: bool = False,
     ):
-        if sharded or async_save:
-            raise NotImplementedError(
-                "CheckpointConfig(sharded=True) / async_save=True: sharded and "
-                "asynchronous checkpoints (checkpoint_sharded.py) are not ported to "
-                "paddle_tpu_torch yet; see ROADMAP.md"
-            )
         self.checkpoint_dir = checkpoint_dir
         self.max_num_checkpoints = max_num_checkpoints
         self.epoch_interval = max(1, epoch_interval)
         self.step_interval = max(1, step_interval)
+        self.sharded = sharded
+        self.async_save = async_save
+        if async_save and sharded is None:
+            # async lives in the sharded module; the single-rank auto
+            # default (unsharded) would silently disable it
+            self.sharded = True
+        if async_save and sharded is False:
+            raise ValueError("async_save=True requires the sharded checkpoint layout")
+
+    def use_sharded(self) -> bool:
+        if self.sharded is not None:
+            return self.sharded
+        from paddle_tpu_torch.parallel.mesh import world_size
+
+        return world_size() > 1
 
 
 def _serial_dir(root: str, serial: int) -> str:

@@ -272,12 +272,17 @@ def _enter(frame: _Frame):
 
 class _Replay:
     """What a block of layer calls reads from its frame when it starts: the
-    name stack, the name counters and the generator's state. Entering it
+    name stack, the name counters, the generator's state and the
+    data-parallel step's group. Entering it
     runs the block again as it first ran (same parameter names, same random
     draws), on whatever thread, and puts the frame back as it was after."""
 
     def __init__(self, frame: _Frame):
+        from paddle_tpu_torch.parallel import context as dp_context
+
         self.frame = frame
+        # the data-parallel step's group, if the block runs inside one
+        self.batch_group = dp_context.active()
         self.name_stack = list(frame.name_stack)
         self.counters = frame.names.snapshot()
         gen = frame.generator
@@ -292,8 +297,10 @@ class _Replay:
         frame.names.restore(self.counters)
         if gen is not None:
             gen.set_state(self.gen_state)
+        from paddle_tpu_torch.parallel import context as dp_context
+
         try:
-            with _enter(frame):
+            with _enter(frame), dp_context.global_batch(self.batch_group):
                 yield
         finally:
             frame.name_stack = stack

@@ -25,6 +25,7 @@ from paddle_tpu_torch.models import ModelSpec
 from paddle_tpu_torch.ops import control_flow as ocf
 from paddle_tpu_torch.ops import rnn as orn
 from paddle_tpu_torch.ops import sequence as oseq
+from paddle_tpu_torch.parallel import context as dp_context
 
 
 def _on_device(*xs):
@@ -140,8 +141,8 @@ def seq_to_seq_net(src_ids, src_lens, trg_ids, labels, trg_lens, *, vocab_size, 
                            vocab_size=vocab_size, emb_dim=emb_dim, hidden_dim=hidden_dim)
     tok_loss = layers.softmax_with_cross_entropy(logits, labels)[..., 0]
     weight = oseq.length_mask(trg_lens, trg_ids.shape[1], torch.float32)
-    n_tok = torch.clamp_min(weight.sum(), 1.0)
-    return (tok_loss * weight).sum() / n_tok, n_tok, logits
+    n_tok = torch.clamp_min(dp_context.global_sum(weight.sum()), 1.0)
+    return dp_context.scale_ratio((tok_loss * weight).sum() / n_tok), n_tok, logits
 
 
 def get_model(

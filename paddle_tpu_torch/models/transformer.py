@@ -35,6 +35,7 @@ from paddle_tpu_torch.framework import ParamAttr, name_scope
 from paddle_tpu_torch.models import ModelSpec
 from paddle_tpu_torch.ops import attention as oattn
 from paddle_tpu_torch.ops import nn as onn
+from paddle_tpu_torch.parallel import context as dp_context
 
 # canonical tensor-parallel mesh axis name (recorded in ParamAttr.sharding)
 TP = "model"
@@ -288,8 +289,9 @@ def transformer_forward(src_ids, src_pad, trg_ids, trg_pad, labels, label_pad, *
     logp = torch.log_softmax(logits.float(), dim=-1)
     tok_loss = -(smooth * logp).sum(-1)  # [B, T]
     weight = 1.0 - label_pad.float()
-    n_tok = torch.clamp_min(weight.sum(), 1.0)
-    avg_loss = (tok_loss * weight).sum() / n_tok
+    # n_tok is the global batch's under DataParallel (parallel/context.py)
+    n_tok = torch.clamp_min(dp_context.global_sum(weight.sum()), 1.0)
+    avg_loss = dp_context.scale_ratio((tok_loss * weight).sum() / n_tok)
     return avg_loss, n_tok, logits
 
 

@@ -52,6 +52,7 @@ from paddle_tpu_torch.ops.attention import (
     rope_tables,
     scaled_dot_product_attention,
 )
+from paddle_tpu_torch.parallel import context as dp_context
 
 __all__ = [
     "get_model", "lm_forward", "generate", "generate_beam", "CachedDecoder", "PagedDecoder",
@@ -142,9 +143,10 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if seq_lens is not None:
         valid = (torch.arange(labels.shape[1], device=dev)[None, :] < seq_lens[:, None] - 1).float()
-        n_tok = torch.clamp_min(valid.sum(), 1.0)
-        return (nll * valid).sum() / n_tok, n_tok, logits
-    n_tok = float(np.prod(labels.shape))
+        # n_tok is the global batch's under DataParallel (parallel/context.py)
+        n_tok = torch.clamp_min(dp_context.global_sum(valid.sum()), 1.0)
+        return dp_context.scale_ratio((nll * valid).sum() / n_tok), n_tok, logits
+    n_tok = dp_context.global_count(float(np.prod(labels.shape)))
     return nll.mean(), n_tok, logits
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import compute_dtype, ieee_f32
+from paddle_tpu_torch.parallel import context as dp_context
 
 __all__ = [
     "conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
@@ -226,6 +227,44 @@ def _batch_norm_stats_fused(x, scale, bias, epsilon):
     return y.movedim(1, -1), mean, var
 
 
+class _GlobalBatchNormStats(torch.autograd.Function):
+    """Training-mode BN whose statistics span the data-parallel group (the
+    JAX package's statistics over the global batch under ``DataParallel``):
+    the per-channel sums, the count and the centred squares are summed over
+    the group, and the backward sums its two gradient terms (Σ dy and
+    Σ dy·x̂) over the group too, as SyncBatchNorm does; the scale's and
+    bias's gradients stay the rank's own (the step averages them)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, epsilon, group):
+        c = x.shape[-1]
+        x2 = x.float().reshape(-1, c)
+        sums = torch.cat([x2.sum(0), x2.new_tensor([x2.shape[0]])])
+        group.all_reduce_(sums)
+        n = sums[c]
+        mean = sums[:c] / n
+        xc = x2 - mean
+        var = group.all_reduce_((xc * xc).sum(0)) / n
+        invstd = torch.rsqrt(var + epsilon)
+        xhat = xc * invstd
+        y = xhat * scale.float() + bias.float()
+        ctx.save_for_backward(xhat, invstd, scale, n)
+        ctx.group, ctx.shape, ctx.dtype = group, x.shape, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.reshape(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, scale, n = ctx.saved_tensors
+        c = xhat.shape[-1]
+        dy2 = dy.float().reshape(-1, c)
+        dbias = dy2.sum(0)
+        dscale = (dy2 * xhat).sum(0)
+        g = ctx.group.all_reduce_(torch.cat([dbias, dscale]))
+        dx = (scale.float() * invstd) * (dy2 - g[:c] / n - xhat * (g[c:] / n))
+        return dx.reshape(ctx.shape).to(ctx.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype), None, None
+
+
 def batch_norm_train(x, scale, bias, moving_mean, moving_var, momentum: float = 0.9,
                      epsilon: float = 1e-5):
     """Training-mode BN over all but the channel (last) axis. Returns
@@ -235,9 +274,15 @@ def batch_norm_train(x, scale, bias, moving_mean, moving_var, momentum: float = 
     variance, ``new = momentum * old + (1 - momentum) * batch``. The
     statistics carry no graph: gradients flow through ``y`` only (through
     the batch statistics inside it, as in the reference). CUDA tensors take
-    :func:`_batch_norm_stats_fused`, CPU tensors the plain composition."""
-    fn = _batch_norm_stats_fused if x.is_cuda else _batch_norm_stats_plain
-    y, mean, var = fn(x, scale, bias, epsilon)
+    :func:`_batch_norm_stats_fused`, CPU tensors the plain composition;
+    inside a data-parallel step the statistics span its group
+    (:class:`_GlobalBatchNormStats`)."""
+    group = dp_context.active()
+    if group is not None:
+        y, mean, var = _GlobalBatchNormStats.apply(x, scale, bias, epsilon, group)
+    else:
+        fn = _batch_norm_stats_fused if x.is_cuda else _batch_norm_stats_plain
+        y, mean, var = fn(x, scale, bias, epsilon)
     with torch.no_grad():
         mean, var = mean.detach(), var.detach()
         new_mean = momentum * moving_mean + (1 - momentum) * mean

@@ -74,8 +74,26 @@ def all_finite(grads, loss: Optional[torch.Tensor] = None) -> torch.Tensor:
     return torch.isfinite(total)
 
 
+def _pmean(loss, grads, new_state, state, outputs, axis_name: str):
+    """The pmap form's reductions: the mean over ``axis_name`` of every
+    gradient, of the loss and of each state entry the step changed."""
+    from paddle_tpu_torch.parallel import collective
+
+    with torch.no_grad():
+        grads = {k: collective.all_reduce(g, axis_name, "mean") for k, g in grads.items()}
+        loss = collective.all_reduce(loss, axis_name, "mean")
+        new_state = {k: v if v is state.get(k) else collective.all_reduce(v, axis_name, "mean")
+                     for k, v in new_state.items()}
+    return loss, grads, new_state, outputs
+
+
 class Optimizer:
-    """Base optimizer. Subclasses define slot init + per-leaf update."""
+    """Base optimizer. Subclasses define slot init + per-leaf update.
+    ``elementwise``: the update of each entry reads only that entry of the
+    parameter, gradient and slots, so it may run on any slice of them
+    (``DataParallel(zero_shard_optimizer=True)`` updates each rank's rows)."""
+
+    elementwise = True
 
     def __init__(self, learning_rate=0.001, regularization=None, grad_clip=None, name: Optional[str] = None):
         self.scheduler = lrs.resolve(learning_rate)
@@ -112,9 +130,25 @@ class Optimizer:
         """One update in f32: regularization, clipping, then each trainable
         parameter's rule at the scheduled rate times its ``learning_rate``
         multiplier. Returns new dicts; the inputs are not modified."""
+        grads = self.prepare_gradients(params, grads, param_info)
+        return self.update(params, grads, opt_state, param_info)
+
+    def prepare_gradients(self, params, grads, param_info=None) -> Dict[str, torch.Tensor]:
+        """Regularization, then clipping: the part of an update that reads
+        whole gradients (a global norm)."""
         grads = reg_mod.apply_regularization(params, grads, self.regularization, param_info)
         if self.grad_clip is not None:
             grads = self.grad_clip(grads)
+        return grads
+
+    def update(
+        self,
+        params: Dict[str, torch.Tensor],
+        grads: Dict[str, torch.Tensor],
+        opt_state: OptState,
+        param_info: Optional[Dict[str, ParamInfo]] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], OptState]:
+        """Each trainable parameter's rule on prepared gradients."""
         lr = self.scheduler(opt_state.step)
         new_params = dict(params)
         new_slots = {s: dict(d) for s, d in opt_state.slots.items()}
@@ -156,14 +190,32 @@ class Optimizer:
         microbatch. Equivalent to the full-batch step for mean losses;
         ``outputs`` carries a leading [accum_steps] dim. ``rng`` (a
         ``torch.Generator``) is the training-mode random stream.
-        ``axis_name`` (data-parallel gradient averaging) is not ported yet.
+
+        When ``axis_name`` is given, the gradients, the loss and the
+        changed state (BN statistics) are mean-reduced over that axis of
+        the current mesh (:mod:`paddle_tpu_torch.parallel.collective`) — the
+        pmap form of data parallelism, replacing the reference's
+        AllReduceOpHandle + ScaleLossGradOpHandle pair
+        (``details/all_reduce_op_handle.cc:48``,
+        ``scale_loss_grad_op_handle.cc:63``). Each rank's batch reductions
+        stay its own, as in the JAX package; ``DataParallel`` is the form
+        whose step equals the single-device step on the global batch.
         """
+        reduce = None
         if axis_name is not None:
-            raise NotImplementedError(
-                "minimize(axis_name=...): data-parallel gradient averaging "
-                "(parallel/data_parallel.py) is not ported to paddle_tpu_torch yet"
-            )
+            def reduce(loss, grads, new_state, state, outputs):
+                return _pmean(loss, grads, new_state, state, outputs, axis_name)
+        return self.train_step(model, loss_index, accum_steps, reduce=reduce)
+
+    def train_step(self, model: Model, loss_index: int = 0, accum_steps: int = 1,
+                   reduce: Optional[Callable] = None, apply: Optional[Callable] = None) -> Callable:
+        """:meth:`minimize`'s step with two hooks for data parallelism:
+        ``reduce(loss, grads, new_state, state, outputs) -> (loss, grads,
+        new_state, outputs)`` runs between the backward and the update, and
+        ``apply(params, grads, opt_state, param_info) -> (params,
+        opt_state)`` replaces :meth:`apply_gradients`."""
         enforce(accum_steps >= 1, f"accum_steps must be >= 1, got {accum_steps}")
+        apply = apply or self.apply_gradients
 
         def grad_of(params, state, batch, rng):
             def loss_fn(p):
@@ -173,8 +225,10 @@ class Optimizer:
 
             return value_and_grad(loss_fn, has_aux=True)(params)
 
-        def finish(params, opt_state, loss, new_state, grads, outputs):
-            new_params, new_opt = self.apply_gradients(params, grads, opt_state, model.param_info)
+        def finish(params, state, opt_state, loss, new_state, grads, outputs):
+            if reduce is not None:
+                loss, grads, new_state, outputs = reduce(loss, grads, new_state, state, outputs)
+            new_params, new_opt = apply(params, grads, opt_state, model.param_info)
             finite = None
             from paddle_tpu_torch.core import config as _cfg
 
@@ -185,7 +239,7 @@ class Optimizer:
         def step_fn(variables: Variables, opt_state: OptState, *batch, rng=None):
             params, state = variables.params, variables.state
             (loss, (new_state, outputs)), grads = grad_of(params, state, batch, rng)
-            return finish(params, opt_state, loss, new_state, grads, outputs)
+            return finish(params, state, opt_state, loss, new_state, grads, outputs)
 
         if accum_steps == 1:
             return step_fn
@@ -211,7 +265,7 @@ class Optimizer:
                 lsum = lsum + loss
                 outs.append(out)
             grads = {k: (g / n).to(params[k].dtype) for k, g in gsum.items()}
-            return finish(params, opt_state, lsum / n, state, grads, _stack(outs))
+            return finish(params, variables.state, opt_state, lsum / n, state, grads, _stack(outs))
 
         return accum_step_fn
 
@@ -246,6 +300,8 @@ class Momentum(Optimizer):
 class LARS(Optimizer):
     """Layer-wise Adaptive Rate Scaling with momentum: per-parameter
     effective lr = lr * ||p|| / (||g|| + wd*||p||)."""
+
+    elementwise = False  # the rate reads the whole parameter's norms
 
     def __init__(self, learning_rate, momentum: float = 0.9, lars_weight_decay: float = 0.0005, epsilon: float = 1e-9, **kw):
         super().__init__(learning_rate, **kw)
@@ -331,9 +387,9 @@ class AdamW(Adam):
         self.weight_decay = weight_decay
         self.exclude_from_decay = tuple(exclude_from_decay)
 
-    def apply_gradients(self, params, grads, opt_state, param_info=None):
+    def update(self, params, grads, opt_state, param_info=None):
         lr = self.scheduler(opt_state.step)  # pre-increment step, as base does
-        new_params, new_state = super().apply_gradients(params, grads, opt_state, param_info)
+        new_params, new_state = super().update(params, grads, opt_state, param_info)
         if not self.weight_decay:
             return new_params, new_state
         # decoupled decay as a post-pass against the PRE-update params:
@@ -356,6 +412,8 @@ class Lamb(Optimizer):
     """LAMB (You et al.): the Adam update direction rescaled per layer by
     ||p|| / ||update||; biases and norm parameters get no decay and
     trust 1."""
+
+    elementwise = False  # the trust ratio reads the whole parameter's norms
 
     def __init__(
         self, learning_rate=0.001, beta1: float = 0.9, beta2: float = 0.999,

@@ -1,0 +1,92 @@
+"""Parallelism: rank meshes, collectives, data parallelism — port of
+``paddle_tpu/parallel``.
+
+Reference: ``framework/parallel_executor.cc:134`` (ParallelExecutor),
+``platform/nccl_helper.h:81`` (NCCLContextMap) and the gen_nccl_id
+bootstrap (``operators/gen_nccl_id_op.cc:31``).
+
+One rank is one process on one card (``torch.distributed``: NCCL on CUDA,
+gloo on the CPU); a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` names
+axes over the ranks. Ported: the mesh, the collectives, the sharding spec
+arithmetic and replicated placement, ``DataParallel`` (with ZeRO-1) and
+the global-batch context its step runs in. Not ported yet, each raising
+``NotImplementedError`` naming ``ROADMAP.md``: tensor, sequence and expert
+sharding of parameters or batches, ``DataParallel.resize`` (elastic
+training), and the JAX package's ``pipeline`` (``pipeline_apply``,
+``stack_stage_params``, ``split_microbatches``) and ``moe`` (``moe_ffn``,
+``switch_gate``, ``top2_gate``, ``MoEOutput``) modules.
+"""
+
+from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)
+from paddle_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    TP_AXIS,
+    Mesh,
+    default_mesh,
+    initialize_distributed,
+    make_mesh,
+    partition_devices,
+    remesh,
+    shutdown_distributed,
+    tp_submesh,
+)
+from paddle_tpu_torch.parallel import collective  # noqa: F401
+from paddle_tpu_torch.parallel.sharding import (
+    LeafLayout,
+    NamedSharding,
+    P,
+    batch_sharding,
+    degrade_spec,
+    param_shardings,
+    replicated,
+    shard_variables,
+    spec_for,
+)
+from paddle_tpu_torch.parallel.data_parallel import DataParallel
+
+__all__ = [
+    "make_mesh",
+    "default_mesh",
+    "initialize_distributed",
+    "shutdown_distributed",
+    "partition_devices",
+    "tp_submesh",
+    "remesh",
+    "Mesh",
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "SEQ_AXIS",
+    "PIPE_AXIS",
+    "EXPERT_AXIS",
+    "TP_AXIS",
+    "collective",
+    "context",
+    "degrade_spec",
+    "param_shardings",
+    "replicated",
+    "batch_sharding",
+    "shard_variables",
+    "spec_for",
+    "P",
+    "NamedSharding",
+    "LeafLayout",
+    "DataParallel",
+]
+
+_NOT_PORTED = {
+    "pipeline_apply": "pipeline", "stack_stage_params": "pipeline",
+    "split_microbatches": "pipeline", "moe_ffn": "moe", "switch_gate": "moe",
+    "top2_gate": "moe", "MoEOutput": "moe",
+}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"paddle_tpu_torch.parallel.{name}: the JAX package's parallel/"
+            f"{_NOT_PORTED[name]}.py is not ported yet; see ROADMAP.md")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

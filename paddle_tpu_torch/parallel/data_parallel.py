@@ -1,0 +1,541 @@
+"""DataParallel — the ParallelExecutor replacement, port of
+``paddle_tpu/parallel/data_parallel.py``.
+
+Reference: ``fluid.ParallelExecutor`` (``python/paddle/fluid/parallel_executor.py:32``,
+C++ ``framework/parallel_executor.cc:134``): replicate the program per GPU,
+scale the loss grad by 1/N, allreduce every gradient over NCCL, split the
+feed minibatch per device.
+
+The JAX package runs ONE pjit program over a mesh, so its step is the
+single-device step on the global batch. Here each rank is a process on one
+card that computes a forward over its own rows ``[r·B/N, (r+1)·B/N)`` (JAX's
+``P('data')`` in device order). The invariant the port holds is the JAX
+package's: ``step`` on N ranks equals the single-device step on the global
+batch. Three things keep it:
+
+- while the step runs, :mod:`~paddle_tpu_torch.parallel.context` makes the
+  batch reductions that need it global (BatchNorm's statistics and their
+  gradient terms; ratio losses' normalizers);
+- the gradients, the loss and the scalar outputs are then MEAN-reduced
+  over the group in one all-reduce of a flat f32 buffer (NCCL on CUDA, gloo
+  on the CPU); a ratio loss is scaled so that this mean is its global value;
+- the model's batch outputs (``batch_outputs``: by default every output
+  that is not a scalar) are gathered to the global batch, as JAX
+  replicates them, and ``finite`` is computed from the reduced values, so
+  the NaN guard decides alike on every rank.
+
+Each rank then applies the same update to the same values, so the replicas
+stay bit-equal. ``zero_shard_optimizer`` (ZeRO-1) keeps each rank's rows of
+the optimizer slots only; see :meth:`DataParallel._zero_apply`.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core import tree as tree_mod
+from paddle_tpu_torch.core.config import resolve_device
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.executor import to_device
+from paddle_tpu_torch.framework import Model, Variables
+from paddle_tpu_torch.optimizer import Optimizer, OptState, StepOutput
+from paddle_tpu_torch.parallel import collective
+from paddle_tpu_torch.parallel import context as dp_context
+from paddle_tpu_torch.parallel import mesh as mesh_mod
+from paddle_tpu_torch.parallel.sharding import (
+    LeafLayout,
+    NamedSharding,
+    P,
+    _not_ported,
+    broadcast_tensors,
+    shard_variables,
+)
+
+
+class DataParallel:
+    """Data-parallel training, one rank per card.
+
+    Usage (every rank runs the same code on the same global batch):
+        dp = DataParallel(model, optimizer, mesh=make_mesh(data=-1))
+        variables, opt_state = dp.init(seed, *example_batch)
+        out = dp.step(variables, opt_state, *batch)
+
+    ``device`` is this rank's card: by default the one
+    ``initialize_distributed`` chose, or CUDA without a process group
+    (``device="cpu"`` for the plain PyTorch path).
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        optimizer: Optimizer,
+        mesh: Optional[mesh_mod.Mesh] = None,
+        batch_axis: str = mesh_mod.DATA_AXIS,
+        loss_index: int = 0,
+        donate: bool = True,
+        batch_specs: Optional[Sequence[Optional[P]]] = None,
+        zero_shard_optimizer: bool = False,
+        device=None,
+        batch_outputs: Optional[Sequence[int]] = None,
+    ):
+        """``batch_specs``: optional per-batch-arg PartitionSpecs overriding
+        the default leading-dim data split: ``P()`` (or None) feeds that arg
+        whole to every rank. A spec over another axis (sequence
+        parallelism) is not ported and raises.
+
+        ``zero_shard_optimizer`` (ZeRO-1): the slots of each parameter are
+        kept sharded on their first dim divisible by the data-axis size,
+        each rank updating its own rows; the reference's Reduce+Broadcast
+        BuildStrategy (``multi_devices_graph_pass.cc:397-446``) solved the
+        same problem by placing each param's update on one owner device.
+
+        ``donate`` is accepted and has no effect: the step is functional
+        and never overwrites the caller's tensors (as the JAX package's
+        donation on the CPU).
+
+        ``batch_outputs``: the positions, among the leaves of the model's
+        outputs (the index in an output tuple of tensors), of the outputs
+        that hold one row per batch row; ``step`` and ``eval_step`` gather
+        them to the global batch. Default: every output that is not a 0-d
+        tensor; ``()`` gathers none, so each rank keeps its own rows (the
+        Trainer's choice: it reads only the loss). A named output whose
+        leading dim is not this rank's rows raises. 0-d float outputs are
+        averaged over the group whatever this says."""
+        self.model = model
+        self.optimizer = optimizer
+        self.mesh = mesh if mesh is not None else mesh_mod.default_mesh()
+        self.batch_axis = batch_axis
+        self.loss_index = loss_index
+        self.donate = donate
+        self.batch_specs = tuple(batch_specs) if batch_specs is not None else None
+        self.zero_shard_optimizer = zero_shard_optimizer
+        self.batch_outputs = None if batch_outputs is None else tuple(batch_outputs)
+        enforce(
+            batch_axis in self.mesh.axis_names,
+            f"batch axis {batch_axis!r} not in mesh axes {self.mesh.axis_names}",
+        )
+        for axis, size in self.mesh.shape.items():
+            if axis != batch_axis and size > 1:
+                raise _not_ported(f"DataParallel over mesh axis {axis!r} of size {size}")
+        for spec in self.batch_specs or ():
+            for dim, entry in enumerate(spec or ()):
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                if any(a is not None and (a != batch_axis or dim != 0) for a in axes):
+                    raise _not_ported(f"batch_specs entry {spec} (sequence parallelism)")
+        if device is None:
+            device = mesh_mod.process_device() or "cuda"
+        self.device = resolve_device(device)
+        self._step_fn = None
+        self._ragged_fn = None
+        self._batch_rows = 0  # this rank's rows in the running step
+        # tensors put_batch returned: already this rank's rows
+        self._placed: "weakref.WeakValueDictionary[int, torch.Tensor]" = weakref.WeakValueDictionary()
+
+    # -- the group ------------------------------------------------------------
+    @property
+    def num_devices(self) -> int:
+        return self.mesh.size
+
+    @property
+    def _n(self) -> int:
+        return self.mesh.shape[self.batch_axis]
+
+    def _group(self):
+        return self.mesh.group(self.batch_axis)
+
+    def _index(self) -> int:
+        return self.mesh.axis_index(self.batch_axis) if self._n > 1 else 0
+
+    # -- setup --------------------------------------------------------------
+    def init(self, rng, *example_batch, variables: Optional[Variables] = None) -> Tuple[Variables, OptState]:
+        """Initialize (or adopt) variables + optimizer state and place them
+        on every rank: the first rank's values, broadcast
+        (BCastParamsToDevices parity)."""
+        if variables is None:
+            example = tuple(to_device(b, self.device) for b in example_batch)
+            variables = self.model.init(rng, *example, device=self.device)
+        else:
+            variables = tree_mod.map_leaves(lambda t: t.to(self.device), variables)
+        variables = shard_variables(self.mesh, variables, self.model.param_info)
+        opt_state = self.optimizer.create_state(variables.params)
+        return variables, self._shard_slots(opt_state, variables.params)
+
+    def _zero_dims(self, params: Dict[str, torch.Tensor]) -> Dict[str, int]:
+        """ZeRO-1: the dim each parameter's slots are sharded on — the first
+        whose size the data-axis size divides (the JAX package's rule);
+        none for an optimizer whose update reads whole parameters."""
+        if not self.zero_shard_optimizer or not self.optimizer.elementwise:
+            return {}
+        n, out = self._n, {}
+        for name, p in params.items():
+            for dim, size in enumerate(p.shape):
+                if size % n == 0 and size >= n:
+                    out[name] = dim
+                    break
+        return out
+
+    def _rows(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        k = t.shape[dim] // self._n
+        return t.narrow(dim, self._index() * k, k)
+
+    def _shard_slots(self, opt_state: OptState, params: Dict[str, torch.Tensor]) -> OptState:
+        """Every leaf on this rank's device, and under ZeRO-1 each whole
+        slot cut to this rank's rows (a slot already cut is kept)."""
+        dims = self._zero_dims(params)
+
+        def place(name, v):
+            if name in dims and v.shape == params[name].shape:
+                v = self._rows(v, dims[name]).clone()
+            return v.to(self.device)
+
+        return OptState(step=opt_state.step, slots={
+            s: {k: place(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()})
+
+    # -- batches --------------------------------------------------------------
+    def _batch_shardings(self, batch: Sequence[Any]):
+        if self.batch_specs is not None:
+            enforce(
+                len(self.batch_specs) == len(batch),
+                f"batch_specs has {len(self.batch_specs)} entries for {len(batch)} batch args",
+            )
+            return tuple(NamedSharding(self.mesh, spec if spec is not None else P())
+                         for spec in self.batch_specs)
+        return tuple(
+            NamedSharding(self.mesh, P(self.batch_axis, *([None] * (len(np.shape(b)) - 1))))
+            for b in batch
+        )
+
+    def batch_divisible(self, *batch) -> bool:
+        """True iff EVERY arg's leading dim divides its own dim-0 shard
+        extent (per arg: a replicated side input must not veto the split
+        args, and vice versa)."""
+        for b, s in zip(batch, self._batch_shardings(batch)):
+            shape = np.shape(b)
+            if not shape:
+                continue
+            axes = s.spec[0] if len(s.spec) else None
+            if shape[0] % self._spec_dim_size(axes) != 0:
+                return False
+        return True
+
+    def leading_multiple(self, *batch) -> int:
+        """The multiple every arg's leading dim must divide to shard on this
+        mesh: LCM over each arg's dim-0 sharding extent."""
+        mult = 1
+        for s in self._batch_shardings(batch):
+            axes = s.spec[0] if len(s.spec) else None
+            mult = math.lcm(mult, self._spec_dim_size(axes))
+        return mult
+
+    def _spec_dim_size(self, axes) -> int:
+        """Total mesh extent a spec entry shards one dim over (1 if None)."""
+        if axes is None:
+            return 1
+        size = 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            size *= self.mesh.shape[a]
+        return size
+
+    def _validate_batch(self, batch, shards):
+        """Divisibility of each arg dim by the mesh-axis sizes its spec
+        shards it over."""
+        for b, s in zip(batch, shards):
+            shape = np.shape(b)
+            for dim, axes in enumerate(s.spec[: len(shape)]):
+                if axes is None:
+                    continue
+                size = self._spec_dim_size(axes)
+                enforce(
+                    shape[dim] % size == 0,
+                    f"batch arg dim {dim} of size {shape[dim]} not divisible by "
+                    f"mesh axes {axes} (size {size}) (static shapes: drop or "
+                    "pad the last partial batch)",
+                )
+
+    def put_batch(self, *batch):
+        """This rank's part of a global host batch, on its device (the
+        per-device feed split of ParallelExecutor.run,
+        parallel_executor.py:173): rows ``[r·B/N, (r+1)·B/N)`` of each split
+        arg, a replicated arg whole. ``step`` takes these as they are."""
+        shards = self._batch_shardings(batch)
+        self._validate_batch(batch, shards)
+        out = []
+        for b, s in zip(batch, shards):
+            if len(s.spec) and s.spec[0] is not None:
+                b = self.rank_rows(b)
+            t = to_device(b, self.device)
+            self._placed[id(t)] = t
+            out.append(t)
+        return tuple(out)
+
+    def rank_rows(self, b):
+        """This rank's rows ``[r·B/N, (r+1)·B/N)`` of one global batch arg
+        (a host array or a tensor, sliced where it lies)."""
+        k = np.shape(b)[0] // self._n
+        return b[self._index() * k:(self._index() + 1) * k]
+
+    def _local(self, batch) -> tuple:
+        """``batch`` as this rank's rows: tensors from :meth:`put_batch` as
+        they are, a global batch split."""
+        if batch and all(self._placed.get(id(b)) is b for b in batch):
+            return tuple(batch)
+        return self.put_batch(*batch)
+
+    def pad_batch(self, *batch, to: Optional[int] = None):
+        """Pad a (possibly ragged) batch's leading dim up to ``to`` — or the
+        next data-axis multiple — by repeating the final row; returns
+        ``(padded_batch, valid_mask)`` with a float32 [B_padded] mask that is
+        1 for real rows, 0 for padding (the reference's data_balance op,
+        ``details/data_balance_op_handle.cc:154``: every sample evaluates
+        exactly once). Padding repeats a real row, never zeros."""
+        n = int(np.shape(batch[0])[0])
+        for b in batch[1:]:
+            enforce(
+                int(np.shape(b)[0]) == n,
+                "pad_batch: all batch args must share the leading dim",
+            )
+        mult = self.leading_multiple(*batch)
+        target = to if to is not None else -(-n // mult) * mult
+        enforce(
+            target >= n and target % mult == 0,
+            f"pad_batch: target {target} must be >= batch size {n} and "
+            f"divisible by the leading-dim shard multiple {mult} (LCM of "
+            "each arg's dim-0 sharding extents)",
+        )
+        mask = np.zeros((target,), np.float32)
+        mask[:n] = 1.0
+        if target == n:
+            return batch, mask
+
+        def pad(b):
+            if isinstance(b, torch.Tensor):
+                return torch.cat([b, b[-1:].expand(target - n, *b.shape[1:])])
+            b = np.asarray(b)
+            return np.concatenate([b, np.repeat(b[-1:], target - n, axis=0)])
+
+        return tuple(pad(b) for b in batch), mask
+
+    # -- reductions -----------------------------------------------------------
+    def _mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean over the group of each tensor: ONE all-reduce of a flat
+        f32 buffer holding them all (identities on one rank without a
+        process group)."""
+        group = self._group()
+        if group is None or not tensors:
+            return list(tensors)
+        flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+        torch.distributed.all_reduce(flat, group=group)
+        flat.div_(self._n)
+        out, off = [], 0
+        for t in tensors:
+            n = t.numel()
+            out.append(flat[off:off + n].view(t.shape).to(t.dtype))
+            off += n
+        return out
+
+    def sum_over_ranks(self, values: Sequence[float]) -> List[float]:
+        """Python numbers summed over the group, in float64."""
+        group = self._group()
+        if group is None:
+            return list(values)
+        t = torch.tensor(list(values), dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t, group=group)
+        return t.tolist()
+
+    def _gather_outputs(self, outputs, rows: int):
+        """The model's outputs as the JAX package returns them: the batch
+        outputs (``batch_outputs``) gathered to the global batch, 0-d float
+        tensors averaged over the group (a loss, an accuracy: means over
+        equal shards), anything else as it is."""
+        leaves = tree_mod.leaves(outputs)
+        scalars = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)
+                   and t.dim() == 0 and t.is_floating_point()]
+        new = list(leaves)
+        for i, v in zip(scalars, self._mean([leaves[i] for i in scalars])):
+            new[i] = v
+        if self.batch_outputs is None:
+            batch = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor) and t.dim()]
+        else:
+            batch = list(self.batch_outputs)
+        for i in batch:
+            t = leaves[i] if 0 <= i < len(leaves) else None
+            if not (isinstance(t, torch.Tensor) and t.dim() and t.shape[0] == rows):
+                shape = None if t is None else tuple(getattr(t, "shape", ()))
+                raise ValueError(
+                    f"DataParallel: output {i} (shape {shape}) is taken as a batch output but "
+                    f"does not hold this rank's {rows} rows on its leading dim; name the batch "
+                    f"outputs with batch_outputs= (() gathers none)")
+        if self._group() is not None:
+            with self.mesh, torch.no_grad():
+                for i in batch:
+                    new[i] = collective.all_gather(leaves[i].detach(), self.batch_axis)
+        return tree_mod.unflatten(outputs, new)
+
+    def _reduce_global(self, loss, grads, new_state, state, outputs):
+        """The step's one reduction: the mean over the group of the
+        gradients and the loss (one buffer), then the outputs gathered."""
+        with torch.no_grad():
+            names = list(grads)
+            red = self._mean([grads[k] for k in names] + [loss])
+            grads = dict(zip(names, red[:-1]))
+            return red[-1], grads, new_state, self._gather_outputs(outputs, self._batch_rows)
+
+    def _reduce_first_rank(self, loss, grads, new_state, state, outputs):
+        """step_ragged: every rank computed the whole batch; all take the
+        first rank's gradients and loss, so the replicas stay bit-equal."""
+        with torch.no_grad():
+            names = list(grads)
+            red = broadcast_tensors([grads[k] for k in names] + [loss.reshape(1)], self.mesh,
+                                    self.batch_axis)
+            return red[-1].reshape(()), dict(zip(names, red[:-1])), new_state, outputs
+
+    # -- ZeRO-1 ---------------------------------------------------------------
+    def _zero_apply(self, params, grads, opt_state, param_info):
+        """The update under ZeRO-1: regularization and clipping on the whole
+        reduced gradients, each rank's rule on its rows of every sharded
+        parameter (with its rows of the slots), then one all-gather per
+        dtype of the updated rows. Elementwise rules give each row what the
+        whole update gives it, so the step equals the step without ZeRO-1."""
+        opt = self.optimizer
+        grads = opt.prepare_gradients(params, grads, param_info)
+        dims = self._zero_dims(params)
+        rows_p = {k: self._rows(p, dims[k]) if k in dims else p for k, p in params.items()}
+        rows_g = {k: self._rows(g, dims[k]) if k in dims else g for k, g in grads.items()}
+        new_rows, new_opt = opt.update(rows_p, rows_g, opt_state, param_info)
+        new_params = dict(new_rows)
+        by_dtype: Dict[torch.dtype, List[str]] = {}
+        for k in dims:
+            by_dtype.setdefault(new_rows[k].dtype, []).append(k)
+        with torch.no_grad(), self.mesh:
+            for names in by_dtype.values():
+                flat = torch.cat([new_rows[k].reshape(-1) for k in names])
+                parts = collective.all_gather(flat, self.batch_axis, axis=0, tiled=False)
+                off = 0
+                for k in names:
+                    shape = new_rows[k].shape
+                    n = new_rows[k].numel()
+                    new_params[k] = torch.cat(
+                        [parts[r, off:off + n].view(shape) for r in range(self._n)], dim=dims[k])
+                    off += n
+        return new_params, new_opt
+
+    # -- steps ----------------------------------------------------------------
+    def _rank_rng(self, rng: Optional[torch.Generator]) -> Optional[torch.Generator]:
+        """Each rank's dropout stream: a seed drawn from ``rng`` (the same
+        draw on every rank) offset by the rank's index, so ranks do not
+        repeat each other's masks."""
+        if rng is None:
+            return None
+        seed = int(torch.randint(2 ** 62, (), generator=rng, device=rng.device))
+        return torch.Generator(device=rng.device).manual_seed(seed + self._index())
+
+    def _apply_fn(self):
+        return self._zero_apply if self.zero_shard_optimizer else None
+
+    def step(self, variables: Variables, opt_state: OptState, *batch, rng=None) -> StepOutput:
+        """One data-parallel train step on the global ``batch`` (or on what
+        :meth:`put_batch` returned for it): this rank's forward and backward
+        with the batch reductions made global, the mean of the gradients
+        and the loss over the group, the update. Equals the single-device
+        step on the global batch."""
+        local = self._local(batch)
+        if self._step_fn is None:
+            self._step_fn = self.optimizer.train_step(
+                self.model, self.loss_index, reduce=self._reduce_global, apply=self._apply_fn())
+        self._batch_rows = _leading(local)
+        group = dp_context.BatchGroup(self._group(), self._n)
+        with self.mesh, dp_context.global_batch(group):
+            return self._step_fn(variables, opt_state, *local, rng=self._rank_rng(rng))
+
+    def step_ragged(self, variables: Variables, opt_state: OptState, *batch, rng=None) -> StepOutput:
+        """Train step for a batch whose leading dim does NOT divide the
+        mesh: every rank computes the whole small batch (numerically the
+        single-device step), and all take the first rank's gradients, so
+        the replicas stay bit-equal (data_balance parity on the train side,
+        ``details/data_balance_op_handle.cc:154``: every sample trains)."""
+        if self._ragged_fn is None:
+            self._ragged_fn = self.optimizer.train_step(
+                self.model, self.loss_index, reduce=self._reduce_first_rank,
+                apply=self._apply_fn())
+        whole = tuple(to_device(b, self.device) for b in batch)
+        with self.mesh:
+            return self._ragged_fn(variables, opt_state, *whole, rng=rng)
+
+    def eval_local(self, variables: Variables, *local, rng=None):
+        """This rank's rows (from :meth:`put_batch`) through the model in
+        eval mode, batch reductions global; the outputs stay this rank's."""
+        group = dp_context.BatchGroup(self._group(), self._n)
+        with torch.no_grad(), self.mesh, dp_context.global_batch(group):
+            out, _ = self.model.apply(variables, *local, rng=rng, is_train=False)
+        return out
+
+    def eval_step(self, variables: Variables, *batch, rng=None):
+        """The model's eval-mode outputs on the global ``batch``, as one
+        device would return them (split over the ranks, then gathered)."""
+        local = self._local(batch)
+        with torch.no_grad():
+            return self._gather_outputs(self.eval_local(variables, *local, rng=rng),
+                                        _leading(local))
+
+    # -- state ----------------------------------------------------------------
+    def resize(self, devices: Sequence) -> mesh_mod.Mesh:
+        """Elastic mesh shrink/regrow is the elastic supervisor's
+        (``resilience/elastic.py``), not ported yet."""
+        raise NotImplementedError(
+            "DataParallel.resize: elastic training (resilience/elastic.py) is not ported to "
+            "paddle_tpu_torch yet; see ROADMAP.md")
+
+    def state_template(self, variables: Variables, opt_state: OptState):
+        """The layout of ``(variables, opt_state)`` on this rank — a tree of
+        :class:`~paddle_tpu_torch.parallel.sharding.LeafLayout` (the
+        optimizer's step stays an int) — the target handed to
+        ``checkpoint_sharded.load_sharded`` and the owner map its saves
+        read. Replicated leaves are owned by the first rank; a ZeRO-1 slot
+        by every rank, for its rows."""
+        first = self._index() == 0
+        shapes = {k: tuple(p.shape) for k, p in variables.params.items()}
+        dims = self._zero_dims(variables.params)
+
+        def rep(t):
+            return LeafLayout(t.shape, t.dtype, self.device, owner=first)
+
+        def slot(name, t):
+            if name not in dims:
+                return rep(t)
+            d, k = dims[name], shapes[name][dims[name]] // self._n
+            window = [(0, s) for s in shapes[name]]
+            window[d] = (self._index() * k, (self._index() + 1) * k)
+            return LeafLayout(shapes[name], t.dtype, self.device, window, owner=True)
+
+        var_t = tree_mod.map_leaves(rep, variables)
+        opt_t = OptState(step=opt_state.step, slots={
+            s: {k: slot(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()})
+        return var_t, opt_t
+
+    def place_state(self, variables: Variables, opt_state: OptState):
+        """Re-place a state tree on this rank: every leaf on its device,
+        and under ZeRO-1 a whole slot cut to this rank's rows."""
+        variables = tree_mod.map_leaves(lambda t: t.to(self.device), variables)
+        return variables, self._shard_slots(opt_state, variables.params)
+
+    def full_state(self, variables: Variables, opt_state: OptState):
+        """The state with every ZeRO-1 slot gathered whole (a collective:
+        every rank calls it) — what a plain-format checkpoint holds."""
+        dims = self._zero_dims(variables.params)
+        if not dims:
+            return variables, opt_state
+        with torch.no_grad(), self.mesh:
+            slots = {s: {k: collective.all_gather(v, self.batch_axis, axis=dims[k])
+                         if k in dims else v for k, v in d.items()}
+                     for s, d in opt_state.slots.items()}
+        return variables, OptState(step=opt_state.step, slots=slots)
+
+
+def _leading(batch) -> int:
+    """The leading dim of a batch's first arg (0 for a scalar)."""
+    return int(batch[0].shape[0]) if batch and batch[0].dim() else 0

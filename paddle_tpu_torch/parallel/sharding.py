@@ -1,0 +1,253 @@
+"""Sharding rules — port of ``paddle_tpu/parallel/sharding.py``.
+
+Reference mapping: MultiDevSSAGraphBuilder replicated params everywhere and
+all-reduced gradients (``multi_devices_graph_pass.cc:397-435``). The spec
+arithmetic (``spec_for``, ``mesh_axis_sizes``, ``degraded_dims``,
+``degrade_spec``) is the JAX package's, whole. Placement is ported for a
+mesh whose only axis of size > 1 is ``data``: every parameter and state
+entry is replicated, and replication is a broadcast from the axis's first
+rank (``BCastParamsToDevices``). A parameter spec that would really shard
+(tensor, sequence or expert parallelism) raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.framework import ParamInfo, Variables
+from paddle_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+
+# why a sharded dim was dropped to replicated (degraded_dims reasons)
+MISSING_AXIS = "missing-axis"
+NON_DIVISIBLE = "non-divisible"
+
+
+class P(tuple):
+    """A PartitionSpec: one entry per dim, each a mesh-axis name, a tuple
+    of names, or None (``jax.sharding.PartitionSpec``)."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# A rule table: ordered (glob-pattern, PartitionSpec) pairs, first match wins.
+ShardingRules = Sequence[Tuple[str, P]]
+
+
+class NamedSharding:
+    """A spec over a mesh (``jax.sharding.NamedSharding``)."""
+
+    def __init__(self, mesh: Mesh, spec: P):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: only data parallelism is ported to paddle_tpu_torch (tensor, sequence and "
+        "expert parallelism are later work); see ROADMAP.md")
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def spec_for(
+    param_name: str,
+    rules: ShardingRules,
+    *,
+    ndim: Optional[int] = None,
+    fallback: P = P(),
+) -> P:
+    """Look up the PartitionSpec for ``param_name`` in an ordered rule table
+    of ``(glob_pattern, PartitionSpec)`` pairs — first match wins, unknown
+    params fall back to ``fallback`` (replicated by default). When ``ndim``
+    is given, a matched spec naming more dims than the param has rank is an
+    EnforceError."""
+    for pattern, spec in rules:
+        if fnmatch.fnmatchcase(param_name, pattern):
+            if ndim is not None:
+                enforce(
+                    len(spec) <= ndim,
+                    f"spec_for({param_name!r}): rule {pattern!r} names "
+                    f"{len(spec)} dims but param has rank {ndim}",
+                )
+            return spec
+    return fallback
+
+
+def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
+    """``{axis_name: size}`` for a mesh."""
+    return dict(mesh.shape)
+
+
+def degraded_dims(
+    axis_sizes: Mapping[str, int], spec: P, shape: Tuple[int, ...]
+) -> List[Tuple[int, str, str]]:
+    """Which sharded dims :func:`degrade_spec` would drop to replicated, as
+    ``(dim_index, axis_name, reason)`` — ``MISSING_AXIS`` or
+    ``NON_DIVISIBLE``. A pure function of the mesh's axis sizes."""
+    dims = tuple(spec) + (None,) * max(0, len(shape) - len(spec))
+    out: List[Tuple[int, str, str]] = []
+    for i, (dim_size, axis) in enumerate(zip(shape, dims)):
+        if axis is None:
+            continue
+        n = axis_sizes.get(axis)
+        if n is None:
+            out.append((i, axis, MISSING_AXIS))
+        elif dim_size % n != 0:
+            out.append((i, axis, NON_DIVISIBLE))
+    return out
+
+
+def degrade_spec(
+    mesh: Mesh,
+    spec: P,
+    shape: Tuple[int, ...],
+    *,
+    name: Optional[str] = None,
+    quiet: bool = False,
+) -> P:
+    """Per-dim degradation to replicated: drop a sharded dim when its mesh
+    axis is missing or its size doesn't divide the dim; the spec is
+    right-padded with None to the array rank. A NON-DIVISIBLE drop logs a
+    ``warn_once`` per (param, axis) and counts ``sharding.degraded_total``
+    unless ``quiet``; a missing axis stays silent (the documented fallback
+    that lets one model definition run on any mesh shape)."""
+    axis_sizes = mesh_axis_sizes(mesh)
+    dropped = degraded_dims(axis_sizes, spec, shape)
+    if not quiet:
+        from paddle_tpu_torch.core import logging as ptlog
+        from paddle_tpu_torch.core import profiler as prof
+
+        label = name or "<unnamed>"
+        for dim, axis, reason in dropped:
+            if reason != NON_DIVISIBLE:
+                continue
+            prof.inc_counter("sharding.degraded_total",
+                             labels={"param": label, "axis": axis})
+            ptlog.warn_once(
+                ("sharding.degrade", label, axis, dim),
+                "sharding: dim %d (size %d) of %s is not divisible by mesh "
+                "axis %r (size %d) — degrading to replicated, losing the "
+                "per-device memory split on that dim",
+                dim, shape[dim], label, axis, axis_sizes[axis],
+            )
+    drop = {i for i, _, _ in dropped}
+    dims = tuple(spec) + (None,) * max(0, len(shape) - len(spec))
+    return P(*(None if i in drop else axis for i, axis in enumerate(dims[: len(shape)])))
+
+
+def batch_sharding(mesh: Mesh, axis: str = DATA_AXIS, ndim: int = 2) -> NamedSharding:
+    """Shard the leading (batch) dim over ``axis``."""
+    return NamedSharding(mesh, P(axis, *([None] * (ndim - 1))))
+
+
+def is_replicated(sharding: NamedSharding) -> bool:
+    """Whether the spec places every dim whole on every rank (no named axis
+    of size > 1)."""
+    for entry in sharding.spec:
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None and sharding.mesh.shape.get(a, 1) > 1:
+                return False
+    return True
+
+
+def param_shardings(
+    mesh: Mesh,
+    param_info: Dict[str, ParamInfo],
+    params: Dict[str, torch.Tensor],
+) -> Dict[str, NamedSharding]:
+    """Per-parameter shardings: honor ParamAttr.sharding tuples; default
+    replicated. Axes not present in the mesh degrade to None (a tp spec on a
+    dp-only mesh is replicated). A spec left sharding a dim over an axis of
+    size > 1 raises: only replicated placement is ported."""
+    out = {}
+    mesh_axes = set(mesh.axis_names)
+    for name, p in params.items():
+        info = param_info.get(name)
+        spec = None
+        if info is not None and info.sharding is not None:
+            dims = tuple(a if (a in mesh_axes) else None for a in info.sharding)
+            dims = tuple(dims[: p.dim()]) + (None,) * max(0, p.dim() - len(dims))
+            spec = P(*dims)
+        sh = NamedSharding(mesh, spec if spec is not None else P())
+        if not is_replicated(sh):
+            raise _not_ported(f"parameter {name!r} with sharding {sh.spec} on {mesh!r}")
+        out[name] = sh
+    return out
+
+
+def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                      axis: str = DATA_AXIS) -> List[torch.Tensor]:
+    """The first rank's values of ``tensors`` on every rank of ``axis``:
+    one broadcast per dtype of a flat buffer holding them all. Identities
+    on an axis of size 1."""
+    group = mesh.group(axis) if axis in mesh.shape else None
+    if group is None:
+        return list(tensors)
+    src = mesh.axis_ranks(axis)[0]
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        dist.broadcast(flat, src=src, group=group)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
+
+
+def shard_variables(
+    mesh: Mesh,
+    variables: Variables,
+    param_info: Dict[str, ParamInfo],
+) -> Variables:
+    """Place a Variables tree on the mesh (BCastParamsToDevices parity,
+    reference parallel_executor.cc:249): every parameter and state entry is
+    replicated, so each rank takes the first rank's values."""
+    param_shardings(mesh, param_info, variables.params)  # refuses real sharding
+    names = [("p", k) for k in variables.params] + [("s", k) for k in variables.state]
+    values = [variables.params[k] if w == "p" else variables.state[k] for w, k in names]
+    placed = dict(zip(names, broadcast_tensors(values, mesh)))
+    return Variables(params={k: placed[("p", k)] for k in variables.params},
+                     state={k: placed[("s", k)] for k in variables.state})
+
+
+class LeafLayout:
+    """Where one leaf of a training state lives on this rank — the port's
+    ``jax.ShapeDtypeStruct`` with a ``.sharding``: the global ``shape`` and
+    ``dtype``, this rank's ``device``, the global ``window`` it holds
+    (``(start, stop)`` per dim) and whether it is the ``owner`` that writes
+    that block to a sharded checkpoint (JAX's ``replica_id == 0``)."""
+
+    def __init__(self, shape, dtype: torch.dtype, device, window=None, owner: bool = True):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.window = tuple((0, s) for s in self.shape) if window is None else tuple(
+            (int(a), int(b)) for a, b in window)
+        self.owner = bool(owner)
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(b - a for a, b in self.window)
+
+    def __repr__(self) -> str:
+        return (f"LeafLayout(shape={self.shape}, dtype={self.dtype}, window={self.window}, "
+                f"owner={self.owner})")

@@ -8,25 +8,28 @@ callbacks), ``trainer.py:100`` (CheckpointConfig), ``trainer.py:594,663,763``
 metadata).
 
 The step is ``Optimizer.minimize(model)`` run eagerly through the
-:class:`Executor` on one device (CUDA unless ``place="cpu"``). Per step
-the host waits on the card only for ``float(loss)`` (when the handler
-keeps ``fetch_metrics`` on) and ``bool(finite)`` (when ``check_nan_inf``
-is on), as in the JAX package. Checkpoints use the JAX package's format,
-so either package resumes the other's.
+:class:`Executor` on one device (CUDA unless ``place="cpu"``), or with
+``parallel=True`` :class:`paddle_tpu_torch.parallel.DataParallel`'s step:
+every rank (one process per card) runs the Trainer over the same reader,
+and each steps on its rows of every global batch. Per step the host waits
+on the card only for ``float(loss)`` (when the handler keeps
+``fetch_metrics`` on) and ``bool(finite)`` (when ``check_nan_inf`` is
+on), as in the JAX package. Checkpoints use the JAX package's formats, the
+single-file one or the sharded one (``CheckpointConfig(sharded=,
+async_save=)``), so either package resumes the other's.
 
 Not ported yet (each raises ``NotImplementedError`` naming
-``ROADMAP.md``): data parallelism (``parallel=True``,
-``parallel_kwargs``), elastic training (``ResilienceConfig(elastic=True)``),
-sharded and asynchronous checkpoints, and the telemetry hooks
-(``observability=``, ``watch=``; goodput, MFU, trace spans, the straggler
-detector). ``_record_step`` keeps the step-time counters of
-:mod:`paddle_tpu_torch.core.profiler` and the run log.
+``ROADMAP.md``): elastic training (``ResilienceConfig(elastic=True)``)
+and the telemetry hooks (``observability=``, ``watch=``; goodput, MFU,
+trace spans, the straggler detector). ``_record_step`` keeps the step-time
+counters of :mod:`paddle_tpu_torch.core.profiler` and the run log.
 """
 
 from __future__ import annotations
 
 import os
 import signal
+import sys
 import threading
 import time
 from typing import Any, Callable, Iterable, Optional, Sequence, Tuple
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import checkpoint as ckpt_mod
+from paddle_tpu_torch import checkpoint_sharded as cks
 from paddle_tpu_torch.checkpoint import CheckpointConfig
 from paddle_tpu_torch.core import logging as ptlog
 from paddle_tpu_torch.core import profiler as prof
@@ -43,6 +47,7 @@ from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.framework import Model, Variables, build
 from paddle_tpu_torch.observability import runlog
 from paddle_tpu_torch.optimizer import Optimizer, OptState, StepOutput
+from paddle_tpu_torch.parallel import mesh as mesh_mod
 from paddle_tpu_torch.resilience import ResilienceConfig, faults
 from paddle_tpu_torch.resilience.watchdog import StepWatchdog
 
@@ -92,9 +97,12 @@ class Trainer:
     ``train_func`` builds and returns the model (a :class:`Model` or a plain
     layer-calling function, which is wrapped); its forward must return the
     loss first. ``optimizer_func`` returns an :class:`Optimizer`. ``place``
-    is the device (default CUDA; ``"cpu"`` runs the plain PyTorch path).
-    ``variables`` and ``opt_state`` may be set before ``train()``, which
-    then neither initializes nor resumes.
+    is the device (default CUDA, or with ``parallel=True`` the rank's card
+    from ``initialize_distributed``; ``"cpu"`` runs the plain PyTorch
+    path). ``parallel_kwargs`` go to ``DataParallel`` (``mesh=``,
+    ``zero_shard_optimizer=``, ...; ``batch_outputs`` defaults to ``()``:
+    the loop reads only the loss, so no output is gathered). ``variables`` and ``opt_state`` may be
+    set before ``train()``, which then neither initializes nor resumes.
     """
 
     def __init__(
@@ -111,8 +119,6 @@ class Trainer:
         observability: Optional[Any] = None,
         watch: Optional[Any] = None,
     ):
-        if parallel or parallel_kwargs:
-            raise _not_ported("parallel=True: data parallelism")
         if observability is not None or watch is not None:
             raise _not_ported("observability=/watch=: the telemetry stack")
         self.resilience = resilience if resilience is not None else ResilienceConfig.from_flags()
@@ -121,6 +127,11 @@ class Trainer:
         model = train_func()
         self.model = model if isinstance(model, Model) else build(model)
         self.optimizer = optimizer_func()
+        self.parallel = parallel
+        # extra DataParallel options (mesh=..., zero_shard_optimizer=True, ...)
+        self.parallel_kwargs = dict(parallel_kwargs or {})
+        if place is None and parallel:
+            place = mesh_mod.process_device()
         # async host->device double buffering of reader batches (the
         # reference's double_buffer reader, operators/reader/buffered_reader.cc)
         self.prefetch = prefetch
@@ -129,6 +140,8 @@ class Trainer:
         self.place = place
         self.exe = Executor(place)
         self.trainer_id = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+        self._dp = None
+        self._allow_ragged = False
         self._step_fn = None
         self.variables: Optional[Variables] = None
         self.opt_state: Optional[OptState] = None
@@ -151,26 +164,54 @@ class Trainer:
     def _ensure_initialized(self, first_batch: Sequence[Any]):
         if self.variables is not None:
             return
-        self.variables = self.model.init(self.rng, *self.exe.put(tuple(first_batch)),
-                                         device=self.exe.device)
-        self.opt_state = self.optimizer.create_state(self.variables.params)
+        if self.parallel:
+            from paddle_tpu_torch.parallel import DataParallel
+
+            kw = dict(self.parallel_kwargs)
+            kw.setdefault("mesh", mesh_mod.default_mesh())
+            kw.setdefault("device", self.exe.device)
+            kw.setdefault("batch_outputs", ())  # the loop reads only the loss
+            self._dp = DataParallel(self.model, self.optimizer, **kw)
+            self.variables, self.opt_state = self._dp.init(self.rng, *first_batch)
+        else:
+            self.variables = self.model.init(self.rng, *self.exe.put(tuple(first_batch)),
+                                             device=self.exe.device)
+            self.opt_state = self.optimizer.create_state(self.variables.params)
         # auto-resume (reference Trainer.__init__ -> _load_checkpoint,
         # trainer.py:594-629)
         if self.checkpoint_cfg is not None:
             root = self.checkpoint_cfg.checkpoint_dir
-            if ckpt_mod.latest_checkpoint(root):
-                tree = (self.variables, self.opt_state)
-                tree, meta = ckpt_mod.load_checkpoint(root, tree, self.trainer_id)
-                self.variables, self.opt_state = tree
+            sharded = self.checkpoint_cfg.use_sharded()
+            if cks.latest_sharded_checkpoint(root) if sharded else ckpt_mod.latest_checkpoint(root):
+                meta = self._load_checkpoint()
                 # next_epoch: epoch+1 for end-of-epoch saves, same epoch for
                 # mid-epoch saves (reference restarts the interrupted epoch)
                 self.epoch = int(meta.get("next_epoch", meta.get("epoch", 0)))
                 self.global_step = int(meta.get("step", 0))
                 self._last_saved_step = self.global_step
                 ptlog.vlog(
-                    0, "resumed from checkpoint: continuing at epoch %d step %d",
-                    self.epoch, self.global_step,
+                    0, "resumed from %s checkpoint: continuing at epoch %d step %d",
+                    "sharded" if sharded else "the", self.epoch, self.global_step,
                 )
+
+    def _load_checkpoint(self) -> dict:
+        """Restore the latest checkpoint into the training state (corrupt
+        serials already fall back inside the loaders); returns its
+        metadata. Sharded: each rank reads its own window of every leaf.
+        The single-file layout holds whole slots, which a ZeRO-1 rank then
+        cuts to its rows."""
+        root = self.checkpoint_cfg.checkpoint_dir
+        tree = (self.variables, self.opt_state)
+        if self.checkpoint_cfg.use_sharded():
+            cks.wait_pending_save()
+            target = self._dp.state_template(*tree) if self._dp is not None else tree
+            tree, meta = cks.load_sharded(root, target)
+        else:
+            tree, meta = ckpt_mod.load_checkpoint(root, tree, self.trainer_id)
+            if self._dp is not None:
+                tree = self._dp.place_state(*tree)
+        self.variables, self.opt_state = tree
+        return meta
 
     def _compiled_step(self):
         if self._step_fn is None:
@@ -184,10 +225,20 @@ class Trainer:
         num_epochs: int,
         event_handler: Optional[Callable[[Any], None]] = None,
         reader: Optional[Callable[[], Iterable[Tuple]]] = None,
+        allow_ragged: bool = False,
     ):
         """Run the training loop (reference ``Trainer.train`` →
-        ``_train_by_executor``, trainer.py:404)."""
+        ``_train_by_executor``/``_train_by_parallel_executor``,
+        trainer.py:404,541).
+
+        ``allow_ragged``: in parallel mode, a batch whose leading dim does
+        not divide the mesh trains through ``DataParallel.step_ragged``
+        (every rank steps on the whole batch: numerically a single-device
+        step) instead of raising, so ``drop_last=False`` readers train on
+        EVERY sample, the reference's data_balance guarantee
+        (``details/data_balance_op_handle.cc:154``)."""
         enforce(reader is not None, "Trainer.train needs a batched reader")
+        self._allow_ragged = allow_ragged
         handler = event_handler or (lambda event: None)
         # a Trainer may be re-entered after a preempted run (in-process
         # resume): stale flags must not end the new loop after one step
@@ -255,6 +306,16 @@ class Trainer:
             if self._watchdog is not None:
                 self._watchdog.close()
                 self._watchdog = None
+            if self.checkpoint_cfg is not None and self.checkpoint_cfg.async_save:
+                unwinding = sys.exc_info()[1] is not None
+                try:
+                    cks.wait_pending_save()  # train() returning => saves durable
+                except Exception as e:
+                    if not unwinding:  # clean exit: "train() returned" must
+                        raise  # imply a durable save
+                    # the loop is already unwinding with its own exception —
+                    # log the writer failure instead of masking the cause
+                    ptlog.error("async checkpoint writer failed during train() exit: %s", e)
 
     # -- telemetry ----------------------------------------------------------
     def _record_step(self, epoch_id: int, batch, dt: float, loss: Optional[float]) -> None:
@@ -314,15 +375,17 @@ class Trainer:
 
     def _rollback(self) -> None:
         """Restore params + optimizer state from the last good checkpoint
-        (corrupt serials already fall back inside load_checkpoint)."""
-        root = self.checkpoint_cfg.checkpoint_dir
+        (corrupt serials already fall back inside the loaders)."""
+        cfg = self.checkpoint_cfg
+        root = cfg.checkpoint_dir
         t0 = time.perf_counter()
         rolled_back_from = self.global_step
-        enforce(ckpt_mod.latest_checkpoint(root) is not None,
-                f"rollback: no checkpoint under {root} to restore")
-        tree, meta = ckpt_mod.load_checkpoint(root, (self.variables, self.opt_state),
-                                              self.trainer_id)
-        self.variables, self.opt_state = tree
+        if cfg.use_sharded():
+            cks.wait_pending_save()
+        latest = cks.latest_sharded_checkpoint(root) if cfg.use_sharded() else \
+            ckpt_mod.latest_checkpoint(root)
+        enforce(latest is not None, f"rollback: no checkpoint under {root} to restore")
+        meta = self._load_checkpoint()
         self.global_step = int(meta.get("step", self.global_step))
         self._last_saved_step = self.global_step
         self.rollbacks += 1
@@ -370,6 +433,14 @@ class Trainer:
         restarts, matching the reference's mid-epoch checkpoint semantics),
         epoch+1 when the signal landed on a completed epoch boundary."""
         self.preempted = True
+        if self.checkpoint_cfg is not None and self.checkpoint_cfg.async_save:
+            # an async save may be in flight or may have FAILED — "already
+            # saved" is only true once the publish is confirmed durable
+            try:
+                cks.wait_pending_save()
+            except Exception as e:
+                ptlog.warning("pending async checkpoint failed (%s); re-saving", e)
+                self._last_saved_step = -1
         if self.checkpoint_cfg is not None and self.global_step != self._last_saved_step:
             self._save_checkpoint({"next_epoch": next_epoch, "preempted": True})
             ptlog.vlog(0, "preempted: saved at epoch %d step %d", self.epoch, self.global_step)
@@ -383,7 +454,8 @@ class Trainer:
     def _batches(self, reader):
         """One epoch's batch stream, optionally device-prefetched: copies to
         the card run on a producer thread ``prefetch_depth`` batches ahead,
-        so the step never waits on host->device copies."""
+        so the step never waits on host->device copies (in parallel mode
+        the whole global batch; the step takes this rank's rows of it)."""
         it = iter(reader())
         if self.prefetch:
             from paddle_tpu_torch.reader import DevicePrefetcher
@@ -396,6 +468,11 @@ class Trainer:
             yield batch
 
     def _run_step(self, batch) -> StepOutput:
+        if self.parallel:
+            with prof.record_event("trainer.step_compute"):
+                if self._allow_ragged and not self._dp.batch_divisible(*batch):
+                    return self._dp.step_ragged(self.variables, self.opt_state, *batch)
+                return self._dp.step(self.variables, self.opt_state, *batch)
         step_fn = self._compiled_step()
         args = self.exe.put(tuple(batch))
         with prof.record_event("trainer.step_compute"):
@@ -417,21 +494,43 @@ class Trainer:
         # metadata so resume skips the completed epoch
         if self.global_step == self._last_saved_step:
             if not step:
-                ckpt_mod.update_meta(cfg.checkpoint_dir, {"next_epoch": self.epoch + 1})
+                if cfg.use_sharded():
+                    cks.update_manifest(cfg.checkpoint_dir, {"next_epoch": self.epoch + 1})
+                elif mesh_mod.process_rank() == 0:
+                    ckpt_mod.update_meta(cfg.checkpoint_dir, {"next_epoch": self.epoch + 1})
             return
         self._save_checkpoint({"next_epoch": self.epoch + (0 if step else 1)})
 
     def _save_checkpoint(self, extra_meta: dict):
+        """Shared sharded/single-file checkpoint dispatch. In parallel mode
+        every rank calls it: a sharded save writes each rank's blocks; a
+        single-file save is written by rank 0 alone, after ZeRO-1's slots
+        are gathered whole."""
         cfg = self.checkpoint_cfg
-        ckpt_mod.save_checkpoint(
-            cfg.checkpoint_dir,
-            (self.variables, self.opt_state),
-            step=self.global_step,
-            epoch=self.epoch,
-            max_num_checkpoints=cfg.max_num_checkpoints,
-            trainer_id=self.trainer_id,
-            extra_meta=extra_meta,
-        )
+        tree = (self.variables, self.opt_state)
+        if cfg.use_sharded():
+            save = cks.save_sharded_async if cfg.async_save else cks.save_sharded
+            save(
+                cfg.checkpoint_dir, tree,
+                step=self.global_step,
+                epoch=self.epoch,
+                max_num_checkpoints=cfg.max_num_checkpoints,
+                extra_meta=extra_meta,
+                template=self._dp.state_template(*tree) if self._dp is not None else None,
+            )
+        else:
+            if self._dp is not None:
+                tree = self._dp.full_state(*tree)
+            if mesh_mod.process_rank() == 0:
+                ckpt_mod.save_checkpoint(
+                    cfg.checkpoint_dir, tree,
+                    step=self.global_step,
+                    epoch=self.epoch,
+                    max_num_checkpoints=cfg.max_num_checkpoints,
+                    trainer_id=self.trainer_id,
+                    extra_meta=extra_meta,
+                )
+            mesh_mod.barrier()  # published before any rank may read it
         self._last_saved_step = self.global_step
 
     # -- eval / predict -----------------------------------------------------
@@ -448,32 +547,57 @@ class Trainer:
                 losses.append(float(torch.mean(loss.float())))
         return float(np.mean(losses)) if losses else float("nan")
 
-    def evaluate(self, reader: Callable[[], Iterable[Tuple]], metric_fn):
+    def evaluate(self, reader: Callable[[], Iterable[Tuple]], metric_fn,
+                 pad_to_first: bool = True):
         """Exact test-set metric: every sample counts exactly once,
-        including a ragged final batch (one device, so no padding).
+        including a ragged final batch. In parallel mode the batch is padded
+        to the shard multiple (``DataParallel.pad_batch``), each rank
+        evaluates its rows, the validity mask zeroes the padding out, and
+        the metric's sum and count are summed over the ranks — the
+        reference's data_balance guarantee
+        (``details/data_balance_op_handle.cc:154``).
 
         ``metric_fn(outputs, *batch) -> [B]`` per-sample values (e.g. a
         correct-prediction indicator), given the model's outputs and the
-        reader's batch as it came; returns their mean over all samples."""
+        rows of the reader's batch they belong to; returns their mean over
+        all samples. ``pad_to_first`` pads every ragged batch to the first
+        batch's size."""
         enforce(self.variables is not None, "train (or init) before evaluate")
         total, count = 0.0, 0
+        target = None
         with torch.no_grad():
             for batch in reader():
                 n = int(np.shape(batch[0])[0])
-                out, _ = self.model.apply(self.variables, *self.exe.put(tuple(batch)),
-                                          is_train=False)
-                per_sample = metric_fn(out, *batch)
+                if self.parallel:
+                    # a batch LARGER than the latched first-batch size pads
+                    # to its own multiple
+                    to = target if (target is not None and n <= target) else None
+                    padded, mask = self._dp.pad_batch(*batch, to=to)
+                    if target is None and pad_to_first:
+                        target = mask.shape[0]
+                    rows = tuple(self._dp.rank_rows(b) for b in padded)
+                    mask = self._dp.rank_rows(mask)
+                    out = self._dp.eval_local(self.variables, *self._dp.put_batch(*padded))
+                else:
+                    rows, mask = batch, np.ones((n,), np.float32)
+                    out, _ = self.model.apply(self.variables, *self.exe.put(tuple(batch)),
+                                              is_train=False)
+                per_sample = metric_fn(out, *rows)
                 if isinstance(per_sample, torch.Tensor):
                     per_sample = per_sample.detach().cpu().numpy()
                 per_sample = np.asarray(per_sample, np.float64)
-                # exact shape: a [B, 1] column would count each row B times
+                # exact shape: a [B, 1] column would broadcast against the
+                # [B] mask into [B, B] and silently inflate the metric
                 enforce(
-                    per_sample.shape == (n,),
-                    f"metric_fn must return one value per row (shape ({n},)), "
-                    f"got shape {per_sample.shape}",
+                    per_sample.shape == mask.shape,
+                    f"metric_fn must return one value per row (shape "
+                    f"{mask.shape}), got shape {per_sample.shape}",
                 )
-                total += float(per_sample.sum())
-                count += n
+                total += float((per_sample * mask).sum())
+                count += int(mask.sum())
+        if self.parallel:
+            total, count = self._dp.sum_over_ranks([total, count])
+            count = int(count)
         return total / count if count else float("nan")
 
     def save_params(self, dirname: str):
@@ -484,4 +608,7 @@ class Trainer:
         io_mod.save_params(dirname, self.variables)
 
     def stop(self):
-        self.exe.close()
+        try:
+            cks.wait_pending_save()  # the last async checkpoint must be durable
+        finally:
+            self.exe.close()  # a failed writer must not leak the executor

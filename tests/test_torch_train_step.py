@@ -228,8 +228,7 @@ def test_apply_accepts_rng_and_runs_with_gradients():
 
 def test_remat_and_data_parallel_raise_not_ported():
     """``remat`` is ported (its step equals the plain model's; the parity
-    itself is in ``test_torch_transformer_lm.py``); ``minimize(axis_name=)``
-    still raises."""
+    itself is in ``test_torch_transformer_lm.py``)."""
     tspec = tmodels.get_model("transformer_lm", device="cpu", remat=True, **SMALL)
     plain = tmodels.get_model("transformer_lm", device="cpu", **SMALL)
     ids, labels = tspec.synth_batch(1, np.random.RandomState(8))
@@ -238,5 +237,3 @@ def test_remat_and_data_parallel_raise_not_ported():
     out = opt.minimize(tspec.model)(tvars, opt.create_state(tvars.params), ids, labels)
     ref = opt.minimize(plain.model)(tvars, opt.create_state(tvars.params), ids, labels)
     assert float(out.loss) == float(ref.loss)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        opt.minimize(tspec.model, axis_name="data")

@@ -266,22 +266,13 @@ def test_prefetcher_surfaces_reader_errors():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    ({"parallel": True}, "data parallelism"),
-    ({"parallel_kwargs": {"mesh": None}}, "data parallelism"),
     ({"resilience": ResilienceConfig(elastic=True)}, "elastic"),
     ({"observability": object()}, "telemetry"),
     ({"watch": object()}, "telemetry"),
-], ids=["parallel", "parallel_kwargs", "elastic", "observability", "watch"])
+], ids=["elastic", "observability", "watch"])
 def test_not_ported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP.md"):
         _trainer(**kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [{"sharded": True}, {"async_save": True}],
-                         ids=["sharded", "async_save"])
-def test_sharded_and_async_checkpoints_raise(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CheckpointConfig(str(tmp_path), **kwargs)
 
 
 def test_trainer_defaults_to_cuda():
