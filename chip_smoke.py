@@ -158,11 +158,36 @@ Phases, each printing JSON lines:
                seconds an async save blocks the step and its writer's,
                load seconds, and (b)'s two-rank checkpoint loaded at one
                rank equal leaf for leaf.
- 12. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8, 10 and 11), its error and times at the slice
-               shape and at the NMT cases from phase 3; before it, a line
-               with the kernels' earlier times, copied from PERF.md (not
-               measured).
+ 12. telemetry — the LM at BASE_CFG through Trainer.train at bench.py's
+               LM cell (8 x 1024 tokens, bf16, flash, Adam) with the
+               telemetry on (an exporter on an ephemeral port, a run log,
+               tracing, a watch rule on trainer.step_seconds, the roofline
+               ledger) and off, in turns from the same weights and batches
+               (TELEMETRY_*): the losses bit-equal, 6 launches of each
+               kernel every step and the same device activity count under
+               torch.profiler both ways; the trainer.mfu gauge equal to the
+               counted FLOPs over the step's seconds times the card's peak;
+               the counted FLOPs within 1% of the analytic count and equal
+               to the CPU path's count of the same step (FakeTensorMode);
+               step ms on and off. The exporter, scraped while it trains:
+               /metrics parses and holds trainer_mfu, trainer_goodput_frac,
+               trainer_step_seconds and device_hbm_*{device="cuda:0"}, the
+               peak gauge equal to torch.cuda.max_memory_allocated; /trace
+               validates with every step's trainer.step_compute span and a
+               memory counter track; core.profiler.profiler(log_dir) over
+               two steps writes a torch.profiler trace holding the three
+               kernels. Faults: a NaN step under skip_step (nan_skip badput,
+               goodput below 1) and a stall inside a step (one straggler
+               flag, the watch alert). A DecodeEngine burst of 16 of phase
+               serve (a)'s requests with tracing and the ledger on, against
+               both off: tokens equal or a near tie, every request's span
+               tree complete, no step fault, ledger rows for the step and
+               the prefill with their verdicts.
+ 13. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8, 10, 11 and 12), its error and times at the
+               slice shape and at the NMT cases from phase 3; before it, a
+               line with the kernels' earlier times, copied from PERF.md
+               (not measured).
 The last line is {"ok": true, "device": {...}}. It is printed only when every
 phase passed; the exit code is 0 only then. Without CUDA the script exits 1
 and prints no result.
@@ -345,6 +370,25 @@ DP_ONE_RANK_TOL = 0.0
 # alone, as if the all-reduce did nothing) 0.85 at its median one (PERF.md
 # section 6, PR 9), and it must read above the limit in every run.
 DP_MOVEMENT_TOL = 0.25
+# Telemetry (phase telemetry): bench.py's LM cell through the Trainer (8 x
+# 1024 tokens, bf16, flash, Adam) with the telemetry on — an exporter on an
+# ephemeral port (scraped while it trains), a run log, tracing, a watch on
+# the step time, the roofline ledger — and off, in turns from the same
+# weights and batches: TELEMETRY_STEPS steps a run, TELEMETRY_TURNS runs
+# each way, then one profiled run each way; step ms from the third step on
+# (the first is counted, the second still warms up). The step's counted
+# FLOPs within
+# TELEMETRY_FLOPS_TOL (relative) of the analytic count, and equal to the CPU
+# path's count of the same step (traced under FakeTensorMode: shapes only).
+TELEMETRY_STEPS, TELEMETRY_TURNS, TELEMETRY_FLOPS_TOL = 8, 2, 0.01
+# (c) one run of TELEMETRY_FAULT_STEPS steps with a NaN injected at step
+# TELEMETRY_NAN_STEP (nan_policy "skip_step") and a stall of
+# TELEMETRY_STALL_S inside step TELEMETRY_STALL_STEP: ~10x the step, past the
+# straggler watch's 2.5x and the watch rule's 4x of the running median
+TELEMETRY_FAULT_STEPS, TELEMETRY_NAN_STEP = 8, 2
+TELEMETRY_STALL_STEP, TELEMETRY_STALL_S = 6, 0.5
+# (d) the first TELEMETRY_SERVE_REQUESTS requests of phase serve (a)'s burst
+TELEMETRY_SERVE_REQUESTS = 16
 
 
 def emit(obj) -> None:
@@ -1404,6 +1448,7 @@ def serve_burst(params, cfg, reqs, decode_kw, profile=False, **engine_kw):
         unjoined = engine.close(timeout=SERVE_WAIT_S)
     engine.kv.assert_no_leaks()
     stats = {"faults": {k: snap[k] for k in SERVE_FAULT_COUNTERS}, "wall_s": wall, "launches": launches, "peak_memory_bytes": peak,
+             "traces": [h.trace for h in handles],
              "burst_memory_bytes": peak - before, "docs": docs,
              "metrics": snap, "step_p50_s_histogram": step_p50, "step_sizes": sizes,
              "spec_accept_rate": accept, "unjoined": unjoined, "no_leaks": True}
@@ -1545,8 +1590,8 @@ def serve_phase(smi: str):
 
         def one_step():
             with torch.no_grad():
-                nxt = engine._step_call(engine._model, engine._dev(tokens), engine._dev(positions),
-                                        engine._dev(tables), engine._k_pages, engine._v_pages)
+                nxt = engine._step_call(engine._dev(tokens), engine._dev(positions),
+                                        engine._dev(tables))
                 return nxt.cpu()
 
         step_ms = best_step_ms(one_step, runs=21)
@@ -2217,6 +2262,334 @@ def dp_phase(smi: str):
     return paths, checks
 
 
+def lm_step_flops(cfg, batch, seq_len):
+    """The LM step's model FLOPs: 6 x the products' weights x tokens
+    (forward, and the two backward products), plus the causal attention's
+    two products, 4·B·d·T(T+1)/2 a layer forward and 2.5 times that
+    backward."""
+    d, di, vocab, layers = cfg["d_model"], cfg["d_inner"], cfg["vocab"], cfg["n_layers"]
+    weights = layers * (4 * d * d + 2 * d * di) + d * vocab
+    attn = layers * 4 * batch * d * (seq_len * (seq_len + 1) // 2)
+    return 6 * weights * batch * seq_len + attn * 7 // 2
+
+
+def device_event_count(prof) -> int:
+    """Device activities (kernels, copies, fills) a torch.profiler run
+    recorded, from its raw events."""
+    try:
+        return sum(1 for e in prof.profiler.kineto_results.events()
+                   if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
+    except AttributeError:
+        return sum(evt.count for evt in prof.key_averages()
+                   if "CUDA" in str(getattr(evt, "device_type", "")))
+
+
+def telemetry_phase(smi: str):
+    """Phase 12: the Trainer at BASE_CFG under the telemetry stack against
+    the same Trainer without it, the exporter scraped while it trains,
+    injected faults, and a DecodeEngine burst with tracing and the roofline
+    ledger. Returns the telemetry-on run's kernel launches and the checks."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import tracing
+    from paddle_tpu_torch.core import profiler as prof
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.observability import exporter, mfu, roofline
+    from paddle_tpu_torch.observability import runlog
+    from paddle_tpu_torch.resilience import ResilienceConfig, faults
+    from paddle_tpu_torch.trainer import BeginStepEvent, EndStepEvent, Trainer
+    from paddle_tpu_torch.watch import RollingQuantileDetector, WatchConfig, WatchRule, default_hub
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=False)
+    spec = get_model("transformer_lm")  # BASE_CFG, seq_len 1024, on CUDA
+    cfg, seq_len = spec.extra["cfg"], spec.extra["seq_len"]
+    rng = np.random.RandomState(0)
+    batches = [spec.synth_batch(TRAIN_BATCH, rng)
+               for _ in range(max(TELEMETRY_STEPS, TELEMETRY_FAULT_STEPS))]
+    init_vars = spec.model.init(0, *batches[0])
+    init_state = spec.optimizer().create_state(init_vars.params)
+    work = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    watch_source = "watch.trainer.step_seconds"
+    card = torch.device("cuda", torch.cuda.current_device())
+    label = tracing.device_label(card)
+
+    def scrape(url):
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.read().decode()
+
+    def run(on, steps, resilience=None, profile=False, log_dir=None):
+        """One Trainer from the initial state over ``steps`` batches, with the
+        telemetry on or off: its losses, per-step launches, the ms between
+        its step ends, and (on) what the exporter served."""
+        tracing.reset_tracing()
+        (tracing.enable_tracing if on else tracing.disable_tracing)()
+        set_flags(roofline=on)
+        kw = {}
+        if on:
+            kw["observability"] = obs.ObservabilityConfig(
+                metrics_port=0, runlog_path=os.path.join(work, f"run{len(os.listdir(work))}.jsonl"))
+            kw["watch"] = WatchConfig(enabled=True, use_default_rules=False, rules=[WatchRule(
+                "trainer.step_seconds",
+                RollingQuantileDetector(window=16, q=0.5, ratio=4.0, min_samples=4))])
+        t = Trainer(lambda: spec.model, spec.optimizer, resilience=resilience, **kw)
+        t.variables, t.opt_state = init_vars, init_state
+        losses, per_step, ends, marks, scrapes, scrape_errors = [], [], [], {}, [], []
+
+        def handler(ev):
+            if isinstance(ev, BeginStepEvent):
+                marks["counts"] = kernel_launch_counts()
+            elif isinstance(ev, EndStepEvent):
+                ends.append(time.perf_counter())
+                losses.append(ev.metrics)
+                now = kernel_launch_counts()
+                per_step.append({n: now[n] - marks["counts"][n] for n in now})
+
+        stop = threading.Event()
+        out = {}
+        try:
+            if on:
+                url = obs.server().url
+
+                def scraper():
+                    while not stop.wait(0.2):
+                        try:
+                            scrapes.append(exporter.parse_text_exposition(scrape(url + "/metrics")))
+                        except Exception as e:  # judged below: every scrape must parse
+                            scrape_errors.append(repr(e))
+
+                thread = threading.Thread(target=scraper, daemon=True)
+                thread.start()
+            p = tprofile(activities=[ProfilerActivity.CUDA]) if profile else None
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            if p is not None:
+                p.__enter__()
+            if log_dir is not None:
+                with prof.profiler(log_dir):
+                    t.train(num_epochs=1, event_handler=handler,
+                            reader=lambda: iter(batches[:steps]))
+            else:
+                t.train(num_epochs=1, event_handler=handler, reader=lambda: iter(batches[:steps]))
+            torch.cuda.synchronize()
+            if p is not None:
+                p.__exit__(None, None, None)
+                out["device_events"] = device_event_count(p)
+            out["launches"] = kernel_launch_counts()
+            if on:
+                stop.set()
+                thread.join(timeout=30)
+                gauges = prof.gauges()
+                rows = TRAIN_BATCH
+                dt = rows / gauges["trainer.examples_per_sec"]  # the last good step's seconds
+                peak = mfu.peak_flops(card)
+                sample = tracing.sample_device_memory([card])[0]
+                max_alloc = torch.cuda.max_memory_allocated()
+                final = exporter.parse_text_exposition(scrape(url + "/metrics"))
+                trace_doc = json.loads(scrape(url + "/trace"))
+                out.update(
+                    scrapes=len(scrapes), scrape_errors=scrape_errors, final=final,
+                    mfu_gauge=gauges["trainer.mfu"], mfu_expected=t._step_flops / (dt * peak),
+                    peak=peak, sample=sample, max_alloc=max_alloc, trace=trace_doc,
+                    events=[e["kind"] for e in runlog.read_runlog(runlog.get_runlog().path)],
+                    roofline=[r for r in roofline.snapshot() if r["kernel"] == "trainer_step"])
+        finally:
+            stop.set()
+            t.stop()
+            obs.shutdown()
+        # the ms between step ends from the third step on (data wait and
+        # handler included)
+        out.update(step_flops=t._step_flops, goodput=t.goodput, losses=losses,
+                   per_step=per_step, step_ms=[1e3 * (b - a) for a, b in zip(ends[1:-1], ends[2:])])
+        return out
+
+    def sample_of(fams, family, labels):
+        for name, lbls, value in fams.get(family, {}).get("samples", []):
+            if all(lbls.get(k) == v for k, v in labels.items()):
+                return value
+        return None
+
+    checks = {}
+    try:
+        # (a) + (b): in turns, from the same weights and batches
+        roofline.reset_ledger()
+        turns = []
+        for i in range(TELEMETRY_TURNS):
+            for on in (False, True):
+                turns.append((on, run(on, TELEMETRY_STEPS)))
+        telemetry_launches = next(r for on, r in turns if on)["launches"]
+        on_runs = [r for on, r in turns if on]
+        off_runs = [r for on, r in turns if not on]
+        prof_off, prof_on = (run(on, TELEMETRY_STEPS, profile=True) for on in (False, True))
+        step_flops = on_runs[0]["step_flops"]
+        analytic = lm_step_flops(cfg, TRAIN_BATCH, seq_len)
+        # the CPU path's count of the same step: shapes only, no arithmetic
+        cpu_spec = get_model("transformer_lm", device="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+            ids, labels = (fake.from_tensor(b.cpu()) for b in batches[0])
+            cpu_vars = cpu_spec.model.init(0, ids, labels, device="cpu")
+            cpu_opt = cpu_spec.optimizer()
+            with mfu.CostCounter() as cpu_count:
+                cpu_opt.minimize(cpu_spec.model)(cpu_vars, cpu_opt.create_state(cpu_vars.params),
+                                                 ids, labels)
+        ledger = on_runs[0]["roofline"]
+        last = on_runs[-1]
+        final = last["final"]
+        trace_events = last["trace"]["traceEvents"]
+        compute_spans = [e for e in trace_events
+                         if e.get("ph") == "X" and e.get("name") == "trainer.step_compute"]
+        hbm_track = [e for e in trace_events
+                     if e.get("ph") == "C" and e.get("name") == "device.hbm.bytes_in_use"]
+        n_layers = cfg["n_layers"]
+        checks.update({
+            "a_losses_bit_equal_on_off": all(r["losses"] == off_runs[0]["losses"]
+                                             for r in on_runs + off_runs),
+            "a_launches_per_step_6_each_on_off": all(
+                s == {k: n_layers for k in s} for r in on_runs + off_runs for s in r["per_step"]),
+            "a_profiler_device_events_equal_on_off":
+                prof_on["device_events"] == prof_off["device_events"] > 0,
+            "a_mfu_gauge_is_counted_flops_over_step_s_x_peak": all(
+                abs(r["mfu_gauge"] / r["mfu_expected"] - 1.0) <= 1e-9 for r in on_runs),
+            "a_flops_within_tol_of_analytic":
+                abs(step_flops / analytic - 1.0) <= TELEMETRY_FLOPS_TOL,
+            "a_flops_equal_cpu_count": step_flops == cpu_count.flops,
+            "a_ledger_row_counts_the_same_flops":
+                len(ledger) == 1 and ledger[0]["flops"] == step_flops,
+            "b_every_scrape_parsed": all(r["scrapes"] >= 1 and not r["scrape_errors"]
+                                         for r in on_runs),
+            "b_metrics_families": all(
+                f in final for f in ("trainer_mfu", "trainer_goodput_frac", "trainer_step_seconds",
+                                     "device_hbm_bytes_in_use", "device_hbm_peak_bytes_in_use",
+                                     "device_hbm_bytes_limit")),
+            "b_hbm_gauges_for_the_card": all(
+                sample_of(final, f, {"device": label}) is not None
+                for f in ("device_hbm_bytes_in_use", "device_hbm_peak_bytes_in_use",
+                          "device_hbm_bytes_limit")),
+            "b_memory_source_is_memory_stats": last["sample"]["source"] == "memory_stats",
+            "b_peak_gauge_is_max_memory_allocated":
+                last["sample"]["peak_bytes_in_use"] == last["max_alloc"]
+                == sample_of(final, "device_hbm_peak_bytes_in_use", {"device": label}),
+            "b_trace_validates": bool(tracing.validate_chrome_trace(last["trace"])),
+            "b_trace_has_every_step_compute_span": len(compute_spans) == TELEMETRY_STEPS,
+            "b_trace_has_memory_counter_track": len(hbm_track) >= TELEMETRY_STEPS,
+        })
+
+        # (b) core.profiler.profiler(log_dir) over two steps: torch.profiler's
+        # trace holds the three kernels, six launches each a step
+        log_dir = os.path.join(work, "profile")
+        run(False, 2, log_dir=log_dir)
+        with open(os.path.join(log_dir, "trace.chrome.json")) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        traced = {k: sum(f"{k}_bf16_kernel" in n for n in names) for k in HOPPER_KERNELS}
+        checks["b_profiler_trace_holds_the_three_kernels"] = all(
+            n == 2 * n_layers for n in traced.values())
+
+        # (c) faults: a NaN step under skip_step, then a stall inside a step
+        flags0 = prof.counters().get("tracing.straggler.flags_total", 0.0)
+        alerts0 = len(default_hub().alerts(source=watch_source))
+        with faults.injected(
+                faults.FaultSpec(faults.TRAINER_STEP, "stall", after=TELEMETRY_STALL_STEP,
+                                 stall_s=TELEMETRY_STALL_S),
+                faults.FaultSpec(faults.TRAINER_STEP, "nan", after=TELEMETRY_NAN_STEP)):
+            fault_run = run(True, TELEMETRY_FAULT_STEPS,
+                            resilience=ResilienceConfig(nan_policy="skip_step"))
+        goodput = fault_run["goodput"]
+        flags = prof.counters().get("tracing.straggler.flags_total", 0.0) - flags0
+        alerts = default_hub().alerts(source=watch_source)[alerts0:]
+        badput = goodput.badput_by_category()
+        checks.update({
+            "c_stall_flags_the_straggler_once": flags == 1,
+            "c_stall_fires_the_watch_alert": len(alerts) >= 1,
+            "c_nan_skip_badput": badput.get("nan_skip", 0.0) > 0,
+            "c_goodput_frac_below_1": goodput.goodput_frac() < 1.0
+            and sample_of(fault_run["final"], "trainer_goodput_frac", {}) < 1.0,
+            "c_runlog_nan_skip_and_straggler": "nan_skip" in fault_run["events"]
+            and "straggler" in fault_run["events"],
+        })
+
+        # (d) DecodeEngine: tracing and the ledger on, then both off
+        set_flags(use_bf16_compute=False, roofline=True)
+        tracing.enable_tracing()
+        srng = np.random.RandomState(0)
+        lens = srng.randint(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, size=SERVE_REQUESTS)
+        mnts = srng.randint(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, size=SERVE_REQUESTS)
+        prompts = [srng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32) for n in lens]
+        reqs = [(p, int(n)) for p, n in zip(prompts, mnts)][:TELEMETRY_SERVE_REQUESTS]
+        params = spec.model.init(0, *spec.synth_batch(1, np.random.RandomState(0))).params
+        roofline.reset_ledger()
+        tracing.reset_tracing()
+        outs_on, s_on = serve_burst(params, cfg, reqs, SERVE_CONFIG)
+        rows = {r["kernel"]: r for r in roofline.snapshot()}
+        trees = []
+        for trace in s_on["traces"]:
+            spans = tracing.spans_for_trace(trace.trace_id)
+            trees.append({"problems": tracing.validate_trace(spans),
+                          "names": sorted({s.name for s in spans})})
+        tracing.disable_tracing()
+        set_flags(roofline=False)
+        outs_off, s_off = serve_burst(params, cfg, reqs, SERVE_CONFIG)
+        tracing.enable_tracing()
+        set_flags(roofline=True)
+        ok_tokens, gaps = held_against(params, cfg, [p for p, _ in reqs],
+                                       [o.tokens for o in outs_off], [o.tokens for o in outs_on])
+        ledger_rows = {k: {f: rows[k].get(f) for f in (
+            "key", "flops", "bytes", "bytes_source", "peak_hbm_bytes", "arithmetic_intensity",
+            "predicted_device_s", "calls", "min_s", "total_s", "overhead_frac", "verdict")}
+            for k in ("serving.decode.step", "serving.decode.prefill") if k in rows}
+        checks.update({
+            "d_tokens_equal_tracing_off_or_near_tie": ok_tokens,
+            "d_every_request_has_a_complete_span_tree": all(
+                not t["problems"] and {"serving.decode.request", "serving.decode.queue_wait",
+                                       "serving.decode.prefill"} <= set(t["names"])
+                for t in trees),
+            "d_no_step_faults": all(v == 0 for s in (s_on, s_off) for v in s["faults"].values()),
+            "d_ledger_rows_for_step_and_prefill": len(ledger_rows) == 2 and all(
+                r["flops"] > 0 and r["bytes"] > 0 and r["calls"] > 0 and r["verdict"]
+                for r in ledger_rows.values()),
+            "d_flash_launches_0": s_on["launches"]["flash_fwd"] == 0,
+        })
+    finally:
+        set_flags(roofline=True, use_bf16_compute=True)
+        tracing.enable_tracing()
+        shutil.rmtree(work, ignore_errors=True)
+
+    def ms_stats(rs):
+        all_ms = [m for r in rs for m in r["step_ms"]]
+        return {"median": float(np.median(all_ms)), "min": min(all_ms), "runs": [r["step_ms"] for r in rs]}
+
+    emit({"phase": "telemetry", "card": smi, "model": "transformer_lm", "batch": TRAIN_BATCH,
+          "seq_len": seq_len, "steps_per_run": TELEMETRY_STEPS, "turns": TELEMETRY_TURNS,
+          "step_ms_on": ms_stats(on_runs), "step_ms_off": ms_stats(off_runs),
+          "step_ms_overhead_median": ms_stats(on_runs)["median"] - ms_stats(off_runs)["median"],
+          "counted_flops": step_flops, "analytic_flops": analytic,
+          "cpu_counted_flops": cpu_count.flops, "counted_bytes": ledger[0]["bytes"] if ledger else None,
+          "cpu_flops_by_op": dict(cpu_count.by_op),
+          "peak_flops": on_runs[-1]["peak"], "device_kind": mfu.device_kind(card),
+          "mfu_gauges": [r["mfu_gauge"] for r in on_runs],
+          "trainer_ledger": ledger[0] if ledger else None,
+          "device_events_per_run": {"on": prof_on["device_events"], "off": prof_off["device_events"]},
+          "scrapes_per_run": [r["scrapes"] for r in on_runs],
+          "memory_sample": last["sample"], "max_memory_allocated": last["max_alloc"],
+          "profiler_kernels": traced, "straggler_flags": flags, "watch_alerts": len(alerts),
+          "badput": badput, "goodput_frac": goodput.goodput_frac(),
+          "serve": {"requests": len(reqs), "wall_s_on": s_on["wall_s"], "wall_s_off": s_off["wall_s"],
+                    "token_gaps": gaps, "span_names": trees[0]["names"] if trees else None,
+                    "ledger": ledger_rows, "faults": s_on["faults"]},
+          "checks": checks})
+    print(smi, flush=True)
+    return telemetry_launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -2570,9 +2943,13 @@ def main() -> int:
     dp_paths, dp_checks = dp_phase(smi)
     failures += [f"dp check {k}" for k, good in dp_checks.items() if not good]
 
-    # 12. kernels
+    # 12. the telemetry stack over the Trainer and the DecodeEngine
+    telemetry_launches, telemetry_checks = telemetry_phase(smi)
+    failures += [f"telemetry check {k}" for k, good in telemetry_checks.items() if not good]
+
+    # 13. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths, **serve_paths, **dp_paths}
+             **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import tracing
 from paddle_tpu_torch.core import locks
 from paddle_tpu_torch.core import logging as ptlog
 from paddle_tpu_torch.core import profiler as prof
@@ -368,9 +369,13 @@ def save_sharded_async(
                     root, step, shard_data, manifest, max_num_checkpoints
                 )
                 t1 = time.perf_counter()
+                # make the IO-overlap window visible next to trainer.step:
+                # histogram + runlog event + a Chrome-trace span from the
+                # writer thread (record_span is cross-thread safe)
                 prof.observe("checkpoint.async_write_seconds", t1 - t0)
                 runlog.emit("checkpoint_async_write", step=int(step),
                             path=handle._dir, seconds=round(t1 - t0, 6))
+                tracing.record_span("checkpoint.async_write", t0, t1, step=int(step))
                 ptlog.vlog(1, "async sharded checkpoint step %d -> %s", step, handle._dir)
             except BaseException as e:  # surfaced on result()
                 handle._error = e

@@ -59,6 +59,43 @@ class Flags:
     # batch-class drain share the scheduler guarantees under interactive
     # pressure
     tenant_batch_min_share: float = 0.1
+    # directory for core.profiler.profiler() traces; empty = a directory
+    # under the process's temporary directory
+    profile_dir: str = ""
+    # observability: Prometheus exporter bind port (-1 = disabled, 0 = pick
+    # an ephemeral port; see paddle_tpu_torch.observability.ObservabilityConfig)
+    metrics_port: int = -1
+    metrics_host: str = "127.0.0.1"
+    # append-only JSONL run-event log path; empty = disabled
+    runlog_path: str = ""
+    # size-based runlog rollover: rotate the active file when it would
+    # exceed this many bytes (0 = never rotate), keeping runlog_keep
+    # rotated segments (path.1 .. path.N, oldest dropped)
+    runlog_max_bytes: int = 0
+    runlog_keep: int = 3
+    # per-device peak FLOP/s override for MFU accounting (0 = use the
+    # device-name table in observability/mfu.py)
+    peak_flops: float = 0.0
+    # peak memory bandwidth (bytes/s) override for roofline classification
+    # (0 = use the device-name table in observability/mfu.py)
+    peak_hbm_bw: float = 0.0
+    # roofline cost ledger: count each instrumented callable's FLOPs and
+    # bytes on its first call and book later calls' device seconds
+    # (observability/roofline.py; /roofline on the exporter)
+    roofline: bool = True
+    # peak-memory capture of that first call (torch.cuda.max_memory_allocated
+    # around it): "auto" = on for CUDA, off for the CPU; "on"/"off" force it
+    roofline_memory: str = "auto"
+    # tracing: bounded in-memory span store size (oldest spans evicted;
+    # evictions counted under tracing.spans_evicted)
+    trace_max_spans: int = 200_000
+    # straggler detector: flag a replica/step whose duration exceeds the
+    # group median by this ratio (see paddle_tpu_torch.tracing.straggler)
+    straggler_ratio: float = 2.5
+    # lock-order deadlock detection for core.locks instrumented wrappers
+    # (always on under pytest; this flag turns it on elsewhere — env
+    # PADDLE_TPU_LOCK_CHECK=1)
+    lock_check: bool = False
 
     @staticmethod
     def _coerce(value: str, typ):

@@ -10,19 +10,67 @@ caches the callable under the JAX package's LRU (and its
 gauge), and "running" calls it. ``put`` is the feed: it moves a batch to
 the executor's device. ``run(fetch=True)`` copies the outputs to numpy and
 applies ``check_nan_inf``.
+
+Where the JAX package compiles at a new argument signature, a prepared
+function's first call at one is its "compile" here (:class:`_Prepared`):
+it books ``executor.compiles_total``, the ``executor.compile_seconds``
+histogram, a ``compile`` runlog event and an ``executor.compile`` span,
+and feeds the roofline ledger (``observability/roofline.py``: that call's
+counted FLOPs and bytes; later calls their device time).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch import tracing
 from paddle_tpu_torch.core import config as cfg
 from paddle_tpu_torch.core import profiler as prof
 from paddle_tpu_torch.core import tree as tree_mod
 from paddle_tpu_torch.core.enforce import EnforceError
+from paddle_tpu_torch.observability import roofline, runlog
+
+
+def _signature(args, kwargs) -> tuple:
+    """The argument signature a compile would key on: each leaf's shape
+    and dtype (tensors, numpy arrays) or type."""
+    return tuple(
+        (tuple(leaf.shape), str(leaf.dtype)) if hasattr(leaf, "shape") else type(leaf)
+        for leaf in tree_mod.leaves((args, kwargs)))
+
+
+class _Prepared:
+    """A prepared function: its first call at each argument signature is
+    booked as a compile (counter, histogram, runlog event, span parented
+    under the caller's active span) and every call goes through the
+    roofline ledger's instrumentation."""
+
+    __slots__ = ("_fn", "_label", "_ledger", "_signatures")
+
+    def __init__(self, fn: Callable, label: str):
+        self._fn = fn
+        self._label = label
+        self._ledger = roofline.instrument(label, fn)
+        self._signatures: set = set()
+
+    def __call__(self, *args, **kwargs):
+        sig = _signature(args, kwargs)
+        if sig in self._signatures:
+            return self._ledger(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = self._ledger(*args, **kwargs)
+        t1 = time.perf_counter()
+        self._signatures.add(sig)
+        dt = t1 - t0
+        prof.inc_counter("executor.compiles_total")
+        prof.observe("executor.compile_seconds", dt)
+        runlog.emit("compile", target=self._label, seconds=round(dt, 6))
+        tracing.record_span("executor.compile", t0, t1, target=self._label)
+        return out
 
 __all__ = ["Executor", "to_device"]
 
@@ -67,7 +115,9 @@ class Executor:
             if len(self._cache) >= self._max_cache:
                 self._cache.pop(next(iter(self._cache)))
             prof.inc_counter("executor.cache_misses_total")
-            self._cache[cache_key] = fn
+            label = (str(key[0]) if isinstance(key, tuple) and key
+                     else getattr(fn, "__name__", "fn"))
+            self._cache[cache_key] = _Prepared(fn, label)
             prof.set_gauge("executor.cache_size", len(self._cache))
         return self._cache[cache_key]
 

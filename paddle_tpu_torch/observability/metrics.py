@@ -1,18 +1,19 @@
 """Typed, labeled metric registry: counters, gauges, and histograms.
 
-A copy of ``paddle_tpu.observability.metrics`` (jax-free) for the PyTorch
-port. Every metric belongs to a typed *family* (one name, one kind, one
-help string, one label schema) holding one child per label-value
-combination — the same data model Prometheus scrapes. The serving layer
-(``serving/metrics.py``, ``serving/admission.py``) writes here; the port's
-``core.profiler`` keeps its own flat counters, and the exporter that
-renders this registry is not ported yet.
+A copy of ``paddle_tpu.observability.metrics``. Every metric belongs to a
+typed *family*
+(one name, one kind, one help string, one label schema) holding one child
+per label-value combination — the same data model Prometheus scrapes.
+``core.profiler.inc_counter``/``set_gauge`` delegate here, so every
+existing call site feeds the same registry the exporter renders.
 
-Naming convention: ``subsystem.snake_case``, e.g.
-``serving.decode.steps_total`` or ``serving.decode.ttft_seconds``.
+Naming convention: ``subsystem.snake_case``, e.g. ``serving.requests_total``
+or ``trainer.step_seconds``. Dots become underscores in the Prometheus
+exposition (``observability/exporter.py``).
 
 Histograms store per-bucket (non-cumulative) observation counts plus a
-running sum; :meth:`MetricRegistry.collect` cumulates them. Bucket edges are fixed at family creation — declare
+running sum; the exporter cumulates them into the ``le``-labeled series
+Prometheus expects. Bucket edges are fixed at family creation — declare
 non-default edges up front with :meth:`MetricRegistry.histogram`.
 """
 
@@ -169,6 +170,39 @@ class MetricRegistry:
     def __init__(self):
         self._lock = locks.Lock("observability.metric_registry")
         self._families: Dict[str, _Family] = {}
+        # write subscribers: called AFTER the lock is released with
+        # (name, kind, value, labels_dict) for every inc/set/observe —
+        # the paddle_tpu_torch.watch online detectors feed from this instead of
+        # polling snapshots. Tuple (not list) so the hot-path read is one
+        # attribute load; swap-on-change under the lock.
+        self._subscribers: Tuple = ()
+
+    # -- subscriptions -----------------------------------------------------
+
+    def subscribe(self, fn) -> None:
+        """Register ``fn(name, kind, value, labels)`` to observe every
+        write. Called OUTSIDE the registry lock — a subscriber may itself
+        write metrics (re-entrancy is the subscriber's concern; see
+        ``paddle_tpu_torch.watch.watcher`` for the guard idiom). Exceptions are
+        swallowed: telemetry consumers must never break producers."""
+        with self._lock:
+            if fn not in self._subscribers:
+                self._subscribers = self._subscribers + (fn,)
+
+    def unsubscribe(self, fn) -> None:
+        # equality, not identity: each ``obj.method`` access builds a fresh
+        # bound-method object, and those compare equal but are never ``is``
+        with self._lock:
+            self._subscribers = tuple(
+                s for s in self._subscribers if s != fn)
+
+    def _notify(self, name: str, kind: str, value: float,
+                labels: Optional[Dict[str, str]]) -> None:
+        for fn in self._subscribers:
+            try:
+                fn(name, kind, value, labels)
+            except Exception:
+                pass  # see subscribe(): consumers never break producers
 
     # -- declaration -------------------------------------------------------
 
@@ -227,6 +261,7 @@ class MetricRegistry:
             fam = self._family(name, COUNTER, help)
             key = self._child_key(fam, labels)
             fam.children[key] = fam.children.get(key, 0.0) + value
+        self._notify(name, COUNTER, value, labels)
 
     def set(self, name: str, value: float,
             labels: Optional[Dict[str, str]] = None, help: str = "") -> None:
@@ -234,6 +269,7 @@ class MetricRegistry:
             fam = self._family(name, GAUGE, help)
             key = self._child_key(fam, labels)
             fam.children[key] = float(value)
+        self._notify(name, GAUGE, float(value), labels)
 
     def observe(self, name: str, value: float,
                 labels: Optional[Dict[str, str]] = None, help: str = "") -> None:
@@ -253,6 +289,7 @@ class MetricRegistry:
                 child = _Hist(len(fam.buckets))
                 fam.children[key] = child
             child.observe(fam.buckets, float(value))
+        self._notify(name, HISTOGRAM, float(value), labels)
 
     # -- reads -------------------------------------------------------------
 
@@ -345,7 +382,8 @@ class MetricRegistry:
             snap["edges"], snap["cumulative"], snap["count"], q)
 
     def reset(self) -> None:
-        """Drop every family (test isolation)."""
+        """Drop every family (test isolation; subscriptions survive — the
+        watcher outlives registry resets between test cases)."""
         with self._lock:
             self._families.clear()
 
@@ -357,3 +395,25 @@ def default_registry() -> MetricRegistry:
     """The process-wide registry every subsystem writes into."""
     return _default
 
+
+def declare_tracing_families(registry: Optional[MetricRegistry] = None) -> None:
+    """Pre-declare the tracing/device-telemetry counter and gauge families
+    with help text, so the very first scrape shows typed declarations even
+    before a sample lands (histograms are left to declare-on-first-observe:
+    an observation-free histogram family is not renderable). Called by
+    ``paddle_tpu_torch.tracing`` at import."""
+    r = registry or default_registry()
+    r.gauge("device.hbm.bytes_in_use",
+            "Live device memory bytes per device (the CUDA caching "
+            "allocator's allocated bytes, or the sum of the caller's tensors "
+            "on the CPU)")
+    r.gauge("device.hbm.peak_bytes_in_use", "Peak device memory bytes per device")
+    r.gauge("device.hbm.bytes_limit", "Device memory capacity per device")
+    r.counter("tracing.straggler.flags_total",
+              "Straggler detections per (group, key)")
+    r.gauge("tracing.straggler.skew_ratio",
+            "Latest observed skew ratio per (group, key)")
+    r.counter("tracing.spans_evicted",
+              "Spans evicted from the bounded in-memory span store")
+    r.counter("profiler.spans_dropped",
+              "Host profiler spans dropped after the span buffer filled")

@@ -7,14 +7,22 @@ until a :class:`RunLog` is installed via :func:`set_runlog` (usually by
 ``observability.setup()`` from the ``runlog_path`` flag), so hooks in hot
 paths cost one global read when logging is off.
 
-Event kinds the port emits so far:
+Event kinds the port emits:
 
-- ``step`` — loss, step_time_s, examples_per_sec, EMA throughput
+- ``step`` — loss, step_time_s, examples_per_sec, EMA throughput, MFU
   (``trainer.py``)
-- ``checkpoint_save`` / ``checkpoint_restore`` — publish/restore with path
-  and step (``checkpoint.py``)
+- ``compile`` — an Executor-prepared function's first call at a new
+  argument signature, and its seconds (``executor.py``)
+- ``checkpoint_save`` / ``checkpoint_restore`` / ``checkpoint_async_write``
+  — publish/restore with path and step; the async-write event carries the
+  background writer's wall seconds (``checkpoint.py``,
+  ``checkpoint_sharded.py``)
 - ``nan_skip`` / ``rollback`` / ``watchdog_stall`` / ``fault_injected`` —
   resilience events (``trainer.py``, ``resilience/``)
+- ``decode_admit`` / ``decode_evict`` / ... — the decode engine's request
+  life cycle (``serving/decode.py``)
+- ``alert`` — watch-layer and lock-order alerts with source/key/severity
+  (``watch/alerts.py``, ``core/locks.py``)
 
 A copy of ``paddle_tpu.observability.runlog`` (jax-free): the same line
 format, so tools that read one package's run log read the other's.

@@ -24,6 +24,13 @@ T_kv. ``block_q``/``block_k`` and the :func:`resolve_blocks`/
 :func:`fit_block` chain keep the JAX signature and resolution order, so
 callers run unchanged; they size the TPU's VMEM tiles and do not change the
 Hopper kernels' tiling.
+
+Cost report: a ``TorchDispatchMode`` does not see a ``ctypes`` launch, so
+while a step is counted (:class:`paddle_tpu_torch.observability.mfu.CostCounter`)
+the wrappers report each call's model FLOPs and bytes themselves
+(:func:`_report_costs`): the forward 4·B·H·d·(live q·k pairs), the
+backward 2.5 times that. On the CPU the plain versions then run with the
+counter paused, so a step counts the same FLOPs on either device.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtypes import NEG_INF
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.observability import mfu
 from paddle_tpu_torch.ops.cuda.build import CudaKernel
 
 __all__ = [
@@ -277,6 +286,39 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_len, window,
     return out, lse
 
 
+def _live_pairs(T: int, T_kv: int, causal: bool, kv_len, window, q_off: int,
+                k_off: int) -> int:
+    """Live (query, key) pairs of one head summed over the batch: row i
+    (global position q_off + i) attends keys j (global k_off + j) with
+    j < T_kv, j < kv_len[b], and when causal k_off + j <= q_off + i and,
+    with a window, q_off + i - (k_off + j) < window."""
+    rel = q_off - k_off + np.arange(T, dtype=np.int64)  # row i's last causal key
+    hi = np.minimum(T_kv, rel + 1) if causal else np.full(T, T_kv, np.int64)
+    lo = np.maximum(0, rel - int(window) + 1) if (causal and window) else np.zeros(T, np.int64)
+    if kv_len is None:
+        return int(np.maximum(0, hi - lo).sum())
+    lens = np.asarray(kv_len.detach().cpu().tolist(), np.int64).reshape(-1, 1)
+    return int(np.maximum(0, np.minimum(hi[None, :], lens) - lo[None, :]).sum())
+
+
+def _report_costs(name: str, q, k, causal, kv_len, window, q_off, k_off,
+                  fwd_multiple: float, nbytes: int) -> None:
+    """Report one kernel call to the active cost counters (no-op without
+    one): ``fwd_multiple`` × the forward's 4·H·d·(live pairs over the
+    batch) FLOPs, and ``nbytes``."""
+    if not mfu._active_counters():
+        return
+    B, H, T, d = q.shape
+    pairs = _live_pairs(T, k.shape[2], causal, kv_len, window, q_off, k_off)
+    if kv_len is None:
+        pairs *= B
+    mfu.report_kernel(name, int(fwd_multiple * 4 * H * d * pairs), nbytes)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def _flash_fwd(q, k, v, causal: bool, sm_scale: float, kv_len=None, window=None,
                q_off: int = 0, k_off: int = 0):
     """``(out [B,H,T,d], lse [B,H,T,1])``: the kernel for CUDA tensors, the
@@ -284,10 +326,15 @@ def _flash_fwd(q, k, v, causal: bool, sm_scale: float, kv_len=None, window=None,
     enforce(q.dim() == 4, f"flash_attention: q must be [B, H, T, d], got {tuple(q.shape)}")
     enforce(q.shape[1] % k.shape[1] == 0,
             f"{q.shape[1]} query heads not divisible by {k.shape[1]} kv heads")
+    # reads q, k, v (and kv_len); writes out (like q) and the f32 lse
+    _report_costs("flash_fwd", q, k, causal, kv_len, window, q_off, k_off, 1.0,
+                  2 * _nbytes(q) + _nbytes(k, v, kv_len) + q[..., 0].numel() * 4)
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal, sm_scale, kv_len, window, q_off, k_off)
     enforce(q.device.type == "cpu", f"flash_attention: unsupported device {q.device}")
-    return _reference_attention_with_lse(q, k, v, causal, sm_scale, kv_len, window, q_off, k_off)
+    with mfu.paused():
+        return _reference_attention_with_lse(q, k, v, causal, sm_scale, kv_len, window,
+                                             q_off, k_off)
 
 
 def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool, sm_scale: float,
@@ -334,12 +381,17 @@ def _flash_bwd(q, k, v, out, lse, g, causal: bool, sm_scale: float, kv_len=None,
     lse = lse.float().contiguous()
     delta = (g.float() * out.float()).sum(-1, keepdim=True)
     args = (q, k, v, g, lse, delta, causal, sm_scale, kv_len, window, q_off, k_off)
+    # each of the two kernels reads q, k, v, dO, lse, Delta (and kv_len);
+    # together they write dq, dk, dv
+    _report_costs("flash_bwd", q, k, causal, kv_len, window, q_off, k_off, 2.5,
+                  2 * _nbytes(q, k, v, g, lse, delta, kv_len) + _nbytes(q, k, v))
     if q.device.type == "cuda":
         dk, dv = _flash_bwd_dkv_cuda(*args)
         return _flash_bwd_dq_cuda(*args), dk, dv
     enforce(q.device.type == "cpu", f"flash_attention: unsupported device {q.device}")
-    dk, dv = _flash_bwd_dkv_reference(*args)
-    return _flash_bwd_dq_reference(*args), dk, dv
+    with mfu.paused():
+        dk, dv = _flash_bwd_dkv_reference(*args)
+        return _flash_bwd_dq_reference(*args), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

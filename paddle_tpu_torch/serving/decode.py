@@ -52,10 +52,19 @@ Not ported yet, and refused with ``NotImplementedError`` (``ROADMAP.md``
 (``host_tier=``, ``host_tier_bytes``), the request journal
 (``journal_path``), disaggregated prefill/decode and prefix-digest routing
 (``prefix_digest``, ``adopt_handoff``, ``_handoff_sink``) and manifest
-prewarm (``prewarm=True``). The engine's steps are not wrapped in the
-roofline cost ledger (``observability/roofline.py``), which comes with the
-telemetry item (§A item 6), and request spans (``tracing/context.py``)
-come with it too: the JAX package leaves them off by default.
+prewarm (``prewarm=True``).
+
+Telemetry as in the JAX package: with tracing on
+(``tracing.tracing_enabled()``, the default) every request is a trace
+(``serving.decode.request`` with ``serving.decode.queue_wait`` and
+``serving.decode.prefill`` children) and the loop a trace of its own
+(``serving.decode.step`` and ``serving.decode.verify`` spans). The step,
+prefill, draft and verify calls go through the roofline ledger
+(``observability/roofline.py``: each call's FLOPs and bytes counted on its
+first call, its device time from CUDA events after that, with no wait on
+the card). A breaker trip and :meth:`DecodeEngine.kill` dump a flight
+recorder bundle when one is installed
+(``observability/flight_recorder.py``).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from typing import Any, Deque, List, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch import tracing
 from paddle_tpu_torch.concurrency import ChannelClosedError, go
 from paddle_tpu_torch.core import config as cfg_mod
 from paddle_tpu_torch.core import locks
@@ -83,7 +93,7 @@ from paddle_tpu_torch.models.transformer_lm import (
     _sample,
     paged_cache_shape,
 )
-from paddle_tpu_torch.observability import runlog
+from paddle_tpu_torch.observability import roofline, runlog
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.resilience.circuit import CircuitBreaker
 from paddle_tpu_torch.serving import admission as admission_mod
@@ -227,7 +237,8 @@ class _DecodeRequest:
     __slots__ = ("prompt", "mnt", "n", "bytes", "tenant", "cls", "deadline",
                  "t_submit", "handle", "generated", "slot", "phase", "seq",
                  "chunks_done", "cur_len", "last_tok", "cancelled",
-                 "n_preemptions", "rid", "recoveries")
+                 "n_preemptions", "rid", "recoveries", "trace",
+                 "t_enqueue_pc", "t_admit_pc")
 
     def __init__(self, prompt: np.ndarray, mnt: int, n_chunks: int,
                  deadline: Optional[float], t_submit: float,
@@ -254,6 +265,10 @@ class _DecodeRequest:
         self.n_preemptions = 0
         self.rid: Optional[str] = None
         self.recoveries = 0              # quarantine cycles survived
+        # tracing: the request's root span context and its queue timeline
+        self.trace: Optional[tracing.SpanContext] = None
+        self.t_enqueue_pc: Optional[float] = None
+        self.t_admit_pc: Optional[float] = None
 
 
 class DecodeCostModel:
@@ -407,6 +422,11 @@ class DecodeEngine:
         self._cache_dtype = cdt or torch.float32
         pshape = paged_cache_shape(self.model_cfg, num_pages, dconf.page_size)
         self._model = PagedDecoder(params, self.model_cfg, dconf.page_size, pages_per_slot)
+        # roofline-instrumented model calls: each call's counted costs on
+        # its first call, its device time after that
+        self._prefill = roofline.instrument("serving.decode.prefill", self._model.prefill_chunk)
+        self._step = roofline.instrument("serving.decode.step", self._decode_and_sample)
+        self._verify = roofline.instrument("serving.decode.verify", self._model.verify_step)
         self._k_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
         self._v_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
         self._gen = (torch.Generator(device=self._device).manual_seed(dconf.rng_seed)
@@ -436,6 +456,10 @@ class DecodeEngine:
             # bookkeeping (grow/preempt/trim) covers both caches at once
             dshape = paged_cache_shape(self.draft_cfg, num_pages, dconf.page_size)
             self._draft = PagedDecoder(dparams, self.draft_cfg, dconf.page_size, pages_per_slot)
+            self._draft_prefill = roofline.instrument("serving.decode.draft_prefill",
+                                                      self._draft.prefill_chunk)
+            self._draft_step = roofline.instrument("serving.decode.draft_step",
+                                                   self._draft.decode_step)
             self._dk_pages = torch.zeros(dshape, dtype=self._cache_dtype, device=self._device)
             self._dv_pages = torch.zeros(dshape, dtype=self._cache_dtype, device=self._device)
 
@@ -494,6 +518,9 @@ class DecodeEngine:
         self._rid_seq = itertools.count()
         self._killed = False
         self._drain_abort = False
+        self._loop_trace: Optional[tracing.SpanContext] = None
+        if tracing.tracing_enabled():
+            self._loop_trace = tracing.SpanContext.new_trace()
 
         if dconf.warmup:
             self._warmup()
@@ -519,13 +546,12 @@ class DecodeEngine:
         tables = self._dev(np.zeros((S, P), np.int32))
         chunk = self._dev(np.zeros((dconf.prefill_chunk,), np.int32))
         with torch.no_grad(), ieee_f32():
-            self._prefill_call(self._model, chunk, 0, 0, tables[0], self._k_pages, self._v_pages)
-            self._step_call(self._model, self._dev(z), self._dev(z), tables,
-                            self._k_pages, self._v_pages)
+            self._prefill_call(chunk, 0, 0, tables[0])
+            self._step_call(self._dev(z), self._dev(z), tables)
             if self._spec_k:
-                self._draft.prefill_chunk(chunk, 0, 0, tables[0], self._dk_pages, self._dv_pages)
-                self._draft.decode_step(self._dev(z), self._dev(z), tables,
-                                        self._dk_pages, self._dv_pages)
+                self._draft_prefill(chunk, 0, 0, tables[0], self._dk_pages, self._dv_pages)
+                self._draft_step(self._dev(z), self._dev(z), tables,
+                                 self._dk_pages, self._dv_pages)
                 self._verify_call(self._dev(np.zeros((S, self._spec_k + 1), np.int32)),
                                   self._dev(z), tables)
             if self._prefix is not None:
@@ -599,19 +625,23 @@ class DecodeEngine:
 
     # -- the model calls ---------------------------------------------------
 
-    def _prefill_call(self, model, chunk, pos0, last, table_row, k_pages, v_pages):
-        self._sign("prefill", chunk, table_row, k_pages)
-        return model.prefill_chunk(chunk, pos0, last, table_row, k_pages, v_pages)
+    def _prefill_call(self, chunk, pos0, last, table_row):
+        self._sign("prefill", chunk, table_row, self._k_pages)
+        return self._prefill(chunk, pos0, last, table_row, self._k_pages, self._v_pages)
 
-    def _step_call(self, model, tokens, positions, tables, k_pages, v_pages):
-        self._sign("step", tokens, positions, tables, k_pages)
+    def _decode_and_sample(self, tokens, positions, tables, k_pages, v_pages):
+        """The decode step and its sampling: the JAX package's jitted step."""
         dconf = self.decode_config
-        logits = model.decode_step(tokens, positions, tables, k_pages, v_pages)
+        logits = self._model.decode_step(tokens, positions, tables, k_pages, v_pages)
         return _sample(logits, dconf.temperature, dconf.top_k, dconf.top_p, self._gen)
+
+    def _step_call(self, tokens, positions, tables):
+        self._sign("step", tokens, positions, tables, self._k_pages)
+        return self._step(tokens, positions, tables, self._k_pages, self._v_pages)
 
     def _verify_call(self, block, positions, tables):
         self._sign("verify", block, positions, tables, self._k_pages)
-        return self._model.verify_step(block, positions, tables, self._k_pages, self._v_pages)
+        return self._verify(block, positions, tables, self._k_pages, self._v_pages)
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Device-side page copy for copy-on-write, in every page tensor."""
@@ -685,6 +715,10 @@ class DecodeEngine:
                              self._n_chunks(int(prompt.size)),
                              deadline, now, tenant=tname, cls=rcls)
         req.rid = self._new_rid()
+        if tracing.tracing_enabled():
+            req.trace = tracing.SpanContext.new_trace()
+            req.handle.trace = req.trace
+            req.t_enqueue_pc = time.perf_counter()
         # token-latency waterfall opens at submit: TTFT includes queue wait
         waterfall.start(req.rid, time.perf_counter(),
                         engine=self.metrics.engine_label, tenant=req.tenant,
@@ -699,6 +733,7 @@ class DecodeEngine:
             raise EngineClosedError("engine is closed") from None
         except (AdmissionRejected, TimeoutError):
             waterfall.finish(req.rid, time.perf_counter(), "shed")
+            self._finish_trace(req, time.perf_counter(), status="shed")
             raise
         self.metrics.record_submit()
         return req.handle
@@ -711,6 +746,16 @@ class DecodeEngine:
         return f"{self.metrics.engine_label}-{_RID_SALT}-{next(self._rid_seq)}"
 
     # -- completion paths (loop thread, except _expire) --------------------
+
+    def _finish_trace(self, req: _DecodeRequest, t1_pc: float,
+                      **attrs) -> None:
+        if req.trace is None:
+            return
+        tracing.record_span(
+            "serving.decode.request", req.t_enqueue_pc, t1_pc,
+            context=req.trace, engine=self.metrics.engine_label,
+            tenant=req.tenant, cls=req.cls,
+            generated=len(req.generated), **attrs)
 
     def _wf_tokens(self, req: _DecodeRequest, t_pc: float, n: int,
                    phase: str) -> None:
@@ -731,6 +776,8 @@ class DecodeEngine:
         self.metrics.record_timeout()
         self.metrics.record_evict("deadline")
         waterfall.finish(req.rid, time.perf_counter(), "deadline")
+        self._finish_trace(req, time.perf_counter(),
+                           status="deadline_exceeded")
         req.handle._fail(DeadlineExceeded(
             f"request expired after "
             f"{time.monotonic() - req.t_submit:.3f}s "
@@ -750,6 +797,7 @@ class DecodeEngine:
             self.metrics.record_cancel()
         self.metrics.record_response(time.monotonic() - req.t_submit)
         waterfall.finish(req.rid, time.perf_counter(), reason)
+        self._finish_trace(req, time.perf_counter(), status=reason)
         runlog.emit("decode_evict", reason=reason, tenant=req.tenant,
                     generated=len(req.generated),
                     engine=self.metrics.engine_label)
@@ -764,6 +812,8 @@ class DecodeEngine:
         self.metrics.record_error()
         self.metrics.record_evict("error")
         waterfall.finish(req.rid, time.perf_counter(), "error")
+        self._finish_trace(req, time.perf_counter(), status="error",
+                           error=type(exc).__name__)
         req.handle._fail(exc)
 
     # -- the decode loop ---------------------------------------------------
@@ -794,6 +844,7 @@ class DecodeEngine:
                 break
             self._sweep_cancel_deadline()
             self._admit()
+            t0 = time.perf_counter()
             did_prefill = self._prefill_some()
             did_step = self._decode_step()
             if did_prefill or did_step:
@@ -802,6 +853,11 @@ class DecodeEngine:
                 self.metrics.set_active_slots(len(self._active))
                 self.metrics.set_load(self.load())
                 self.metrics.set_queue_depth(self._queue.qsize())
+                if self._loop_trace is not None:
+                    tracing.record_span(
+                        "serving.decode.step", t0, time.perf_counter(),
+                        parent=self._loop_trace,
+                        active=len(self._active))
                 continue
             # idle: nothing to prefill or step — wait for work or drain out
             if self._active or self._resume or self._pending_admit:
@@ -869,6 +925,7 @@ class DecodeEngine:
                        if req.generated else req.prompt)
             req.chunks_done = 0
             self._maybe_prefix_adopt(req)
+            req.t_admit_pc = time.perf_counter()
             self._active.append(req)
             if resumed:
                 self.metrics.record_resume()
@@ -880,6 +937,11 @@ class DecodeEngine:
                 runlog.emit("decode_admit", tenant=req.tenant,
                             prompt_len=int(req.prompt.size), mnt=req.mnt,
                             engine=self.metrics.engine_label)
+                if req.trace is not None:
+                    tracing.record_span(
+                        "serving.decode.queue_wait", req.t_enqueue_pc,
+                        req.t_admit_pc, parent=req.trace,
+                        engine=self.metrics.engine_label)
 
     def _maybe_prefix_adopt(self, req: _DecodeRequest) -> None:
         """Consult the radix prefix cache at slot assignment: adopt the
@@ -1005,13 +1067,12 @@ class DecodeEngine:
                 with ieee_f32():
                     table_row = self._dev(self._kv.page_tables[req.slot])
                     chunk_dev = self._dev(chunk)
-                    logits = self._prefill_call(self._model, chunk_dev, c * C, last, table_row,
-                                                self._k_pages, self._v_pages)
+                    logits = self._prefill_call(chunk_dev, c * C, last, table_row)
                     if self._spec_k:
                         # the draft's cache must cover the same prefix so
                         # its proposals attend real context
-                        self._draft.prefill_chunk(chunk_dev, c * C, last, table_row,
-                                                  self._dk_pages, self._dv_pages)
+                        self._draft_prefill(chunk_dev, c * C, last, table_row,
+                                            self._dk_pages, self._dv_pages)
                     tok = int(_sample(logits[None], dconf.temperature, dconf.top_k,
                                       dconf.top_p, self._gen)[0]) if last_chunk else 0
             except Exception as e:
@@ -1020,6 +1081,10 @@ class DecodeEngine:
             t1 = time.perf_counter()
             self.metrics.record_prefill_chunk(t1 - t0)
             self.cost.observe_chunk(t1 - t0)
+            if req.trace is not None:
+                tracing.record_span("serving.decode.prefill", t0, t1,
+                                    parent=req.trace, chunk=c,
+                                    engine=self.metrics.engine_label)
             req.chunks_done = c + 1
             self._kv.seq_lens[req.slot] = min(chunk_end, len(req.seq))
             budget -= 1
@@ -1106,8 +1171,8 @@ class DecodeEngine:
         try:
             faults.inject(faults.DECODE_STEP, engine=self.metrics.engine_label)
             with ieee_f32():
-                nxt = self._step_call(self._model, self._dev(tokens), self._dev(positions),
-                                      self._dev(tables), self._k_pages, self._v_pages)
+                nxt = self._step_call(self._dev(tokens), self._dev(positions),
+                                      self._dev(tables))
                 nxt = nxt.cpu().numpy()
         except Exception as e:
             self._step_failed(e, "decode step")
@@ -1148,8 +1213,8 @@ class DecodeEngine:
                 tables_d, pos_d, cur = self._dev(tables), self._dev(positions), self._dev(tokens)
                 cols = [cur]
                 for j in range(K):
-                    logits = self._draft.decode_step(cols[-1], pos_d + j, tables_d,
-                                                     self._dk_pages, self._dv_pages)
+                    logits = self._draft_step(cols[-1], pos_d + j, tables_d,
+                                              self._dk_pages, self._dv_pages)
                     cols.append(torch.argmax(logits, -1).to(torch.int32))
                 block = torch.stack(cols, 1)  # [S, K+1]
                 out = self._verify_call(block, pos_d, tables_d)
@@ -1194,9 +1259,26 @@ class DecodeEngine:
             len(spec), S, t1 - t0, new_tokens,
             drafts_proposed=len(spec) * K, drafts_accepted=drafts_accepted)
         self.cost.observe_verify(t1 - t0, new_tokens / len(spec))
+        if self._loop_trace is not None:
+            tracing.record_span(
+                "serving.decode.verify", t0, t1, parent=self._loop_trace,
+                slots=len(spec), accepted=new_tokens)
         return True
 
     # -- zero-loss recovery (serving.recovery) -----------------------------
+
+    def _flight_dump(self, reason: str) -> None:
+        """Best-effort post-mortem hook: when a FlightRecorder is
+        installed, dump a bundle capturing this engine's terminal state
+        (span/runlog tails, held locks, page refcounts, the breaker's
+        state). Never raises — observability must not alter the failure
+        path it is recording."""
+        try:
+            from paddle_tpu_torch.observability import flight_recorder as fr
+
+            fr.maybe_dump(reason, engine=self)
+        except Exception as e:
+            ptlog.warning("flight-recorder dump failed: %r", e)
 
     def _note_step_ok(self) -> None:
         """A clean decode iteration: the device is serving again."""
@@ -1221,6 +1303,8 @@ class DecodeEngine:
         self.metrics.set_consecutive_faults(self._consec_faults)
         self._breaker_dirty = True
         tripped = self._breaker.record_failure()
+        if tripped:
+            self._flight_dump("engine_fault")
         runlog.emit("decode_step_error", error=repr(exc), recovering=True,
                     consecutive=self._consec_faults, tripped=tripped,
                     engine=self.metrics.engine_label)
@@ -1319,6 +1403,13 @@ class DecodeEngine:
         if packet.handle is not None:
             req.handle = packet.handle
             packet.handle._req = req  # cancel() must target the new req
+        t0_rescue = time.perf_counter()
+        req.trace = packet.trace
+        if req.trace is None and tracing.tracing_enabled():
+            req.trace = tracing.SpanContext.new_trace()
+        if req.trace is not None:
+            req.handle.trace = req.trace
+            req.t_enqueue_pc = time.perf_counter()
         # already satisfied: complete without re-decoding a single token
         eos = self.decode_config.eos_id
         done_eos = eos is not None and req.generated and req.generated[-1] == eos
@@ -1330,10 +1421,17 @@ class DecodeEngine:
                 n_preemptions=req.n_preemptions))
             return req.handle
         self.metrics.record_submit()
+        if req.trace is not None:
+            tracing.record_span(
+                "serving.rescue", t0_rescue, time.perf_counter(),
+                parent=req.trace, engine=self.metrics.engine_label,
+                from_engine=from_engine, rid=req.rid,
+                generated=len(req.generated))
         if from_engine is not None:
             runlog.emit("request_migrated", rid=req.rid, from_engine=from_engine,
                         to_engine=self.metrics.engine_label,
-                        generated=len(req.generated))
+                        generated=len(req.generated),
+                        trace_id=req.trace.trace_id if req.trace else None)
         # front-of-line with the resumed: the request already waited once
         self._resume.append(req)
         self._queue.poke()  # an idle loop is parked in recv(idle_poll_s)
@@ -1347,6 +1445,9 @@ class DecodeEngine:
                 return
             self._closed = True
         self._killed = True
+        # post-mortem first, while slots/refcounts still show the crash
+        # state the bundle exists to explain
+        self._flight_dump("kill")
         self._queue.close()
         self._thread.join(5.0)
         exc = EngineUnhealthy(f"engine {self.metrics.engine_label} killed")

@@ -59,12 +59,17 @@ class ServingConfig:
 
 
 class PendingResult:
-    """Future-like handle for one submitted request."""
+    """Future-like handle for one submitted request. ``trace`` carries the
+    request's root :class:`~paddle_tpu_torch.tracing.SpanContext` (None
+    with tracing off) so callers can reconstruct the request's span tree
+    (``tracing.spans_for_trace``) or propagate it onward
+    (``trace.to_traceparent()``)."""
 
     def __init__(self):
         self._event = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
+        self.trace = None
 
     def done(self) -> bool:
         return self._event.is_set()

@@ -54,4 +54,7 @@ class RescuePacket:
     t_submit: float = 0.0
     n_preemptions: int = 0
     handle: Optional[Any] = None
+    # the request's root span context (tracing.SpanContext): the adopting
+    # engine continues the same trace
+    trace: Optional[Any] = None
     cancelled: bool = False

@@ -18,11 +18,20 @@ on), as in the JAX package. Checkpoints use the JAX package's formats, the
 single-file one or the sharded one (``CheckpointConfig(sharded=,
 async_save=)``), so either package resumes the other's.
 
-Not ported yet (each raises ``NotImplementedError`` naming
-``ROADMAP.md``): elastic training (``ResilienceConfig(elastic=True)``)
-and the telemetry hooks (``observability=``, ``watch=``; goodput, MFU,
-trace spans, the straggler detector). ``_record_step`` keeps the step-time
-counters of :mod:`paddle_tpu_torch.core.profiler` and the run log.
+Telemetry as in the JAX package: ``observability=`` starts the exporter
+and the run log (:func:`paddle_tpu_torch.observability.setup`), ``watch=``
+attaches anomaly detectors and SLOs (:func:`paddle_tpu_torch.watch.build`).
+Each step is a ``trainer.step`` trace with ``trainer.data_wait``,
+``trainer.h2d``, ``trainer.step_compute`` and ``trainer.checkpoint``
+spans; a good step books goodput, MFU (the step's FLOPs counted once, on
+its first call, by :class:`~paddle_tpu_torch.observability.mfu.CostCounter`,
+over the card's peak), the device-memory gauges and the straggler
+watch; NaN-skipped steps, rollbacks and watchdog stalls are badput.
+Under ``parallel=True`` each rank counts its own rows' step and divides by
+its own card.
+
+Not ported yet (raises ``NotImplementedError`` naming ``ROADMAP.md``):
+elastic training (``ResilienceConfig(elastic=True)``).
 """
 
 from __future__ import annotations
@@ -39,12 +48,15 @@ import torch
 
 from paddle_tpu_torch import checkpoint as ckpt_mod
 from paddle_tpu_torch import checkpoint_sharded as cks
+from paddle_tpu_torch import observability as obs
+from paddle_tpu_torch import tracing
 from paddle_tpu_torch.checkpoint import CheckpointConfig
 from paddle_tpu_torch.core import logging as ptlog
 from paddle_tpu_torch.core import profiler as prof
 from paddle_tpu_torch.core.enforce import EnforceError, enforce
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.framework import Model, Variables, build
+from paddle_tpu_torch.observability import mfu as obs_mfu
 from paddle_tpu_torch.observability import runlog
 from paddle_tpu_torch.optimizer import Optimizer, OptState, StepOutput
 from paddle_tpu_torch.parallel import mesh as mesh_mod
@@ -116,14 +128,14 @@ class Trainer:
         parallel_kwargs: Optional[dict] = None,
         prefetch: bool = False,
         resilience: Optional[ResilienceConfig] = None,
-        observability: Optional[Any] = None,
+        observability: Optional["obs.ObservabilityConfig"] = None,
         watch: Optional[Any] = None,
     ):
-        if observability is not None or watch is not None:
-            raise _not_ported("observability=/watch=: the telemetry stack")
         self.resilience = resilience if resilience is not None else ResilienceConfig.from_flags()
         if self.resilience.elastic:
             raise _not_ported("resilience=ResilienceConfig(elastic=True): elastic training")
+        # flags-driven (or explicit) telemetry: exporter + runlog, idempotent
+        obs.setup(observability)
         model = train_func()
         self.model = model if isinstance(model, Model) else build(model)
         self.optimizer = optimizer_func()
@@ -158,7 +170,22 @@ class Trainer:
         self._consec_bad = 0
         self._rollbacks_since_good = 0
         self._watchdog: Optional[StepWatchdog] = None
+        # -- telemetry (paddle_tpu_torch.observability / .tracing) ---------
+        self.goodput = obs_mfu.GoodputTracker()
         self._ema_eps: Optional[float] = None  # EMA examples/sec
+        # FLOPs of one step, counted on its first call (None until then)
+        self._step_flops: Optional[float] = None
+        # temporal skew watch over step durations: a step that blows past
+        # this trainer's own recent median gets flagged
+        self._straggler = tracing.StragglerDetector("trainer.step")
+        # watch layer: anomaly detectors / SLOs over this trainer's metric
+        # streams (step time, MFU, goodput), attached via config
+        # (a paddle_tpu_torch.watch.WatchConfig; None = no watching)
+        self._watcher = None
+        if watch is not None:
+            from paddle_tpu_torch import watch as watch_mod
+
+            self._watcher = watch_mod.build(watch)
 
     # -- init / resume ------------------------------------------------------
     def _ensure_initialized(self, first_batch: Sequence[Any]):
@@ -253,50 +280,78 @@ class Trainer:
         prev_handlers = self._install_preemption_handlers()
         res = self.resilience
         if res.stall_timeout_s is not None and self._watchdog is None:
-            self._watchdog = StepWatchdog(res.stall_timeout_s)
+            self._watchdog = StepWatchdog(res.stall_timeout_s, on_stall=self._on_stall)
         try:
             for epoch_id in range(self.epoch, num_epochs):
                 self.epoch = epoch_id
                 handler(BeginEpochEvent(epoch_id))
-                for step_id, batch in enumerate(self._batches(reader)):
-                    begin_ev = BeginStepEvent(epoch_id, step_id)
-                    handler(begin_ev)
-                    # fault point: "error" raises here (a crashing step),
-                    # "nan" forces this step to count as non-finite,
-                    # "preempt" delivers SIGTERM (handled at the boundary below)
-                    spec = faults.inject(faults.TRAINER_STEP, epoch=epoch_id, step=step_id)
-                    t_step = time.perf_counter()
-                    if self._watchdog is not None:
-                        with self._watchdog.watch(f"epoch {epoch_id} step {step_id}"):
+                # manual next() instead of a for-loop: the wait for the
+                # reader is measured and belongs INSIDE the step's trace
+                batches = iter(self._batches(reader))
+                step_id = -1
+                while True:
+                    t_wait0 = time.perf_counter()
+                    batch = next(batches, None)
+                    t_wait1 = time.perf_counter()
+                    if batch is None:
+                        break
+                    step_id += 1
+                    with tracing.start_trace("trainer.step", epoch=epoch_id) as step_span:
+                        # the step trace begins where the data wait began
+                        step_span.t0_us = t_wait0 * 1e6
+                        step_span.set(step=self.global_step)
+                        tracing.record_span("trainer.data_wait", t_wait0, t_wait1)
+                        begin_ev = BeginStepEvent(epoch_id, step_id)
+                        handler(begin_ev)
+                        # fault point: "error" raises here (a crashing step),
+                        # "nan" forces this step to count as non-finite,
+                        # "preempt" delivers SIGTERM (handled at the boundary
+                        # below), "stall" is a slow step: unlike the JAX
+                        # package's, it sits inside the step's timed region,
+                        # so the step time, the straggler watch and the
+                        # watch layer see it
+                        t_step = time.perf_counter()
+                        spec = faults.inject(faults.TRAINER_STEP, epoch=epoch_id, step=step_id)
+                        if self._watchdog is not None:
+                            with self._watchdog.watch(f"epoch {epoch_id} step {step_id}"):
+                                out = self._run_step(batch)
+                        else:
                             out = self._run_step(batch)
-                    else:
-                        out = self._run_step(batch)
-                    bad = (out.finite is not None and not bool(out.finite)) or (
-                        spec is not None and spec.kind == "nan"
-                    )
-                    if bad:
-                        # may raise (policy "raise", or rollback gave up)
-                        self._handle_bad_step(epoch_id, step_id)
-                        metrics = float("nan") if begin_ev.fetch_metrics else None
-                    else:
-                        self._consec_bad = 0
-                        self._rollbacks_since_good = 0
-                        self.variables, self.opt_state = out.variables, out.opt_state
-                        self.global_step += 1
-                        # honoring fetch_metrics avoids a host sync per step
-                        # (reference BeginStepEvent.fetch_metrics, trainer.py:158)
-                        metrics = float(out.loss) if begin_ev.fetch_metrics else None
-                        self._record_step(epoch_id, batch, time.perf_counter() - t_step, metrics)
-                    # the step's outputs (an LM's logits) must not live
-                    # through the next step
-                    del out
-                    handler(EndStepEvent(epoch_id, step_id, metrics))
-                    if self._preempt_requested:
-                        self._preemption_save(next_epoch=epoch_id)
-                        return
-                    self._maybe_checkpoint(epoch_id, step=True)
+                        bad = (out.finite is not None and not bool(out.finite)) or (
+                            spec is not None and spec.kind == "nan"
+                        )
+                        if bad:
+                            step_span.set(status="bad_step")
+                            # charge the wasted step to badput even if the
+                            # policy raises below — the accounting outlives
+                            # the run
+                            self.goodput.record_bad(time.perf_counter() - t_step, "nan_skip")
+                            # may raise (policy "raise", or rollback gave up)
+                            self._handle_bad_step(epoch_id, step_id)
+                            metrics = float("nan") if begin_ev.fetch_metrics else None
+                        else:
+                            self._consec_bad = 0
+                            self._rollbacks_since_good = 0
+                            self.variables, self.opt_state = out.variables, out.opt_state
+                            self.global_step += 1
+                            # honoring fetch_metrics avoids a host sync per step
+                            # (reference BeginStepEvent.fetch_metrics, trainer.py:158)
+                            metrics = float(out.loss) if begin_ev.fetch_metrics else None
+                            self._record_step(epoch_id, batch, time.perf_counter() - t_step,
+                                              metrics)
+                        # the step's outputs (an LM's logits) must not live
+                        # through the next step
+                        del out
+                        handler(EndStepEvent(epoch_id, step_id, metrics))
+                        if self._preempt_requested:
+                            with tracing.start_span("trainer.checkpoint", reason="preempt"):
+                                self._preemption_save(next_epoch=epoch_id)
+                            return
+                        with tracing.start_span("trainer.checkpoint"):
+                            self._maybe_checkpoint(epoch_id, step=True)
                 handler(EndEpochEvent(epoch_id))
-                self._maybe_checkpoint(epoch_id, step=False)
+                with tracing.start_span("trainer.checkpoint", boundary="epoch"):
+                    self._maybe_checkpoint(epoch_id, step=False)
                 if self._preempt_requested:
                     # the epoch just COMPLETED — resume must not re-train it
                     self._preemption_save(next_epoch=epoch_id + 1)
@@ -319,8 +374,9 @@ class Trainer:
 
     # -- telemetry ----------------------------------------------------------
     def _record_step(self, epoch_id: int, batch, dt: float, loss: Optional[float]) -> None:
-        """Registry + runlog record for one GOOD step: step-time histogram
-        and throughput gauges (instant + EMA)."""
+        """Registry + runlog record for one GOOD step: step-time histogram,
+        throughput gauges (instant + EMA), goodput, MFU from the step's
+        counted FLOPs, the device-memory gauges and the straggler watch."""
         rows = int(np.shape(batch[0])[0]) if len(batch) else 0
         eps = rows / dt if dt > 0 else 0.0
         self._ema_eps = eps if self._ema_eps is None else 0.9 * self._ema_eps + 0.1 * eps
@@ -331,10 +387,32 @@ class Trainer:
         prof.set_gauge("trainer.examples_per_sec_ema", self._ema_eps)
         if loss is not None:
             prof.set_gauge("trainer.loss", loss)
+        self.goodput.record_good(dt)
+        prof.set_gauge("trainer.goodput_frac", self.goodput.goodput_frac())
+        mfu_val = None
+        if self._step_flops:
+            # each rank counted its own rows' step: one card's share
+            mfu_val = obs_mfu.mfu(self._step_flops, dt,
+                                  peak_per_device=obs_mfu.peak_flops(self.exe.device))
+            if mfu_val is not None:
+                prof.set_gauge("trainer.mfu", mfu_val)
+        extra = {"mfu": round(mfu_val, 6)} if mfu_val is not None else {}
         runlog.emit(
             "step", step=self.global_step, epoch=epoch_id, loss=loss,
             step_time_s=round(dt, 6), examples_per_sec=round(eps, 3),
-            ema_examples_per_sec=round(self._ema_eps, 3))
+            ema_examples_per_sec=round(self._ema_eps, 3), **extra)
+        # per-device memory gauges (device.hbm.*; on the CPU the training
+        # state's bytes) + temporal straggler watch: a step far above this
+        # trainer's own recent median gets flagged
+        tracing.sample_device_memory([self.exe.device],
+                                     tensors=(self.variables, self.opt_state))
+        self._straggler.record("step", dt)
+
+    def _on_stall(self, tag: str, elapsed: float) -> None:
+        # the watchdog already logged stacks + runlog'd the stall; charge
+        # the stalled wall time against goodput here (trainer-side policy)
+        self.goodput.record_bad(elapsed, "stall")
+        prof.set_gauge("trainer.goodput_frac", self.goodput.goodput_frac())
 
     # -- self-healing (resilience.ResilienceConfig) -------------------------
     def _handle_bad_step(self, epoch_id: int, step_id: int) -> None:
@@ -392,8 +470,10 @@ class Trainer:
         self._rollbacks_since_good += 1
         self._consec_bad = 0
         prof.inc_counter("resilience.rollbacks")
+        restore_s = time.perf_counter() - t0
+        self.goodput.record_bad(restore_s, "rollback")
         runlog.emit("rollback", step=self.global_step, rolled_back_from=rolled_back_from,
-                    restore_seconds=round(time.perf_counter() - t0, 6))
+                    restore_seconds=round(restore_s, 6))
         ptlog.error("rolled back to checkpoint step %d (rollback %d this run)",
                     self.global_step, self.rollbacks)
 
@@ -468,15 +548,27 @@ class Trainer:
             yield batch
 
     def _run_step(self, batch) -> StepOutput:
+        """One step: the batch's copy to the card (``trainer.h2d``; in
+        parallel mode ``put_batch`` takes this rank's rows) and the step
+        (``trainer.step_compute``). The first step runs under the cost
+        counter, which fixes ``_step_flops`` for MFU."""
         if self.parallel:
-            with prof.record_event("trainer.step_compute"):
-                if self._allow_ragged and not self._dp.batch_divisible(*batch):
-                    return self._dp.step_ragged(self.variables, self.opt_state, *batch)
-                return self._dp.step(self.variables, self.opt_state, *batch)
-        step_fn = self._compiled_step()
-        args = self.exe.put(tuple(batch))
-        with prof.record_event("trainer.step_compute"):
-            return step_fn(self.variables, self.opt_state, *args)
+            ragged = self._allow_ragged and not self._dp.batch_divisible(*batch)
+            with tracing.start_span("trainer.h2d"):
+                args = tuple(batch) if ragged else self._dp.put_batch(*batch)
+            step_fn = self._dp.step_ragged if ragged else self._dp.step
+        else:
+            step_fn = self._compiled_step()
+            with tracing.start_span("trainer.h2d"):
+                args = self.exe.put(tuple(batch))
+        with tracing.start_span("trainer.step_compute"), \
+                prof.record_event("trainer.step_compute"):
+            if self._step_flops is not None:
+                return step_fn(self.variables, self.opt_state, *args)
+            with obs_mfu.CostCounter() as counter:
+                out = step_fn(self.variables, self.opt_state, *args)
+            self._step_flops = float(counter.flops)
+            return out
 
     def _maybe_checkpoint(self, epoch_id: int, step: bool):
         cfg = self.checkpoint_cfg
@@ -612,3 +704,6 @@ class Trainer:
             cks.wait_pending_save()  # the last async checkpoint must be durable
         finally:
             self.exe.close()  # a failed writer must not leak the executor
+            if self._watcher is not None:
+                self._watcher.close()  # stop watching the registry's writes
+                self._watcher = None

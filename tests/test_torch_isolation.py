@@ -47,7 +47,12 @@ def test_sources_found():
                    "concurrency", "observability/metrics", "tracing/waterfall", "serving/__init__",
                    "serving/kv_cache", "serving/prefix_cache", "serving/scheduler",
                    "serving/admission", "serving/metrics", "serving/engine", "serving/recovery",
-                   "serving/decode"):
+                   "serving/decode", "core/config", "analysis/diagnostics", "observability/mfu",
+                   "observability/roofline", "observability/exporter",
+                   "observability/flight_recorder", "observability/__init__",
+                   "tracing/__init__", "tracing/context", "tracing/memory", "tracing/straggler",
+                   "tracing/export", "watch/__init__", "watch/detectors", "watch/alerts",
+                   "watch/baseline", "watch/slo", "watch/watcher"):
         assert f"paddle_tpu_torch/{module}.py" in names, module
 
 

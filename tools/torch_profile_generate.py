@@ -442,9 +442,8 @@ def _serve(args, smi) -> None:
 
     def one_step():
         with torch.no_grad():
-            return engine._step_call(engine._model, engine._dev(tokens), engine._dev(positions),
-                                     engine._dev(tables), engine._k_pages,
-                                     engine._v_pages).cpu()
+            return engine._step_call(engine._dev(tokens), engine._dev(positions),
+                                     engine._dev(tables)).cpu()
 
     try:
         before = engine.metrics.snapshot()
