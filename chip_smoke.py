@@ -177,14 +177,40 @@ Phases, each printing JSON lines:
                memory counter track; core.profiler.profiler(log_dir) over
                two steps writes a torch.profiler trace holding the three
                kernels. Faults: a NaN step under skip_step (nan_skip badput,
-               goodput below 1) and a stall inside a step (one straggler
-               flag, the watch alert). A DecodeEngine burst of 16 of phase
-               serve (a)'s requests with tracing and the ledger on, against
-               both off: tokens equal or a near tie, every request's span
-               tree complete, no step fault, ledger rows for the step and
-               the prefill with their verdicts.
- 13. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8, 10, 11 and 12), its error and times at the
+               goodput below 1) and a slow step body (one straggler flag,
+               the watch alert; the trainer.step fault point sits before
+               the timed step, as in the JAX package). A DecodeEngine burst
+               of 16 of phase serve (a)'s requests with tracing and the
+               ledger on, against both off: tokens equal or a near tie,
+               every request's span tree complete, no step fault, ledger
+               rows for the step and the prefill with their verdicts.
+ 13. infer   — the inference-deployment slice (INFER_*): (a) the LM at
+               BASE_CFG (bf16 + flash, random weights from seed 0) served
+               through ServingEngine (one replica, a ragged token FeedSpec,
+               length buckets 128/256/512, max batch 8): 32 requests with
+               prompts of 64-512 tokens submitted at once, the served
+               program returning logits; requests/s, p50/p99 latency, mean
+               occupancy, aot_cache_sizes() before and after, flash
+               launches per batch (6), peak memory; each request's logits
+               against an unbatched Inferencer.infer of its prompt, the
+               cache sizes steady, no error, nothing pending after close();
+               (b) ResNet-50 at bench.py's cell in eval, f32: the BN-folded
+               forward (inference_optimize) against the unfolded one at
+               batch 8 within the card's own spread, images/s at batch 32
+               each way, and the folded model served through ServingEngine
+               (batch buckets 1-32); (c) the LM exported with
+               io.save_inference_model (4 x 512) and loaded: logits bit-equal
+               to the eager forward, 6 launches of the hand-written forward
+               inside the loaded program (the operator
+               paddle_tpu_torch::flash_fwd) and no library attention under
+               torch.profiler; (d) the fluid_benchmark CLI in process
+               (run_benchmark(parse_args(...))): resnet, transformer,
+               transformer_lm, mnist, resnet --infer_only and a profiled
+               transformer_lm pass: the JAX record's keys, finite losses,
+               examples/s, 6 launches of each kernel per LM step, the
+               profile's trace holding the three kernels.
+ 14. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8 and 10-13), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
                (not measured).
@@ -382,13 +408,57 @@ DP_MOVEMENT_TOL = 0.25
 # path's count of the same step (traced under FakeTensorMode: shapes only).
 TELEMETRY_STEPS, TELEMETRY_TURNS, TELEMETRY_FLOPS_TOL = 8, 2, 0.01
 # (c) one run of TELEMETRY_FAULT_STEPS steps with a NaN injected at step
-# TELEMETRY_NAN_STEP (nan_policy "skip_step") and a stall of
-# TELEMETRY_STALL_S inside step TELEMETRY_STALL_STEP: ~10x the step, past the
-# straggler watch's 2.5x and the watch rule's 4x of the running median
+# TELEMETRY_NAN_STEP (nan_policy "skip_step") and the body of step
+# TELEMETRY_STALL_STEP slowed by TELEMETRY_STALL_S (the Trainer's timed
+# step, where the JAX package's Trainer would time it too; the trainer.step
+# fault point sits before it in both): ~10x the step, past the straggler
+# watch's 2.5x and the watch rule's 4x of the running median
 TELEMETRY_FAULT_STEPS, TELEMETRY_NAN_STEP = 8, 2
 TELEMETRY_STALL_STEP, TELEMETRY_STALL_S = 6, 0.5
 # (d) the first TELEMETRY_SERVE_REQUESTS requests of phase serve (a)'s burst
 TELEMETRY_SERVE_REQUESTS = 16
+
+
+# Phase infer. (a) the LM at BASE_CFG served through ServingEngine (one
+# replica, length buckets, max batch 8): INFER_REQUESTS ragged prompts with
+# lengths uniform in INFER_PROMPT_LENS (numpy seed 0), each request's logits
+# within INFER_LOGITS_TOL (abs) of an unbatched Inferencer.infer of the same
+# prompt: pad keys lie beyond every real query under the causal mask, so
+# the difference is bf16 GEMM rounding at other batch sizes (phase slice's
+# LOGITS_TOL).
+INFER_LENGTH_BUCKETS, INFER_MAX_BATCH = (128, 256, 512), 8
+INFER_REQUESTS, INFER_PROMPT_LENS, INFER_LOGITS_TOL = 32, (64, 512), 2e-2
+INFER_WAIT_S = 300
+# (b) ResNet-50 at bench.py's cell in eval, f32: folded against unfolded at
+# batch INFER_RESNET_BATCH (CONV_PARITY_MIN, or CONV_PARITY_SPREAD times the
+# card's own spread under a 1e-7 relative input change), after
+# INFER_BN_WARM_BATCHES train-mode forwards move the moving statistics off
+# their init (so the fold is not near the identity); images/s at batch 32;
+# INFER_RESNET_REQUESTS single-image requests served (batch buckets 1-32).
+INFER_RESNET_BATCH, INFER_BN_WARM_BATCHES, INFER_RESNET_SERVE_MAX = 8, 4, 32
+INFER_RESNET_REQUESTS, INFER_RESNET_BN_PAIRS, INFER_IMAGE_SIZE = 64, 53, 224
+# (c) the exported LM program's input
+INFER_EXPORT_SHAPE = (4, 512)
+# (d) the CLI's runs, in process (--json --no_random added): bench.py's
+# ResNet-50 batch, the NMT Transformer at its get_model config (the CLI has
+# no sequence-length flag: seq 64) and batch 32, the LM cell, MNIST, the
+# ResNet forward alone and a profiled LM pass.
+INFER_CLI_RUNS = (
+    ("resnet", ["--model", "resnet", "--batch_size", "64", "--iterations", "4",
+                "--skip_batch_num", "2"]),
+    ("transformer", ["--model", "transformer", "--batch_size", "32", "--iterations", "4",
+                     "--skip_batch_num", "2"]),
+    ("transformer_lm", ["--model", "transformer_lm", "--batch_size", "8", "--iterations", "4",
+                        "--skip_batch_num", "2"]),
+    ("mnist", ["--model", "mnist", "--batch_size", "64", "--iterations", "8",
+               "--skip_batch_num", "2"]),
+    ("resnet_infer_only", ["--model", "resnet", "--batch_size", "64", "--iterations", "4",
+                           "--skip_batch_num", "2", "--infer_only"]),
+    ("transformer_lm_profile", ["--model", "transformer_lm", "--batch_size", "8",
+                                "--iterations", "2", "--skip_batch_num", "1", "--profile"]),
+)
+INFER_RECORD_KEYS = {"pass", "model", "batch_size", "chips", "examples_per_sec", "unit",
+                     "last_loss", "elapsed_sec"}
 
 
 def emit(obj) -> None:
@@ -2327,10 +2397,12 @@ def telemetry_phase(smi: str):
         with urllib.request.urlopen(url, timeout=30) as r:
             return r.read().decode()
 
-    def run(on, steps, resilience=None, profile=False, log_dir=None):
+    def run(on, steps, resilience=None, profile=False, log_dir=None, slow_step=None):
         """One Trainer from the initial state over ``steps`` batches, with the
         telemetry on or off: its losses, per-step launches, the ms between
-        its step ends, and (on) what the exporter served."""
+        its step ends, and (on) what the exporter served. ``slow_step``: the
+        step whose body runs TELEMETRY_STALL_S late (inside the timed step,
+        as a slow step body is in the JAX package's Trainer too)."""
         tracing.reset_tracing()
         (tracing.enable_tracing if on else tracing.disable_tracing)()
         set_flags(roofline=on)
@@ -2343,6 +2415,16 @@ def telemetry_phase(smi: str):
                 RollingQuantileDetector(window=16, q=0.5, ratio=4.0, min_samples=4))])
         t = Trainer(lambda: spec.model, spec.optimizer, resilience=resilience, **kw)
         t.variables, t.opt_state = init_vars, init_state
+        if slow_step is not None:
+            run_step, calls = t._run_step, []
+
+            def slow_run_step(batch):
+                calls.append(1)
+                if len(calls) == slow_step + 1:
+                    time.sleep(TELEMETRY_STALL_S)
+                return run_step(batch)
+
+            t._run_step = slow_run_step
         losses, per_step, ends, marks, scrapes, scrape_errors = [], [], [], {}, [], []
 
         def handler(ev):
@@ -2494,15 +2576,14 @@ def telemetry_phase(smi: str):
         checks["b_profiler_trace_holds_the_three_kernels"] = all(
             n == 2 * n_layers for n in traced.values())
 
-        # (c) faults: a NaN step under skip_step, then a stall inside a step
+        # (c) faults: a NaN step under skip_step, then a slow step body
         flags0 = prof.counters().get("tracing.straggler.flags_total", 0.0)
         alerts0 = len(default_hub().alerts(source=watch_source))
         with faults.injected(
-                faults.FaultSpec(faults.TRAINER_STEP, "stall", after=TELEMETRY_STALL_STEP,
-                                 stall_s=TELEMETRY_STALL_S),
                 faults.FaultSpec(faults.TRAINER_STEP, "nan", after=TELEMETRY_NAN_STEP)):
             fault_run = run(True, TELEMETRY_FAULT_STEPS,
-                            resilience=ResilienceConfig(nan_policy="skip_step"))
+                            resilience=ResilienceConfig(nan_policy="skip_step"),
+                            slow_step=TELEMETRY_STALL_STEP)
         goodput = fault_run["goodput"]
         flags = prof.counters().get("tracing.straggler.flags_total", 0.0) - flags0
         alerts = default_hub().alerts(source=watch_source)[alerts0:]
@@ -2588,6 +2669,264 @@ def telemetry_phase(smi: str):
           "checks": checks})
     print(smi, flush=True)
     return telemetry_launches, checks
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over float32 copies."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def infer_phase(smi: str):
+    """Phase 13: the inference-deployment slice on the card — static serving
+    of the LM through ServingEngine against the unbatched Inferencer,
+    ResNet-50 eval with BN folded (direct and served), the exported LM
+    program's round trip, and the fluid_benchmark CLI. Returns the kernel
+    launches of its paths and the checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import benchmark, framework, io
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model, resnet, transformer_lm
+    from paddle_tpu_torch.reader.feeder import FeedSpec
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.transpiler.inference import find_conv_bn_pairs, inference_optimize
+
+    checks, paths = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_infer_")
+    try:
+        # (a) static serving of the LM at BASE_CFG, ragged prompts in length buckets
+        set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=False)
+        spec = get_model("transformer_lm")  # BASE_CFG, on CUDA
+        cfg = spec.extra["cfg"]
+        n_layers = cfg["n_layers"]
+        rng = np.random.RandomState(0)
+        variables = spec.model.init(0, *spec.synth_batch(1, rng))
+        net = framework.build(
+            lambda tokens: transformer_lm.lm_forward(tokens, tokens, cfg=cfg)[2],
+            name="transformer_lm_logits")
+        t0 = time.perf_counter()
+        engine = ServingEngine(
+            net, variables, [FeedSpec("tokens", (None,), "int32")],
+            config=ServingConfig(max_batch_size=INFER_MAX_BATCH, num_replicas=1,
+                                 length_buckets=INFER_LENGTH_BUCKETS, engine_label="infer_lm"))
+        warm_s = time.perf_counter() - t0
+        lengths = rng.randint(INFER_PROMPT_LENS[0], INFER_PROMPT_LENS[1] + 1, size=INFER_REQUESTS)
+        prompts = [rng.randint(1, cfg["vocab"], size=(1, n)).astype(np.int32) for n in lengths]
+        try:
+            sizes0 = engine.aot_cache_sizes()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            pending = [engine.submit({"tokens": p}) for p in prompts]
+            outs = [p.result(timeout=INFER_WAIT_S) for p in pending]
+            wall = time.perf_counter() - t0
+            paths["infer_serve"] = kernel_launch_counts()
+            peak_a = torch.cuda.max_memory_allocated()
+            snap = engine.metrics.snapshot()
+            sizes1 = engine.aot_cache_sizes()
+        finally:
+            unjoined = engine.close(timeout=INFER_WAIT_S)
+        param_dir = os.path.join(work, "lm_params")
+        pt.io.save_params(param_dir, variables)
+        inferencer = pt.Inferencer(net, param_dir)
+        zero_kernel_counts()
+        errs = [float((out[:, :p.shape[1]].float()
+                       - inferencer.infer([p]).float().cpu()).abs().max())
+                for p, out in zip(prompts, outs)]
+        paths["infer_inferencer"] = kernel_launch_counts()
+        del inferencer
+        launches_per_batch = paths["infer_serve"]["flash_fwd"] / max(1, snap["batches_total"])
+        a_checks = {
+            "a_logits_vs_unbatched_inferencer": max(errs) <= INFER_LOGITS_TOL,
+            "a_logits_shape": all(tuple(o.shape) == (1, min(b for b in INFER_LENGTH_BUCKETS
+                                                          if b >= p.shape[1]), cfg["vocab"])
+                                  for p, o in zip(prompts, outs)),
+            "a_cache_sizes_steady": sizes1 == sizes0,
+            "a_flash_launches_per_batch_eq_n_layers": launches_per_batch == n_layers,
+            "a_no_error_or_fault": snap["errors_total"] == 0 and snap["timeouts_total"] == 0
+            and snap["replica_ejections_total"] == 0 and snap["redispatches_total"] == 0,
+            "a_all_answered_nothing_pending": snap["responses_total"] == INFER_REQUESTS
+            and all(p.done() for p in pending) and unjoined == [],
+            "a_mean_occupancy_above_1": snap["mean_batch_occupancy"] > 1.0,
+        }
+        checks.update(a_checks)
+        emit({"phase": "infer", "part": "a_static_serving_lm", "card": smi,
+              "requests": INFER_REQUESTS, "prompt_lens": [int(n) for n in lengths],
+              "length_buckets": list(INFER_LENGTH_BUCKETS), "max_batch_size": INFER_MAX_BATCH,
+              "warmup_s": warm_s, "wall_s": wall, "requests_per_s": INFER_REQUESTS / wall,
+              "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+              "mean_batch_occupancy": snap["mean_batch_occupancy"],
+              "batches": snap["batches_total"], "padded_batches": snap["padded_batches_total"],
+              "aot_cache_sizes_before": sizes0, "aot_cache_sizes_after": sizes1,
+              "flash_launches_per_batch": launches_per_batch,
+              "launches": paths["infer_serve"], "inferencer_launches": paths["infer_inferencer"],
+              "logits_dtype": str(outs[0].dtype), "logits_max_abs_err_vs_inferencer": max(errs),
+              "logits_tol": INFER_LOGITS_TOL, "peak_memory_bytes": peak_a, "checks": a_checks})
+        del outs, pending
+
+        # (b) ResNet-50 eval at bench.py's cell, f32, BN folded
+        set_flags(use_bf16_compute=False)
+        rspec = get_model("resnet", dataset="flowers", depth=50, class_dim=1000,
+                          image_size=INFER_IMAGE_SIZE)
+        x, y = rspec.synth_batch(INFER_RESNET_BATCH, rng)
+        rvars = rspec.model.init(0, x, y)
+        state = rvars.state
+        with torch.no_grad():  # moving statistics a few train-mode batches in
+            for _ in range(INFER_BN_WARM_BATCHES):
+                state = rspec.model.apply(framework.Variables(rvars.params, state),
+                                          *rspec.synth_batch(INFER_RESNET_BATCH, rng),
+                                          is_train=True)[1]
+        rvars = framework.Variables(rvars.params, state)
+        rnet = framework.build(lambda im: resnet.resnet_imagenet(im, class_dim=1000, depth=50),
+                               name="resnet50_logits")
+        predict, folded = inference_optimize(rnet, rvars)
+        with torch.no_grad():
+            ref = rnet.apply(rvars, x)[0]
+            spread = _rel_l2(rnet.apply(rvars, x * (1 + 1e-7))[0], ref)
+        fold_err = _rel_l2(predict(folded, x), ref)
+        fold_tol = max(CONV_PARITY_MIN, CONV_PARITY_SPREAD * spread)
+        x32 = rspec.synth_batch(INFER_RESNET_SERVE_MAX, rng)[0]
+
+        def timed(v):
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rnet.apply(v, x32)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+        timed(rvars), timed(folded)
+        runs = {"unfolded": [], "folded": []}
+        for name in ("unfolded", "folded", "folded", "unfolded") * 2:  # in turns
+            runs[name].append(timed(rvars if name == "unfolded" else folded))
+        side = INFER_IMAGE_SIZE
+        images = rng.rand(INFER_RESNET_REQUESTS, side, side, 3).astype(np.float32)
+        engine = ServingEngine(rnet, folded, [FeedSpec("image", (side, side, 3), "float32")],
+                               config=ServingConfig(max_batch_size=INFER_RESNET_SERVE_MAX,
+                                                    num_replicas=1, engine_label="infer_resnet"))
+        try:
+            sizes0 = engine.aot_cache_sizes()
+            t0 = time.perf_counter()
+            pending = [engine.submit({"image": images[i:i + 1]}) for i in range(len(images))]
+            served = torch.cat([p.result(timeout=INFER_WAIT_S) for p in pending])
+            served_s = time.perf_counter() - t0
+            rsnap, sizes1 = engine.metrics.snapshot(), engine.aot_cache_sizes()
+        finally:
+            unjoined = engine.close(timeout=INFER_WAIT_S)
+        direct = torch.cat([predict(folded, torch.from_numpy(images[i:i + 32]).cuda()).cpu()
+                            for i in range(0, len(images), 32)])
+        served_err = _rel_l2(served, direct)
+        b_checks = {
+            "b_pairs_found": len(find_conv_bn_pairs(rvars)) == INFER_RESNET_BN_PAIRS,
+            "b_folded_vs_unfolded_within_card_spread": fold_err <= fold_tol,
+            "b_served_vs_direct_folded": served_err <= fold_tol,
+            "b_served_finite": bool(torch.isfinite(served).all()),
+            "b_cache_sizes_steady": sizes0 == sizes1,
+            "b_served_no_error": rsnap["errors_total"] == 0 and unjoined == []
+            and rsnap["responses_total"] == len(images),
+        }
+        checks.update(b_checks)
+        emit({"phase": "infer", "part": "b_resnet50_bn_folded", "card": smi,
+              "batch": INFER_RESNET_BATCH, "bn_pairs": len(find_conv_bn_pairs(rvars)),
+              "folded_rel_l2": fold_err, "card_spread_rel_l2": spread, "tol": fold_tol,
+              "ms_batch32": {k: [1e3 * s for s in v] for k, v in runs.items()},
+              "images_per_s_batch32": {k: INFER_RESNET_SERVE_MAX / min(v)
+                                       for k, v in runs.items()},
+              "served_images_per_s": len(images) / served_s, "served_requests": len(images),
+              "served_mean_batch_occupancy": rsnap["mean_batch_occupancy"],
+              "served_p50_ms": rsnap["p50_ms"], "served_p99_ms": rsnap["p99_ms"],
+              "served_rel_l2_vs_direct": served_err, "checks": b_checks})
+        del rvars, folded, served, direct
+
+        # (c) the exported LM program: save, load, run on the card
+        set_flags(use_bf16_compute=True, use_flash_attention=True)
+        ids = torch.as_tensor(rng.randint(1, cfg["vocab"], size=INFER_EXPORT_SHAPE)
+                              .astype(np.int32), device="cuda")
+        d = os.path.join(work, "lm_export")
+        t0 = time.perf_counter()
+        io.save_inference_model(d, net, variables, [ids])
+        save_s = time.perf_counter() - t0
+        graph_ops = [n.target for n in torch.export.load(os.path.join(d, "program.pt2")).graph.nodes
+                     if n.op == "call_function"]
+        t0 = time.perf_counter()
+        run, _ = io.load_inference_model(d)
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            eager = net.apply(variables, ids)[0]
+        run(ids)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_c:
+            got = run(ids)
+            torch.cuda.synchronize()
+        paths["infer_export"] = kernel_launch_counts()
+        names = [e.name for e in prof_c.events()]
+        c_checks = {
+            "c_loaded_logits_bit_equal_eager": bool(torch.equal(got, eager)),
+            "c_loaded_program_flash_launches_eq_n_layers":
+                paths["infer_export"]["flash_fwd"] == n_layers,
+            "c_graph_holds_the_flash_operator": graph_ops.count(
+                torch.ops.paddle_tpu_torch.flash_fwd.default) == n_layers,
+            "c_no_library_attention": not any("scaled_dot_product" in n for n in names),
+            "c_profiler_sees_the_kernel": sum("flash_fwd_bf16_kernel" in n for n in names)
+            == n_layers,
+        }
+        checks.update(c_checks)
+        emit({"phase": "infer", "part": "c_export_round_trip", "card": smi,
+              "shape": list(INFER_EXPORT_SHAPE), "save_s": save_s, "load_s": load_s,
+              "program_bytes": os.path.getsize(os.path.join(d, "program.pt2")),
+              "launches": paths["infer_export"],
+              "max_abs_diff": float((got.float() - eager.float()).abs().max()),
+              "checks": c_checks})
+        del got, eager, variables, run
+
+        # (d) the fluid_benchmark CLI, in process
+        records = {}
+        for name, argv in INFER_CLI_RUNS:
+            if name.endswith("profile"):
+                argv = argv + ["--profile_dir", os.path.join(work, "profile")]
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            rec = benchmark.run_benchmark(benchmark.parse_args(argv + ["--json", "--no_random"]))
+            torch.cuda.synchronize()
+            records[name] = {"record": rec, "seconds": time.perf_counter() - t0}
+            paths[f"cli_{name}"] = kernel_launch_counts()
+        steps = {n: int(a[a.index("--skip_batch_num") + 1]) + int(a[a.index("--iterations") + 1])
+                 for n, a in INFER_CLI_RUNS}
+        lm = paths["cli_transformer_lm"]
+        with open(os.path.join(work, "profile", "trace.chrome.json")) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        traced = {k: sum(f"{k}_bf16_kernel" in n for n in kernels) for k in HOPPER_KERNELS}
+        d_checks = {
+            "d_records_have_the_jax_keys": all(set(r["record"]) == INFER_RECORD_KEYS
+                                               for r in records.values()),
+            "d_losses_finite": all(np.isfinite(r["record"]["last_loss"]) for r in records.values()),
+            "d_examples_per_sec_positive": all(r["record"]["examples_per_sec"] > 0
+                                               for r in records.values()),
+            "d_lm_backward_launches_eq_n_layers_per_step": all(
+                lm[k] == n_layers * steps["transformer_lm"]
+                for k in ("flash_bwd_dkv", "flash_bwd_dq")),
+            "d_lm_forward_launches_per_step": lm["flash_fwd"] - n_layers * steps["transformer_lm"]
+            in (0, n_layers),  # and the init forward's
+            "d_profile_trace_holds_the_three_kernels": all(n >= n_layers for n in traced.values()),
+        }
+        checks.update(d_checks)
+        emit({"phase": "infer", "part": "d_benchmark_cli", "card": smi,
+              "runs": {n: {**r, "argv": a, "launches": paths[f"cli_{n}"]}
+                       for (n, a), r in zip(INFER_CLI_RUNS, records.values())},
+              "profile_trace_kernels": traced, "checks": d_checks})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths, checks
 
 
 def main() -> int:
@@ -2947,9 +3286,14 @@ def main() -> int:
     telemetry_launches, telemetry_checks = telemetry_phase(smi)
     failures += [f"telemetry check {k}" for k, good in telemetry_checks.items() if not good]
 
-    # 13. kernels
+    # 13. the inference-deployment slice
+    infer_paths, infer_checks = infer_phase(smi)
+    failures += [f"infer check {k}" for k, good in infer_checks.items() if not good]
+
+    # 14. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches}
+             **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches,
+             **infer_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

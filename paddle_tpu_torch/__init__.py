@@ -19,7 +19,14 @@ JAX package's format and auto-resume, on the LM and the MNIST conv net —
 and data parallelism: ``parallel.DataParallel`` and
 ``Trainer(parallel=True)`` over ``torch.distributed`` (one rank per card,
 NCCL; gloo on the CPU), ZeRO-1, and sharded/async checkpoints
-(``checkpoint_sharded``) in the JAX package's format.
+(``checkpoint_sharded``) in the JAX package's format — and the
+inference-deployment slice: ``serving.ServingEngine`` (micro-batching over
+shape buckets, replicas behind breakers) and ``Inferencer``,
+``io.save_inference_model``/``load_inference_model`` (a ``torch.export``
+program that calls the flash kernel through the operator
+``paddle_tpu_torch::flash_fwd``), BN folding for eval
+(``transpiler.inference``), remat policies (``transpiler.memory``) and the
+``fluid_benchmark`` CLI (``python -m paddle_tpu_torch.benchmark``).
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401
@@ -41,4 +48,7 @@ from paddle_tpu_torch import (  # noqa: F401
     checkpoint, checkpoint_sharded, dataset, executor, io, metrics, nets, observability, parallel,
     reader, resilience, trainer, transpiler,
 )
+from paddle_tpu_torch import average, debugger, evaluator, tensor  # noqa: F401
+from paddle_tpu_torch.tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401
+from paddle_tpu_torch.inferencer import Inferencer  # noqa: F401
 from paddle_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: F401

@@ -72,6 +72,11 @@ class _Prepared:
         tracing.record_span("executor.compile", t0, t1, target=self._label)
         return out
 
+    def signature_count(self) -> int:
+        """How many distinct argument signatures this function has run at
+        (the JAX package's jitted ``_cache_size()``)."""
+        return len(self._signatures)
+
 __all__ = ["Executor", "to_device"]
 
 

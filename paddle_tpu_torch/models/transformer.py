@@ -146,13 +146,20 @@ def sinusoid_position_encoding(max_len: int, d_model: int, dtype=torch.float32, 
 
 
 @functools.lru_cache(maxsize=8)
+def _cached_position_table(max_len: int, d_model: int, dtype, device):
+    return sinusoid_position_encoding(max_len, d_model, dtype, device)
+
+
 def _position_table(max_len: int, d_model: int, dtype, device):
     """:func:`sinusoid_position_encoding`, built once per shape, dtype and
     device and only read afterwards: it is a constant, and rebuilding it
     (float64 sin/cos on the host over all ``max_len`` rows) would add that
     host work to every forward, which the JAX package does once, at trace
-    time."""
-    return sinusoid_position_encoding(max_len, d_model, dtype, device)
+    time. A traced call (``torch.export``) builds it afresh, so the cache
+    never holds a traced tensor."""
+    if torch.compiler.is_compiling():
+        return sinusoid_position_encoding(max_len, d_model, dtype, device)
+    return _cached_position_table(max_len, d_model, dtype, device)
 
 
 def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate, name,

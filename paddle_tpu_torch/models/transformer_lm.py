@@ -73,7 +73,7 @@ def _check_ported(cfg: dict) -> None:
         if cfg.get(key):
             raise NotImplementedError(
                 f"transformer_lm cfg[{key!r}]: {what} is not ported to "
-                "paddle_tpu_torch yet; it follows the main path"
+                "paddle_tpu_torch yet (ROADMAP.md §A item 4)"
             )
 
 

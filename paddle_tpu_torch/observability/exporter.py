@@ -273,7 +273,7 @@ class _Handler(BaseHTTPRequestHandler):
             body, status = self._slo()
             self.send_response(status)
             self.send_header("Content-Type", JSON_CONTENT_TYPE)
-        elif path in ("/tenants", "/admission"):
+        elif path == "/tenants":
             body, status = self._tenants()
             self.send_response(status)
             self.send_header("Content-Type", JSON_CONTENT_TYPE)
@@ -461,9 +461,9 @@ class MetricsServer:
     JSON), ``/trace`` (the current merged Chrome-trace document from
     ``paddle_tpu_torch.tracing``), ``/alerts?n=&source=`` (recent alerts from
     the ``paddle_tpu_torch.watch`` hub), ``/slo`` (installed SLO engines'
-    current compliance/burn-rate status), ``/tenants`` or ``/admission``
-    (installed serving admission controllers' per-tenant quotas, queue
-    depths, and shed/brownout state), ``/locks`` (the ``core.locks``
+    current compliance/burn-rate status), ``/tenants`` (installed
+    serving admission controllers' per-tenant quotas, queue depths, and
+    shed/brownout state), ``/locks`` (the ``core.locks``
     held-locks registry, lock-order graph, and any recorded order
     violations), ``/fleet`` and ``/trace/<trace_id>`` (404: the fleet
     rollup is not ported yet),

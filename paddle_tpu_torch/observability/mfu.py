@@ -220,7 +220,11 @@ class CostCounter(TorchDispatchMode):
             packet = func._overloadpacket
             formula = flop_registry.get(packet)
             if formula is not None:
-                n = int(formula(*args, **kwargs, out_val=out))
+                # the formulas take shapes: an ``out_dtype`` overload's
+                # ScalarType (``bmm.dtype``) is no operand of theirs
+                n = int(formula(*(a for a in args if not isinstance(a, torch.dtype)),
+                                **{k: v for k, v in kwargs.items() if k != "out_dtype"},
+                                out_val=out))
                 self.flops += n
                 self.by_op[packet.__name__] += n
             if not func.is_view and packet.__name__ not in _NO_TRAFFIC:

@@ -25,6 +25,12 @@ T_kv. ``block_q``/``block_k`` and the :func:`resolve_blocks`/
 callers run unchanged; they size the TPU's VMEM tiles and do not change the
 Hopper kernels' tiling.
 
+Export: the forward is also registered as the PyTorch operator
+``paddle_tpu_torch::flash_fwd`` (:func:`flash_fwd_op`, with a fake
+implementation that gives ``out``'s and ``lse``'s shapes and dtypes). A
+call traced by ``torch.export`` records that operator, so an exported
+inference program calls the hand-written kernel when it runs on the card.
+
 Cost report: a ``TorchDispatchMode`` does not see a ``ctypes`` launch, so
 while a step is counted (:class:`paddle_tpu_torch.observability.mfu.CostCounter`)
 the wrappers report each call's model FLOPs and bytes themselves
@@ -36,7 +42,7 @@ counter paused, so a step counts the same FLOPs on either device.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +56,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_with_lse",
     "flash_attention_bwd_block",
+    "flash_fwd_op",
     "fit_block",
     "resolve_blocks",
     "tuned_blocks",
@@ -394,6 +401,32 @@ def _flash_bwd(q, k, v, out, lse, g, causal: bool, sm_scale: float, kv_len=None,
         return _flash_bwd_dq_reference(*args), dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: Optional[torch.Tensor], causal: bool, sm_scale: float,
+                 window: Optional[int], q_off: int, k_off: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as a PyTorch operator, ``paddle_tpu_torch::flash_fwd``:
+    ``(out, lse)`` as :func:`flash_attention_with_lse` gives them — the
+    hand-written kernel for CUDA tensors, the plain version for CPU
+    tensors. ``torch.export`` cannot trace a ``ctypes`` launch, so a traced
+    call (``torch.compiler.is_compiling()``: ``torch.export``,
+    ``torch.compile``) records this operator instead, and a saved program
+    loaded in a process that imported ``paddle_tpu_torch`` calls the kernel
+    through it (``io.save_inference_model``). Eager calls launch the kernel
+    directly."""
+    if q.device.type == "cuda":
+        return _flash_fwd_cuda(q, k, v, causal, sm_scale, kv_len, window, q_off, k_off)
+    enforce(q.device.type == "cpu", f"flash_attention: unsupported device {q.device}")
+    return _reference_attention_with_lse(q, k, v, causal, sm_scale, kv_len, window, q_off, k_off)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, kv_len, causal, sm_scale, window, q_off, k_off):
+    """Shapes and dtypes only: ``out`` like q, ``lse`` f32 [B, H, T, 1]."""
+    return torch.empty_like(q), q.new_empty(tuple(q.shape[:3]) + (1,), dtype=torch.float32)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom gradient of :func:`flash_attention` (the JAX package's
     ``_flash`` custom_vjp, :625-664): the forward kernel saves ``q, k, v,
@@ -462,6 +495,8 @@ def flash_attention_with_lse(
     dead kv tiles are skipped. Rows with no live key come back with
     lse ≈ NEG_INF."""
     sm_scale = _check_args(q, k, sm_scale, block_q, block_k, causal, window)
+    if torch.compiler.is_compiling():
+        return flash_fwd_op(q, k, v, kv_len, causal, sm_scale, window, q_off, k_off)
     with torch.no_grad():
         return _flash_fwd(q, k, v, causal, sm_scale, kv_len, window, q_off, k_off)
 
@@ -515,4 +550,6 @@ def flash_attention(
     bf16 or f32 inputs, head dim 32, 64 or 128, contiguous; the output and
     the gradients have the inputs' dtypes."""
     sm_scale = _check_args(q, k, sm_scale, block_q, block_k, causal, window)
+    if torch.compiler.is_compiling():  # an inference trace: the operator, no gradient
+        return flash_fwd_op(q, k, v, kv_len, causal, sm_scale, window, 0, 0)[0]
     return _FlashAttention.apply(q, k, v, kv_len, causal, sm_scale, window)

@@ -2,8 +2,8 @@
 ``submit()``, before it consumes queue capacity or device time.
 
 A copy of ``paddle_tpu.serving.admission`` (jax-free) for the PyTorch port,
-less the static engine's retry ``TokenBucket`` and its per-replica
-histogram merge, which come with ``ServingEngine`` (``ROADMAP.md``).
+with the static engine's retry :class:`TokenBucket` and its per-replica
+histogram merge (:func:`merge_histogram_snapshots`).
 
 The reference's serving path (gRPC ``listen_and_serv`` + Fluid inference)
 admitted everything and let overload manifest as unbounded send queues and
@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from paddle_tpu_torch.core import locks
 from paddle_tpu_torch.core import config as cfg
@@ -52,7 +52,9 @@ from paddle_tpu_torch.serving import scheduler as sched_mod
 __all__ = [
     "AdmissionRejected",
     "TenantConfig",
+    "TokenBucket",
     "AdmissionController",
+    "merge_histogram_snapshots",
     "install",
     "uninstall",
     "installed_controllers",
@@ -118,6 +120,69 @@ class TenantConfig:
                 f"tenant {out.name!r}: default_class must be one of "
                 f"{sched_mod.CLASSES}, got {out.default_class!r}")
         return out
+
+
+class TokenBucket:
+    """Classic token bucket (thread-safe): ``try_take`` never blocks. Used
+    as the per-engine retry budget — retries spend tokens that refill at
+    ``rate_per_s``, so a retry storm decays to the budget rate instead of
+    amplifying overload."""
+
+    def __init__(self, rate_per_s: float, burst: float,
+                 clock: Callable[[], float] = time.monotonic):
+        enforce(rate_per_s >= 0,
+                f"rate_per_s must be >= 0, got {rate_per_s}")
+        enforce(burst > 0, f"burst must be > 0, got {burst}")
+        self.rate = float(rate_per_s)
+        self.burst = float(burst)
+        self._clock = clock
+        self._tokens = float(burst)
+        self._last = clock()
+        self._lock = locks.Lock("serving.token_bucket")
+
+    def try_take(self, n: float = 1.0) -> bool:
+        with self._lock:
+            now = self._clock()
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.rate)
+            self._last = now
+            if self._tokens >= n:
+                self._tokens -= n
+                return True
+            return False
+
+    def available(self) -> float:
+        with self._lock:
+            now = self._clock()
+            return min(self.burst,
+                       self._tokens + (now - self._last) * self.rate)
+
+
+def merge_histogram_snapshots(snaps: Sequence[Optional[dict]]) -> Optional[dict]:
+    """Elementwise-merge {edges, cumulative, sum, count} snapshots sharing
+    one bucket layout (e.g. the per-replica children of
+    ``serving.replica_exec_seconds``) into one distribution the quantile
+    estimator can read. None/empty snapshots are skipped."""
+    merged: Optional[dict] = None
+    for snap in snaps:
+        if snap is None or snap["count"] <= 0:
+            continue
+        if merged is None:
+            merged = {
+                "edges": list(snap["edges"]),
+                "cumulative": list(snap["cumulative"]),
+                "sum": float(snap["sum"]),
+                "count": int(snap["count"]),
+            }
+            continue
+        enforce(merged["edges"] == list(snap["edges"]),
+                "cannot merge histograms with different bucket layouts")
+        merged["cumulative"] = [
+            a + b for a, b in zip(merged["cumulative"], snap["cumulative"])
+        ]
+        merged["sum"] += float(snap["sum"])
+        merged["count"] += int(snap["count"])
+    return merged
 
 
 class AdmissionController:

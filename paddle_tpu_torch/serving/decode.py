@@ -47,12 +47,13 @@ engine's device, seeded from ``DecodeConfig.rng_seed``, so sampled tokens
 differ from the JAX package's (``jax.random``); greedy decode is
 token-exact against it.
 
-Not ported yet, and refused with ``NotImplementedError`` (``ROADMAP.md``
-§A item 8): replica groups (``group=``/``layout=``), the host KV tier
-(``host_tier=``, ``host_tier_bytes``), the request journal
-(``journal_path``), disaggregated prefill/decode and prefix-digest routing
-(``prefix_digest``, ``adopt_handoff``, ``_handoff_sink``) and manifest
-prewarm (``prewarm=True``).
+Not ported yet, and refused with ``NotImplementedError``: replica groups
+(``group=``/``layout=``), the host KV tier (``host_tier=``,
+``host_tier_bytes``), the request journal (``journal_path``),
+disaggregated prefill/decode and prefix-digest routing
+(``prefix_digest``, ``adopt_handoff``, ``_handoff_sink``), all
+``ROADMAP.md`` §A item 6; and manifest prewarm (``prewarm=True``, the
+``tune/`` warm-up manifest, item 7).
 
 Telemetry as in the JAX package: with tracing on
 (``tracing.tracing_enabled()``, the default) every request is a trace
@@ -127,10 +128,10 @@ __all__ = [
 _RID_SALT = os.urandom(3).hex()
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int = 6) -> NotImplementedError:
     return NotImplementedError(
         f"DecodeEngine: {what} is not ported to paddle_tpu_torch yet "
-        "(ROADMAP.md §A item 8)")
+        f"(ROADMAP.md §A item {item})")
 
 
 @dataclasses.dataclass
@@ -394,7 +395,7 @@ class DecodeEngine:
         if dconf.prefix_digest:
             raise _not_ported("prefix_digest (serving.disagg / DecodeFleet routing)")
         if dconf.prewarm:
-            raise _not_ported("prewarm=True (the tune/ warmup manifest)")
+            raise _not_ported("prewarm=True (the tune/ warmup manifest)", item=7)
         enforce(dconf.max_slots >= 1,
                 f"max_slots must be >= 1, got {dconf.max_slots}")
         enforce(dconf.prefill_chunk >= 1,

@@ -1,17 +1,18 @@
-"""Decode-serving observability: the continuous-batching engine's counters,
-gauges and latency histograms, port of ``paddle_tpu.serving.metrics``'s
-:class:`DecodeMetrics`.
+"""Serving observability, port of ``paddle_tpu.serving.metrics``: the
+static engine's :class:`ServingMetrics` (request/batch counters, the
+queue-depth gauge, a latency reservoir with percentile readout) and the
+continuous-batching engine's :class:`DecodeMetrics`.
 
 Everything mirrors into the typed registry
 (:func:`paddle_tpu_torch.observability.metrics.default_registry`) under the
-JAX package's ``serving.decode.*``, ``serving.recovery.*`` and
-``serving.tenant.*`` family names, each child labeled with the engine
-(``engine="decode0"``, ...), so two engines in one process never collide.
-:meth:`DecodeMetrics.snapshot` returns the same counts as a plain dict for
-tests and scripts. The static engine's ``ServingMetrics`` comes with
-``ServingEngine`` (``ROADMAP.md``), and so do the counters of the parts of
+JAX package's ``serving.*``, ``serving.decode.*``, ``serving.recovery.*``
+and ``serving.tenant.*`` family names, each child labeled with the engine
+(``engine="serving0"``, ``engine="decode1"``, ... from one sequence per
+process, as in the JAX package), so two engines in one process never
+collide. ``snapshot()`` returns the same counts as a plain dict, with the
+JAX package's keys, for tests and scripts. The counters of the parts of
 the decode engine not ported yet (host tier, handoff, replica groups, the
-journal).
+journal: ``ROADMAP.md`` §A item 6) come with them.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ import math
 from typing import Dict, Optional
 
 from paddle_tpu_torch.core import locks
+from paddle_tpu_torch.core import profiler as prof
 from paddle_tpu_torch.observability import metrics as obs_metrics
 
-__all__ = ["DecodeMetrics"]
+__all__ = ["ServingMetrics", "DecodeMetrics"]
 
 # distinct default engine labels for every engine built in this process
 _ENGINE_SEQ = itertools.count()
@@ -39,6 +41,262 @@ def _percentile(sorted_values, q: float) -> float:
         return 0.0
     rank = max(1, math.ceil(q / 100.0 * len(sorted_values)))
     return sorted_values[rank - 1]
+
+
+class ServingMetrics:
+    """Thread-safe counters for one engine instance."""
+
+    def __init__(self, latency_window: int = 8192,
+                 engine_label: Optional[str] = None):
+        self._lock = locks.Lock("serving.metrics")
+        self.engine_label = engine_label or f"serving{next(_ENGINE_SEQ)}"
+        self._labels = {"engine": self.engine_label}
+        obs_metrics.default_registry().histogram(
+            "serving.request_latency_seconds",
+            help="End-to-end request latency (submit to response).",
+            buckets=_LATENCY_BUCKETS)
+        obs_metrics.default_registry().histogram(
+            "serving.batch_occupancy",
+            help="Real rows / bucket rows per dispatched batch.",
+            buckets=obs_metrics.linear_buckets(0.1, 0.1, 10))
+        obs_metrics.default_registry().histogram(
+            "serving.replica_exec_seconds",
+            help="Per-replica device execute duration per batch.",
+            buckets=_LATENCY_BUCKETS)
+        obs_metrics.default_registry().histogram(
+            "serving.tenant.request_latency_seconds",
+            help="End-to-end request latency per tenant and priority class.",
+            buckets=_LATENCY_BUCKETS)
+        self.requests_total = 0
+        self.responses_total = 0
+        self.timeouts_total = 0
+        self.errors_total = 0
+        self.batches_total = 0
+        self.rows_total = 0          # real rows dispatched (excl. padding)
+        self.padded_rows_total = 0   # zero rows added by bucketing
+        self.padded_batches_total = 0  # batches where bucket_b > rows
+        self.warmup_executables = 0
+        self.dispatch_shapes: set = set()  # distinct (sig, bucket_b) sent
+        # replica health (circuit breaker / worker-death accounting)
+        self.replica_ejections_total = 0   # breaker trips
+        self.replica_recoveries_total = 0  # half-open probes that re-admitted
+        self.replica_deaths_total = 0      # worker threads that exited
+        self.redispatches_total = 0        # failed batches retried elsewhere
+        # multi-tenant admission accounting (serving.tenant.* families)
+        self._tenant_admitted: collections.Counter = collections.Counter()
+        self._tenant_shed: collections.Counter = collections.Counter()
+        self.retries_total = 0                  # submit() retry attempts
+        self.retry_budget_exhausted_total = 0   # retries refused by budget
+        self._latencies = collections.deque(maxlen=latency_window)
+
+    # -- recorders (called from engine/batcher/worker threads) -------------
+
+    def record_submit(self, rows: int, queue_depth: int) -> None:
+        with self._lock:
+            self.requests_total += 1
+        prof.inc_counter("serving.requests_total", labels=self._labels)
+        prof.set_gauge("serving.queue_depth", queue_depth, labels=self._labels)
+
+    def record_batch(self, rows: int, bucket_rows: int, sig) -> None:
+        with self._lock:
+            self.batches_total += 1
+            self.rows_total += rows
+            self.padded_rows_total += bucket_rows - rows
+            if bucket_rows > rows:
+                self.padded_batches_total += 1
+            self.dispatch_shapes.add((sig, bucket_rows))
+        prof.inc_counter("serving.batches_total", labels=self._labels)
+        prof.inc_counter("serving.rows_total", rows, labels=self._labels)
+        prof.set_gauge("serving.last_batch_occupancy", rows / bucket_rows,
+                       labels=self._labels)
+        prof.observe("serving.batch_occupancy", rows / bucket_rows,
+                     labels=self._labels)
+
+    def record_response(self, latency_s: float) -> None:
+        with self._lock:
+            self.responses_total += 1
+            self._latencies.append(latency_s)
+        prof.inc_counter("serving.responses_total", labels=self._labels)
+        prof.observe("serving.request_latency_seconds", latency_s,
+                     labels=self._labels)
+
+    def record_timeout(self) -> None:
+        with self._lock:
+            self.timeouts_total += 1
+        prof.inc_counter("serving.timeouts_total", labels=self._labels)
+
+    def record_error(self, n: int = 1) -> None:
+        with self._lock:
+            self.errors_total += n
+        prof.inc_counter("serving.errors_total", n, labels=self._labels)
+
+    def record_warmup(self, n: int = 1) -> None:
+        with self._lock:
+            self.warmup_executables += n
+        prof.inc_counter("serving.warmup_executables", n, labels=self._labels)
+
+    def set_queue_depth(self, depth: int) -> None:
+        prof.set_gauge("serving.queue_depth", depth, labels=self._labels)
+
+    def record_exec(self, replica: int, seconds: float) -> None:
+        """Per-replica device execute duration — the series the watch
+        layer's per-replica latency anomaly rule subscribes to."""
+        prof.observe("serving.replica_exec_seconds", seconds,
+                     labels={**self._labels, "replica": str(replica)})
+
+    def record_replica_ejection(self) -> None:
+        with self._lock:
+            self.replica_ejections_total += 1
+        prof.inc_counter("serving.replica_ejections_total", labels=self._labels)
+
+    def record_replica_recovery(self) -> None:
+        with self._lock:
+            self.replica_recoveries_total += 1
+        prof.inc_counter("serving.replica_recoveries_total", labels=self._labels)
+
+    def record_replica_death(self) -> None:
+        with self._lock:
+            self.replica_deaths_total += 1
+        prof.inc_counter("serving.replica_deaths_total", labels=self._labels)
+
+    def record_redispatch(self) -> None:
+        with self._lock:
+            self.redispatches_total += 1
+        prof.inc_counter("serving.redispatches_total", labels=self._labels)
+
+    def set_healthy_replicas(self, n: int) -> None:
+        prof.set_gauge("serving.healthy_replicas", n, labels=self._labels)
+
+    # -- multi-tenant admission (serving.tenant.* families) -----------------
+
+    def record_admit(self, tenant: str, cls: str) -> None:
+        with self._lock:
+            self._tenant_admitted[(tenant, cls)] += 1
+        prof.inc_counter("serving.tenant.admitted_total",
+                         labels={**self._labels, "tenant": tenant,
+                                 "cls": cls})
+
+    def record_shed(self, tenant: str, cls: str, reason: str) -> None:
+        with self._lock:
+            self._tenant_shed[(tenant, cls, reason)] += 1
+        prof.inc_counter("serving.tenant.shed_total",
+                         labels={**self._labels, "tenant": tenant,
+                                 "cls": cls, "reason": reason})
+
+    def record_tenant_response(self, tenant: str, cls: str,
+                               latency_s: float) -> None:
+        prof.observe("serving.tenant.request_latency_seconds", latency_s,
+                     labels={**self._labels, "tenant": tenant, "cls": cls})
+
+    def set_tenant_depths(self, depths: Dict[str, dict]) -> None:
+        """Refresh the per-tenant queue gauges from a scheduler
+        :meth:`~paddle_tpu_torch.serving.scheduler.WeightedFairScheduler.depths`
+        snapshot."""
+        for tenant, d in depths.items():
+            for cls, depth in d.items():
+                if cls == "bytes":
+                    prof.set_gauge(
+                        "serving.tenant.queued_bytes", depth,
+                        labels={**self._labels, "tenant": tenant})
+                else:
+                    prof.set_gauge(
+                        "serving.tenant.queue_depth", depth,
+                        labels={**self._labels, "tenant": tenant,
+                                "cls": cls})
+
+    def set_brownout_level(self, level: int) -> None:
+        prof.set_gauge("serving.brownout_level", level, labels=self._labels)
+
+    def record_retry(self) -> None:
+        with self._lock:
+            self.retries_total += 1
+        prof.inc_counter("serving.retries_total", labels=self._labels)
+
+    def record_retry_budget_exhausted(self) -> None:
+        with self._lock:
+            self.retry_budget_exhausted_total += 1
+        prof.inc_counter("serving.retry_budget_exhausted",
+                         labels=self._labels)
+
+    def tenant_admitted(self, tenant: str) -> int:
+        with self._lock:
+            return sum(v for (t, _), v in self._tenant_admitted.items()
+                       if t == tenant)
+
+    def tenant_shed(self, tenant: str) -> Dict[str, int]:
+        """Shed counts for one tenant, keyed by rejection reason."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for (t, _, reason), v in self._tenant_shed.items():
+                if t == tenant:
+                    out[reason] = out.get(reason, 0) + v
+        return out
+
+    def shed_total(self) -> int:
+        with self._lock:
+            return sum(self._tenant_shed.values())
+
+    # -- readout -----------------------------------------------------------
+
+    def mean_batch_occupancy(self) -> float:
+        """Mean real rows per dispatched batch — > 1 means the dynamic
+        batcher is actually coalescing traffic."""
+        with self._lock:
+            if self.batches_total == 0:
+                return 0.0
+            return self.rows_total / self.batches_total
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        with self._lock:
+            vals = sorted(self._latencies)
+        return {
+            "p50_ms": _percentile(vals, 50) * 1e3,
+            "p99_ms": _percentile(vals, 99) * 1e3,
+        }
+
+    def latency_quantile(self, q: float) -> Optional[float]:
+        """Estimated request-latency ``q``-quantile in SECONDS from the
+        ``serving.request_latency_seconds`` histogram (linear interpolation
+        within buckets — the same estimator the SLO engine uses). Unlike
+        the bounded reservoir behind :meth:`latency_percentiles`, this
+        covers every response since engine start. None before any
+        response."""
+        return obs_metrics.default_registry().quantile(
+            "serving.request_latency_seconds", q, labels=self._labels)
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            vals = sorted(self._latencies)
+            snap = {
+                "engine": self.engine_label,
+                "requests_total": self.requests_total,
+                "responses_total": self.responses_total,
+                "timeouts_total": self.timeouts_total,
+                "errors_total": self.errors_total,
+                "batches_total": self.batches_total,
+                "rows_total": self.rows_total,
+                "padded_rows_total": self.padded_rows_total,
+                "padded_batches_total": self.padded_batches_total,
+                "warmup_executables": self.warmup_executables,
+                "distinct_dispatch_shapes": len(self.dispatch_shapes),
+                "replica_ejections_total": self.replica_ejections_total,
+                "replica_recoveries_total": self.replica_recoveries_total,
+                "replica_deaths_total": self.replica_deaths_total,
+                "redispatches_total": self.redispatches_total,
+                "admitted_total": sum(self._tenant_admitted.values()),
+                "shed_total": sum(self._tenant_shed.values()),
+                "retries_total": self.retries_total,
+                "retry_budget_exhausted_total":
+                    self.retry_budget_exhausted_total,
+                "mean_batch_occupancy": (
+                    self.rows_total / self.batches_total
+                    if self.batches_total
+                    else 0.0
+                ),
+            }
+        snap["p50_ms"] = _percentile(vals, 50) * 1e3
+        snap["p99_ms"] = _percentile(vals, 99) * 1e3
+        return snap
 
 
 class DecodeMetrics:

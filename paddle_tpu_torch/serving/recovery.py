@@ -8,7 +8,7 @@ iteration quarantines the batch and re-admits every live request through
 the preempt/resume path, under a per-request retry budget. The durable
 request journal (``RequestJournal``, ``replay_journal``,
 ``resume_incomplete``) and cross-engine migration (``DecodeFleet``) are
-not ported yet (``ROADMAP.md`` §A item 8).
+not ported yet (``ROADMAP.md`` §A item 6, after the static engine).
 """
 
 from __future__ import annotations

@@ -306,12 +306,11 @@ class Trainer:
                         # fault point: "error" raises here (a crashing step),
                         # "nan" forces this step to count as non-finite,
                         # "preempt" delivers SIGTERM (handled at the boundary
-                        # below), "stall" is a slow step: unlike the JAX
-                        # package's, it sits inside the step's timed region,
-                        # so the step time, the straggler watch and the
-                        # watch layer see it
-                        t_step = time.perf_counter()
+                        # below); as in the JAX package it sits before the
+                        # step's timed region, so a "stall" here is not step
+                        # time
                         spec = faults.inject(faults.TRAINER_STEP, epoch=epoch_id, step=step_id)
+                        t_step = time.perf_counter()
                         if self._watchdog is not None:
                             with self._watchdog.watch(f"epoch {epoch_id} step {step_id}"):
                                 out = self._run_step(batch)

@@ -52,7 +52,10 @@ def test_sources_found():
                    "observability/flight_recorder", "observability/__init__",
                    "tracing/__init__", "tracing/context", "tracing/memory", "tracing/straggler",
                    "tracing/export", "watch/__init__", "watch/detectors", "watch/alerts",
-                   "watch/baseline", "watch/slo", "watch/watcher"):
+                   "watch/baseline", "watch/slo", "watch/watcher", "serving/buckets",
+                   "serving/batcher", "inferencer", "transpiler/inference",
+                   "transpiler/memory", "benchmark", "tensor", "average", "evaluator",
+                   "debugger"):
         assert f"paddle_tpu_torch/{module}.py" in names, module
 
 

@@ -139,7 +139,7 @@ def test_exporter_endpoints(tmp_path):
         assert status == 200 and "trainer_steps_total" in text
         texporter.parse_text_exposition(text)
         for path in ("/healthz", "/runlog/tail?n=5", "/trace", "/roofline", "/alerts",
-                     "/slo", "/tenants", "/admission", "/locks"):
+                     "/slo", "/tenants", "/locks"):
             status, body = _get(base + path)
             assert status == 200, path
             json.loads(body)
@@ -148,6 +148,7 @@ def test_exporter_endpoints(tmp_path):
             status, body = _get(base + path)
             assert status == 404 and "ROADMAP.md" in body, path
         assert _get(base + "/nope")[0] == 404
+        assert _get(base + "/admission")[0] == 404  # the JAX exporter's /tenants only
     finally:
         obs.shutdown()
     assert obs.server() is None and runlog.get_runlog() is None
