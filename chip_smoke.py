@@ -209,8 +209,26 @@ Phases, each printing JSON lines:
                transformer_lm pass: the JAX record's keys, finite losses,
                examples/s, 6 launches of each kernel per LM step, the
                profile's trace holding the three kernels.
- 14. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8 and 10-13), its error and times at the
+ 14. sp      — sequence and expert parallelism (SP_*), two gloo ranks
+               sharing the card, the LM at BASE_CFG (flash + bf16, Adam):
+               (a) ring attention on seq=2, 8 x 1024 split P("data",
+               "seq"): one step against the one-rank minimize step (loss,
+               Adam's first moment, the update, as phase dp (b) holds its
+               steps), two more timed;
+               each rank's launches of each kernel (6 and 12: the causal
+               ring skips rank 0's dead block); step ms and peak memory per
+               rank; (b) the ring at 2 x 8192 (numbers: step ms, tokens/s,
+               peak memory per rank beside the one-rank step); (c) Ulysses
+               on seq=2, as (a), 6 launches a rank; (d) the MoE LM (8
+               experts, top1) on expert=2: as (a), plus the routers' aux
+               losses and kept tokens equal to the one-rank run's; (e) the
+               ring's block math at (a)'s attention shape in one process
+               against the single-device kernels and float64 (SP_RING_*).
+               The route of each exchange (gloo_host: staged through host
+               memory, point to point). tools/torch_sp_nccl.py runs (a)-(d)
+               over NCCL, one rank per card.
+ 15. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8 and 10-14), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
                (not measured).
@@ -459,6 +477,54 @@ INFER_CLI_RUNS = (
 )
 INFER_RECORD_KEYS = {"pass", "model", "batch_size", "chips", "examples_per_sec", "unit",
                      "last_loss", "elapsed_sec"}
+# Sequence and expert parallelism (phase sp): two gloo ranks on the one card
+# (as phase dp (b)), the LM at BASE_CFG, flash + bf16, Adam: one step held
+# against the one-rank minimize step on the whole batch as phase dp (b)
+# holds its steps (TRAIN_LOSS_TOL on the loss, TRAIN_GRAD_TOL on Adam's
+# first moment, DP_MOVEMENT_TOL on the update), then two more timed. One
+# step: after it the MoE routers may route a token near a tie otherwise,
+# and one such token moves its expert's gradient by more than the
+# tolerances. (a) the ring on seq=2 with
+# P("data", "seq"): 8 x 1024, 512 tokens of each row a rank; under causal
+# masking rank r of the ring launches r + 1 forward kernels a layer (its
+# dead blocks are skipped), so 6 and 12 of each kernel a step; (b) the ring
+# at long context: SP_LONG_BATCH x SP_LONG_SEQ (4096 tokens of each row a
+# rank), numbers only, beside the one-rank step on the same batch; (c)
+# Ulysses on seq=2: 4 heads a rank after the exchange, 6 launches of each
+# kernel a rank; (d) the MoE LM (SP_MOE: 8 experts, top1, capacity 1.25) on
+# expert=2, 4 experts a rank: the losses, the routers' aux losses and the
+# tokens each layer's router keeps (so the dropped ones) equal to the
+# one-rank run's in the first step, and the update held as above.
+SP_LONG_BATCH, SP_LONG_SEQ = 2, 8192
+SP_MOE = dict(moe_experts=8, moe_router="top1", moe_capacity_factor=1.25, relu_dropout=0.0)
+# each part: (seq_len, batch, the mesh axis the ranks lie on (data is 1),
+# sequence-parallel mode, LM overrides, steps held against the one-rank run,
+# steps timed after them)
+SP_PARTS = {
+    "a_ring": (1024, TRAIN_BATCH, "seq", "ring", {}, 1, 2),
+    "b_ring_long": (SP_LONG_SEQ, SP_LONG_BATCH, "seq", "ring", {}, 0, 2),
+    "c_ulysses": (1024, TRAIN_BATCH, "seq", "ulysses", {}, 1, 2),
+    "d_moe": (1024, TRAIN_BATCH, "expert", None, SP_MOE, 1, 2),
+}
+
+
+def sp_launches(part: str, rank: int) -> int:
+    """A part's launches of each kernel a step on ``rank``: 6 (a layer),
+    (rank + 1) x 6 on the causal ring (its live blocks)."""
+    return 6 * (rank + 1) if SP_PARTS[part][3] == "ring" else 6
+# (e) the ring's block math at the LM's attention shape (8 x 8 x 1024 x 64,
+# causal, two blocks of 512): both ranks emulated in one process through
+# flash_attention_with_lse and flash_attention_bwd_block at their offsets,
+# against the single-device kernels and a float64 reference. (a) reads a
+# one-step gradient 1.7% (median) from the one-rank run's where Ulysses,
+# which runs the single-device kernel on whole heads, reads 1e-7: the ring
+# rounds each block's probabilities and partial output to bf16 and sums in
+# another order. (e) shows that is rounding, not an error: in f32 out, dq,
+# dk and dv within SP_RING_F32_TOL (rel L2) of float64 (f32 rounding over a
+# 1024-key row), and in bf16 no farther from float64 than SP_RING_BF16_RATIO
+# times the single-device kernels are.
+SP_RING_SHAPE = (TRAIN_BATCH, 8, 1024, 64)
+SP_RING_F32_TOL, SP_RING_BF16_RATIO = 1e-5, 1.5
 
 
 def emit(obj) -> None:
@@ -2929,6 +2995,297 @@ def infer_phase(smi: str):
     return paths, checks
 
 
+def router_calls() -> list:
+    """The calls of the MoE routers (``parallel.moe._ROUTERS``, looked up at
+    each call) from here on, each ``(token routes its dispatch keeps, its
+    aux loss)``: the tokens a router drops are the routed ones minus the
+    kept. The routers are wrapped once a process; the caller clears the
+    list."""
+    from paddle_tpu_torch.parallel import moe
+
+    calls = getattr(router_calls, "calls", None)
+    if calls is None:
+        calls = router_calls.calls = []
+
+        def wrap(fn):
+            def gate(logits, capacity, token_mask=None, rows=None):
+                dispatch, combine, aux = fn(logits, capacity, token_mask=token_mask, rows=rows)
+                calls.append((int(dispatch.sum()), float(aux.detach())))
+                return dispatch, combine, aux
+
+            return gate
+
+        for name, (fn, routes) in list(moe._ROUTERS.items()):
+            moe._ROUTERS[name] = (wrap(fn), routes)
+    return calls
+
+
+def sp_spec(part: str, mesh=None):
+    """The LM of a phase sp part (with its sequence-parallel mode over
+    ``mesh`` when given)."""
+    from paddle_tpu_torch.models import get_model
+
+    seq_len, _, _, mode, overrides = SP_PARTS[part][:5]
+    kw = {f"{mode}_mesh": mesh} if (mode and mesh is not None) else {}
+    return get_model("transformer_lm", seq_len=seq_len, **kw, **overrides)
+
+
+def sp_run(part: str, step, batch):
+    """The part's held and timed steps of ``step`` from the part's seeded
+    init: the losses, the first step's launches of each kernel and router
+    calls, the step ms (the steps after the first), the peak memory, and
+    the state after the held steps."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+
+    held, timed = SP_PARTS[part][5:7]
+    calls = router_calls()
+    v, o, losses, ms = step["v"], step["o"], [], []
+    end = (v, o)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(held + timed):
+        for kern in kbuild.KERNELS.values():
+            kern.launches = 0
+        calls.clear()
+        t0 = time.perf_counter()
+        r = step["fn"](v, o, *batch)
+        v, o = r.variables, r.opt_state
+        losses.append(float(r.loss))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            launches = {n: k.launches for n, k in kbuild.KERNELS.items()}
+            routers = list(calls)
+        if i + 1 == held:
+            end = (v, o)
+    return {"losses": losses, "launches_first_step": launches, "routers": routers,
+            "step_ms": min(ms[1:] or ms), "step_ms_runs": ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}, end[0], end[1]
+
+
+def sp_reference(part: str, work: str):
+    """The one-rank run a phase sp part is held against: its steps of
+    minimize's step on the whole batch from the seeded init; its state goes
+    to ``work/<part>.pt`` as phase dp's reference does."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    seq_len, batch_size = SP_PARTS[part][:2]
+    spec = sp_spec(part)
+    batch = spec.synth_batch(batch_size, np.random.RandomState(0))
+    v0 = spec.model.init(0, *batch)
+    opt = spec.optimizer()
+    res, v, o = sp_run(part, {"fn": opt.minimize(spec.model), "v": v0,
+                              "o": opt.create_state(v0.params)}, batch)
+    os.makedirs(work, exist_ok=True)
+    torch.save({"params": v.params, "moment1": o.slots["moment1"]},
+               os.path.join(work, f"{part}.pt"))
+    res["tokens_per_s"] = batch_size * seq_len / (res["step_ms"] / 1e3)
+    del v, o, v0, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_rank(rank, work, part):
+    """One rank of phase sp: the part's DataParallel steps on its mesh (a
+    sequence-sharded batch for the ring and Ulysses, the whole batch and
+    half the experts for MoE), held against the one-rank run in
+    ``work/<part>.pt``; the routes its exchanges took."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.parallel import DataParallel, P, collective, make_mesh
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=True)
+    seq_len, batch_size, axis, mode = SP_PARTS[part][:4]
+    mesh = make_mesh(data=1, **{axis: torch.distributed.get_world_size()})
+    spec = sp_spec(part, mesh)
+    batch = spec.synth_batch(batch_size, np.random.RandomState(0))
+    v0 = spec.model.init(0, *batch)
+    specs = [P("data", "seq")] * 2 if mode else None
+    dp = DataParallel(spec.model, spec.optimizer(), mesh=mesh, batch_specs=specs)
+    v, o = dp.init(0, *batch, variables=v0)
+    local = dp.put_batch(*batch)
+    collective.reset_routes()
+    res, v, o = sp_run(part, {"fn": dp.step, "v": v, "o": o}, local)
+    res["routes"] = collective.routes_taken()
+    res["tokens_per_s"] = batch_size * seq_len / (res["step_ms"] / 1e3)
+    res["local_batch"] = list(local[0].shape)
+    ref = torch.load(os.path.join(work, f"{part}.pt"), map_location=torch.device("cuda"))
+    fv, fo = dp.full_state(v, o)
+    if SP_PARTS[part][5]:  # held steps
+        res["agreement"] = dp_agreement(fv.params, fo.slots["moment1"], ref, v0.params)
+    res["local_w_in_experts"] = next((int(t.shape[0]) for k, t in v.params.items()
+                                      if k.endswith("moe_ffn/w_in")), None)
+    del dp, v, o, fv, fo, ref, v0, batch, local
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_ranks(rank, work):
+    """One rank of phase sp: every part in turn (one spawn for the phase)."""
+    return {part: sp_rank(rank, work, part) for part in SP_PARTS}
+
+
+def sp_ring_block_math():
+    """Phase sp (e): the ring's block math for two ranks in one process at
+    SP_RING_SHAPE, f32 and bf16: the merged forward and the block-backward
+    ring (``ops/ring_attention.py``'s steps, through the kernels at their
+    offsets) against the single-device kernels (``flash_attention``) and a
+    float64 reference; rel L2 of out, dq, dk, dv. Returns its numbers and
+    checks."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_block,
+        flash_attention_with_lse,
+    )
+    from paddle_tpu_torch.ops.ring_attention import _merge_normalized
+
+    B, H, T, d = SP_RING_SHAPE
+    n, tl = 2, SP_RING_SHAPE[2] // 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = [torch.randn(B, H, T, d, device="cuda", generator=gen) for _ in range(4)]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def blk(t, r):
+        return t[:, :, r * tl:(r + 1) * tl].contiguous()
+
+    out, checks = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (t.to(dtype).contiguous() for t in base)
+        q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+        s = torch.einsum("bhqd,bhkd->bhqk", q64, k64) / d ** 0.5
+        s = s.masked_fill(torch.ones(T, T, device="cuda", dtype=torch.bool).triu(1), -torch.inf)
+        o64 = torch.softmax(s, -1) @ v64
+        ref = [o64.detach(), *torch.autograd.grad(o64, (q64, k64, v64), g.double())]
+        del s, o64, q64, k64, v64
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o1 = flash_attention(qs, ks, vs, causal=True)
+        single = [o1.detach(), *torch.autograd.grad(o1, (qs, ks, vs), g)]
+        outs, lses = [], []
+        for r in range(n):  # rank r: its diagonal block, then the live earlier ones
+            o, lse = flash_attention_with_lse(blk(q, r), blk(k, r), blk(v, r), causal=True,
+                                              q_off=r * tl, k_off=r * tl)
+            o = o.float()
+            for j in range(r):
+                bo, blse = flash_attention_with_lse(blk(q, r), blk(k, j), blk(v, j), causal=True,
+                                                    q_off=r * tl, k_off=j * tl)
+                o, lse = _merge_normalized(o, lse, bo.float(), blse)
+            outs.append(o.to(dtype).float())
+            lses.append(lse)
+        dq = [torch.zeros(B, H, tl, d, device="cuda") for _ in range(n)]
+        dk = [torch.zeros_like(t) for t in dq]
+        dv = [torch.zeros_like(t) for t in dq]
+        for r in range(n):
+            for j in range(r + 1):
+                a, b, c = flash_attention_bwd_block(
+                    blk(q, r), blk(k, j), blk(v, j), outs[r], lses[r], blk(g, r), causal=True,
+                    q_off=r * tl, k_off=j * tl)
+                dq[r] += a.float()
+                dk[j] += b.float()
+                dv[j] += c.float()
+        ring = [torch.cat(t, 2) for t in (outs, dq, dk, dv)]
+        name = "f32" if dtype == torch.float32 else "bf16"
+        res = out[name] = {
+            "ring_vs_float64": [rel(a, b) for a, b in zip(ring, ref)],
+            "single_vs_float64": [rel(a, b) for a, b in zip(single, ref)],
+            "ring_vs_single": [rel(a, b) for a, b in zip(ring, single)]}
+        if name == "f32":
+            checks["e_ring_f32_within_tol_of_float64"] = max(res["ring_vs_float64"]) <= \
+                SP_RING_F32_TOL
+        else:
+            checks["e_ring_bf16_as_close_to_float64_as_single"] = all(
+                a <= SP_RING_BF16_RATIO * b
+                for a, b in zip(res["ring_vs_float64"], res["single_vs_float64"]))
+        del ring, single, ref, outs, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out, checks
+
+
+def sp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
+    """Phase 14: sequence and expert parallelism, by default on two gloo
+    ranks sharing the card (``tools/torch_sp_nccl.py``: one rank per card
+    over NCCL). Returns its kernel launches by path and its checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.parallel import launch
+
+    checks, paths = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        math, math_checks = sp_ring_block_math()
+        checks.update(math_checks)
+        emit({"phase": "sp", "part": "e_ring_block_math", "shape": list(SP_RING_SHAPE),
+              "rel_l2_out_dq_dk_dv": math, "f32_tol": SP_RING_F32_TOL,
+              "bf16_ratio": SP_RING_BF16_RATIO, "card": smi})
+        t0 = time.perf_counter()
+        refs = {part: sp_reference(part, work) for part in SP_PARTS}
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_rank = launch.spawn(sp_ranks, ranks, args=(work,), device=device, backend=backend)
+        ranks_s = time.perf_counter() - t0
+        route_want = "gloo_host" if backend == "gloo" else "nccl"
+        for part, ref in refs.items():
+            per_rank = [res[part] for res in by_rank]
+            for r, res in enumerate(per_rank):
+                paths[f"sp_{part}_rank{r}"] = res["launches_first_step"]
+                checks[f"{part}_rank{r}_launches"] = all(
+                    res["launches_first_step"][k] == sp_launches(part, r) for k in HOPPER_KERNELS)
+                checks[f"{part}_rank{r}_finite"] = all(np.isfinite(res["losses"]))
+                if part == "b_ring_long":
+                    continue  # numbers only
+                held = SP_PARTS[part][5]
+                checks[f"{part}_rank{r}_losses_within_tol"] = all(
+                    abs(x - y) <= TRAIN_LOSS_TOL
+                    for x, y in zip(res["losses"][:held], ref["losses"][:held]))
+                checks[f"{part}_rank{r}_moment1_within_tol"] = \
+                    res["agreement"]["moment1"][0] <= TRAIN_GRAD_TOL
+                checks[f"{part}_rank{r}_movement_within_tol"] = \
+                    res["agreement"]["movement"][0] <= DP_MOVEMENT_TOL
+            if part == "d_moe":
+                n_layers = len(ref["routers"])
+                for r, res in enumerate(per_rank):
+                    checks[f"d_rank{r}_kept_tokens_equal"] = \
+                        [k for k, _ in res["routers"]] == [k for k, _ in ref["routers"]]
+                    checks[f"d_rank{r}_aux_within_tol"] = len(res["routers"]) == n_layers and all(
+                        abs(a - b) <= TRAIN_LOSS_TOL
+                        for (_, a), (_, b) in zip(res["routers"], ref["routers"]))
+                    checks[f"d_rank{r}_its_experts"] = \
+                        res["local_w_in_experts"] == SP_MOE["moe_experts"] // ranks
+            else:
+                route = "ppermute" if SP_PARTS[part][3] == "ring" else "all_to_all"
+                for r, res in enumerate(per_rank):
+                    checks[f"{part}_rank{r}_{route}_{route_want}"] = set(
+                        res["routes"].get(route, {})) == {route_want}
+            emit({"phase": "sp", "part": part, "seq_len": SP_PARTS[part][0],
+                  "batch": SP_PARTS[part][1], "mesh": {"data": 1, SP_PARTS[part][2]: ranks},
+                  "backend": backend, "one_rank": ref, "ranks": per_rank,
+                  "loss_tol": TRAIN_LOSS_TOL, "moment1_tol": TRAIN_GRAD_TOL,
+                  "movement_tol": DP_MOVEMENT_TOL, "card": smi,
+                  "note": "ppermute and all_to_all go point to point: over NCCL with a card a "
+                          "rank; with two gloo ranks sharing the card (route gloo_host), "
+                          "staged through host memory"})
+        emit({"phase": "sp", "ranks": ranks, "backend": backend, "one_rank_seconds": ref_s,
+              "ranks_seconds": ranks_s, "checks": checks})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths, checks
+
+
 def main() -> int:
     import torch
 
@@ -3290,10 +3647,14 @@ def main() -> int:
     infer_paths, infer_checks = infer_phase(smi)
     failures += [f"infer check {k}" for k, good in infer_checks.items() if not good]
 
-    # 14. kernels
+    # 14. sequence and expert parallelism
+    sp_paths, sp_checks = sp_phase(smi)
+    failures += [f"sp check {k}" for k, good in sp_checks.items() if not good]
+
+    # 15. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
              **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches,
-             **infer_paths}
+             **infer_paths, **sp_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

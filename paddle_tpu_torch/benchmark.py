@@ -23,8 +23,8 @@ list and JSON record keys are kept. What differs:
   the step's device (seed 0 with ``--no_random``), as bench.py feeds its
   steps a key;
 - ``--scan_layers`` reaches the transformer models, which run it as their
-  plain layer loop; ``--moe_experts > 0`` gets ``models/transformer_lm``'s
-  refusal (``ROADMAP.md`` §A item 4);
+  plain layer loop; ``--moe_experts > 0`` trains the LM with
+  mixture-of-experts FFNs (``parallel/moe.py``);
 - ``--use_real_data`` raises ``NotImplementedError``: the dataset modules
   it reads need a download (``ROADMAP.md`` §A item 10).
 

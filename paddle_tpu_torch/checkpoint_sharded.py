@@ -20,8 +20,10 @@ Where each leaf lives comes from a template tree of
 :class:`~paddle_tpu_torch.parallel.sharding.LeafLayout` (what
 ``DataParallel.state_template`` returns, the port's ShapeDtypeStruct with a
 sharding): a replicated leaf is written once, by its owner (the first
-rank), a ZeRO-1 slot by every rank for its rows. Without a template every
-leaf is whole and replicated. Restore assembles each rank's window from the
+rank), a ZeRO-1 slot by every rank for its rows, an expert-sharded
+parameter and its slots by the first rank of each expert block for its
+experts (the JAX package's blocks of an ``('expert', ...)`` leaf). Without
+a template every leaf is whole and replicated. Restore assembles each rank's window from the
 saved blocks — one block when the windows match, pieces of several when
 they do not (a checkpoint saved at N ranks loads at M). Assumes the
 checkpoint root is on a file system every rank sees.

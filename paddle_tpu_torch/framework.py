@@ -205,11 +205,23 @@ def create_parameter(
             "must match between init and apply"
         )
     value = frame.params[full]
-    if tuple(value.shape) != shape:
+    if tuple(value.shape) != shape and not _is_local_block(tuple(value.shape), shape, attr.sharding):
         raise EnforceError(
             f"parameter {full!r} shape mismatch: created with {shape}, got {tuple(value.shape)}"
         )
     return value
+
+
+def _is_local_block(got: tuple, shape: tuple, sharding) -> bool:
+    """Whether ``got`` is the block of a parameter of global ``shape`` that
+    this rank holds under ``sharding`` on the entered mesh (an expert-
+    parallel MoE's experts: ``parallel/sharding.py::shard_variables``)."""
+    if sharding is None:
+        return False
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.entered_mesh()
+    return mesh is not None and got == mesh_mod.local_shape(shape, sharding, mesh)
 
 
 def create_state(name: str, shape: Sequence[int], dtype="float32", init=None) -> torch.Tensor:
@@ -272,17 +284,20 @@ def _enter(frame: _Frame):
 
 class _Replay:
     """What a block of layer calls reads from its frame when it starts: the
-    name stack, the name counters, the generator's state and the
-    data-parallel step's group. Entering it
+    name stack, the name counters, the generator's state, the
+    data-parallel step's group and the entered mesh. Entering it
     runs the block again as it first ran (same parameter names, same random
     draws), on whatever thread, and puts the frame back as it was after."""
 
     def __init__(self, frame: _Frame):
         from paddle_tpu_torch.parallel import context as dp_context
+        from paddle_tpu_torch.parallel import mesh as mesh_mod
 
         self.frame = frame
-        # the data-parallel step's group, if the block runs inside one
+        # the data-parallel step's group, if the block runs inside one, and
+        # the mesh its collectives run over
         self.batch_group = dp_context.active()
+        self.mesh = mesh_mod.entered_mesh()
         self.name_stack = list(frame.name_stack)
         self.counters = frame.names.snapshot()
         gen = frame.generator
@@ -300,7 +315,8 @@ class _Replay:
         from paddle_tpu_torch.parallel import context as dp_context
 
         try:
-            with _enter(frame), dp_context.global_batch(self.batch_group):
+            with _enter(frame), dp_context.global_batch(self.batch_group), \
+                    (self.mesh if self.mesh is not None else contextlib.nullcontext()):
                 yield
         finally:
             frame.name_stack = stack

@@ -17,10 +17,26 @@ run in full f32 on the card (``core/dtypes.py::ieee_f32``).
 
 ``remat`` recomputes each layer in the backward pass
 (:func:`~paddle_tpu_torch.framework.checkpoint`, replaying its names and
-dropout masks). Not ported yet (they raise ``NotImplementedError``):
-sequence parallelism (``ring_mesh``/``ulysses_mesh``), pipeline
-parallelism (``pipe_mesh``) and mixture-of-experts FFNs. ``scan_layers``
-runs as the plain layer loop, whose math is identical.
+dropout masks). ``scan_layers`` runs as the plain layer loop, whose math is
+identical. Pipeline parallelism (``pipe_mesh``) is not ported yet and
+raises ``NotImplementedError``.
+
+Sequence parallelism (``ring_mesh``/``ulysses_mesh``) runs in two modes:
+
+- global arrays: ``Model.apply`` on the whole batch on every rank of the
+  mesh (as the JAX package's tests call it): each attention core takes its
+  rank's block of the sequence (and of the batch over ``data``), runs the
+  ring (``ops/ring_attention.py``) or Ulysses (``ops/ulysses.py``) body,
+  and gathers the result back;
+- a rank's block: inside a ``DataParallel`` step whose batch specs split
+  the sequence dim (``P("data", "seq")``), the core runs the per-rank body
+  on the rank's segment with no gather, and embeddings, rope, the loss mask
+  ``p < seq_lens[b] - 1``, the MoE token mask and ``n_tok`` use GLOBAL
+  positions (``parallel/context.py``).
+
+Mixture-of-experts FFNs (``moe_experts``, ``parallel/moe.py``) replace the
+dense FFN; the router's aux loss joins the training loss (not eval's).
+The cached decoders refuse them, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -53,6 +69,8 @@ from paddle_tpu_torch.ops.attention import (
     scaled_dot_product_attention,
 )
 from paddle_tpu_torch.parallel import context as dp_context
+from paddle_tpu_torch.parallel.mesh import DATA_AXIS
+from paddle_tpu_torch.parallel.moe import moe_ffn
 
 __all__ = [
     "get_model", "lm_forward", "generate", "generate_beam", "CachedDecoder", "PagedDecoder",
@@ -63,18 +81,18 @@ __all__ = [
 
 def _check_ported(cfg: dict) -> None:
     """Raise for configuration knobs whose code paths are not ported yet."""
-    missing = {
-        "ring_mesh": "ring attention (ops/ring_attention.py)",
-        "ulysses_mesh": "Ulysses attention (ops/ulysses.py)",
-        "pipe_mesh": "pipeline parallelism (parallel/pipeline.py)",
-        "moe_experts": "mixture-of-experts FFNs (parallel/moe.py)",
-    }
-    for key, what in missing.items():
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"transformer_lm cfg[{key!r}]: {what} is not ported to "
-                "paddle_tpu_torch yet (ROADMAP.md §A item 4)"
-            )
+    if cfg.get("pipe_mesh"):
+        raise NotImplementedError(
+            "transformer_lm cfg['pipe_mesh']: pipeline parallelism (parallel/pipeline.py) is "
+            "not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4b)")
+
+
+def _check_decodable(cfg: dict, where: str) -> None:
+    """The cached decoders' refusals (the JAX package's): MoE FFNs."""
+    _check_ported(cfg)
+    enforce(not cfg.get("moe_experts"),
+            f"{where}: MoE FFNs are not supported in the cached decoders yet — decode with "
+            "lm_forward teacher-forcing, or use a dense-FFN config")
 
 
 def _rope_core(cfg):
@@ -91,9 +109,64 @@ def _rope_core(cfg):
     return core
 
 
+def _seq_core(cfg):
+    """The attention core of a sequence-parallel configuration (ring or
+    Ulysses over cfg's mesh), or None. On a rank's block of the sequence
+    (a sequence-sharded data-parallel step) it runs the per-rank body over
+    the step's ``seq`` axis; on global arrays it shards and gathers (the
+    batch dim too, unless a data-parallel step already split it)."""
+    from paddle_tpu_torch.ops import ring_attention as ring
+    from paddle_tpu_torch.ops import ulysses
+
+    is_ring = cfg.get("ring_mesh") is not None
+    if not is_ring and cfg.get("ulysses_mesh") is None:
+        return None
+    mesh = cfg["ring_mesh"] if is_ring else cfg["ulysses_mesh"]
+    window = cfg.get("attention_window")
+
+    def core(qh, kh, vh, kv_len=None):
+        split = dp_context.seq_split()
+        if split is not None:
+            body = ring.ring_attention if is_ring else ulysses.ulysses_attention
+            with split[0]:
+                return body(qh, kh, vh, axis=split[1], causal=True, window=window, kv_len=kv_len)
+        sharded = ring.ring_attention_sharded if is_ring else ulysses.ulysses_attention_sharded
+        batch_axis = None if dp_context.active() else DATA_AXIS
+        return sharded(qh, kh, vh, mesh, causal=True, window=window, kv_len=kv_len,
+                       batch_axis=batch_axis)
+
+    return core
+
+
+def _with_rope(core):
+    """Wrap a sequence-parallel attention core with RoPE at GLOBAL
+    positions (a rank's block starts at its segment's offset)."""
+
+    def rotated(qh, kh, vh, kv_len=None):
+        t = qh.shape[-2]
+        cos, sin = rope_tables(qh.shape[-1], t, pos0=dp_context.seq_offset(t), device=qh.device)
+        return core(apply_rope(qh, cos, sin), apply_rope(kh, cos, sin), vh, kv_len=kv_len)
+
+    return rotated
+
+
+def _positions(t: int, device) -> torch.Tensor:
+    """The GLOBAL positions of a block's ``t`` tokens of each row."""
+    return dp_context.seq_offset(t) + torch.arange(t, device=device)
+
+
 def lm_block(x, cfg, name, kv_len=None):
-    """One decoder block: causal self-attention + FFN, post-LN."""
-    core = _rope_core(cfg) if cfg.get("pos_encoding") == "rope" else None
+    """One decoder block: causal self-attention + FFN (dense or
+    mixture-of-experts), post-LN. Returns ``(x, aux_loss)`` — aux is the
+    router load-balance loss when ``cfg['moe_experts']`` selects an MoE FFN
+    (``parallel/moe.py``), else 0."""
+    core = _seq_core(cfg)
+    if core is None:
+        enforce(dp_context.seq_split() is None,
+                "transformer_lm: a batch split over the sequence dim needs a sequence-parallel "
+                "attention core (ring_mesh or ulysses_mesh)")
+    if cfg.get("pos_encoding") == "rope":
+        core = _with_rope(core) if core is not None else _rope_core(cfg)
     with name_scope(name):
         attn = multi_head_attention(
             x, x, x, cfg["d_model"], cfg["num_heads"],
@@ -102,11 +175,26 @@ def lm_block(x, cfg, name, kv_len=None):
             window=cfg.get("attention_window"), kv_len=kv_len,
         )
         x = _post_process(x, attn, cfg["residual_dropout"])
-        ffn = positionwise_ffn(
-            x, cfg["d_inner"], cfg["d_model"], cfg["relu_dropout"],
-            activation=cfg.get("ffn_activation", "relu"),
-        )
-        return _post_process(x, ffn, cfg["residual_dropout"])
+        if cfg.get("moe_experts"):
+            # ragged batches: padding tokens are masked out of routing so
+            # they consume no expert capacity and don't skew the balance
+            token_mask = None
+            if kv_len is not None:
+                token_mask = _positions(x.shape[-2], x.device)[None, :] < kv_len[:, None]
+            mo = moe_ffn(
+                x, num_experts=cfg["moe_experts"], d_ff=cfg["d_inner"],
+                capacity_factor=cfg.get("moe_capacity_factor", 1.25),
+                router=cfg.get("moe_router", "top1"), name="moe_ffn",
+                token_mask=token_mask,
+            )
+            ffn, aux = mo.output, mo.aux_loss
+        else:
+            ffn = positionwise_ffn(
+                x, cfg["d_inner"], cfg["d_model"], cfg["relu_dropout"],
+                activation=cfg.get("ffn_activation", "relu"),
+            )
+            aux = torch.zeros((), device=x.device)
+        return _post_process(x, ffn, cfg["residual_dropout"]), aux
 
 
 def lm_forward(ids, labels, seq_lens=None, *, cfg):
@@ -115,7 +203,8 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     ``ids``/``labels`` are [B, T] int (tensors or arrays; they move to the
     model's device). ``seq_lens`` ([B] int, optional) marks suffix padding:
     attention masks key positions >= seq_lens[b] and the loss averages only
-    positions p < seq_lens[b] - 1."""
+    positions p < seq_lens[b] - 1. In training, MoE configurations add
+    ``moe_aux_weight`` times the routers' load-balance loss."""
     _check_ported(cfg)
     dev = framework.current_device()
     ids = torch.as_tensor(ids, device=dev)
@@ -124,30 +213,48 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
         seq_lens = torch.as_tensor(seq_lens, device=dev)
     x = prepare_embedding(
         ids, cfg["vocab"], cfg["d_model"], cfg["max_len"],
-        cfg["residual_dropout"], name="emb",
+        cfg["residual_dropout"], name="emb", pos_offset=dp_context.seq_offset(ids.shape[-1]),
         add_position_encoding=cfg.get("pos_encoding", "sinusoid") != "rope",
     )
+    if cfg.get("moe_experts"):
+        enforce(
+            cfg.get("ffn_activation", "relu") == "relu",
+            "moe_experts: expert FFNs are two-layer ReLU; "
+            f"ffn_activation={cfg.get('ffn_activation')!r} is not supported "
+            "in the MoE path (v1 scope)",
+        )
+        enforce(
+            not cfg["relu_dropout"],
+            "moe_experts: expert FFNs have no dropout; set relu_dropout=0 (v1 scope)",
+        )
     # remat only matters for the backward pass: init creates the parameters
     # and an eval apply keeps no activations
     remat = cfg.get("remat") and framework.is_training() and not framework.is_initializing()
+    aux_total = torch.zeros((), device=dev)
     for i in range(cfg["n_layers"]):
         if remat:
-            x = framework.checkpoint(functools.partial(
+            x, aux = framework.checkpoint(functools.partial(
                 lm_block, cfg=cfg, name=f"layer_{i}", kv_len=seq_lens), x)
         else:
-            x = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
+            x, aux = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
+        aux_total = aux_total + aux
     x = layers.layer_norm(x, begin_norm_axis=x.dim() - 1)
     with name_scope("project"):
         logits = _proj(x, cfg["vocab"], shard_out=True, name="logits", bias=False)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    # MoE router load-balance term (0 for dense-FFN configs) — a TRAINING
+    # regularizer only: eval loss stays the pure NLL
+    aux_term = (cfg.get("moe_aux_weight", 0.01) * aux_total if framework.is_training()
+                else torch.zeros((), device=dev))
     if seq_lens is not None:
-        valid = (torch.arange(labels.shape[1], device=dev)[None, :] < seq_lens[:, None] - 1).float()
+        pos = _positions(labels.shape[1], dev)
+        valid = (pos[None, :] < seq_lens[:, None] - 1).float()
         # n_tok is the global batch's under DataParallel (parallel/context.py)
         n_tok = torch.clamp_min(dp_context.global_sum(valid.sum()), 1.0)
-        return dp_context.scale_ratio((nll * valid).sum() / n_tok), n_tok, logits
+        return dp_context.scale_ratio((nll * valid).sum() / n_tok) + aux_term, n_tok, logits
     n_tok = dp_context.global_count(float(np.prod(labels.shape)))
-    return nll.mean(), n_tok, logits
+    return nll.mean() + aux_term, n_tok, logits
 
 
 def _decode_ffn_fn(proj, swiglu: bool):
@@ -183,7 +290,7 @@ class _DecoderOps:
     longest position the tables must cover."""
 
     def __init__(self, params: dict, cfg: dict, t_max: int):
-        _check_ported(cfg)
+        _check_decodable(cfg, type(self).__name__)
         self.params, self.cfg = params, cfg
         D, H, L = cfg["d_model"], cfg["num_heads"], cfg["n_layers"]
         self.D, self.H, self.L = D, H, L
@@ -360,6 +467,7 @@ def generate(
         "generate: sampling (temperature > 0) needs an explicit torch.Generator — "
         "a silent fixed default would return identical 'samples' every call",
     )
+    _check_decodable(cfg, "generate")
     dev = resolve_device(device)
     params = _params_on(variables, dev, "generate")
     prompt = torch.as_tensor(prompt, device=dev)
@@ -402,6 +510,7 @@ def generate_beam(
     from paddle_tpu_torch.ops import control_flow as ocf
 
     enforce(max_new_tokens >= 1, f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    _check_decodable(cfg, "generate_beam")
     dev = resolve_device(device)
     params = _params_on(variables, dev, "generate_beam")
     prompt = torch.as_tensor(prompt, device=dev)
@@ -644,8 +753,10 @@ def get_model(
 ) -> ModelSpec:
     """The LM's spec at ``BASE_CFG`` with ``overrides``. ``device`` (default
     CUDA; raises if CUDA is absent unless ``device="cpu"``) is where
-    ``synth_batch`` puts its tensors. ``ring_mesh``/``ulysses_mesh`` are not
-    ported yet."""
+    ``synth_batch`` puts its tensors. ``ring_mesh``: a Mesh with a ``seq``
+    axis → attention runs as ring attention over it (sequence-parallel
+    exact attention); ``ulysses_mesh``: the same through all-to-all head
+    resharding (``ops/ulysses.py``). ``pipe_mesh`` is not ported yet."""
     dev = resolve_device(device)
     cfg = dict(BASE_CFG)
     cfg.update({k: v for k, v in overrides.items() if k in cfg})

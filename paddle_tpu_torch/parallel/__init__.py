@@ -1,5 +1,5 @@
-"""Parallelism: rank meshes, collectives, data parallelism — port of
-``paddle_tpu/parallel``.
+"""Parallelism: rank meshes, collectives, data, sequence and expert
+parallelism — port of ``paddle_tpu/parallel``.
 
 Reference: ``framework/parallel_executor.cc:134`` (ParallelExecutor),
 ``platform/nccl_helper.h:81`` (NCCLContextMap) and the gen_nccl_id
@@ -7,14 +7,17 @@ bootstrap (``operators/gen_nccl_id_op.cc:31``).
 
 One rank is one process on one card (``torch.distributed``: NCCL on CUDA,
 gloo on the CPU); a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` names
-axes over the ranks. Ported: the mesh, the collectives, the sharding spec
-arithmetic and replicated placement, ``DataParallel`` (with ZeRO-1) and
-the global-batch context its step runs in. Not ported yet, each raising
-``NotImplementedError`` naming ``ROADMAP.md``: tensor, sequence and expert
-sharding of parameters or batches, ``DataParallel.resize`` (elastic
-training), and the JAX package's ``pipeline`` (``pipeline_apply``,
-``stack_stage_params``, ``split_microbatches``) and ``moe`` (``moe_ffn``,
-``switch_gate``, ``top2_gate``, ``MoEOutput``) modules.
+axes over the ranks. Ported: the mesh, the collectives (``ppermute`` and
+``all_to_all`` point to point), the sharding spec arithmetic, replicated
+and expert-sharded placement, ``DataParallel`` (with ZeRO-1) over ``data``,
+``seq`` and ``expert`` axes, the global-batch context its step runs in, and
+the mixture-of-experts layer (``moe``: ``moe_ffn``, ``switch_gate``,
+``top2_gate``, ``MoEOutput``). Not ported yet, each raising
+``NotImplementedError`` naming ``ROADMAP.md``: tensor and pipeline
+sharding of parameters (``model``/``tp``/``pipe`` axes),
+``DataParallel.resize`` (elastic training), and the JAX package's
+``pipeline`` module (``pipeline_apply``, ``stack_stage_params``,
+``split_microbatches``).
 """
 
 from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)
@@ -47,6 +50,7 @@ from paddle_tpu_torch.parallel.sharding import (
     spec_for,
 )
 from paddle_tpu_torch.parallel.data_parallel import DataParallel
+from paddle_tpu_torch.parallel.moe import MoEOutput, moe_ffn, switch_gate, top2_gate
 
 __all__ = [
     "make_mesh",
@@ -75,12 +79,15 @@ __all__ = [
     "NamedSharding",
     "LeafLayout",
     "DataParallel",
+    "moe_ffn",
+    "switch_gate",
+    "top2_gate",
+    "MoEOutput",
 ]
 
 _NOT_PORTED = {
     "pipeline_apply": "pipeline", "stack_stage_params": "pipeline",
-    "split_microbatches": "pipeline", "moe_ffn": "moe", "switch_gate": "moe",
-    "top2_gate": "moe", "MoEOutput": "moe",
+    "split_microbatches": "pipeline",
 }
 
 

@@ -13,14 +13,34 @@ device runs the same ``shard_map`` body in JAX. On an axis of size 1 (or
 without a process group) they are identities. They are differentiable
 where the JAX package's are: the backward of a sum is a sum, of a gather a
 reduce-scatter, of a scatter a gather, of a permutation the inverse
-permutation, of a broadcast a sum returned to the root; ``max``/``min``
-carry no gradient. ``reduce_scatter`` and ``ppermute`` are built on
-``all_reduce`` and ``all_gather``, which every backend offers.
+permutation, of an all-to-all the inverse all-to-all, of a broadcast a sum
+returned to the root; ``max``/``min`` carry no gradient.
+``reduce_scatter`` is built on ``all_reduce``.
+
+``ppermute`` and ``all_to_all`` move each member's data to its
+destinations only (one block per step of a ring, not the whole axis). How
+they travel is chosen from the axis's backend and the tensor's device,
+never by catching an error (``_route``):
+
+- ``"nccl"``: NCCL point-to-point (``batch_isend_irecv``) and
+  ``all_to_all_single`` on the card;
+- ``"gloo"``: gloo's point-to-point and ``all_to_all_single`` on CPU
+  tensors;
+- ``"gloo_host"``: gloo with CUDA tensors (two ranks sharing one card):
+  gloo's point-to-point and all-to-all take CPU tensors, so the tensor is
+  staged through host memory and the same CPU exchange runs.
+
+:func:`routes_taken` records the route of each exchange since
+:func:`reset_routes`. :func:`shard_replicated` / :func:`gather_replicated`
+and :func:`copy_to_axis` / :func:`reduce_from_axis` are the conjugate pairs
+that let every rank of an axis hold a replicated value and its whole
+gradient while the work between them is split over the axis (JAX's
+``shard_map`` in/out specs; Megatron's f and g operators).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,7 +48,9 @@ import torch.distributed as dist
 from paddle_tpu_torch.parallel import mesh as mesh_mod
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast", "ppermute", "ring_shift",
-           "axis_index", "axis_size", "gather_kv_page", "scatter_kv_page"]
+           "all_to_all", "axis_index", "axis_size", "shard_replicated", "gather_replicated",
+           "copy_to_axis", "reduce_from_axis", "routes_taken", "reset_routes",
+           "gather_kv_page", "scatter_kv_page"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -127,12 +149,148 @@ class _Permute(torch.autograd.Function):
         return _permuted(g, ctx.ax, [(d, s) for s, d in ctx.perm]), None, None
 
 
+# the route of each exchange since reset_routes(): {op: {route: calls}}
+_ROUTES: Dict[str, Dict[str, int]] = {}
+
+
+def _route(ax: _Axis, x: torch.Tensor) -> str:
+    """How a point-to-point or all-to-all exchange of ``x`` over ``ax``
+    travels: ``"local"`` (one rank, no process group), ``"nccl"``,
+    ``"gloo"`` (CPU tensors) or ``"gloo_host"`` (CUDA tensors under gloo,
+    staged through host memory). Decided by the group's backend and the
+    tensor's device."""
+    if ax.group is None:
+        return "local"
+    if dist.get_backend(ax.group) == "nccl":
+        return "nccl"
+    return "gloo" if x.device.type == "cpu" else "gloo_host"
+
+
+def _note_route(op: str, route: str) -> None:
+    by = _ROUTES.setdefault(op, {})
+    by[route] = by.get(route, 0) + 1
+
+
+def routes_taken() -> Dict[str, Dict[str, int]]:
+    """``{op: {route: calls}}`` of ``ppermute`` and ``all_to_all`` since
+    :func:`reset_routes`."""
+    return {op: dict(by) for op, by in _ROUTES.items()}
+
+
+def reset_routes() -> None:
+    _ROUTES.clear()
+
+
+def _wire(x: torch.Tensor, route: str) -> torch.Tensor:
+    """``x`` as the exchange sends it: contiguous, on the host for
+    ``gloo_host``."""
+    x = x.detach().contiguous()
+    return x.cpu() if route == "gloo_host" else x
+
+
 def _permuted(x, ax, perm) -> torch.Tensor:
     """The value the member at ``src`` sends to this member (``(src, dst)``
-    pairs over axis indices); zeros where none is sent to it, as in JAX."""
+    pairs over axis indices); zeros where none is sent to it, as in JAX.
+    Each member sends its tensor to its destination and receives from its
+    source, point to point."""
     srcs = [s for s, d in perm if d == ax.index]
-    parts = ax.gather(x)
-    return parts[srcs[0]].clone() if srcs else torch.zeros_like(x)
+    dsts = [d for s, d in perm if s == ax.index]
+    route = _route(ax, x)
+    _note_route("ppermute", route)
+    send = _wire(x, route)
+    recv = torch.empty_like(send) if srcs else None
+    ops = []
+    if dsts and dsts[0] != ax.index:
+        ops.append(dist.P2POp(dist.isend, send, peer=ax.ranks[dsts[0]], group=ax.group))
+    if srcs and srcs[0] != ax.index:
+        ops.append(dist.P2POp(dist.irecv, recv, peer=ax.ranks[srcs[0]], group=ax.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not srcs:
+        return torch.zeros_like(x)
+    if srcs[0] == ax.index:  # sent to itself
+        return x.detach().clone()
+    return recv.to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, split_axis, concat_axis):
+        ctx.ax, ctx.split_axis, ctx.concat_axis = ax, split_axis, concat_axis
+        return _exchanged(x, ax, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchanged(g, ctx.ax, ctx.concat_axis, ctx.split_axis), None, None, None
+
+
+def _exchanged(x, ax, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all: chunk i of ``x`` on ``split_axis`` goes to axis
+    member i; the chunks received are concatenated on ``concat_axis`` in
+    the order of their senders."""
+    n = ax.size
+    route = _route(ax, x)
+    _note_route("all_to_all", route)
+    if ax.group is None:
+        return x.clone()
+    chunks = x.detach().chunk(n, dim=split_axis)
+    # all_to_all_single exchanges dim-0 slices with the group's members in
+    # the order of their global ranks
+    order = sorted(range(n), key=lambda i: ax.ranks[i])
+    send = _wire(torch.stack([chunks[i] for i in order]), route)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ax.group)
+    recv = recv.to(x.device)
+    parts = [None] * n
+    for slot, i in enumerate(order):
+        parts[i] = recv[slot]
+    return torch.cat(parts, dim=concat_axis)
+
+
+class _ShardReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        k = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(ctx.ax.gather(g), dim=ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return torch.cat(ax.gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[ctx.dim] // ctx.ax.size
+        return g.narrow(ctx.dim, ctx.ax.index * k, k).contiguous(), None, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.reduce(g), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return ax.reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _check_perm(perm, n: int) -> List[Tuple[int, int]]:
@@ -178,9 +336,61 @@ def broadcast(x: torch.Tensor, axis_name: str, root: int = 0) -> torch.Tensor:
 
 def ppermute(x: torch.Tensor, axis_name: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Send ``x`` from axis index ``src`` to ``dst`` for each pair of
-    ``perm``; a member no pair sends to receives zeros."""
+    ``perm``, point to point; a member no pair sends to receives zeros."""
     ax = _Axis(axis_name)
     return _Permute.apply(x, ax, _check_perm(perm, ax.size))
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int, concat_axis: int,
+               tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all``: ``x`` split into the axis's size of chunks on
+    ``split_axis``, chunk i sent to member i, the received chunks joined on
+    ``concat_axis`` in member order. ``tiled=False`` takes a ``split_axis``
+    of the axis's size, removes it and stacks the received pieces on a new
+    ``concat_axis``. Differentiable: the backward is the inverse exchange."""
+    ax = _Axis(axis_name)
+    split_axis %= x.dim()
+    if not tiled:
+        if x.shape[split_axis] != ax.size:
+            raise ValueError(f"all_to_all(tiled=False): dim {split_axis} of size "
+                             f"{x.shape[split_axis]} is not the axis size {ax.size}")
+        y = _AllToAll.apply(x, ax, split_axis, split_axis)
+        return torch.movedim(y, split_axis, concat_axis)
+    if x.shape[split_axis] % ax.size:
+        raise ValueError(f"all_to_all: dim {split_axis} of size {x.shape[split_axis]} does not "
+                         f"split over {ax.size}")
+    return _AllToAll.apply(x, ax, split_axis, concat_axis % x.dim())
+
+
+def shard_replicated(x: torch.Tensor, axis_name: str, dim: int) -> torch.Tensor:
+    """This member's chunk of ``dim`` of a tensor every member holds whole;
+    the backward gathers the chunks' gradients, so each member gets the
+    whole gradient (a ``shard_map`` in-spec over a replicated array)."""
+    ax = _Axis(axis_name)
+    if x.shape[dim] % ax.size:
+        raise ValueError(f"shard_replicated: dim {dim} of size {x.shape[dim]} does not split "
+                         f"over {ax.size}")
+    return _ShardReplicated.apply(x, ax, dim % x.dim())
+
+
+def gather_replicated(x: torch.Tensor, axis_name: str, dim: int) -> torch.Tensor:
+    """Every member's chunk joined on ``dim``, held by every member; the
+    backward keeps this member's chunk of the (replicated) gradient (a
+    ``shard_map`` out-spec). :func:`shard_replicated` is its inverse."""
+    return _GatherReplicated.apply(x, _Axis(axis_name), dim % x.dim())
+
+
+def copy_to_axis(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Identity forward, sum over the axis backward: where a value every
+    member holds alike feeds work split over the axis."""
+    return _CopyToAxis.apply(x, _Axis(axis_name))
+
+
+def reduce_from_axis(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Sum over the axis forward, identity backward: the conjugate of
+    :func:`copy_to_axis`, where the split work's partial results join into
+    a value every member holds alike."""
+    return _ReduceFromAxis.apply(x, _Axis(axis_name))
 
 
 def ring_shift(x: torch.Tensor, axis_name: str, shift: int = 1) -> torch.Tensor:

@@ -27,6 +27,20 @@ batch. Three things keep it:
 Each rank then applies the same update to the same values, so the replicas
 stay bit-equal. ``zero_shard_optimizer`` (ZeRO-1) keeps each rank's rows of
 the optimizer slots only; see :meth:`DataParallel._zero_apply`.
+
+Sequence and expert parallelism. A mesh may also have a ``seq`` and an
+``expert`` axis. With batch specs that split the sequence dim
+(``P("data", "seq")``) each rank holds the ``[B/n_data, T/n_seq]`` block of
+the batch, and the step runs the model on it in the sequence-sharded
+context (positions, attention over the ring or by all-to-all, the MoE
+router's global quantities: ``parallel/context.py``). The ranks of an
+``expert`` axis hold the same tokens and each its block of the experts
+(``parallel/moe.py``). Gradients are reduced by placement: over every axis
+the tokens are split over (``data``, and ``seq`` when the batch specs
+split it), never over ``expert``; an expert-sharded parameter is reduced
+over those axes too, within its expert block. ``model``, ``tp`` and
+``pipe`` axes still raise ``NotImplementedError`` naming ROADMAP.md, and so
+does ZeRO-1 on a mesh whose ``expert`` axis is larger than one.
 """
 
 from __future__ import annotations
@@ -53,6 +67,8 @@ from paddle_tpu_torch.parallel.sharding import (
     P,
     _not_ported,
     broadcast_tensors,
+    expert_sharded,
+    param_shardings,
     shard_variables,
 )
 
@@ -85,8 +101,9 @@ class DataParallel:
     ):
         """``batch_specs``: optional per-batch-arg PartitionSpecs overriding
         the default leading-dim data split: ``P()`` (or None) feeds that arg
-        whole to every rank. A spec over another axis (sequence
-        parallelism) is not ported and raises.
+        whole to every rank; ``P("data", "seq")`` splits dim 1 over the
+        ``seq`` axis too (sequence parallelism). A spec over any other axis
+        or dim raises.
 
         ``zero_shard_optimizer`` (ZeRO-1): the slots of each parameter are
         kept sharded on their first dim divisible by the data-axis size,
@@ -120,13 +137,26 @@ class DataParallel:
             f"batch axis {batch_axis!r} not in mesh axes {self.mesh.axis_names}",
         )
         for axis, size in self.mesh.shape.items():
-            if axis != batch_axis and size > 1:
+            if axis not in (batch_axis, mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS) and size > 1:
                 raise _not_ported(f"DataParallel over mesh axis {axis!r} of size {size}")
+        # the axis each batch dim may split over: rows over data, positions over seq
+        dim_axes = (batch_axis, mesh_mod.SEQ_AXIS)
+        self._seq_axis = None
         for spec in self.batch_specs or ():
             for dim, entry in enumerate(spec or ()):
                 axes = entry if isinstance(entry, tuple) else (entry,)
-                if any(a is not None and (a != batch_axis or dim != 0) for a in axes):
-                    raise _not_ported(f"batch_specs entry {spec} (sequence parallelism)")
+                if any(a is not None and (dim >= len(dim_axes) or a != dim_axes[dim]
+                                          or a not in self.mesh.shape) for a in axes):
+                    raise _not_ported(f"batch_specs entry {spec} (only dim 0 over "
+                                      f"{batch_axis!r} and dim 1 over 'seq' split)")
+                if dim == 1 and entry is not None:
+                    self._seq_axis = mesh_mod.SEQ_AXIS
+        # the axes this step's tokens are split over, data first
+        self._token_axes = (batch_axis,) + ((self._seq_axis,) if self._seq_axis else ())
+        if zero_shard_optimizer and self.mesh.shape.get(mesh_mod.EXPERT_AXIS, 1) > 1:
+            raise NotImplementedError(
+                "DataParallel: ZeRO-1 (zero_shard_optimizer) on a mesh with an 'expert' axis "
+                "is not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4b)")
         if device is None:
             device = mesh_mod.process_device() or "cuda"
         self.device = resolve_device(device)
@@ -149,17 +179,35 @@ class DataParallel:
         return self.mesh.group(self.batch_axis)
 
     def _index(self) -> int:
-        return self.mesh.axis_index(self.batch_axis) if self._n > 1 else 0
+        return self._axis_index(self.batch_axis)
+
+    def _axis_index(self, axis: str) -> int:
+        return self.mesh.axis_index(axis) if self.mesh.shape.get(axis, 1) > 1 else 0
+
+    def _token_index(self) -> int:
+        """This rank's block among the step's token blocks (data-major)."""
+        i = 0
+        for axis in self._token_axes:
+            i = i * self.mesh.shape[axis] + self._axis_index(axis)
+        return i
+
+    def _batch_group(self) -> dp_context.BatchGroup:
+        return dp_context.BatchGroup(self.mesh, self._token_axes, self._seq_axis)
 
     # -- setup --------------------------------------------------------------
     def init(self, rng, *example_batch, variables: Optional[Variables] = None) -> Tuple[Variables, OptState]:
         """Initialize (or adopt) variables + optimizer state and place them
         on every rank: the first rank's values, broadcast
-        (BCastParamsToDevices parity)."""
+        (BCastParamsToDevices parity), each rank keeping its block of an
+        expert-sharded parameter. Adopted ``variables`` are whole; the
+        model's parameter metadata (their shardings) comes from an init on
+        the example batch when no init or apply has recorded it yet."""
+        example = tuple(to_device(b, self.device) for b in example_batch)
         if variables is None:
-            example = tuple(to_device(b, self.device) for b in example_batch)
             variables = self.model.init(rng, *example, device=self.device)
         else:
+            if not self.model.param_info:
+                self.model.init(rng, *example, device=self.device)
             variables = tree_mod.map_leaves(lambda t: t.to(self.device), variables)
         variables = shard_variables(self.mesh, variables, self.model.param_info)
         opt_state = self.optimizer.create_state(variables.params)
@@ -261,13 +309,20 @@ class DataParallel:
         """This rank's part of a global host batch, on its device (the
         per-device feed split of ParallelExecutor.run,
         parallel_executor.py:173): rows ``[r·B/N, (r+1)·B/N)`` of each split
-        arg, a replicated arg whole. ``step`` takes these as they are."""
+        arg (and, for an arg whose spec splits dim 1 over ``seq``, this
+        rank's segment of each row), a replicated arg whole. ``step`` takes
+        these as they are."""
         shards = self._batch_shardings(batch)
         self._validate_batch(batch, shards)
         out = []
         for b, s in zip(batch, shards):
             if len(s.spec) and s.spec[0] is not None:
                 b = self.rank_rows(b)
+            if len(s.spec) > 1 and s.spec[1] is not None:
+                n = self.mesh.shape[self._seq_axis]
+                k = np.shape(b)[1] // n
+                j = self._axis_index(self._seq_axis)
+                b = b[:, j * k:(j + 1) * k]
             t = to_device(b, self.device)
             self._placed[id(t)] = t
             out.append(t)
@@ -322,15 +377,14 @@ class DataParallel:
 
     # -- reductions -----------------------------------------------------------
     def _mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean over the group of each tensor: ONE all-reduce of a flat
-        f32 buffer holding them all (identities on one rank without a
-        process group)."""
-        group = self._group()
-        if group is None or not tensors:
+        """The mean over the step's token blocks of each tensor: one
+        all-reduce of a flat f32 buffer holding them all per axis the tokens
+        are split over (identities on one rank without a process group)."""
+        group = self._batch_group()
+        if group.group is None or not tensors:
             return list(tensors)
         flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
-        torch.distributed.all_reduce(flat, group=group)
-        flat.div_(self._n)
+        group.all_reduce_(flat).div_(group.size)
         out, off = [], 0
         for t in tensors:
             n = t.numel()
@@ -347,11 +401,13 @@ class DataParallel:
         torch.distributed.all_reduce(t, group=group)
         return t.tolist()
 
-    def _gather_outputs(self, outputs, rows: int):
+    def _gather_outputs(self, outputs, rows: int, rows_whole: bool = False):
         """The model's outputs as the JAX package returns them: the batch
         outputs (``batch_outputs``) gathered to the global batch, 0-d float
         tensors averaged over the group (a loss, an accuracy: means over
-        equal shards), anything else as it is."""
+        equal shards), anything else as it is. ``rows_whole``: the outputs
+        already hold whole rows (:meth:`eval_local` gathered the segments
+        of a sequence split)."""
         leaves = tree_mod.leaves(outputs)
         scalars = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)
                    and t.dim() == 0 and t.is_floating_point()]
@@ -373,7 +429,11 @@ class DataParallel:
         if self._group() is not None:
             with self.mesh, torch.no_grad():
                 for i in batch:
-                    new[i] = collective.all_gather(leaves[i].detach(), self.batch_axis)
+                    t = leaves[i].detach()
+                    if self._seq_axis is not None and t.dim() > 1 and not rows_whole:
+                        # the row segments: positions on dim 1
+                        t = collective.all_gather(t, self._seq_axis, axis=1)
+                    new[i] = collective.all_gather(t, self.batch_axis)
         return tree_mod.unflatten(outputs, new)
 
     def _reduce_global(self, loss, grads, new_state, state, outputs):
@@ -427,12 +487,13 @@ class DataParallel:
     # -- steps ----------------------------------------------------------------
     def _rank_rng(self, rng: Optional[torch.Generator]) -> Optional[torch.Generator]:
         """Each rank's dropout stream: a seed drawn from ``rng`` (the same
-        draw on every rank) offset by the rank's index, so ranks do not
-        repeat each other's masks."""
+        draw on every rank) offset by the rank's token block, so blocks do
+        not repeat each other's masks (the ranks of an ``expert`` group,
+        which hold the same tokens, draw the same)."""
         if rng is None:
             return None
         seed = int(torch.randint(2 ** 62, (), generator=rng, device=rng.device))
-        return torch.Generator(device=rng.device).manual_seed(seed + self._index())
+        return torch.Generator(device=rng.device).manual_seed(seed + self._token_index())
 
     def _apply_fn(self):
         return self._zero_apply if self.zero_shard_optimizer else None
@@ -448,8 +509,7 @@ class DataParallel:
             self._step_fn = self.optimizer.train_step(
                 self.model, self.loss_index, reduce=self._reduce_global, apply=self._apply_fn())
         self._batch_rows = _leading(local)
-        group = dp_context.BatchGroup(self._group(), self._n)
-        with self.mesh, dp_context.global_batch(group):
+        with self.mesh, dp_context.global_batch(self._batch_group()):
             return self._step_fn(variables, opt_state, *local, rng=self._rank_rng(rng))
 
     def step_ragged(self, variables: Variables, opt_state: OptState, *batch, rng=None) -> StepOutput:
@@ -468,11 +528,18 @@ class DataParallel:
 
     def eval_local(self, variables: Variables, *local, rng=None):
         """This rank's rows (from :meth:`put_batch`) through the model in
-        eval mode, batch reductions global; the outputs stay this rank's."""
-        group = dp_context.BatchGroup(self._group(), self._n)
-        with torch.no_grad(), self.mesh, dp_context.global_batch(group):
+        eval mode, batch reductions global; the outputs stay this rank's
+        rows — whole rows under a sequence split: each output with a dim 1
+        is gathered over ``seq`` on it (what ``Trainer.evaluate``'s per-row
+        metrics read)."""
+        with torch.no_grad(), self.mesh, dp_context.global_batch(self._batch_group()):
             out, _ = self.model.apply(variables, *local, rng=rng, is_train=False)
-        return out
+            if self._seq_axis is None:
+                return out
+            leaves = [collective.all_gather(t, self._seq_axis, axis=1)
+                      if isinstance(t, torch.Tensor) and t.dim() > 1 else t
+                      for t in tree_mod.leaves(out)]
+        return tree_mod.unflatten(out, leaves)
 
     def eval_step(self, variables: Variables, *batch, rng=None):
         """The model's eval-mode outputs on the global ``batch``, as one
@@ -480,7 +547,7 @@ class DataParallel:
         local = self._local(batch)
         with torch.no_grad():
             return self._gather_outputs(self.eval_local(variables, *local, rng=rng),
-                                        _leading(local))
+                                        _leading(local), rows_whole=True)
 
     # -- state ----------------------------------------------------------------
     def resize(self, devices: Sequence) -> mesh_mod.Mesh:
@@ -490,50 +557,99 @@ class DataParallel:
             "DataParallel.resize: elastic training (resilience/elastic.py) is not ported to "
             "paddle_tpu_torch yet; see ROADMAP.md")
 
+    def _expert_dims(self, params: Dict[str, torch.Tensor]) -> Dict[str, int]:
+        """The global dim-0 size of each parameter this rank holds a block of
+        experts of (``parallel/moe.py``)."""
+        shardings = param_shardings(self.mesh, self.model.param_info, params)
+        return {k: self.model.param_info[k].shape[0] for k, sh in shardings.items()
+                if expert_sharded(sh)}
+
     def state_template(self, variables: Variables, opt_state: OptState):
         """The layout of ``(variables, opt_state)`` on this rank — a tree of
         :class:`~paddle_tpu_torch.parallel.sharding.LeafLayout` (the
         optimizer's step stays an int) — the target handed to
         ``checkpoint_sharded.load_sharded`` and the owner map its saves
-        read. Replicated leaves are owned by the first rank; a ZeRO-1 slot
-        by every rank, for its rows."""
-        first = self._index() == 0
+        read. Replicated leaves are owned by the mesh's first rank; a
+        ZeRO-1 slot by the first rank of each data block, for its rows; an
+        expert-sharded parameter and its slots by the first rank of each
+        expert block, for its experts."""
+        idx = {a: self._axis_index(a) for a in self.mesh.axis_names}
+
+        def first_but(*axes):
+            return all(i == 0 for a, i in idx.items() if a not in axes)
+
         shapes = {k: tuple(p.shape) for k, p in variables.params.items()}
         dims = self._zero_dims(variables.params)
+        experts = self._expert_dims(variables.params)
 
-        def rep(t):
-            return LeafLayout(t.shape, t.dtype, self.device, owner=first)
+        def leaf(name, t):
+            if name in experts:  # its block of experts, on dim 0
+                k = shapes[name][0]
+                window = [(0, s) for s in shapes[name]]
+                window[0] = (idx[mesh_mod.EXPERT_AXIS] * k, (idx[mesh_mod.EXPERT_AXIS] + 1) * k)
+                return LeafLayout((experts[name],) + shapes[name][1:], t.dtype, self.device,
+                                  window, owner=first_but(mesh_mod.EXPERT_AXIS))
+            return LeafLayout(t.shape, t.dtype, self.device, owner=first_but())
 
         def slot(name, t):
             if name not in dims:
-                return rep(t)
+                return leaf(name, t)
             d, k = dims[name], shapes[name][dims[name]] // self._n
             window = [(0, s) for s in shapes[name]]
             window[d] = (self._index() * k, (self._index() + 1) * k)
-            return LeafLayout(shapes[name], t.dtype, self.device, window, owner=True)
+            return LeafLayout(shapes[name], t.dtype, self.device, window,
+                              owner=first_but(self.batch_axis))
 
-        var_t = tree_mod.map_leaves(rep, variables)
+        var_t = Variables(params={k: leaf(k, t) for k, t in variables.params.items()},
+                          state={k: leaf(k, t) for k, t in variables.state.items()})
         opt_t = OptState(step=opt_state.step, slots={
             s: {k: slot(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()})
         return var_t, opt_t
 
     def place_state(self, variables: Variables, opt_state: OptState):
-        """Re-place a state tree on this rank: every leaf on its device,
-        and under ZeRO-1 a whole slot cut to this rank's rows."""
+        """Re-place a state tree on this rank: every leaf on its device, a
+        whole expert-sharded parameter (and its slots) cut to this rank's
+        experts, and under ZeRO-1 a whole slot cut to this rank's rows."""
         variables = tree_mod.map_leaves(lambda t: t.to(self.device), variables)
+        experts = self._expert_dims(variables.params)
+        if experts:
+            n = self.mesh.shape[mesh_mod.EXPERT_AXIS]
+            e = self._axis_index(mesh_mod.EXPERT_AXIS)
+
+            def block(name, t):
+                if name not in experts or t.shape[0] != experts[name]:
+                    return t
+                k = t.shape[0] // n
+                return t.narrow(0, e * k, k).clone()
+
+            variables = Variables(params={k: block(k, t) for k, t in variables.params.items()},
+                                  state=variables.state)
+            opt_state = OptState(step=opt_state.step, slots={
+                s: {k: block(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()})
         return variables, self._shard_slots(opt_state, variables.params)
 
     def full_state(self, variables: Variables, opt_state: OptState):
-        """The state with every ZeRO-1 slot gathered whole (a collective:
-        every rank calls it) — what a plain-format checkpoint holds."""
+        """The state with every ZeRO-1 slot gathered whole and every
+        expert-sharded parameter (and its slots) gathered over the
+        ``expert`` axis (a collective: every rank calls it) — what a
+        plain-format checkpoint holds."""
         dims = self._zero_dims(variables.params)
-        if not dims:
+        experts = self._expert_dims(variables.params)
+        if not dims and not experts:
             return variables, opt_state
+
+        def whole(name, t):
+            if name in dims and t.shape != variables.params[name].shape:
+                t = collective.all_gather(t, self.batch_axis, axis=dims[name])
+            if name in experts:
+                t = collective.all_gather(t, mesh_mod.EXPERT_AXIS, axis=0)
+            return t
+
         with torch.no_grad(), self.mesh:
-            slots = {s: {k: collective.all_gather(v, self.batch_axis, axis=dims[k])
-                         if k in dims else v for k, v in d.items()}
-                     for s, d in opt_state.slots.items()}
-        return variables, OptState(step=opt_state.step, slots=slots)
+            slots = {s: {k: whole(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()}
+            params = {k: whole(k, t) if k in experts else t for k, t in variables.params.items()}
+        return Variables(params=params, state=variables.state), OptState(step=opt_state.step,
+                                                                         slots=slots)
 
 
 def _leading(batch) -> int:

@@ -252,6 +252,25 @@ def current_mesh() -> Mesh:
     return stack[-1] if stack else default_mesh()
 
 
+def entered_mesh() -> Optional[Mesh]:
+    """The innermost ``with mesh:``, or None outside one (no default mesh
+    is built: building one makes process groups, a collective)."""
+    stack = getattr(_current, "stack", None)
+    return stack[-1] if stack else None
+
+
+def local_shape(shape: Sequence[int], sharding, mesh: Optional[Mesh]) -> tuple:
+    """The block of a parameter of global ``shape`` that a rank holds under
+    ``sharding`` (a ParamAttr sharding tuple) on ``mesh``: each dim named
+    with a mesh axis of size n > 1 that n divides, cut n ways."""
+    out = []
+    for i, size in enumerate(shape):
+        axis = sharding[i] if sharding is not None and i < len(sharding) else None
+        n = mesh.shape.get(axis, 1) if (mesh is not None and isinstance(axis, str)) else 1
+        out.append(size // n if n > 1 and size % n == 0 else size)
+    return tuple(out)
+
+
 def make_mesh(axes: Optional[Dict[str, int]] = None, devices=None, **axis_sizes: int) -> Mesh:
     """Build a Mesh from axis name → size over global ranks. Use -1 for one
     axis to absorb all remaining ranks. Example: ``make_mesh(data=-1)`` or

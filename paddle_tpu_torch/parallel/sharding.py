@@ -3,11 +3,14 @@
 Reference mapping: MultiDevSSAGraphBuilder replicated params everywhere and
 all-reduced gradients (``multi_devices_graph_pass.cc:397-435``). The spec
 arithmetic (``spec_for``, ``mesh_axis_sizes``, ``degraded_dims``,
-``degrade_spec``) is the JAX package's, whole. Placement is ported for a
-mesh whose only axis of size > 1 is ``data``: every parameter and state
-entry is replicated, and replication is a broadcast from the axis's first
-rank (``BCastParamsToDevices``). A parameter spec that would really shard
-(tensor, sequence or expert parallelism) raises ``NotImplementedError``.
+``degrade_spec``) is the JAX package's, whole. Placement: every parameter
+and state entry is replicated — a broadcast from the first rank of each
+mesh axis (``BCastParamsToDevices``) — except a parameter sharded over the
+``expert`` axis on its first dim (the mixture-of-experts weights,
+``parallel/moe.py``), of which each rank keeps its block of experts. A
+parameter spec that would shard over any other axis (tensor or pipeline
+parallelism: ``model``, ``tp``, ``pipe``; or ``data``/``seq``) raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch.distributed as dist
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import ParamInfo, Variables
-from paddle_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from paddle_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, Mesh, local_shape
 
 # why a sharded dim was dropped to replicated (degraded_dims reasons)
 MISSING_AXIS = "missing-axis"
@@ -55,8 +58,8 @@ class NamedSharding:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: only data parallelism is ported to paddle_tpu_torch (tensor, sequence and "
-        "expert parallelism are later work); see ROADMAP.md")
+        f"{what}: data, sequence and expert parallelism are ported to paddle_tpu_torch; tensor "
+        "and pipeline parallelism are later work (ROADMAP.md §A item 4b)")
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -154,14 +157,14 @@ def batch_sharding(mesh: Mesh, axis: str = DATA_AXIS, ndim: int = 2) -> NamedSha
     return NamedSharding(mesh, P(axis, *([None] * (ndim - 1))))
 
 
-def is_replicated(sharding: NamedSharding) -> bool:
-    """Whether the spec places every dim whole on every rank (no named axis
-    of size > 1)."""
-    for entry in sharding.spec:
+def _sharded_axes(sharding: NamedSharding):
+    """``(dim, axis)`` of each dim the spec splits over an axis of size > 1."""
+    out = []
+    for dim, entry in enumerate(sharding.spec):
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             if a is not None and sharding.mesh.shape.get(a, 1) > 1:
-                return False
-    return True
+                out.append((dim, a))
+    return out
 
 
 def param_shardings(
@@ -171,8 +174,9 @@ def param_shardings(
 ) -> Dict[str, NamedSharding]:
     """Per-parameter shardings: honor ParamAttr.sharding tuples; default
     replicated. Axes not present in the mesh degrade to None (a tp spec on a
-    dp-only mesh is replicated). A spec left sharding a dim over an axis of
-    size > 1 raises: only replicated placement is ported."""
+    dp-only mesh is replicated). A spec may split dim 0 over the ``expert``
+    axis; one left splitting a dim over any other axis of size > 1
+    raises."""
     out = {}
     mesh_axes = set(mesh.axis_names)
     for name, p in params.items():
@@ -183,10 +187,16 @@ def param_shardings(
             dims = tuple(dims[: p.dim()]) + (None,) * max(0, p.dim() - len(dims))
             spec = P(*dims)
         sh = NamedSharding(mesh, spec if spec is not None else P())
-        if not is_replicated(sh):
+        if any(axis != EXPERT_AXIS or dim != 0 for dim, axis in _sharded_axes(sh)):
             raise _not_ported(f"parameter {name!r} with sharding {sh.spec} on {mesh!r}")
         out[name] = sh
     return out
+
+
+def expert_sharded(sharding: NamedSharding) -> bool:
+    """Whether the spec splits the parameter's experts (dim 0) over an
+    ``expert`` axis of size > 1."""
+    return bool(_sharded_axes(sharding))
 
 
 def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh,
@@ -219,14 +229,33 @@ def shard_variables(
     param_info: Dict[str, ParamInfo],
 ) -> Variables:
     """Place a Variables tree on the mesh (BCastParamsToDevices parity,
-    reference parallel_executor.cc:249): every parameter and state entry is
-    replicated, so each rank takes the first rank's values."""
-    param_shardings(mesh, param_info, variables.params)  # refuses real sharding
+    reference parallel_executor.cc:249): every rank takes the first rank's
+    values — a broadcast over each axis in turn — and of a parameter
+    sharded over ``expert`` keeps its block of experts (a parameter that is
+    already its block is not broadcast over ``expert``)."""
+    shardings = param_shardings(mesh, param_info, variables.params)
     names = [("p", k) for k in variables.params] + [("s", k) for k in variables.state]
-    values = [variables.params[k] if w == "p" else variables.state[k] for w, k in names]
-    placed = dict(zip(names, broadcast_tensors(values, mesh)))
-    return Variables(params={k: placed[("p", k)] for k in variables.params},
-                     state={k: placed[("s", k)] for k in variables.state})
+    values = {n: variables.params[n[1]] if n[0] == "p" else variables.state[n[1]] for n in names}
+
+    def is_block(n):
+        if n[0] != "p" or not expert_sharded(shardings[n[1]]):
+            return False
+        info = param_info[n[1]]
+        return tuple(values[n].shape) == local_shape(info.shape, info.sharding, mesh)
+
+    for axis in mesh.axis_names:
+        if axis != DATA_AXIS and mesh.shape[axis] == 1:
+            continue
+        todo = [n for n in names if not (axis == EXPERT_AXIS and is_block(n))]
+        for n, t in zip(todo, broadcast_tensors([values[n] for n in todo], mesh, axis)):
+            values[n] = t
+    for name, sh in shardings.items():
+        n = ("p", name)
+        if expert_sharded(sh) and not is_block(n):
+            k = values[n].shape[0] // mesh.shape[EXPERT_AXIS]
+            values[n] = values[n].narrow(0, mesh.axis_index(EXPERT_AXIS) * k, k).clone()
+    return Variables(params={k: values[("p", k)] for k in variables.params},
+                     state={k: values[("s", k)] for k in variables.state})
 
 
 class LeafLayout:

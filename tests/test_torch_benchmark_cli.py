@@ -63,8 +63,8 @@ def test_two_gloo_ranks():
 
 def test_scan_and_moe_flags(monkeypatch):
     """--scan_layers / --moe_experts reach get_model for the transformer
-    families only (plumbing, as the JAX test checks it); the real LM
-    refuses MoE, naming the ROADMAP item."""
+    families only (plumbing, as the JAX test checks it); the MoE LM then
+    trains through the CLI (at a small width: the CLI's own is BASE_CFG)."""
     captured = {}
 
     class _Abort(Exception):
@@ -84,8 +84,14 @@ def test_scan_and_moe_flags(monkeypatch):
     assert cfg["scan_layers"] is True and cfg["moe_experts"] == 4
     assert "scan_layers" not in captured["resnet"]
     assert captured["resnet"]["image_size"] == 224 and captured["resnet"]["class_dim"] == 102
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tbench.main(["--model", "transformer_lm", "--moe_experts", "4", "--device", "CPU"])
+    real = tmodels.get_model
+    small = dict(seq_len=16, vocab=64, d_model=32, d_inner=64, num_heads=4, n_layers=2)
+    with monkeypatch.context() as m:
+        m.setattr(tmodels, "get_model", lambda name, **cfg: real(name, **cfg, **small))
+        rec = tbench.main(["--model", "transformer_lm", "--moe_experts", "4", "--batch_size",
+                           "2", "--iterations", "2", "--skip_batch_num", "0", "--no_random",
+                           "--device", "CPU"])
+    assert rec["model"] == "transformer_lm" and np.isfinite(rec["last_loss"])
 
 
 def test_refusals_and_defaults():

@@ -6,8 +6,8 @@ each collective on two gloo ranks against the JAX package's under
 ``tests/test_parallel_extensions.py:344,374,901``), a one-rank
 ``DataParallel`` against ``minimize``'s step, ``parse_cluster_env`` and
 ``DistributeTranspiler`` (``tests/test_transpiler.py:156,173``), and the
-refusals of what is not ported (model-parallel specs, non-``data`` batch
-specs, ``resize``).
+refusals of what is not ported (model-parallel specs, batch specs over
+other axes than ``data`` and ``seq``, ``resize``).
 
 Tolerances: collectives move f32 values and sum two of them, so values and
 gradients are held at rtol 1e-6; a one-rank ``DataParallel`` runs the very
@@ -290,14 +290,22 @@ def test_one_rank_dp_step_equals_minimize_bit_for_bit(request, group, zero):
 
 # ---- what is not ported ---------------------------------------------------------
 def test_model_parallel_mesh_and_specs_raise():
+    """What stays refused: a model axis, a batch spec over any axis but
+    ``data`` on dim 0 and ``seq`` on dim 1 (a ``seq`` spec on a mesh
+    without that axis too), and a parameter sharded over an axis other
+    than ``expert`` (the sequence and expert slice takes the rest)."""
     with pytest.raises(NotImplementedError, match="(?s)model.*ROADMAP.md"):
         DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                      mesh=tmesh.make_mesh(data=1, model=2, devices=[0, 1]))
-    with pytest.raises(NotImplementedError, match="(?s)sequence parallelism.*ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
         DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                      batch_specs=(P("data", "seq"), P()))
-    with pytest.raises(NotImplementedError, match="(?s)sequence parallelism.*ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
         DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", batch_specs=(P(None, "data"),))
+    seq_mesh = tmesh.make_mesh(data=1, seq=1, devices=[0])
+    dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", mesh=seq_mesh,
+                      batch_specs=(P("data", "seq"), P("data")))
+    assert dp._token_axes == ("data", "seq")
     m = tmesh.make_mesh(data=2, devices=[0, 1])
     model = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=("data", None))),
                      name="fsdp")
@@ -313,12 +321,18 @@ def test_model_parallel_mesh_and_specs_raise():
 
 
 def test_resize_pipeline_and_moe_raise():
+    """``resize`` and the pipeline names still raise naming ROADMAP.md; the
+    MoE names are ported (``parallel/moe.py``)."""
     dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu")
     with pytest.raises(NotImplementedError, match="(?s)elastic.*ROADMAP.md"):
         dp.resize([0])
-    for name in ("pipeline_apply", "moe_ffn"):
+    for name in ("pipeline_apply", "stack_stage_params", "split_microbatches"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             getattr(parallel, name)
+    from paddle_tpu_torch.parallel import moe
+
+    assert (parallel.moe_ffn, parallel.switch_gate, parallel.top2_gate, parallel.MoEOutput) == (
+        moe.moe_ffn, moe.switch_gate, moe.top2_gate, moe.MoEOutput)
 
 
 def test_dataparallel_on_cuda_needs_a_card():

@@ -211,10 +211,15 @@ def test_cuda_default_raises_without_cuda():
         convert.params_from_jax({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("knob", [dict(ring_mesh=object()), dict(ulysses_mesh=object()),
-                                  dict(pipe_mesh=object()), dict(moe_experts=4)])
+@pytest.mark.parametrize("knob", [dict(pipe_mesh=object()),
+                                  dict(pipe_mesh=object(), ring_mesh=object()),
+                                  dict(pipe_mesh=object(), ulysses_mesh=object()),
+                                  dict(pipe_mesh=object(), moe_experts=4)])
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Pipeline parallelism is not ported, alone or beside the sequence-
+    parallel and MoE knobs (which are: tests/test_torch_seq_parallel.py,
+    tests/test_torch_moe.py)."""
+    with pytest.raises(NotImplementedError, match="(?s)not ported.*ROADMAP.md"):
         tmodels.get_model("transformer_lm", device="cpu", **SMALL, **knob)
 
 

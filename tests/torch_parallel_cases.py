@@ -18,7 +18,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import checkpoint_sharded as cks
 from paddle_tpu_torch import models as tmodels
 from paddle_tpu_torch.framework import Variables
-from paddle_tpu_torch.parallel import DataParallel, collective, make_mesh
+from paddle_tpu_torch.parallel import DataParallel, P, collective, make_mesh
 
 STEPS = 3
 LM = dict(seq_len=16, vocab=64, d_model=32, d_inner=64, num_heads=4, n_layers=2)
@@ -307,3 +307,311 @@ def trainer_run(rank, root, kind, kw):
             allow_ragged=kw.get("allow_ragged", False))
     return dict(losses=losses, step=t.global_step, epoch=t.epoch, devices=t._dp.num_devices,
                 state=numpy_state(t.variables, t.opt_state))
+
+
+# -- sequence and expert parallelism ------------------------------------------
+# (test_torch_seq_parallel.py, test_torch_moe.py)
+SP_LM = dict(seq_len=32, vocab=64, d_model=32, d_inner=64, num_heads=4, n_layers=1, max_len=64)
+MOE_LM = dict(seq_len=16, vocab=128, d_model=32, d_inner=64, num_heads=4, n_layers=2,
+              max_len=32, moe_experts=4)
+
+
+def _traced(fn, arrays, w):
+    """``fn`` on tensors of ``arrays`` (float ones require grad): the value
+    and the gradients of ``sum(w * value)``."""
+    ts = [torch.from_numpy(np.array(a)) for a in arrays]
+    for t in ts:
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    y = fn(*ts)
+    grads = torch.autograd.grad((torch.from_numpy(np.array(w)) * y).sum(),
+                                [t for t in ts if t.requires_grad])
+    return [y.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def sp_exchanges(rank, xs, ws):
+    """``ppermute`` and ``all_to_all`` on ``xs[rank]`` over the default
+    (data) axis: values and gradients of ``sum(ws[name][rank] * value)``,
+    the routes they took, and how often ``dist.all_gather`` was called."""
+    import torch.distributed as dist
+
+    cases = {
+        "ring": lambda x: collective.ppermute(x, "data", [(0, 1), (1, 0)]),
+        "one_pair": lambda x: collective.ppermute(x, "data", [(1, 0)]),
+        "a2a_0_1": lambda x: collective.all_to_all(x, "data", 0, 1),
+        "a2a_1_0": lambda x: collective.all_to_all(x, "data", 1, 0),
+        "a2a_2_2": lambda x: collective.all_to_all(x, "data", 2, 2),
+        "a2a_untiled": lambda x: collective.all_to_all(x, "data", 0, 2, tiled=False),
+    }
+    calls, real = [], dist.all_gather
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    collective.reset_routes()
+    dist.all_gather = spy
+    try:
+        out = {name: _traced(fn, [xs[rank]], ws[name][rank]) for name, fn in cases.items()}
+    finally:
+        dist.all_gather = real
+    out["all_gather_calls"] = len(calls)
+    out["routes"] = collective.routes_taken()
+    return out
+
+
+def sp_attention(rank, axes, cases):
+    """``ring_attention_sharded`` / ``ulysses_attention_sharded`` on a mesh
+    of ``axes`` over GLOBAL inputs: per case, the value and the gradients
+    of ``sum(w * out)`` in q, k, v (or the error a refused case raises)."""
+    from paddle_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from paddle_tpu_torch.ops.ulysses import ulysses_attention_sharded
+
+    mesh = make_mesh(**axes)
+    fns = {"ring": ring_attention_sharded, "ulysses": ulysses_attention_sharded}
+    out = {}
+    for name, (kind, routes, _, q, k, v, w, kv_len) in cases.items():
+        lens = None if kv_len is None else torch.from_numpy(kv_len)
+        out[name] = []
+        for kw in routes:
+            try:
+                out[name].append(_traced(
+                    lambda a, b, c: fns[kind](a, b, c, mesh, kv_len=lens, **kw), [q, k, v], w))
+            except Exception as e:  # the refusals: reported, held by the test
+                out[name].append(f"{type(e).__name__}: {e}")
+    return out
+
+
+def _lm_spec(kw, mesh):
+    """The port's LM for ``kw`` (``seq_mode``: "ring" or "ulysses" over
+    ``mesh``; ``flash``: the flash attention flag), on the CPU."""
+    from paddle_tpu_torch.core.config import set_flags
+
+    kw = dict(kw)
+    set_flags(use_flash_attention=kw.pop("flash", False))
+    mode = kw.pop("seq_mode", None)
+    if mode is not None:
+        kw[f"{mode}_mesh"] = mesh
+    return tmodels.get_model("transformer_lm", device="cpu", **kw)
+
+
+def sp_lm(rank, axes, cases):
+    """The LM on a mesh of ``axes``, per case ``(kw, batch, params)``:
+    - ``global``: ``Model.apply`` on the global batch on every rank (its
+      train loss and the gradients of every parameter);
+    - ``block``: one ``DataParallel`` step with ``P("data", "seq")`` batch
+      specs (seq_lens ``P("data")``) under SGD at rate 1, so the update is
+      the reduced gradient: its loss and ``p0 - p1``."""
+    mesh = make_mesh(**axes)
+    out = {}
+    for name, (kw, batch, params) in cases.items():
+        spec = _lm_spec(kw, mesh)
+        ps = {k: torch.from_numpy(a.copy()).requires_grad_(True) for k, a in params.items()}
+        tb = [torch.from_numpy(b) for b in batch]
+        (loss, _, _), _ = spec.model.apply(Variables(ps, {}), *tb, is_train=True)
+        grads = torch.autograd.grad(loss, list(ps.values()))
+        res = {"global": (float(loss.detach()), {k: g.numpy() for k, g in zip(ps, grads)})}
+        specs = [P("data", "seq"), P("data", "seq")] + [P("data")] * (len(batch) - 2)
+        dp = DataParallel(spec.model, pt.optimizer.SGD(learning_rate=1.0), mesh=mesh,
+                          device="cpu", batch_specs=specs)
+        v, o = dp.init(0, *tb, variables=Variables(tensors(params), {}))
+        step = dp.step(v, o, *tb)
+        res["block"] = (float(step.loss), {k: params[k] - t.numpy()
+                                           for k, t in step.variables.params.items()})
+        res["logits_shape"] = tuple(step.outputs[2].shape)
+        out[name] = res
+    return out
+
+
+def sp_dp_steps(rank, runs):
+    """``STEPS`` DataParallel (Adam) steps per run ``(axes, kw, specs,
+    zero, batch, params)``: the losses, the whole state (expert blocks and
+    ZeRO-1 rows gathered), this rank's digest of it, and the routes."""
+    import hashlib
+
+    out = {}
+    for name, (axes, kw, specs, zero, batch, params) in runs.items():
+        mesh = make_mesh(**axes)
+        spec = _lm_spec(kw, mesh)
+        collective.reset_routes()
+        dp = DataParallel(spec.model, spec.optimizer(), mesh=mesh, device="cpu",
+                          zero_shard_optimizer=zero,
+                          batch_specs=None if specs is None else [P(*s) for s in specs])
+        tb = [torch.from_numpy(b) for b in batch]
+        v, o = dp.init(0, *tb, variables=Variables(tensors(params), {}))
+        local_shapes = {k: tuple(t.shape) for k, t in v.params.items()}
+        losses = []
+        for _ in range(STEPS):
+            res = dp.step(v, o, *tb)
+            v, o = res.variables, res.opt_state
+            losses.append(float(res.loss))
+        h = hashlib.sha256()
+        for t in pt.core.tree.leaves(v.params):
+            h.update(t.detach().numpy().tobytes())
+        fv, fo = dp.full_state(v, o)
+        eval_out = dp.eval_step(v, *tb)
+        out[name] = dict(losses=losses, state=numpy_state(fv, fo), digest=h.hexdigest(),
+                         eval_loss=float(eval_out[0]), eval_logits=eval_out[2].numpy(),
+                         local_shapes=local_shapes, routes=collective.routes_taken(),
+                         slot_bytes=sum(t.numel() * t.element_size()
+                                        for d in o.slots.values() for t in d.values()))
+    return out
+
+
+def moe_gate_blocks(rank, axes, split_seq, cases):
+    """Each gate case ``(router, logits [B, T, E], capacity, token_mask, wc,
+    wa)`` on this rank's block of the batch (rows over ``data``, and the
+    row segment over ``seq`` when ``split_seq``) inside the step context:
+    its dispatch, combine and aux, and the gradient in this block's logits
+    of the global ``sum(wc * combine) + wa * aux`` (each rank adds its
+    block's combine term and its share, 1/size, of the global aux)."""
+    from paddle_tpu_torch.parallel import context as dp_context
+    from paddle_tpu_torch.parallel import moe
+
+    mesh = make_mesh(**axes)
+    axes_split = ("data", "seq") if split_seq else ("data",)
+    group = dp_context.BatchGroup(mesh, axes_split, "seq" if split_seq else None)
+    out = {}
+    for name, (router, logits, capacity, token_mask, wc, wa) in cases.items():
+        B, T, E = logits.shape
+        nd = mesh.shape["data"]
+        ns = mesh.shape.get("seq", 1) if split_seq else 1
+        d = mesh.axis_index("data") if nd > 1 else 0
+        j = mesh.axis_index("seq") if ns > 1 else 0
+        rows, seg = slice(d * B // nd, (d + 1) * B // nd), slice(j * T // ns, (j + 1) * T // ns)
+        x = torch.from_numpy(logits[rows, seg].copy()).requires_grad_(True)
+        tm = None if token_mask is None else torch.from_numpy(token_mask[rows, seg].reshape(-1))
+        with dp_context.global_batch(group):
+            dispatch, combine, aux = moe._ROUTERS[router][0](
+                x.reshape(-1, E), capacity, token_mask=tm, rows=x.shape[0])
+            c = capacity
+            weight = torch.from_numpy(wc[rows, seg].reshape(-1, E, c).copy())
+            (g,) = torch.autograd.grad((weight * combine).sum() + wa * aux / group.size, [x])
+        out[name] = dict(dispatch=dispatch.numpy(), combine=combine.detach().numpy(),
+                         aux=float(aux.detach()), grad=g.numpy(), rows=(rows.start, rows.stop),
+                         seg=(seg.start, seg.stop))
+    return out
+
+
+def moe_ffn_expert(rank, axes, cases):
+    """``moe_ffn`` on the global tokens with its expert parameters cut to
+    this rank's block (``shard_variables`` over the ``expert`` axis), per
+    case ``(kw, x, token_mask, params, w)``: the output, the aux loss and
+    the gradients of ``sum(w * out) + aux`` in x and the parameters (this
+    rank's block of the experts')."""
+    from paddle_tpu_torch.parallel import moe, shard_variables
+
+    mesh = make_mesh(**axes)
+    out = {}
+    for name, (kw, x, token_mask, params, w) in cases.items():
+        model = pt.build(lambda x_, tm=None: moe.moe_ffn(x_, name="moe", token_mask=tm, **kw),
+                         name="moe_net")
+        args = [torch.from_numpy(x)] + ([] if token_mask is None
+                                        else [torch.from_numpy(token_mask)])
+        model.init(0, *args, device="cpu")
+        v = shard_variables(mesh, Variables(tensors(params), {}), model.param_info)
+        ps = {k: t.requires_grad_(True) for k, t in v.params.items()}
+        xt = args[0].requires_grad_(True)
+        with mesh:
+            (y, aux), _ = model.apply(Variables(ps, {}), xt, *args[1:])
+            loss = (torch.from_numpy(w) * y).sum() + aux
+            grads = torch.autograd.grad(loss, [xt] + list(ps.values()))
+        out[name] = dict(out=y.detach().numpy(), aux=float(aux), dx=grads[0].numpy(),
+                         grads={k: g.numpy() for k, g in zip(ps, grads[1:])},
+                         shapes={k: tuple(t.shape) for k, t in ps.items()})
+    return out
+
+
+def moe_trainer(rank, roots, batches, params, jax_root):
+    """``Trainer(parallel=True)`` of the MoE LM on ``expert=2`` with sharded
+    checkpoints every 2 steps: two uninterrupted epochs in ``roots[0]``;
+    one epoch in ``roots[1]``, then a fresh Trainer there resumes for the
+    second; and the JAX package's expert-sharded checkpoint in ``jax_root``
+    loaded at this rank's layout."""
+    from paddle_tpu_torch.trainer import CheckpointConfig, EndStepEvent, Trainer
+
+    mesh = make_mesh(data=1, expert=2)
+    spec = tmodels.get_model("transformer_lm", device="cpu", **MOE_LM)
+
+    def run(root, epochs):
+        losses = []
+        t = Trainer(lambda: spec.model, spec.optimizer, parallel=True, place="cpu",
+                    parallel_kwargs=dict(mesh=mesh),
+                    checkpoint_config=CheckpointConfig(root, step_interval=2, sharded=True))
+        t.train(num_epochs=epochs, reader=lambda: iter(batches),
+                event_handler=lambda ev: losses.append(ev.metrics)
+                if isinstance(ev, EndStepEvent) else None)
+        return t, losses
+
+    whole, whole_losses = run(roots[0], 2)
+    run(roots[1], 1)
+    resumed, resumed_losses = run(roots[1], 2)
+    fv, fo = whole._dp.full_state(whole.variables, whole.opt_state)
+    out = dict(whole_losses=whole_losses, resumed_losses=resumed_losses,
+               step=resumed.global_step, state=numpy_state(fv, fo),
+               local_shapes={k: tuple(t.shape) for k, t in whole.variables.params.items()},
+               resumed_equal=all(torch.equal(a, b) for a, b in zip(
+                   pt.core.tree.leaves((whole.variables, whole.opt_state.slots)),
+                   pt.core.tree.leaves((resumed.variables, resumed.opt_state.slots)))))
+    dp = whole._dp
+    v, o = dp.init(0, *[torch.from_numpy(b) for b in batches[0]],
+                   variables=Variables(tensors(params), {}))
+    (jv, jo), manifest = cks.load_sharded(jax_root, dp.state_template(v, o))
+    out["jax_loaded"] = (numpy_state(*dp.full_state(jv, jo)), int(jo.step), manifest["step"])
+    return out
+
+
+def calls(rank, todo):
+    """Several rank bodies in one spawn: ``todo`` is ``{key: (name,
+    args)}``; returns ``{key: globals()[name](rank, *args)}``."""
+    return {key: globals()[name](rank, *args) for key, (name, args) in todo.items()}
+
+
+def sp_axes(rank, shapes):
+    """On each mesh of ``shapes``: this rank's ``(axis_index, axis_size)``
+    of every axis through the collectives (over the axis's process group)
+    and through the mesh, and its coordinates."""
+    out = []
+    for axes in shapes:
+        mesh = make_mesh(**axes)
+        with mesh:
+            got = {a: (collective.axis_index(a), collective.axis_size(a),
+                       mesh.axis_index(a)) for a in mesh.axis_names}
+            total = float(collective.all_reduce(torch.ones(()), mesh.axis_names[-1]))
+        out.append((got, [int(c) for c in np.argwhere(mesh.devices == rank)[0]], total))
+    return out
+
+
+def sp_trainer(rank, batches, params):
+    """``Trainer(parallel=True)`` of the ring LM on ``seq=2`` with
+    ``P("data", "seq")`` batches for one epoch, against a DataParallel run
+    of the same steps (losses bit-equal), and its exact evaluate against
+    the gathered ``eval_step`` logits' accuracy."""
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.trainer import EndStepEvent, Trainer
+
+    set_flags(use_flash_attention=True)
+    mesh = make_mesh(data=1, seq=2)
+    spec = tmodels.get_model("transformer_lm", device="cpu", ring_mesh=mesh, **SP_LM)
+    specs = [P("data", "seq"), P("data", "seq")]
+    losses = []
+    t = Trainer(lambda: spec.model, spec.optimizer, parallel=True, place="cpu",
+                parallel_kwargs=dict(mesh=mesh, batch_specs=specs))
+    t.train(num_epochs=1, reader=lambda: iter(batches),
+            event_handler=lambda ev: losses.append(ev.metrics)
+            if isinstance(ev, EndStepEvent) else None)
+    dp = DataParallel(spec.model, spec.optimizer(), mesh=mesh, device="cpu", batch_specs=specs)
+    v, o = dp.init(0, *[torch.from_numpy(b) for b in batches[0]])
+    dp_losses = []
+    for b in batches:
+        r = dp.step(v, o, *[torch.from_numpy(x) for x in b])
+        v, o = r.variables, r.opt_state
+        dp_losses.append(float(r.loss))
+
+    def correct(out, ids, labels):
+        return (out[2].argmax(-1).numpy() == np.asarray(labels)).mean(-1)
+
+    metric = t.evaluate(lambda: iter(batches[:1]), correct)
+    logits = dp.eval_step(t.variables, *[torch.from_numpy(x) for x in batches[0]])[2]
+    want = float((logits.argmax(-1).numpy() == batches[0][1]).mean())
+    return dict(losses=losses, dp_losses=dp_losses, metric=metric, want=want)

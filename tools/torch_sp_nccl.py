@@ -1,0 +1,48 @@
+#!/usr/bin/env python3
+"""Phase sp of ``chip_smoke.py`` over NCCL, one rank per card (up to 4):
+ring and Ulysses attention on ``seq=n`` and the MoE LM on ``expert=n``
+at ``BASE_CFG``, each held against the one-rank step as phase sp holds its
+two gloo ranks, with ``ppermute`` and ``all_to_all`` on NCCL's
+point-to-point and all-to-all (the route the phase's one card cannot
+take); the ring's rank r launches r + 1 of each kernel a layer.
+
+    python3 tools/torch_sp_nccl.py
+
+Prints the card's name and power limit, the phase's JSON lines, and last a
+line with the failed checks (empty when all held). Exits 1 without two
+cards or when a check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        print("torch_sp_nccl: needs two or more cards", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    kbuild.build_all()
+    _, checks = chip_smoke.sp_phase(smi.splitlines()[0], ranks=n, device="cuda", backend=None)
+    failed = [k for k, good in checks.items() if not good]
+    print(json.dumps({"failed": failed}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
