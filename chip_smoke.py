@@ -227,8 +227,22 @@ Phases, each printing JSON lines:
                The route of each exchange (gloo_host: staged through host
                memory, point to point). tools/torch_sp_nccl.py runs (a)-(d)
                over NCCL, one rank per card.
- 15. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8 and 10-14), its error and times at the
+ 15. mp      — tensor and pipeline parallelism (MP_*), two gloo ranks
+               sharing the card, flash, Adam: (a) the LM at BASE_CFG, 8 x
+               1024, on model=2 (4 heads and half of every projection a
+               rank); (b) the LM on pipe=2, 4 microbatches (GPipe, 3 layers
+               a stage); (c) (b) with remat; (d) the NMT Transformer at full
+               width, 2+2 layers, 32 x 256, dropout 0, on model=2. One step
+               of each against the one-rank minimize step (loss, Adam's
+               first moment, the update, with phase sp's limits; (a) and
+               (d) hold that step in f32 and report their bf16 step's
+               agreement as numbers), two more timed in bf16; each rank's
+               launches of each kernel (6, 12, 24 forward with remat; 6),
+               step ms, peak memory, the pipeline's exchange route.
+               tools/torch_sp_nccl.py runs them over NCCL, one rank per
+               card.
+ 16. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8 and 10-15), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
                (not measured).
@@ -525,6 +539,46 @@ def sp_launches(part: str, rank: int) -> int:
 # times the single-device kernels are.
 SP_RING_SHAPE = (TRAIN_BATCH, 8, 1024, 64)
 SP_RING_F32_TOL, SP_RING_BF16_RATIO = 1e-5, 1.5
+
+# Tensor and pipeline parallelism (phase mp): two gloo ranks on the one card
+# (as phases dp (b) and sp), bf16 + flash, Adam; one step of each part held
+# against the one-rank minimize step on the whole batch with phase sp's
+# limits (TRAIN_LOSS_TOL on the loss, TRAIN_GRAD_TOL on Adam's first moment,
+# DP_MOVEMENT_TOL on the update), then two more timed. (a) the LM at
+# BASE_CFG, 8 x 1024, on model=2: every rank holds 4 of the 8 heads, half of
+# each projection's columns or rows and of the embedding's columns, and
+# launches each kernel once a layer (6 a step); (b) the LM on pipe=2 with 4
+# microbatches: each stage runs its 3 layers on every microbatch, 12 of each
+# kernel a step (bubble steps skipped); (c) (b) with remat: the backward
+# runs each step's forward again, 24 forward launches; (d) the NMT
+# Transformer at full width (d_model 512, 8 heads, ffn 2048), depth 2+2,
+# bench.py's 32 x 256 cell, dropout 0, on model=2: one forward launch for
+# each encoder self-attention and each decoder self- and cross-attention, 6
+# of each kernel a step. With more ranks (tools/torch_sp_nccl.py), model=n,
+# and the pipeline on pipe=2 x data=n/2.
+# The model-axis parts (a), (d) run two steps, each held against its own
+# one-rank step: in f32 (the flash kernels' f32 instantiation) at phase sp's
+# limits, and in bf16 against the one-rank f32 step, no further from it
+# than MP_BF16_SPREAD times the one-rank bf16 step is (its first moment and
+# update, worst parameter). A row-parallel layer sums two f32 partial
+# products, which rounds the activations at other points than one rank
+# does, and the bf16 casts carry that into the gradients: the bf16 step on
+# model=2 is as far from the one-rank bf16 step as bf16 rounding puts
+# either from f32 (PERF.md section 6). The pipeline runs each row's
+# arithmetic unchanged and holds bf16 at phase sp's limits.
+MP_NMT = dict(n_layers=2, attn_dropout=0.0, relu_dropout=0.0, residual_dropout=0.0)
+MP_F32_HELD = ("a_model2", "d_nmt_model2")
+MP_BF16_SPREAD = 2.0
+# each part: (model, seq_len, batch, the axis the ranks split, LM or NMT
+# overrides, each kernel's launches a step on a rank (forward, dK/dV, dQ))
+MP_PARTS = {
+    "a_model2": ("transformer_lm", 1024, TRAIN_BATCH, "model", {}, (6, 6, 6)),
+    "b_pipe2": ("transformer_lm", 1024, TRAIN_BATCH, "pipe", {"pipe_n_micro": 4}, (12, 12, 12)),
+    "c_pipe2_remat": ("transformer_lm", 1024, TRAIN_BATCH, "pipe",
+                      {"pipe_n_micro": 4, "remat": True}, (24, 12, 12)),
+    "d_nmt_model2": ("transformer", NMT_SEQ, NMT_BATCH, "model", MP_NMT, (6, 6, 6)),
+}
+MP_HELD, MP_TIMED = 1, 2
 
 
 def emit(obj) -> None:
@@ -1926,9 +1980,10 @@ def dp_agreement(params, moment1, ref, init):
       does not see.
     - ``movement``: the update, per parameter |p - p_ref|_2 / |p_ref -
       p_init|_2, held to DP_MOVEMENT_TOL. The attention k biases are left
-      out: their gradient is zero in exact arithmetic (a constant added to
-      all of a row's scores cancels in the softmax), so Adam moves them by
-      ~lr in the direction of rounding noise in either run.
+      out (self- and cross-attention's): their gradient is zero in exact
+      arithmetic (a constant added to all of a row's scores cancels in the
+      softmax), so Adam moves them by ~lr in the direction of rounding noise
+      in either run.
     Returns {metric: (worst value, its parameter, the median value)}."""
     import numpy as np
 
@@ -1939,7 +1994,7 @@ def dp_agreement(params, moment1, ref, init):
     def norm(t):
         return float(t.float().norm())
 
-    kbias = [k for k in ref["params"] if k.endswith("self_attn/k/b")]
+    kbias = [k for k in ref["params"] if k.endswith("attn/k/b")]
     m_norm = {k: norm(t) for k, t in ref["moment1"].items()}
     m_floor = TRAIN_GRAD_FLOOR * max(m_norm.values())
     moved = {k: norm(ref["params"][k] - init[k]) for k in ref["params"] if k not in kbias}
@@ -3030,16 +3085,17 @@ def sp_spec(part: str, mesh=None):
     return get_model("transformer_lm", seq_len=seq_len, **kw, **overrides)
 
 
-def sp_run(part: str, step, batch):
+def sp_run(part: str, step, batch, counts=None):
     """The part's held and timed steps of ``step`` from the part's seeded
-    init: the losses, the first step's launches of each kernel and router
-    calls, the step ms (the steps after the first), the peak memory, and
-    the state after the held steps."""
+    init (``counts``: (held, timed), by default the sp part's): the losses,
+    the first step's launches of each kernel and router calls, the step ms
+    (the steps after the first), the peak memory, and the state after the
+    held steps."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import build as kbuild
 
-    held, timed = SP_PARTS[part][5:7]
+    held, timed = counts or SP_PARTS[part][5:7]
     calls = router_calls()
     v, o, losses, ms = step["v"], step["o"], [], []
     end = (v, o)
@@ -3280,6 +3336,188 @@ def sp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
                           "rank; with two gloo ranks sharing the card (route gloo_host), "
                           "staged through host memory"})
         emit({"phase": "sp", "ranks": ranks, "backend": backend, "one_rank_seconds": ref_s,
+              "ranks_seconds": ranks_s, "checks": checks})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths, checks
+
+
+def mp_mesh(part: str, ranks: int):
+    """The mesh of a phase mp part over ``ranks``: model=ranks, or the
+    pipeline's pipe=2 beside data=ranks/2."""
+    from paddle_tpu_torch.parallel import make_mesh
+
+    if MP_PARTS[part][3] == "model":
+        return make_mesh(data=1, model=ranks)
+    return make_mesh(data=ranks // 2, pipe=2)
+
+
+def mp_spec(part: str, mesh=None):
+    """The model of a phase mp part (with ``mesh`` as its pipe_mesh for the
+    pipeline's parts)."""
+    from paddle_tpu_torch.models import get_model
+
+    name, seq_len, _, axis, overrides = MP_PARTS[part][:5]
+    kw = dict(overrides, pipe_mesh=mesh) if (axis == "pipe" and mesh is not None) else overrides
+    return get_model(name, seq_len=seq_len, **kw)
+
+
+def mp_runs(part: str):
+    """The runs of a phase mp part: ``(compute, held steps, timed steps)``,
+    bf16 held and timed, and for a model-axis part an f32 held step."""
+    runs = [("bf16", MP_HELD, MP_TIMED)]
+    return runs + [("f32", MP_HELD, 0)] if part in MP_F32_HELD else runs
+
+
+def mp_reference(part: str, work: str, compute: str = "bf16", held: int = MP_HELD,
+                 timed: int = MP_TIMED):
+    """The one-rank run a phase mp part is held against: minimize's steps on
+    the whole batch from the part's seeded init (the plain model: no mesh),
+    in ``compute`` (bf16 or f32); its state goes to
+    ``work/<part>_<compute>.pt``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+
+    set_flags(use_flash_attention=True, use_bf16_compute=compute == "bf16", check_nan_inf=True)
+    _, seq_len, batch_size = MP_PARTS[part][:3]
+    spec = mp_spec(part)
+    batch = spec.synth_batch(batch_size, np.random.RandomState(0))
+    v0 = spec.model.init(0, *batch)
+    opt = spec.optimizer()
+    res, v, o = sp_run(part, {"fn": opt.minimize(spec.model), "v": v0,
+                              "o": opt.create_state(v0.params)}, batch, (held, timed))
+    os.makedirs(work, exist_ok=True)
+    state = {"params": v.params, "moment1": o.slots["moment1"]}
+    torch.save(state, os.path.join(work, f"{part}_{compute}.pt"))
+    if compute == "f32":  # bf16 rounding alone: the one-rank bf16 step against this
+        b = torch.load(os.path.join(work, f"{part}_bf16.pt"), map_location=torch.device("cuda"))
+        res["bf16_vs_f32"] = dp_agreement(b["params"], b["moment1"], state, v0.params)
+        del b
+    res["tokens_per_s"] = batch_size * seq_len / (res["step_ms"] / 1e3)
+    del v, o, v0, batch, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
+    """One rank of phase mp: the part's DataParallel steps on its mesh (the
+    whole batch, each rank its blocks over ``model`` or its stage over
+    ``pipe``) in ``compute``, held against the one-rank run in
+    ``work/<part>_<compute>.pt``; the routes its exchanges took and the
+    shapes of its blocks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.parallel import DataParallel, collective
+
+    set_flags(use_flash_attention=True, use_bf16_compute=compute == "bf16", check_nan_inf=True)
+    _, seq_len, batch_size = MP_PARTS[part][:3]
+    mesh = mp_mesh(part, torch.distributed.get_world_size())
+    spec = mp_spec(part, mesh)
+    batch = spec.synth_batch(batch_size, np.random.RandomState(0))
+    v0 = spec.model.init(0, *batch)
+    dp = DataParallel(spec.model, spec.optimizer(), mesh=mesh, batch_outputs=())
+    v, o = dp.init(0, *batch, variables=v0)
+    local = dp.put_batch(*batch)
+    collective.reset_routes()
+    res, v, o = sp_run(part, {"fn": dp.step, "v": v, "o": o}, local, (held, timed))
+    res["routes"] = collective.routes_taken()
+    res["tokens_per_s"] = batch_size * seq_len / (res["step_ms"] / 1e3)
+    res["mesh"] = dict(mesh.shape)
+    q = next(k for k in v.params if k.endswith("self_attn/q/w"))
+    res["q_block"] = [list(v.params[q].shape), list(v0.params[q].shape)]
+    ref = torch.load(os.path.join(work, f"{part}_{compute}.pt"),
+                     map_location=torch.device("cuda"))
+    fv, fo = dp.full_state(v, o)
+    res["agreement"] = dp_agreement(fv.params, fo.slots["moment1"], ref, v0.params)
+    if compute == "bf16" and part in MP_F32_HELD:  # against the one-rank f32 step
+        del ref
+        ref = torch.load(os.path.join(work, f"{part}_f32.pt"), map_location=torch.device("cuda"))
+        res["agreement_f32"] = dp_agreement(fv.params, fo.slots["moment1"], ref, v0.params)
+    del dp, v, o, fv, fo, ref, v0, batch, local
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_ranks(rank, work):
+    """One rank of phase mp: every run of every part in turn (one spawn for
+    the phase)."""
+    return {(part, run[0]): mp_rank(rank, work, part, *run)
+            for part in MP_PARTS for run in mp_runs(part)}
+
+
+def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
+    """Phase 15: tensor and pipeline parallelism, by default on two gloo
+    ranks sharing the card (``tools/torch_sp_nccl.py``: one rank
+    per card over NCCL). Returns its kernel launches by path and its
+    checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.parallel import launch
+
+    checks, paths = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t0 = time.perf_counter()
+        refs = {(part, run[0]): mp_reference(part, work, *run)
+                for part in MP_PARTS for run in mp_runs(part)}
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_rank = launch.spawn(mp_ranks, ranks, args=(work,), device=device, backend=backend)
+        ranks_s = time.perf_counter() - t0
+        route_want = "gloo_host" if backend == "gloo" else "nccl"
+        for (part, compute), ref in refs.items():
+            per_rank = [res[(part, compute)] for res in by_rank]
+            want = dict(zip(HOPPER_KERNELS, MP_PARTS[part][5]))
+            # held at phase sp's limits: f32 for the model-axis parts
+            # (MP_F32_HELD), whose bf16 step is held to the bf16 spread
+            held = compute == ("f32" if part in MP_F32_HELD else "bf16")
+            spread = refs[(part, "f32")]["bf16_vs_f32"] if part in MP_F32_HELD else None
+            tag = part if compute == "bf16" else f"{part}_{compute}"
+            for r, res in enumerate(per_rank):
+                if compute == "bf16":
+                    paths[f"mp_{part}_rank{r}"] = res["launches_first_step"]
+                checks[f"{tag}_rank{r}_launches"] = all(
+                    res["launches_first_step"][k] == n for k, n in want.items())
+                checks[f"{tag}_rank{r}_finite"] = all(np.isfinite(res["losses"]))
+                checks[f"{tag}_rank{r}_losses_within_tol"] = all(
+                    abs(x - y) <= TRAIN_LOSS_TOL
+                    for x, y in zip(res["losses"][:MP_HELD], ref["losses"][:MP_HELD]))
+                if held:
+                    checks[f"{tag}_rank{r}_moment1_within_tol"] = \
+                        res["agreement"]["moment1"][0] <= TRAIN_GRAD_TOL
+                    checks[f"{tag}_rank{r}_movement_within_tol"] = \
+                        res["agreement"]["movement"][0] <= DP_MOVEMENT_TOL
+                elif spread is not None:
+                    for metric in ("moment1", "movement"):
+                        checks[f"{tag}_rank{r}_{metric}_within_bf16_spread"] = \
+                            res["agreement_f32"][metric][0] <= MP_BF16_SPREAD * spread[metric][0]
+                if MP_PARTS[part][3] == "model":  # its heads: a block of q's columns
+                    got, whole = res["q_block"]
+                    checks[f"{part}_rank{r}_holds_its_heads"] = \
+                        got[1] * res["mesh"]["model"] == whole[1]
+                else:  # activations stage to stage, point to point
+                    checks[f"{part}_rank{r}_ppermute_{route_want}"] = set(
+                        res["routes"].get("ppermute", {})) == {route_want}
+            emit({"phase": "mp", "part": part, "compute": compute,
+                  "agreement_checked": held or spread is not None, "model": MP_PARTS[part][0],
+                  "seq_len": MP_PARTS[part][1], "batch": MP_PARTS[part][2],
+                  "mesh": per_rank[0]["mesh"], "overrides": MP_PARTS[part][4],
+                  "launches_predicted": want, "backend": backend, "one_rank": ref,
+                  "ranks": per_rank, "loss_tol": TRAIN_LOSS_TOL,
+                  "moment1_tol": TRAIN_GRAD_TOL, "movement_tol": DP_MOVEMENT_TOL,
+                  "bf16_spread": spread, "bf16_spread_factor": MP_BF16_SPREAD, "card": smi,
+                  "note": "the model axis's collectives are all-reduces and all-gathers over "
+                          "the backend; the pipeline's activations go point to point (with two "
+                          "gloo ranks sharing the card, route gloo_host: staged through host "
+                          "memory)"})
+        emit({"phase": "mp", "ranks": ranks, "backend": backend, "one_rank_seconds": ref_s,
               "ranks_seconds": ranks_s, "checks": checks})
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3651,10 +3889,14 @@ def main() -> int:
     sp_paths, sp_checks = sp_phase(smi)
     failures += [f"sp check {k}" for k, good in sp_checks.items() if not good]
 
-    # 15. kernels
+    # 15. tensor and pipeline parallelism
+    mp_paths, mp_checks = mp_phase(smi)
+    failures += [f"mp check {k}" for k, good in mp_checks.items() if not good]
+
+    # 16. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
              **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches,
-             **infer_paths, **sp_paths}
+             **infer_paths, **sp_paths, **mp_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

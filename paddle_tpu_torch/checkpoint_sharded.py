@@ -20,9 +20,10 @@ Where each leaf lives comes from a template tree of
 :class:`~paddle_tpu_torch.parallel.sharding.LeafLayout` (what
 ``DataParallel.state_template`` returns, the port's ShapeDtypeStruct with a
 sharding): a replicated leaf is written once, by its owner (the first
-rank), a ZeRO-1 slot by every rank for its rows, an expert-sharded
-parameter and its slots by the first rank of each expert block for its
-experts (the JAX package's blocks of an ``('expert', ...)`` leaf). Without
+rank), a ZeRO-1 slot by every rank for its rows, a parameter split over
+``expert`` or ``model`` and its slots by the first rank of each block for
+its window (the JAX package's blocks of an ``('expert', ...)`` or a
+``(None, 'model')`` leaf). Without
 a template every leaf is whole and replicated. Restore assembles each rank's window from the
 saved blocks — one block when the windows match, pieces of several when
 they do not (a checkpoint saved at N ranks loads at M). Assumes the
@@ -350,7 +351,7 @@ def save_sharded_async(
     synchronously and every rank's step waits for the whole save. The JAX
     package falls back the same way with several processes, but there one
     process drives every chip of a host; here each card is a process, so
-    any multi-card run takes this path (ROADMAP.md §A item 5)."""
+    any multi-card run takes this path (ROADMAP.md §A item 1)."""
     global _pending
     if world_size() > 1:
         wait_pending_save()

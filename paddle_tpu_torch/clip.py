@@ -4,7 +4,10 @@ Reference: ``python/paddle/fluid/clip.py`` — GradientClipByValue /
 GradientClipByNorm / GradientClipByGlobalNorm, here transforms of the
 ``{name: gradient}`` dict that ``Optimizer.apply_gradients`` runs before
 the update, and ErrorClipByValue, which clips the gradient flowing back
-through one tensor.
+through one tensor. The norm clips take each gradient's squared norm from
+``sq_norms`` (by default :func:`squared_norms`): where a rank holds blocks
+of parameters split over a mesh axis, ``DataParallel`` passes one that sums
+the blocks' over the axis, so every rank clips by the whole norms.
 """
 
 from __future__ import annotations
@@ -14,8 +17,14 @@ from typing import Dict
 import torch
 
 
+def squared_norms(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each gradient's squared L2 norm, in f32."""
+    return {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+
+
 class GradientClipBase:
-    def __call__(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def __call__(self, grads: Dict[str, torch.Tensor], sq_norms=squared_norms
+                 ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
 
@@ -24,7 +33,7 @@ class GradientClipByValue(GradientClipBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def __call__(self, grads):
+    def __call__(self, grads, sq_norms=squared_norms):
         return {k: torch.clamp(g, self.min, self.max) for k, g in grads.items()}
 
 
@@ -34,13 +43,14 @@ class GradientClipByNorm(GradientClipBase):
     def __init__(self, clip_norm: float):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, grads):
-        def clip_one(g):
-            norm = torch.sqrt(torch.sum(torch.square(g.float())))
-            scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    def __call__(self, grads, sq_norms=squared_norms):
+        sq = sq_norms(grads)
+
+        def clip_one(g, s):
+            scale = torch.clamp(self.clip_norm / torch.clamp(torch.sqrt(s), min=1e-12), max=1.0)
             return (g.float() * scale).to(g.dtype)
 
-        return {k: clip_one(g) for k, g in grads.items()}
+        return {k: clip_one(g, sq[k]) for k, g in grads.items()}
 
 
 class GradientClipByGlobalNorm(GradientClipBase):
@@ -49,13 +59,14 @@ class GradientClipByGlobalNorm(GradientClipBase):
     def __init__(self, clip_norm: float):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, grads):
-        scale = torch.clamp(self.clip_norm / torch.clamp(global_norm(grads), min=1e-12), max=1.0)
+    def __call__(self, grads, sq_norms=squared_norms):
+        norm = global_norm(grads, sq_norms)
+        scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
         return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}
 
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+def global_norm(grads: Dict[str, torch.Tensor], sq_norms=squared_norms) -> torch.Tensor:
+    return torch.sqrt(sum(sq_norms(grads).values()))
 
 
 class _ErrorClip(torch.autograd.Function):

@@ -10,7 +10,11 @@ state)``. Optimizer state moves the same way: its step and its slot dicts
 (``{slot: {param name: array}}``). A whole training state
 ``(Variables, OptState)`` moves with :func:`train_state_from_jax`, and
 :func:`train_state_leaves` lists it in checkpoint leaf order
-(``jax.tree_util.tree_leaves`` order) as numpy arrays.
+(``jax.tree_util.tree_leaves`` order) as numpy arrays. A state split over
+ranks crosses whole: ``np.asarray`` of a JAX array sharded over ``model``
+or ``expert`` is the whole array, which ``DataParallel.place_state`` cuts
+to each rank's blocks, and ``DataParallel.full_state`` gathers the port's
+blocks back.
 """
 
 from __future__ import annotations

@@ -103,6 +103,11 @@ class _Frame:
         self.is_train = is_train
         self.name_stack: list[str] = []
         self.names = unique_name.Generator()
+        # the whole parameters' records (the init's) where a run under an
+        # entered mesh may hold blocks of them (tensor parallelism)
+        self.whole: Dict[str, "ParamInfo"] = {}
+        # values that stand in for parameters by name (overlay_frame)
+        self.overlay: Dict[str, torch.Tensor] = {}
 
 
 _tls = threading.local()
@@ -187,6 +192,8 @@ def create_parameter(
     t_dtype = dtypes_mod.convert(dtype)
     full = _full_name(frame, "param", attr.name or name)
     shape = tuple(int(s) for s in shape)
+    if full in frame.overlay:
+        return frame.overlay[full]
     frame.param_info[full] = ParamInfo(
         name=full, shape=shape, dtype=t_dtype, trainable=attr.trainable,
         learning_rate=attr.learning_rate, regularizer=attr.regularizer,
@@ -210,6 +217,69 @@ def create_parameter(
             f"parameter {full!r} shape mismatch: created with {shape}, got {tuple(value.shape)}"
         )
     return value
+
+
+def _block_of(value: torch.Tensor, sharding, mesh, axis: str) -> torch.Tensor:
+    """This rank's block of a whole parameter: each dim annotated with
+    ``axis`` that the axis's size divides, cut to the rank's slice (the JAX
+    package's degradation keeps the others whole)."""
+    if sharding is None:
+        return value
+    n = mesh.shape[axis]
+    for dim, name in enumerate(sharding[: value.dim()]):
+        if name == axis and value.shape[dim] % n == 0:
+            k = value.shape[dim] // n
+            value = value.narrow(dim, mesh.axis_index(axis) * k, k).clone()
+    return value
+
+
+def split_axis(name: str, dim: int) -> Optional[str]:
+    """The mesh axis over which dim ``dim`` of the parameter ``name`` (in
+    the current scope) is split in this run, each rank holding its block,
+    or None when this rank holds that dim whole: read from the parameter
+    the run was given against the whole shape its init recorded, so a dim
+    that the axis does not divide, held whole, reads as whole."""
+    frame = _current_frame()
+    full = "/".join(frame.name_stack + [name])
+    info, got = frame.whole.get(full), frame.params.get(full)
+    if (info is None or got is None or info.sharding is None
+            or dim >= len(info.sharding) or got.shape[dim] == info.shape[dim]):
+        return None
+    return info.sharding[dim]
+
+
+@contextlib.contextmanager
+def overlay_frame(values: Dict[str, torch.Tensor]):
+    """Run a block of layer calls with ``values`` standing in for the
+    parameters of those names (a pipeline stage's slice of stacked layers
+    under a template name), its name scopes uniquified afresh: each entry
+    of the block creates the same names (the JAX package's
+    ``overlay_frame`` inside a ``lax.scan`` body)."""
+    frame = _current_frame()
+    prev, counters = frame.overlay, frame.names.snapshot()
+    frame.overlay = {**prev, **values}
+    try:
+        yield
+    finally:
+        frame.overlay = prev
+        frame.names.restore(counters)
+
+
+def gather_layer_params(n_layers: int, prefix_of: Callable[[int], str]) -> Dict[str, torch.Tensor]:
+    """The parameters of ``n_layers`` identically built layers stacked per
+    name suffix, ``{suffix: [n_layers, ...]}`` (layer i's names start with
+    ``prefix_of(i) + "/"``); differentiable, so each layer's parameters
+    take their slice of the stack's gradient."""
+    frame = _current_frame()
+    per_layer = []
+    for i in range(n_layers):
+        pre = prefix_of(i) + "/"
+        names = sorted(k for k in frame.params if k.startswith(pre))
+        if per_layer and [k[len(pre):] for k in names] != sorted(per_layer[0]):
+            raise EnforceError(f"layer {prefix_of(i)!r} has other parameters than layer "
+                               f"{prefix_of(0)!r}")
+        per_layer.append({k[len(pre):]: frame.params[k] for k in names})
+    return {s: torch.stack([p[s] for p in per_layer]) for s in per_layer[0]}
 
 
 def _is_local_block(got: tuple, shape: tuple, sharding) -> bool:
@@ -300,16 +370,18 @@ class _Replay:
         self.mesh = mesh_mod.entered_mesh()
         self.name_stack = list(frame.name_stack)
         self.counters = frame.names.snapshot()
+        self.overlay = frame.overlay
         gen = frame.generator
         self.gen_state = gen.get_state() if gen is not None else None
 
     @contextlib.contextmanager
     def replay(self):
         frame, gen = self.frame, self.frame.generator
-        stack, counters = frame.name_stack, frame.names.snapshot()
+        stack, counters, overlay = frame.name_stack, frame.names.snapshot(), frame.overlay
         gen_state = gen.get_state() if gen is not None else None
         frame.name_stack = list(self.name_stack)
         frame.names.restore(self.counters)
+        frame.overlay = self.overlay
         if gen is not None:
             gen.set_state(self.gen_state)
         from paddle_tpu_torch.parallel import context as dp_context
@@ -321,6 +393,7 @@ class _Replay:
         finally:
             frame.name_stack = stack
             frame.names.restore(counters)
+            frame.overlay = overlay
             if gen is not None:
                 gen.set_state(gen_state)
 
@@ -373,7 +446,15 @@ class Model:
         with _enter(frame), torch.no_grad():
             self._fn(*args, **kwargs)
         self.param_info = frame.param_info
-        return Variables(params=frame.params, state=frame.state)
+        from paddle_tpu_torch.parallel import mesh as mesh_mod
+
+        # under an entered mesh with a model axis, each rank keeps its block
+        # of the parameters annotated over it: the slice of this init
+        mesh, params = mesh_mod.entered_mesh(), frame.params
+        if mesh is not None and mesh.shape.get(mesh_mod.MODEL_AXIS, 1) > 1:
+            params = {k: _block_of(v, frame.param_info[k].sharding, mesh, mesh_mod.MODEL_AXIS)
+                      for k, v in params.items()}
+        return Variables(params=params, state=frame.state)
 
     def apply(
         self,
@@ -404,6 +485,10 @@ class Model:
         device = next(iter(params.values())).device
         frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train,
                        state=state)
+        from paddle_tpu_torch.parallel import mesh as mesh_mod
+
+        if mesh_mod.entered_mesh() is not None:  # the layers read which params are blocks
+            frame.whole = self.param_info
         with _enter(frame):
             out = self._fn(*args, **kwargs)
         if not self.param_info:

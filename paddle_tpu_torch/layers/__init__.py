@@ -114,21 +114,43 @@ def fc(
     """Fully-connected layer (reference ``layers/nn.py`` fc → mul+sum ops).
     Flattens trailing dims from ``num_flatten_dims`` into the matmul axis.
     Operands in the compute dtype, f32 accumulation, result in the input's
-    dtype."""
+    dtype.
+
+    Tensor parallelism (Megatron's layout, where the run holds the weight
+    as a block split over the mesh axis its ``param_attr`` sharding names,
+    :func:`framework.split_axis`): a weight split on its output dim
+    (column-parallel, ``(None, "model")``) takes the whole input through
+    ``copy_to_axis`` and gives this rank's columns, the bias sliced alike;
+    a weight split on its input dim (row-parallel, ``("model", None)``)
+    takes this rank's columns of the input and sums the ranks' partial
+    products (``reduce_from_axis``), adding the bias once, after the sum. A
+    weight held whole (a dim the axis does not divide) is the plain layer."""
+    from paddle_tpu_torch.framework import ParamAttr, split_axis
+    from paddle_tpu_torch.parallel import collective
+
     with name_scope(name or "fc"):
         lead = input.shape[:num_flatten_dims]
         in_dim = 1
         for s in input.shape[num_flatten_dims:]:
             in_dim *= s
         x2 = input.reshape(-1, in_dim)
-        w = create_parameter([in_dim, size], input.dtype, name="w", attr=param_attr)
+        w_name = ParamAttr.to_attr(param_attr).name or "w"
+        col, row = split_axis(w_name, 1), split_axis(w_name, 0)
+        w = create_parameter([in_dim * (collective.axis_size(row) if row else 1), size],
+                             input.dtype, name="w", attr=param_attr)
+        enforce(w.shape[0] == in_dim, f"fc {name!r}: the input's {in_dim} features do not match "
+                f"the weight's block {tuple(w.shape)}")
+        if col:
+            x2 = collective.copy_to_axis(x2, col)
         out = f32_matmul(*mxu_operands(x2, w)).to(input.dtype)
+        if row:
+            out = collective.reduce_from_axis(out, row)
         if bias_attr is not False:
             b = create_parameter(
                 [size], input.dtype, name="b", attr=bias_attr, default_initializer=init_mod.Constant(0.0)
             )
-            out = out + b
-        out = out.reshape(tuple(lead) + (size,))
+            out = out + (collective.shard_replicated(b, col, 0) if col else b)
+        out = out.reshape(tuple(lead) + (out.shape[-1],))
         return _act(out, act)
 
 
@@ -140,12 +162,22 @@ def embedding(
     dtype="float32",
     name: Optional[str] = None,
 ) -> torch.Tensor:
-    """Embedding lookup (reference ``lookup_table_op``)."""
+    """Embedding lookup (reference ``lookup_table_op``). A table split over
+    its columns (``(None, "model")``, where the run holds the table as a
+    block split over that axis) looks up this rank's columns and gathers
+    the ranks' (whose backward keeps this rank's slice of the gradient)."""
+    from paddle_tpu_torch.framework import ParamAttr, split_axis
+    from paddle_tpu_torch.parallel import collective
+
     with name_scope(name or "embedding"):
+        col = split_axis(ParamAttr.to_attr(param_attr).name or "w", 1)
         table = create_parameter(
             list(size), dtype, name="w", attr=param_attr, default_initializer=init_mod.Xavier()
         )
-        return on.embedding_lookup(table, input, padding_idx=padding_idx)
+        out = on.embedding_lookup(table, input, padding_idx=padding_idx)
+        if col:
+            out = collective.gather_replicated(out, col, -1)
+        return out
 
 
 def conv2d(
@@ -270,11 +302,13 @@ def layer_norm(
         return out.reshape(input.shape)
 
 
-def dropout(x: torch.Tensor, dropout_prob: float, is_test: Optional[bool] = None, name=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, dropout_prob: float, is_test: Optional[bool] = None, name=None,
+            block=None) -> torch.Tensor:
     """Dropout with the reference's 'upscale_in_train' implementation; in a
-    training-mode apply the mask comes from the apply's ``rng``."""
+    training-mode apply the mask comes from the apply's ``rng``. ``block``:
+    ``x`` is a rank's block of a split tensor (``ops.nn.dropout``)."""
     training = framework.is_training() if is_test is None else (not is_test)
-    return on.dropout(x, dropout_prob, is_test=not training)
+    return on.dropout(x, dropout_prob, is_test=not training, block=block)
 
 
 def dynamic_lstm(

@@ -85,9 +85,13 @@ def multi_head_attention(
         q = _proj(queries, d_model, shard_out=True, name="q")
         k = _proj(keys, d_kv, shard_out=True, name="k")
         v = _proj(values, d_kv, shard_out=True, name="v")
-        qh = oattn.split_heads(q, num_heads)
-        kh = oattn.split_heads(k, h_kv)
-        vh = oattn.split_heads(v, h_kv)
+        # under tensor parallelism this rank's heads: H/model query heads
+        # and H_kv/model KV heads (the columns of q, k and v it holds)
+        block = _head_block(q.shape[-1], d_model, num_heads, h_kv)
+        n = block[2] if block else 1
+        qh = oattn.split_heads(q, num_heads // n)
+        kh = oattn.split_heads(k, h_kv // n)
+        vh = oattn.split_heads(v, h_kv // n)
         if cache is not None:
             kh = torch.cat([cache["k"], kh], dim=2)
             vh = torch.cat([cache["v"], vh], dim=2)
@@ -107,10 +111,46 @@ def multi_head_attention(
             ctx = oattn.scaled_dot_product_attention(
                 qh, kh, vh, mask=mask, dropout_rate=dropout_rate,
                 is_test=not framework.is_training(), causal=causal,
-                kv_len=kv_len, window=window,
+                kv_len=kv_len, window=window, dropout_block=block,
             )
         out = oattn.combine_heads(ctx)
         return _proj(out, d_model, shard_out=False, name="out")
+
+
+def _column_block(local: int, whole: int):
+    """``(-1, index, n)`` of a column-parallel output holding ``local`` of
+    ``whole`` features (this rank's block over the model axis), or None
+    when it is whole."""
+    if local == whole:
+        return None
+    from paddle_tpu_torch.parallel import collective
+
+    n = whole // local
+    return -1, collective.axis_index(TP), n
+
+
+def _head_block(local: int, d_model: int, num_heads: int, h_kv: int):
+    """The block of the heads (dim 1 of ``[B, H, T, d]``) a rank's q columns
+    hold, or None when whole. Each rank must hold whole query and KV heads."""
+    block = _column_block(local, d_model)
+    if block is None:
+        return None
+    n = block[2]
+    if num_heads % n or h_kv % n:
+        raise ValueError(f"tensor parallelism over {n} ranks needs num_heads ({num_heads}) and "
+                         f"num_kv_heads ({h_kv}) divisible by it")
+    return 1, block[1], n
+
+
+def _whole_columns(x, size: int):
+    """A column-parallel output (the logits over the vocabulary) gathered
+    whole on every rank of the model axis; the backward keeps this rank's
+    columns of the gradient, which every rank computes alike."""
+    if x.shape[-1] == size:
+        return x
+    from paddle_tpu_torch.parallel import collective
+
+    return collective.gather_replicated(x, TP, -1)
 
 
 def positionwise_ffn(x, d_inner: int, d_model: int, dropout_rate: float,
@@ -125,7 +165,8 @@ def positionwise_ffn(x, d_inner: int, d_model: int, dropout_rate: float,
             hidden = _proj(x, d_inner, shard_out=True, name="fc1")
             hidden = layers.relu(hidden)
         if dropout_rate:
-            hidden = layers.dropout(hidden, dropout_rate)
+            hidden = layers.dropout(hidden, dropout_rate,
+                                    block=_column_block(hidden.shape[-1], d_inner))
         return _proj(hidden, d_model, shard_out=False, name="fc2")
 
 
@@ -281,7 +322,7 @@ def decode(trg_ids, trg_pad, enc_out, src_pad, cfg, caches=None, pos_offset: int
         )
     with name_scope("project"):
         logits = _proj(x, cfg["trg_vocab"], shard_out=True, name="logits", bias=False)
-    return logits
+    return _whole_columns(logits, cfg["trg_vocab"])
 
 
 def transformer_forward(src_ids, src_pad, trg_ids, trg_pad, labels, label_pad, *, cfg):

@@ -18,8 +18,10 @@ run in full f32 on the card (``core/dtypes.py::ieee_f32``).
 ``remat`` recomputes each layer in the backward pass
 (:func:`~paddle_tpu_torch.framework.checkpoint`, replaying its names and
 dropout masks). ``scan_layers`` runs as the plain layer loop, whose math is
-identical. Pipeline parallelism (``pipe_mesh``) is not ported yet and
-raises ``NotImplementedError``.
+identical. Pipeline parallelism (``pipe_mesh``) runs the layers as GPipe
+stages over the mesh's ``pipe`` axis (:func:`_pipeline_lm_blocks`), and
+tensor parallelism splits every projection, the embedding and the logits
+over a ``model`` axis (``models/transformer.py``, ``layers.fc``).
 
 Sequence parallelism (``ring_mesh``/``ulysses_mesh``) runs in two modes:
 
@@ -58,6 +60,7 @@ from paddle_tpu_torch.models.transformer import (
     _position_table,
     _post_process,
     _proj,
+    _whole_columns,
     multi_head_attention,
     positionwise_ffn,
     prepare_embedding,
@@ -79,17 +82,8 @@ __all__ = [
 ]
 
 
-def _check_ported(cfg: dict) -> None:
-    """Raise for configuration knobs whose code paths are not ported yet."""
-    if cfg.get("pipe_mesh"):
-        raise NotImplementedError(
-            "transformer_lm cfg['pipe_mesh']: pipeline parallelism (parallel/pipeline.py) is "
-            "not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4b)")
-
-
 def _check_decodable(cfg: dict, where: str) -> None:
     """The cached decoders' refusals (the JAX package's): MoE FFNs."""
-    _check_ported(cfg)
     enforce(not cfg.get("moe_experts"),
             f"{where}: MoE FFNs are not supported in the cached decoders yet — decode with "
             "lm_forward teacher-forcing, or use a dense-FFN config")
@@ -197,6 +191,57 @@ def lm_block(x, cfg, name, kv_len=None):
         return _post_process(x, ffn, cfg["residual_dropout"]), aux
 
 
+def _pipeline_lm_blocks(x, cfg):
+    """Run the layer stack pipeline-parallel over cfg['pipe_mesh']'s
+    ``pipe`` axis: layers split into n_stages contiguous groups, each stage
+    runs its group (the layers' parameters stacked ``[S, L/S, ...]``, a
+    stage's slice standing in for ``layer_tpl`` through
+    :func:`framework.overlay_frame`), and microbatch activations flow stage
+    to stage through :func:`parallel.pipeline.pipeline_apply` (the GPipe
+    schedule; ``cfg['remat']`` recomputes each step in the backward).
+    Embedding and projection compute stays replicated across the stages.
+    Dense batches and deterministic layers only; both are enforced in
+    :func:`lm_forward`, as in the JAX package."""
+    from paddle_tpu_torch.parallel.mesh import MODEL_AXIS, PIPE_AXIS
+    from paddle_tpu_torch.parallel.pipeline import pipeline_apply, split_microbatches
+
+    mesh = cfg["pipe_mesh"]
+    n_stages = mesh.shape[PIPE_AXIS]
+    L = cfg["n_layers"]
+    enforce(
+        L % n_stages == 0,
+        f"pipe parallelism needs n_layers ({L}) divisible by the pipe axis ({n_stages})",
+    )
+    if mesh.shape.get(MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "transformer_lm pipe_mesh with a 'model' axis: tensor parallelism inside pipeline "
+            "stages is not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4c)")
+    lps = L // n_stages
+    # [S, L/S, ...] per suffix: stage s runs index s
+    stacked = {
+        s: v.reshape((n_stages, lps) + tuple(v.shape[1:]))
+        for s, v in framework.gather_layer_params(L, lambda i: f"layer_{i}").items()
+    }
+
+    def stage_fn(stage_params, h):
+        for j in range(lps):
+            with framework.overlay_frame({f"layer_tpl/{s}": v[j]
+                                          for s, v in stage_params.items()}):
+                # pipe stages carry activations only; MoE (whose aux loss
+                # would be dropped here) is refused in lm_forward
+                h, _ = lm_block(h, cfg, "layer_tpl", None)
+        return h
+
+    n_micro = int(cfg.get("pipe_n_micro") or 2 * n_stages)
+    mbs = split_microbatches(x, n_micro)
+    out = pipeline_apply(
+        stage_fn, stacked, mbs, mesh,
+        # remat matters only for the backward; in eval it is a pure slowdown
+        remat=bool(cfg.get("remat")) and framework.is_training(),
+    )
+    return out.reshape(x.shape)
+
+
 def lm_forward(ids, labels, seq_lens=None, *, cfg):
     """Next-token LM forward: returns ``(loss, token_count, logits)``.
 
@@ -204,8 +249,9 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     model's device). ``seq_lens`` ([B] int, optional) marks suffix padding:
     attention masks key positions >= seq_lens[b] and the loss averages only
     positions p < seq_lens[b] - 1. In training, MoE configurations add
-    ``moe_aux_weight`` times the routers' load-balance loss."""
-    _check_ported(cfg)
+    ``moe_aux_weight`` times the routers' load-balance loss. With
+    ``pipe_mesh`` the layers run as pipeline stages (init runs them as the
+    plain loop), which refuses what the JAX package's does beside it."""
     dev = framework.current_device()
     ids = torch.as_tensor(ids, device=dev)
     labels = torch.as_tensor(labels, device=dev)
@@ -231,16 +277,38 @@ def lm_forward(ids, labels, seq_lens=None, *, cfg):
     # and an eval apply keeps no activations
     remat = cfg.get("remat") and framework.is_training() and not framework.is_initializing()
     aux_total = torch.zeros((), device=dev)
-    for i in range(cfg["n_layers"]):
-        if remat:
-            x, aux = framework.checkpoint(functools.partial(
-                lm_block, cfg=cfg, name=f"layer_{i}", kv_len=seq_lens), x)
-        else:
-            x, aux = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
-        aux_total = aux_total + aux
+    # pipe_mesh subsumes scan_layers (each stage runs its layer group); init
+    # stays the plain loop, which creates the per-layer names
+    if cfg.get("pipe_mesh") is not None and not framework.is_initializing():
+        enforce(
+            cfg.get("ring_mesh") is None and cfg.get("ulysses_mesh") is None,
+            "pipe_mesh: sequence parallelism (ring_mesh/ulysses_mesh) does "
+            "not compose with the pipelined path (v1 scope)",
+        )
+        enforce(seq_lens is None,
+                "pipe_mesh: ragged seq_lens unsupported in the pipelined path (v1 scope)")
+        enforce(
+            not (cfg["attn_dropout"] or cfg["relu_dropout"] or cfg["residual_dropout"]),
+            "pipe_mesh: dropout must be 0 (the pipeline body is "
+            "deterministic; no rng stream threads through the schedule)",
+        )
+        enforce(not cfg.get("moe_experts"),
+                "pipe_mesh: MoE FFNs unsupported in the pipelined path "
+                "(the stage schedule carries activations only, so the "
+                "router aux loss would be dropped)")
+        x = _pipeline_lm_blocks(x, cfg)
+    else:
+        for i in range(cfg["n_layers"]):
+            if remat:
+                x, aux = framework.checkpoint(functools.partial(
+                    lm_block, cfg=cfg, name=f"layer_{i}", kv_len=seq_lens), x)
+            else:
+                x, aux = lm_block(x, cfg, name=f"layer_{i}", kv_len=seq_lens)
+            aux_total = aux_total + aux
     x = layers.layer_norm(x, begin_norm_axis=x.dim() - 1)
     with name_scope("project"):
-        logits = _proj(x, cfg["vocab"], shard_out=True, name="logits", bias=False)
+        logits = _whole_columns(
+            _proj(x, cfg["vocab"], shard_out=True, name="logits", bias=False), cfg["vocab"])
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     # MoE router load-balance term (0 for dense-FFN configs) — a TRAINING
@@ -756,16 +824,20 @@ def get_model(
     ``synth_batch`` puts its tensors. ``ring_mesh``: a Mesh with a ``seq``
     axis → attention runs as ring attention over it (sequence-parallel
     exact attention); ``ulysses_mesh``: the same through all-to-all head
-    resharding (``ops/ulysses.py``). ``pipe_mesh`` is not ported yet."""
+    resharding (``ops/ulysses.py``). ``pipe_mesh``: a Mesh with a ``pipe``
+    axis → the layers run as that many pipeline stages (GPipe,
+    ``parallel/pipeline.py``) over ``pipe_n_micro`` microbatches (default
+    twice the stages)."""
     dev = resolve_device(device)
     cfg = dict(BASE_CFG)
     cfg.update({k: v for k, v in overrides.items() if k in cfg})
     cfg["max_len"] = max(cfg["max_len"], seq_len)
-    for key, value in (("ring_mesh", ring_mesh), ("ulysses_mesh", ulysses_mesh),
-                       ("pipe_mesh", overrides.get("pipe_mesh"))):
+    for key, value in (("ring_mesh", ring_mesh), ("ulysses_mesh", ulysses_mesh)):
         if value is not None:
             cfg[key] = value
-    _check_ported(cfg)
+    if overrides.get("pipe_mesh") is not None:
+        cfg["pipe_mesh"] = overrides["pipe_mesh"]
+        cfg["pipe_n_micro"] = overrides.get("pipe_n_micro")
 
     model = framework.build(functools.partial(lm_forward, cfg=cfg), name="transformer_lm")
 

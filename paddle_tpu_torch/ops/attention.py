@@ -77,6 +77,7 @@ def scaled_dot_product_attention(
     kv_len: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     dropout_generator: Optional[torch.Generator] = None,
+    dropout_block=None,
 ) -> torch.Tensor:
     """Attention over [..., T, D] tensors. ``mask`` is additive, broadcastable
     to [..., Tq, Tk] (0 keep, -inf drop); ``causal=True`` masks structurally
@@ -90,7 +91,9 @@ def scaled_dot_product_attention(
     ``dropout_rate`` > 0 and not ``is_test``, dropout (``ops.nn.dropout``)
     masks the softmax weights before the P V product, drawing from
     ``dropout_generator`` (the JAX package's ``dropout_key``), by default
-    the frame's generator (``framework.next_rng``). With
+    the frame's generator (``framework.next_rng``); ``dropout_block`` says
+    which block of the heads ``q`` holds under tensor parallelism (the
+    mask's ``block``, ``ops.nn.dropout``). With
     ``flags().use_flash_attention``, the mask-free 4-D case without dropout
     routes through the flash kernel when the block tiling divides the
     sequence lengths — the JAX package's conditions, verbatim.
@@ -157,7 +160,8 @@ def scaled_dot_product_attention(
             return weights
         from paddle_tpu_torch.ops.nn import dropout
 
-        return dropout(weights, dropout_rate, is_test=False, generator=dropout_generator)
+        return dropout(weights, dropout_rate, is_test=False, generator=dropout_generator,
+                       block=dropout_block)
 
     if q.dim() == 4 and k.dim() == 4 and k.shape[1] != q.shape[1]:
         # grouped-query attention: each kv head's query group is one batch

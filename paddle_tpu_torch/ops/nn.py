@@ -387,7 +387,7 @@ def layer_norm(x, scale=None, bias=None, begin_norm_axis: int = -1, epsilon: flo
 
 
 def dropout(x, dropout_prob: float, is_test: bool = False, generator=None,
-            upscale_in_train: bool = True):
+            upscale_in_train: bool = True, block=None):
     """Reference ``dropout_op.cc``. ``upscale_in_train`` is the
     'upscale_in_train' dropout_implementation (the modern default): kept
     entries are divided by the keep rate in training, and eval leaves x
@@ -395,7 +395,10 @@ def dropout(x, dropout_prob: float, is_test: bool = False, generator=None,
     by default the frame's (``framework.next_rng``, which raises when the
     training-mode apply was given no ``rng``); it is drawn on the
     generator's device. ``Model.init`` draws nothing: its outputs are
-    discarded."""
+    discarded. ``block=(dim, index, n)``: ``x`` is block ``index`` of ``n``
+    on ``dim`` of a tensor split over ranks (tensor parallelism); the mask
+    is drawn at the whole tensor's shape and cut alike, so the ranks'
+    masks join into the one-device mask."""
     if is_test:
         return x if upscale_in_train else x * (1.0 - dropout_prob)
     if dropout_prob == 0.0:
@@ -407,7 +410,15 @@ def dropout(x, dropout_prob: float, is_test: bool = False, generator=None,
             return x
         generator = framework.next_rng()
     keep = 1.0 - dropout_prob
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    if block is None:
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+    else:
+        dim, index, n = block
+        dim %= x.dim()
+        shape = list(x.shape)
+        shape[dim] *= n
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        u = u.narrow(dim, index * x.shape[dim], x.shape[dim])
     mask = (u < keep).to(x.device)
     if upscale_in_train:
         return torch.where(mask, x / keep, 0).to(x.dtype)

@@ -133,12 +133,15 @@ class Optimizer:
         grads = self.prepare_gradients(params, grads, param_info)
         return self.update(params, grads, opt_state, param_info)
 
-    def prepare_gradients(self, params, grads, param_info=None) -> Dict[str, torch.Tensor]:
+    def prepare_gradients(self, params, grads, param_info=None,
+                          sq_norms=None) -> Dict[str, torch.Tensor]:
         """Regularization, then clipping: the part of an update that reads
-        whole gradients (a global norm)."""
+        whole gradients (a global norm). ``sq_norms``: the whole gradients'
+        squared norms where ``grads`` hold blocks (``clip.py``)."""
         grads = reg_mod.apply_regularization(params, grads, self.regularization, param_info)
         if self.grad_clip is not None:
-            grads = self.grad_clip(grads)
+            grads = (self.grad_clip(grads) if sq_norms is None
+                     else self.grad_clip(grads, sq_norms=sq_norms))
         return grads
 
     def update(

@@ -8,16 +8,17 @@ bootstrap (``operators/gen_nccl_id_op.cc:31``).
 One rank is one process on one card (``torch.distributed``: NCCL on CUDA,
 gloo on the CPU); a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` names
 axes over the ranks. Ported: the mesh, the collectives (``ppermute`` and
-``all_to_all`` point to point), the sharding spec arithmetic, replicated
-and expert-sharded placement, ``DataParallel`` (with ZeRO-1) over ``data``,
-``seq`` and ``expert`` axes, the global-batch context its step runs in, and
-the mixture-of-experts layer (``moe``: ``moe_ffn``, ``switch_gate``,
-``top2_gate``, ``MoEOutput``). Not ported yet, each raising
-``NotImplementedError`` naming ``ROADMAP.md``: tensor and pipeline
-sharding of parameters (``model``/``tp``/``pipe`` axes),
-``DataParallel.resize`` (elastic training), and the JAX package's
-``pipeline`` module (``pipeline_apply``, ``stack_stage_params``,
-``split_microbatches``).
+``all_to_all`` point to point), the sharding spec arithmetic, replicated,
+expert-sharded and model-sharded placement, ``DataParallel`` (with ZeRO-1)
+over ``data``, ``seq``, ``expert``, ``model`` and ``pipe`` axes, the
+global-batch context its step runs in, the mixture-of-experts layer
+(``moe``: ``moe_ffn``, ``switch_gate``, ``top2_gate``, ``MoEOutput``) and
+the GPipe schedule (``pipeline``: ``pipeline_apply``,
+``stack_stage_params``, ``split_microbatches``). Not ported yet, each
+raising ``NotImplementedError`` naming ``ROADMAP.md``: the ``tp`` axis in
+``DataParallel``, ``model`` or ``pipe`` beside ``seq``, ``expert`` or each
+other, ``DataParallel.resize`` (elastic training) and ZeRO-1 on an
+``expert`` axis.
 """
 
 from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)
@@ -51,6 +52,11 @@ from paddle_tpu_torch.parallel.sharding import (
 )
 from paddle_tpu_torch.parallel.data_parallel import DataParallel
 from paddle_tpu_torch.parallel.moe import MoEOutput, moe_ffn, switch_gate, top2_gate
+from paddle_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    split_microbatches,
+    stack_stage_params,
+)
 
 __all__ = [
     "make_mesh",
@@ -83,17 +89,7 @@ __all__ = [
     "switch_gate",
     "top2_gate",
     "MoEOutput",
+    "pipeline_apply",
+    "stack_stage_params",
+    "split_microbatches",
 ]
-
-_NOT_PORTED = {
-    "pipeline_apply": "pipeline", "stack_stage_params": "pipeline",
-    "split_microbatches": "pipeline",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.parallel.{name}: the JAX package's parallel/"
-            f"{_NOT_PORTED[name]}.py is not ported yet; see ROADMAP.md")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -35,12 +35,27 @@ the batch, and the step runs the model on it in the sequence-sharded
 context (positions, attention over the ring or by all-to-all, the MoE
 router's global quantities: ``parallel/context.py``). The ranks of an
 ``expert`` axis hold the same tokens and each its block of the experts
-(``parallel/moe.py``). Gradients are reduced by placement: over every axis
-the tokens are split over (``data``, and ``seq`` when the batch specs
-split it), never over ``expert``; an expert-sharded parameter is reduced
-over those axes too, within its expert block. ``model``, ``tp`` and
-``pipe`` axes still raise ``NotImplementedError`` naming ROADMAP.md, and so
-does ZeRO-1 on a mesh whose ``expert`` axis is larger than one.
+(``parallel/moe.py``).
+
+Tensor and pipeline parallelism. On a ``data × model`` mesh the ranks of a
+``model`` group hold the same rows and each its block of every parameter
+annotated over ``model`` (Megatron's column- and row-parallel projections,
+``layers.fc``, the embedding split over d_model); the layers' conjugate
+collectives (``copy_to_axis``/``reduce_from_axis``) leave every gradient
+whole on each rank of the group, a block's for its block. On a ``pipe``
+axis (alone or beside ``data``) every rank holds every parameter and runs
+its stage of the model's pipeline (``parallel/pipeline.py``), whose
+backward sums the stages' gradients over ``pipe``: every gradient leaves
+it whole on each stage.
+
+Gradients are reduced by placement: a mean over every axis the tokens are
+split over (``data``, and ``seq`` when the batch specs split it), never
+over ``expert``, ``model`` or ``pipe``, a block's within its block. A norm
+clip reads the whole gradients' norms (:meth:`DataParallel._sq_norms`).
+``tp`` axes raise ``NotImplementedError`` naming ROADMAP.md, and so do
+``pipe`` or ``model`` beside ``seq`` or ``expert``, ``pipe`` beside
+``model`` (item 4c) and ZeRO-1 on a mesh whose ``expert`` axis is larger
+than one (item 4b).
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import clip as clip_mod
 from paddle_tpu_torch.core import tree as tree_mod
 from paddle_tpu_torch.core.config import resolve_device
 from paddle_tpu_torch.core.enforce import enforce
@@ -66,8 +82,10 @@ from paddle_tpu_torch.parallel.sharding import (
     NamedSharding,
     P,
     _not_ported,
+    block_dims,
+    block_window,
     broadcast_tensors,
-    expert_sharded,
+    cut_block,
     param_shardings,
     shard_variables,
 )
@@ -136,9 +154,16 @@ class DataParallel:
             batch_axis in self.mesh.axis_names,
             f"batch axis {batch_axis!r} not in mesh axes {self.mesh.axis_names}",
         )
-        for axis, size in self.mesh.shape.items():
-            if axis not in (batch_axis, mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS) and size > 1:
-                raise _not_ported(f"DataParallel over mesh axis {axis!r} of size {size}")
+        big = {a for a, n in self.mesh.shape.items() if n > 1}
+        for axis in big:
+            if axis not in (batch_axis, mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS,
+                            mesh_mod.MODEL_AXIS, mesh_mod.PIPE_AXIS):
+                raise _not_ported(f"DataParallel over mesh axis {axis!r} of size "
+                                  f"{self.mesh.shape[axis]}")
+        split = big & {mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS, mesh_mod.MODEL_AXIS,
+                       mesh_mod.PIPE_AXIS}
+        if len(split) > 1 and split & {mesh_mod.MODEL_AXIS, mesh_mod.PIPE_AXIS}:
+            raise _not_ported(f"DataParallel over {sorted(split)} together")
         # the axis each batch dim may split over: rows over data, positions over seq
         dim_axes = (batch_axis, mesh_mod.SEQ_AXIS)
         self._seq_axis = None
@@ -216,11 +241,15 @@ class DataParallel:
     def _zero_dims(self, params: Dict[str, torch.Tensor]) -> Dict[str, int]:
         """ZeRO-1: the dim each parameter's slots are sharded on — the first
         whose size the data-axis size divides (the JAX package's rule);
-        none for an optimizer whose update reads whole parameters."""
+        none for an optimizer whose update reads whole parameters, nor for
+        a parameter split over ``model`` (its slots keep its layout, as in
+        the JAX package)."""
         if not self.zero_shard_optimizer or not self.optimizer.elementwise:
             return {}
-        n, out = self._n, {}
+        n, out, blocks = self._n, {}, self._blocks(params)
         for name, p in params.items():
+            if name in blocks:
+                continue
             for dim, size in enumerate(p.shape):
                 if size % n == 0 and size >= n:
                     out[name] = dim
@@ -462,7 +491,7 @@ class DataParallel:
         dtype of the updated rows. Elementwise rules give each row what the
         whole update gives it, so the step equals the step without ZeRO-1."""
         opt = self.optimizer
-        grads = opt.prepare_gradients(params, grads, param_info)
+        grads = opt.prepare_gradients(params, grads, param_info, sq_norms=self._sq_norms)
         dims = self._zero_dims(params)
         rows_p = {k: self._rows(p, dims[k]) if k in dims else p for k, p in params.items()}
         rows_g = {k: self._rows(g, dims[k]) if k in dims else g for k, g in grads.items()}
@@ -496,7 +525,33 @@ class DataParallel:
         return torch.Generator(device=rng.device).manual_seed(seed + self._token_index())
 
     def _apply_fn(self):
-        return self._zero_apply if self.zero_shard_optimizer else None
+        if self.zero_shard_optimizer:
+            return self._zero_apply
+        if any(self.mesh.shape.get(a, 1) > 1 for a in (mesh_mod.MODEL_AXIS, mesh_mod.EXPERT_AXIS)):
+            return self._block_apply
+        return None
+
+    def _block_apply(self, params, grads, opt_state, param_info):
+        """The update where a rank holds blocks of parameters: clipped by the
+        whole gradients' norms."""
+        grads = self.optimizer.prepare_gradients(params, grads, param_info,
+                                                 sq_norms=self._sq_norms)
+        return self.optimizer.update(params, grads, opt_state, param_info)
+
+    def _sq_norms(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each gradient's squared norm, whole: a block's (over ``expert`` or
+        ``model``) summed over the axes it is split on, one all-reduce per
+        axis (what a norm clip reads, ``clip.py``)."""
+        sq = clip_mod.squared_norms(grads)
+        by_axis: Dict[str, List[str]] = {}
+        for name, dims in self._blocks(grads).items():
+            for axis in dict.fromkeys(a for _, a in dims):
+                by_axis.setdefault(axis, []).append(name)
+        with torch.no_grad(), self.mesh:
+            for axis, names in by_axis.items():
+                total = collective.all_reduce(torch.stack([sq[k] for k in names]), axis)
+                sq.update(zip(names, total))
+        return sq
 
     def step(self, variables: Variables, opt_state: OptState, *batch, rng=None) -> StepOutput:
         """One data-parallel train step on the global ``batch`` (or on what
@@ -557,12 +612,11 @@ class DataParallel:
             "DataParallel.resize: elastic training (resilience/elastic.py) is not ported to "
             "paddle_tpu_torch yet; see ROADMAP.md")
 
-    def _expert_dims(self, params: Dict[str, torch.Tensor]) -> Dict[str, int]:
-        """The global dim-0 size of each parameter this rank holds a block of
-        experts of (``parallel/moe.py``)."""
+    def _blocks(self, params: Dict[str, torch.Tensor]) -> Dict[str, list]:
+        """``{name: [(dim, axis), ...]}`` of each parameter this rank holds a
+        block of (experts over ``expert``, a ``model`` split)."""
         shardings = param_shardings(self.mesh, self.model.param_info, params)
-        return {k: self.model.param_info[k].shape[0] for k, sh in shardings.items()
-                if expert_sharded(sh)}
+        return {k: block_dims(sh) for k, sh in shardings.items() if block_dims(sh)}
 
     def state_template(self, variables: Variables, opt_state: OptState):
         """The layout of ``(variables, opt_state)`` on this rank — a tree of
@@ -570,34 +624,33 @@ class DataParallel:
         optimizer's step stays an int) — the target handed to
         ``checkpoint_sharded.load_sharded`` and the owner map its saves
         read. Replicated leaves are owned by the mesh's first rank; a
-        ZeRO-1 slot by the first rank of each data block, for its rows; an
-        expert-sharded parameter and its slots by the first rank of each
-        expert block, for its experts."""
+        ZeRO-1 slot by the first rank of each data block, for its rows; a
+        parameter split over ``expert`` or ``model`` and its slots by the
+        first rank of each block, for its window."""
         idx = {a: self._axis_index(a) for a in self.mesh.axis_names}
 
         def first_but(*axes):
             return all(i == 0 for a, i in idx.items() if a not in axes)
 
-        shapes = {k: tuple(p.shape) for k, p in variables.params.items()}
         dims = self._zero_dims(variables.params)
-        experts = self._expert_dims(variables.params)
+        blocks = self._blocks(variables.params)
+        info = self.model.param_info
 
         def leaf(name, t):
-            if name in experts:  # its block of experts, on dim 0
-                k = shapes[name][0]
-                window = [(0, s) for s in shapes[name]]
-                window[0] = (idx[mesh_mod.EXPERT_AXIS] * k, (idx[mesh_mod.EXPERT_AXIS] + 1) * k)
-                return LeafLayout((experts[name],) + shapes[name][1:], t.dtype, self.device,
-                                  window, owner=first_but(mesh_mod.EXPERT_AXIS))
+            if name in blocks:  # its block, on each split dim
+                window = block_window(info[name].shape, blocks[name], self.mesh)
+                return LeafLayout(info[name].shape, t.dtype, self.device, window,
+                                  owner=first_but(*(a for _, a in blocks[name])))
             return LeafLayout(t.shape, t.dtype, self.device, owner=first_but())
 
         def slot(name, t):
             if name not in dims:
                 return leaf(name, t)
-            d, k = dims[name], shapes[name][dims[name]] // self._n
-            window = [(0, s) for s in shapes[name]]
+            shape = tuple(variables.params[name].shape)
+            d, k = dims[name], shape[dims[name]] // self._n
+            window = [(0, s) for s in shape]
             window[d] = (self._index() * k, (self._index() + 1) * k)
-            return LeafLayout(shapes[name], t.dtype, self.device, window,
+            return LeafLayout(shape, t.dtype, self.device, window,
                               owner=first_but(self.batch_axis))
 
         var_t = Variables(params={k: leaf(k, t) for k, t in variables.params.items()},
@@ -608,19 +661,18 @@ class DataParallel:
 
     def place_state(self, variables: Variables, opt_state: OptState):
         """Re-place a state tree on this rank: every leaf on its device, a
-        whole expert-sharded parameter (and its slots) cut to this rank's
-        experts, and under ZeRO-1 a whole slot cut to this rank's rows."""
+        whole parameter split over ``expert`` or ``model`` (and its slots)
+        cut to this rank's block, and under ZeRO-1 a whole slot cut to this
+        rank's rows."""
         variables = tree_mod.map_leaves(lambda t: t.to(self.device), variables)
-        experts = self._expert_dims(variables.params)
-        if experts:
-            n = self.mesh.shape[mesh_mod.EXPERT_AXIS]
-            e = self._axis_index(mesh_mod.EXPERT_AXIS)
+        blocks = self._blocks(variables.params)
+        if blocks:
+            info = self.model.param_info
 
             def block(name, t):
-                if name not in experts or t.shape[0] != experts[name]:
+                if name not in blocks or tuple(t.shape) != tuple(info[name].shape):
                     return t
-                k = t.shape[0] // n
-                return t.narrow(0, e * k, k).clone()
+                return cut_block(t, blocks[name], self.mesh)
 
             variables = Variables(params={k: block(k, t) for k, t in variables.params.items()},
                                   state=variables.state)
@@ -630,24 +682,24 @@ class DataParallel:
 
     def full_state(self, variables: Variables, opt_state: OptState):
         """The state with every ZeRO-1 slot gathered whole and every
-        expert-sharded parameter (and its slots) gathered over the
-        ``expert`` axis (a collective: every rank calls it) — what a
-        plain-format checkpoint holds."""
+        parameter split over ``expert`` or ``model`` (and its slots)
+        gathered over those axes (a collective: every rank calls it) — what
+        a plain-format checkpoint holds."""
         dims = self._zero_dims(variables.params)
-        experts = self._expert_dims(variables.params)
-        if not dims and not experts:
+        blocks = self._blocks(variables.params)
+        if not dims and not blocks:
             return variables, opt_state
 
         def whole(name, t):
             if name in dims and t.shape != variables.params[name].shape:
                 t = collective.all_gather(t, self.batch_axis, axis=dims[name])
-            if name in experts:
-                t = collective.all_gather(t, mesh_mod.EXPERT_AXIS, axis=0)
+            for dim, axis in blocks.get(name, ()):
+                t = collective.all_gather(t, axis, axis=dim)
             return t
 
         with torch.no_grad(), self.mesh:
             slots = {s: {k: whole(k, v) for k, v in d.items()} for s, d in opt_state.slots.items()}
-            params = {k: whole(k, t) if k in experts else t for k, t in variables.params.items()}
+            params = {k: whole(k, t) if k in blocks else t for k, t in variables.params.items()}
         return Variables(params=params, state=variables.state), OptState(step=opt_state.step,
                                                                          slots=slots)
 

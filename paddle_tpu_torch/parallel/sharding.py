@@ -7,10 +7,12 @@ arithmetic (``spec_for``, ``mesh_axis_sizes``, ``degraded_dims``,
 and state entry is replicated — a broadcast from the first rank of each
 mesh axis (``BCastParamsToDevices``) — except a parameter sharded over the
 ``expert`` axis on its first dim (the mixture-of-experts weights,
-``parallel/moe.py``), of which each rank keeps its block of experts. A
-parameter spec that would shard over any other axis (tensor or pipeline
-parallelism: ``model``, ``tp``, ``pipe``; or ``data``/``seq``) raises
-``NotImplementedError`` naming ROADMAP.md.
+``parallel/moe.py``) or over the ``model`` axis on any dim (Megatron's
+column- and row-parallel weights, ``models/transformer.py::_proj``), of
+which each rank keeps its block. A dim that the axis's size does not
+divide stays whole (the JAX package's degradation). A parameter spec that
+would shard over any other axis (``tp``, ``pipe``, ``data``, ``seq``)
+raises ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch.distributed as dist
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import ParamInfo, Variables
-from paddle_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, Mesh, local_shape
+from paddle_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, local_shape
 
 # why a sharded dim was dropped to replicated (degraded_dims reasons)
 MISSING_AXIS = "missing-axis"
@@ -58,8 +60,9 @@ class NamedSharding:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: data, sequence and expert parallelism are ported to paddle_tpu_torch; tensor "
-        "and pipeline parallelism are later work (ROADMAP.md §A item 4b)")
+        f"{what}: data, sequence, expert, tensor (over 'model') and pipeline (over 'pipe') "
+        "parallelism are ported to paddle_tpu_torch; other layouts, and 'model' or 'pipe' "
+        "beside 'seq', 'expert' or each other, are not yet (ROADMAP.md §A item 4c)")
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -157,8 +160,10 @@ def batch_sharding(mesh: Mesh, axis: str = DATA_AXIS, ndim: int = 2) -> NamedSha
     return NamedSharding(mesh, P(axis, *([None] * (ndim - 1))))
 
 
-def _sharded_axes(sharding: NamedSharding):
-    """``(dim, axis)`` of each dim the spec splits over an axis of size > 1."""
+def block_dims(sharding: NamedSharding) -> List[Tuple[int, str]]:
+    """``(dim, axis)`` of each dim the spec splits over an axis of size > 1:
+    the dims of a parameter that each rank holds a block of (over
+    ``expert`` or ``model``); empty when replicated."""
     out = []
     for dim, entry in enumerate(sharding.spec):
         for a in (entry if isinstance(entry, tuple) else (entry,)):
@@ -174,8 +179,10 @@ def param_shardings(
 ) -> Dict[str, NamedSharding]:
     """Per-parameter shardings: honor ParamAttr.sharding tuples; default
     replicated. Axes not present in the mesh degrade to None (a tp spec on a
-    dp-only mesh is replicated). A spec may split dim 0 over the ``expert``
-    axis; one left splitting a dim over any other axis of size > 1
+    dp-only mesh is replicated), and so does a dim the axis's size does not
+    divide (:func:`degrade_spec`, against the parameter's whole shape). A
+    spec may split dim 0 over the ``expert`` axis and any dim over the
+    ``model`` axis; one left splitting a dim over any other axis of size > 1
     raises."""
     out = {}
     mesh_axes = set(mesh.axis_names)
@@ -185,18 +192,32 @@ def param_shardings(
         if info is not None and info.sharding is not None:
             dims = tuple(a if (a in mesh_axes) else None for a in info.sharding)
             dims = tuple(dims[: p.dim()]) + (None,) * max(0, p.dim() - len(dims))
-            spec = P(*dims)
+            spec = degrade_spec(mesh, P(*dims), info.shape, name=name, quiet=True)
         sh = NamedSharding(mesh, spec if spec is not None else P())
-        if any(axis != EXPERT_AXIS or dim != 0 for dim, axis in _sharded_axes(sh)):
+        if any(not (axis == MODEL_AXIS or (axis == EXPERT_AXIS and dim == 0))
+               for dim, axis in block_dims(sh)):
             raise _not_ported(f"parameter {name!r} with sharding {sh.spec} on {mesh!r}")
         out[name] = sh
     return out
 
 
-def expert_sharded(sharding: NamedSharding) -> bool:
-    """Whether the spec splits the parameter's experts (dim 0) over an
-    ``expert`` axis of size > 1."""
-    return bool(_sharded_axes(sharding))
+def block_window(shape: Sequence[int], dims: Sequence[Tuple[int, str]], mesh: Mesh):
+    """This rank's window ``((start, stop), ...)`` of a parameter of whole
+    ``shape`` split on ``dims`` (:func:`block_dims`)."""
+    window = [(0, int(s)) for s in shape]
+    for dim, axis in dims:
+        k = int(shape[dim]) // mesh.shape[axis]
+        i = mesh.axis_index(axis)
+        window[dim] = (i * k, (i + 1) * k)
+    return tuple(window)
+
+
+def cut_block(t: torch.Tensor, dims: Sequence[Tuple[int, str]], mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor split on ``dims``."""
+    for dim, (a, b) in enumerate(block_window(t.shape, dims, mesh)):
+        if (a, b) != (0, t.shape[dim]):
+            t = t.narrow(dim, a, b - a)
+    return t.clone()
 
 
 def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh,
@@ -231,29 +252,31 @@ def shard_variables(
     """Place a Variables tree on the mesh (BCastParamsToDevices parity,
     reference parallel_executor.cc:249): every rank takes the first rank's
     values — a broadcast over each axis in turn — and of a parameter
-    sharded over ``expert`` keeps its block of experts (a parameter that is
-    already its block is not broadcast over ``expert``)."""
+    sharded over ``expert`` or ``model`` keeps its block (a parameter that
+    is already its block is not broadcast over the axes it is split on)."""
     shardings = param_shardings(mesh, param_info, variables.params)
     names = [("p", k) for k in variables.params] + [("s", k) for k in variables.state]
     values = {n: variables.params[n[1]] if n[0] == "p" else variables.state[n[1]] for n in names}
+    split = {k: block_dims(sh) for k, sh in shardings.items() if block_dims(sh)}
 
     def is_block(n):
-        if n[0] != "p" or not expert_sharded(shardings[n[1]]):
+        if n[0] != "p" or n[1] not in split:
             return False
         info = param_info[n[1]]
-        return tuple(values[n].shape) == local_shape(info.shape, info.sharding, mesh)
+        return tuple(values[n].shape) == local_shape(info.shape, info.sharding, mesh) \
+            != tuple(info.shape)
 
     for axis in mesh.axis_names:
         if axis != DATA_AXIS and mesh.shape[axis] == 1:
             continue
-        todo = [n for n in names if not (axis == EXPERT_AXIS and is_block(n))]
+        todo = [n for n in names
+                if not (is_block(n) and axis in {a for _, a in split[n[1]]})]
         for n, t in zip(todo, broadcast_tensors([values[n] for n in todo], mesh, axis)):
             values[n] = t
-    for name, sh in shardings.items():
+    for name, dims in split.items():
         n = ("p", name)
-        if expert_sharded(sh) and not is_block(n):
-            k = values[n].shape[0] // mesh.shape[EXPERT_AXIS]
-            values[n] = values[n].narrow(0, mesh.axis_index(EXPERT_AXIS) * k, k).clone()
+        if not is_block(n):
+            values[n] = cut_block(values[n], dims, mesh)
     return Variables(params={k: values[("p", k)] for k in variables.params},
                      state={k: values[("s", k)] for k in variables.state})
 

@@ -55,7 +55,7 @@ def test_sources_found():
                    "watch/baseline", "watch/slo", "watch/watcher", "serving/buckets",
                    "serving/batcher", "inferencer", "transpiler/inference",
                    "transpiler/memory", "benchmark", "tensor", "average", "evaluator",
-                   "debugger"):
+                   "debugger", "parallel/pipeline"):
         assert f"paddle_tpu_torch/{module}.py" in names, module
 
 

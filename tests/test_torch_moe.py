@@ -21,8 +21,8 @@ of ``tests/test_parallel_extensions.py:89-160,286-341`` and
 - ``Trainer(parallel=True)`` on ``expert=2`` with sharded checkpoints:
   auto-resume equals the uninterrupted run bit for bit, and the sharded
   checkpoints cross packages both ways;
-- the refusals that stay (``pipe_mesh``, MoE in the decoders,
-  ``model``-axis specs, ZeRO-1 on an expert mesh).
+- the refusals that stay (``pipe_mesh`` beside MoE, MoE in the decoders,
+  ``model`` or ``pipe`` beside ``expert``, ZeRO-1 on an expert mesh).
 
 Tolerances are the JAX tests' own: forward rtol 2e-4, atol 2e-5; MoE
 gradients rtol 3e-4, atol 2e-5 (``tests/test_lm_moe.py:100-105``); LM
@@ -50,7 +50,7 @@ from paddle_tpu.parallel.mesh import make_mesh as jmake_mesh
 from paddle_tpu_torch import models as tmodels
 from paddle_tpu_torch.framework import ParamAttr, Variables
 from paddle_tpu_torch.models import transformer_lm as tlm
-from paddle_tpu_torch.parallel import DataParallel, launch, make_mesh, moe, sharding
+from paddle_tpu_torch.parallel import DataParallel, P, launch, make_mesh, moe, sharding
 
 FWD = dict(rtol=2e-4, atol=2e-5)
 MOE_GRAD = dict(rtol=3e-4, atol=2e-5)
@@ -228,20 +228,25 @@ def test_moe_decoders_and_unported_meshes_refused():
         s = tmodels.get_model("transformer_lm", device="cpu", **cases.MOE_LM, **bad)
         with pytest.raises(Exception, match=match):
             s.model.init(0, *(torch.from_numpy(b) for b in batch), device="cpu")
-    # pipeline parallelism, alone or with the slice's knobs
-    with pytest.raises(NotImplementedError, match="(?s)pipeline.*ROADMAP.md"):
-        tmodels.get_model("transformer_lm", device="cpu", pipe_mesh=object(), **cases.MOE_LM)
-    # model-axis parameter specs, model/pipe mesh axes, ZeRO-1 on an expert mesh
+    # pipeline parallelism beside MoE: the JAX package's refusal, when the
+    # model runs (a one-stage pipe mesh)
+    s = tmodels.get_model("transformer_lm", device="cpu", pipe_mesh=make_mesh(pipe=1),
+                          **cases.MOE_LM)
+    tb = [torch.from_numpy(b) for b in batch]
+    with pytest.raises(Exception, match="pipe_mesh: MoE FFNs unsupported"):
+        s.model.apply(s.model.init(0, *tb, device="cpu"), *tb)
+    # model-axis parameter specs and model/pipe mesh axes are ported
+    # (test_torch_tensor_parallel.py, test_torch_pipeline.py), and not beside
+    # an expert axis; ZeRO-1 on an expert mesh stays refused
     m = make_mesh(data=1, model=2, devices=[0, 1])
     fc = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=(None, "model"))),
                   name="tp")
     v = fc.init(0, torch.zeros(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharding.param_shardings(m, fc.param_info, v.params)
-    for axes in (dict(data=1, model=2), dict(data=1, pipe=2)):
+    assert sharding.param_shardings(m, fc.param_info, v.params)["fc/w"].spec == P(None, "model")
+    for axes in (dict(data=1, model=2, expert=2), dict(data=1, pipe=2, expert=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu",
-                         mesh=make_mesh(**axes, devices=[0, 1]))
+                         mesh=make_mesh(**axes, devices=[0, 1, 2, 3]))
     with pytest.raises(NotImplementedError, match="(?s)ZeRO-1.*ROADMAP.md"):
         DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu", zero_shard_optimizer=True,
                      mesh=make_mesh(data=1, expert=2, devices=[0, 1]))
@@ -314,9 +319,11 @@ def moe_ranks(tmp_path_factory):
 
 
 # the JAX tests' mesh shapes (seq=4 x data=2, seq=2 x data=4, expert=4 x
-# data=2, seq=2 x expert=2 x data=2, seq=8) at four ranks
+# data=2, seq=2 x expert=2 x data=2, seq=8; data=4 x model=2, pipe=2 x
+# data=4) at four ranks
 FOUR_RANK_MESHES = [dict(seq=2, data=2), dict(seq=2, data=2, expert=1), dict(expert=2, data=2),
-                    dict(seq=2, expert=2, data=1), dict(seq=4)]
+                    dict(seq=2, expert=2, data=1), dict(seq=4), dict(data=2, model=2),
+                    dict(pipe=2, data=2), dict(model=4)]
 
 
 def test_mesh_axes_groups_match_jax(moe_ranks):

@@ -290,13 +290,29 @@ def test_one_rank_dp_step_equals_minimize_bit_for_bit(request, group, zero):
 
 # ---- what is not ported ---------------------------------------------------------
 def test_model_parallel_mesh_and_specs_raise():
-    """What stays refused: a model axis, a batch spec over any axis but
-    ``data`` on dim 0 and ``seq`` on dim 1 (a ``seq`` spec on a mesh
-    without that axis too), and a parameter sharded over an axis other
-    than ``expert`` (the sequence and expert slice takes the rest)."""
-    with pytest.raises(NotImplementedError, match="(?s)model.*ROADMAP.md"):
-        DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
-                     mesh=tmesh.make_mesh(data=1, model=2, devices=[0, 1]))
+    """``model`` and ``pipe`` mesh axes are taken (tensor and pipeline
+    parallelism: ``test_torch_tensor_parallel.py``,
+    ``test_torch_pipeline.py``), and a parameter spec over ``model`` on any
+    dim, and a norm clip on a ``model`` axis; what stays refused: a ``tp``
+    axis, ``model`` or ``pipe`` beside ``seq``/``expert`` or each other
+    (ROADMAP.md §A item 4c), a batch spec over any axis but ``data`` on dim 0
+    and ``seq`` on dim 1 (a ``seq`` spec on a mesh without that axis too),
+    and a parameter sharded over an axis other than ``expert`` (dim 0) and
+    ``model``."""
+    for axes in (dict(data=1, model=2), dict(data=1, pipe=2)):
+        dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
+                          mesh=tmesh.make_mesh(**axes, devices=[0, 1]))
+        assert dp.num_devices == 2 and dp._token_axes == ("data",)
+    for axes in (dict(data=1, tp=2), dict(data=1, model=2, seq=2),
+                 dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, model=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
+            DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
+                         mesh=tmesh.make_mesh(**axes, devices=list(range(
+                             int(np.prod(list(axes.values())))))))
+    clipped = DataParallel(_mlp(), pt.optimizer.SGD(
+        1e-2, grad_clip=pt.clip.GradientClipByGlobalNorm(1.0)), device="cpu",
+        mesh=tmesh.make_mesh(data=1, model=2, devices=[0, 1]))
+    assert clipped._apply_fn() == clipped._block_apply
     with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
         DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                      batch_specs=(P("data", "seq"), P()))
@@ -318,17 +334,38 @@ def test_model_parallel_mesh_and_specs_raise():
     tv = tp.init(0, torch.zeros(2, 4), device="cpu")
     assert all(a is None for s in sharding.param_shardings(m, tp.param_info, tv.params).values()
                for a in s.spec)
+    # on a model axis the column spec holds (the bias, unannotated, stays
+    # replicated), and a dim the axis does not divide degrades
+    mm = tmesh.make_mesh(data=1, model=2, devices=[0, 1])
+    specs = sharding.param_shardings(mm, tp.param_info, tv.params)
+    assert specs["fc/w"].spec == P(None, "model") and specs["fc/b"].spec == P()
+    odd = pt.build(lambda x: pt.layers.fc(x, 3, param_attr=ParamAttr(sharding=(None, "model"))),
+                   name="odd")
+    ov = odd.init(0, torch.zeros(2, 4), device="cpu")
+    assert sharding.param_shardings(mm, odd.param_info, ov.params)["fc/w"].spec == P(None, None)
 
 
 def test_resize_pipeline_and_moe_raise():
-    """``resize`` and the pipeline names still raise naming ROADMAP.md; the
-    MoE names are ported (``parallel/moe.py``)."""
+    """``resize`` still raises naming ROADMAP.md, and so does ZeRO-1 on an
+    ``expert`` axis; the pipeline names (``parallel/pipeline.py``) and the
+    MoE names (``parallel/moe.py``) are ported."""
     dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu")
     with pytest.raises(NotImplementedError, match="(?s)elastic.*ROADMAP.md"):
         dp.resize([0])
-    for name in ("pipeline_apply", "stack_stage_params", "split_microbatches"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            getattr(parallel, name)
+    with pytest.raises(NotImplementedError, match="(?s)ZeRO-1.*ROADMAP.md"):
+        DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", zero_shard_optimizer=True,
+                     mesh=tmesh.make_mesh(data=1, expert=2, devices=[0, 1]))
+    from paddle_tpu_torch.parallel import pipeline
+
+    assert (parallel.pipeline_apply, parallel.stack_stage_params,
+            parallel.split_microbatches) == (pipeline.pipeline_apply, pipeline.stack_stage_params,
+                                             pipeline.split_microbatches)
+    mbs = parallel.split_microbatches(torch.arange(12.0).reshape(6, 2), 3)
+    assert mbs.shape == (3, 2, 2)
+    with pytest.raises(EnforceError, match="not divisible into 4 microbatches"):
+        parallel.split_microbatches(torch.zeros(6, 2), 4)
+    stacked = parallel.stack_stage_params([{"w": torch.zeros(2)}, {"w": torch.ones(2)}])
+    assert stacked["w"].tolist() == [[0.0, 0.0], [1.0, 1.0]]
     from paddle_tpu_torch.parallel import moe
 
     assert (parallel.moe_ffn, parallel.switch_gate, parallel.top2_gate, parallel.MoEOutput) == (

@@ -211,16 +211,30 @@ def test_cuda_default_raises_without_cuda():
         convert.params_from_jax({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("knob", [dict(pipe_mesh=object()),
-                                  dict(pipe_mesh=object(), ring_mesh=object()),
-                                  dict(pipe_mesh=object(), ulysses_mesh=object()),
-                                  dict(pipe_mesh=object(), moe_experts=4)])
-def test_unported_knobs_raise(knob):
-    """Pipeline parallelism is not ported, alone or beside the sequence-
-    parallel and MoE knobs (which are: tests/test_torch_seq_parallel.py,
-    tests/test_torch_moe.py)."""
-    with pytest.raises(NotImplementedError, match="(?s)not ported.*ROADMAP.md"):
-        tmodels.get_model("transformer_lm", device="cpu", **SMALL, **knob)
+@pytest.mark.parametrize("knob,match", [
+    (dict(residual_dropout=0.1), "pipe_mesh: dropout must be 0"),
+    (dict(ring_mesh="mesh"), "pipe_mesh: sequence parallelism"),
+    (dict(ulysses_mesh="mesh"), "pipe_mesh: sequence parallelism"),
+    (dict(moe_experts=4), "pipe_mesh: MoE FFNs unsupported"),
+    (dict(seq_lens=True), "pipe_mesh: ragged seq_lens unsupported")],
+    ids=["knob0", "knob1", "knob2", "knob3", "knob4"])
+def test_unported_knobs_raise(knob, match):
+    """Pipeline parallelism trains (``tests/test_torch_pipeline.py``); beside
+    dropout, the sequence-parallel cores, MoE FFNs or ragged ``seq_lens`` it
+    raises the JAX package's messages when the model runs (a one-stage
+    ``pipe`` mesh here)."""
+    from paddle_tpu_torch.parallel import make_mesh
+
+    knob = {k: make_mesh(data=1, seq=1) if v == "mesh" else v for k, v in knob.items()}
+    ragged = knob.pop("seq_lens", False)
+    tspec = tmodels.get_model("transformer_lm", device="cpu", **SMALL, **knob,
+                              pipe_mesh=make_mesh(pipe=1))
+    ids, labels = tspec.synth_batch(2, np.random.RandomState(0))
+    v = tspec.model.init(0, ids, labels, device="cpu")
+    extra = (torch.full((2,), 4, dtype=torch.int32),) if ragged else ()
+    with pytest.raises(Exception, match=match):
+        tspec.model.apply(v, ids, labels, *extra, rng=torch.Generator().manual_seed(0),
+                          is_train=True)
 
 
 def test_params_round_trip_through_numpy():

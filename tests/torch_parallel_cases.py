@@ -615,3 +615,223 @@ def sp_trainer(rank, batches, params):
     logits = dp.eval_step(t.variables, *[torch.from_numpy(x) for x in batches[0]])[2]
     want = float((logits.argmax(-1).numpy() == batches[0][1]).mean())
     return dict(losses=losses, dp_losses=dp_losses, metric=metric, want=want)
+
+
+# -- tensor and pipeline parallelism ------------------------------------------
+# (test_torch_tensor_parallel.py, test_torch_pipeline.py)
+TP_LM = dict(seq_len=16, vocab=64, d_model=32, d_inner=64, num_heads=4, n_layers=2)
+TP_NMT = dict(seq_len=8, src_vocab=32, trg_vocab=32, d_model=32, d_inner=64, num_heads=4,
+              n_layers=1, max_len=16, attn_dropout=0.0, relu_dropout=0.0, residual_dropout=0.0)
+# the JAX package's tests/test_lm_pipeline.py LM
+PIPE_LM = dict(seq_len=16, vocab=128, d_model=32, d_inner=64, num_heads=4, n_layers=4,
+               max_len=32, attn_dropout=0.0, relu_dropout=0.0, residual_dropout=0.0)
+
+
+def clipped_sgd(clip, package):
+    """The optimizer factory of ``clip = (class name, clip_norm, rate)``:
+    SGD at ``rate`` clipping by that class of ``package.clip`` (either
+    package). SGD's update scales with the clipped gradients, so a wrong
+    norm shows; Adam's hardly moves when every gradient is scaled."""
+    name, norm, rate = clip
+    return lambda: package.optimizer.SGD(rate, grad_clip=getattr(package.clip, name)(norm))
+
+
+def mp_model(kind, kw, mesh=None):
+    """(model, optimizer factory) of a tensor- or pipeline-parallel case:
+    ``kind`` "lm" (``kw`` may hold ``flash`` and ``pipe_n_micro``; a mesh
+    with a ``pipe`` axis becomes its ``pipe_mesh``), "nmt" or "mlp";
+    ``kw["grad_clip"]``: a clipped SGD instead (:func:`clipped_sgd`)."""
+    from paddle_tpu_torch.core.config import set_flags
+
+    kw = dict(kw)
+    set_flags(use_flash_attention=kw.pop("flash", False))
+    clip = kw.pop("grad_clip", None)
+    if kind == "mlp":
+        return port_model("mlp")
+    if kind == "nmt":
+        spec = tmodels.get_model("transformer", device="cpu", **kw)
+    else:
+        if mesh is not None and mesh.shape.get("pipe", 1) > 1:
+            kw["pipe_mesh"] = mesh
+        spec = tmodels.get_model("transformer_lm", device="cpu", **kw)
+    return spec.model, spec.optimizer if clip is None else clipped_sgd(clip, pt)
+
+
+def mp_apply(rank, axes, cases):
+    """``Model.apply`` (training mode) on the global batch on every rank of
+    a mesh of ``axes``, per case ``(kind, kw, batch, params)``: parameters
+    split over ``model`` cut to this rank's blocks (``shard_variables``).
+    Returns the loss, the logits, this rank's gradient of every parameter
+    (its block; a pipeline's are whole on every stage) and the shapes it
+    held."""
+    from paddle_tpu_torch.parallel import shard_variables
+
+    mesh = make_mesh(**axes)
+    out = {}
+    for name, (kind, kw, batch, params) in cases.items():
+        model, _ = mp_model(kind, kw, mesh)
+        tb = [torch.from_numpy(b) for b in batch]
+        model.init(0, *tb, device="cpu")
+        v = shard_variables(mesh, Variables(tensors(params), {}), model.param_info)
+        ps = {k: t.clone().requires_grad_(True) for k, t in v.params.items()}
+        with mesh:
+            (loss, _, logits), _ = model.apply(Variables(ps, {}), *tb, is_train=True)
+            grads = torch.autograd.grad(loss, list(ps.values()))
+        out[name] = dict(loss=float(loss.detach()), logits=logits.detach().numpy(),
+                         grads={k: g.numpy() for k, g in zip(ps, grads)},
+                         shapes={k: tuple(t.shape) for k, t in v.params.items()})
+    return out
+
+
+def mp_init_blocks(rank, kind, kw, batch):
+    """``Model.init`` inside ``with mesh:`` on ``model=2``: each parameter
+    annotated over ``model`` as this rank's block; returns whether every
+    block equals that slice of the one-device init (bit for bit) and the
+    names of the parameters held as blocks."""
+    from paddle_tpu_torch.parallel import param_shardings
+    from paddle_tpu_torch.parallel.sharding import cut_block
+
+    mesh = make_mesh(data=1, model=2)
+    model, _ = mp_model(kind, kw)
+    tb = [torch.from_numpy(b) for b in batch]
+    whole = model.init(0, *tb, device="cpu").params
+    with mesh:
+        blocks = model.init(0, *tb, device="cpu").params
+    specs = param_shardings(mesh, model.param_info, whole)
+    split = sorted(k for k in whole if blocks[k].shape != whole[k].shape)
+    equal = all(torch.equal(blocks[k], cut_block(whole[k], [
+        (d, a) for d, a in enumerate(specs[k].spec) if a == "model"], mesh)) for k in whole)
+    return dict(equal=equal, split=split)
+
+
+def mp_dp_steps(rank, runs):
+    """``STEPS`` DataParallel steps per run ``(axes, kind, kw, zero, batch,
+    params)``: the losses, the whole state (``model`` blocks and ZeRO-1 rows
+    gathered), this rank's digest of its parameters, the shapes it held,
+    the gathered eval logits' shape and the slot bytes it kept."""
+    import hashlib
+
+    out = {}
+    for name, (axes, kind, kw, zero, batch, params) in runs.items():
+        mesh = make_mesh(**axes)
+        model, opt = mp_model(kind, kw, mesh)
+        dp = DataParallel(model, opt(), mesh=mesh, device="cpu", zero_shard_optimizer=zero)
+        tb = [torch.from_numpy(b) for b in batch]
+        v, o = dp.init(0, *tb, variables=Variables(tensors(params), {}))
+        local_shapes = {k: tuple(t.shape) for k, t in v.params.items()}
+        losses = []
+        for _ in range(STEPS):
+            res = dp.step(v, o, *tb)
+            v, o = res.variables, res.opt_state
+            losses.append(float(res.loss))
+        h = hashlib.sha256()
+        for t in pt.core.tree.leaves(v.params):
+            h.update(t.detach().numpy().tobytes())
+        fv, fo = dp.full_state(v, o)
+        pv, po = dp.place_state(fv, fo)  # whole -> this rank's blocks again
+        placed = all(torch.equal(a, b) for a, b in zip(
+            pt.core.tree.leaves((v, o.slots)), pt.core.tree.leaves((pv, po.slots))))
+        ev = dp.eval_step(v, *tb)
+        out[name] = dict(losses=losses, state=numpy_state(fv, fo), digest=h.hexdigest(),
+                         placed_round_trip=placed,
+                         local_shapes=local_shapes,
+                         eval_shapes=[tuple(getattr(t, "shape", ())) for t in
+                                      pt.core.tree.leaves(ev)],
+                         slot_bytes=sum(t.numel() * t.element_size()
+                                        for d in o.slots.values() for t in d.values()))
+    return out
+
+
+def mp_dropout(rank, runs):
+    """One step with dropout on a ``model`` axis per run ``(axes, kind,
+    kw, batch, params)``, held against the port's own one-device step drawn
+    from the same generator (each mask drawn at the whole shape and cut to
+    the rank's block): the losses and the largest parameter difference."""
+    out = {}
+    for name, (axes, kind, kw, batch, params) in runs.items():
+        mesh = make_mesh(**axes)
+        model, opt = mp_model(kind, kw, mesh)
+        dp = DataParallel(model, opt(), mesh=mesh, device="cpu")
+        tb = [torch.from_numpy(b) for b in batch]
+        v, o = dp.init(0, *tb, variables=Variables(tensors(params), {}))
+        res = dp.step(v, o, *tb, rng=torch.Generator().manual_seed(7))
+        fv, _ = dp.full_state(res.variables, res.opt_state)
+        # DataParallel's stream for token block 0: a seed drawn from rng
+        seed = int(torch.randint(2 ** 62, (), generator=torch.Generator().manual_seed(7)))
+        ref_opt = opt()
+        v0 = Variables(tensors(params), {})
+        ref = ref_opt.minimize(model)(v0, ref_opt.create_state(v0.params), *tb,
+                                      rng=torch.Generator().manual_seed(seed))
+        nodrop = ref_opt.minimize(model)(v0, ref_opt.create_state(v0.params), *tb,
+                                         rng=torch.Generator().manual_seed(seed + 1))
+        out[name] = dict(loss=float(res.loss), ref_loss=float(ref.loss),
+                         other_mask_loss=float(nodrop.loss),
+                         max_diff=max(float((fv.params[k] - ref.variables.params[k]).abs().max())
+                                      for k in fv.params))
+    return out
+
+
+def mp_trainer(rank, roots, batches, params, jax_root, axes):
+    """``Trainer(parallel=True)`` of the LM on a mesh of ``axes`` with
+    sharded checkpoints every 2 steps: two uninterrupted epochs in
+    ``roots[0]``; one epoch in ``roots[1]``, then a fresh Trainer there
+    resumes for the second; and the JAX package's ``data=2 x model=2``
+    checkpoint in ``jax_root`` loaded at this rank's layout."""
+    from paddle_tpu_torch.trainer import CheckpointConfig, EndStepEvent, Trainer
+
+    mesh = make_mesh(**axes)
+    model, opt = mp_model("lm", TP_LM)
+
+    def run(root, epochs):
+        losses = []
+        t = Trainer(lambda: model, opt, parallel=True, place="cpu",
+                    parallel_kwargs=dict(mesh=mesh),
+                    checkpoint_config=CheckpointConfig(root, step_interval=2, sharded=True))
+        t.train(num_epochs=epochs, reader=lambda: iter(batches),
+                event_handler=lambda ev: losses.append(ev.metrics)
+                if isinstance(ev, EndStepEvent) else None)
+        return t, losses
+
+    whole, whole_losses = run(roots[0], 2)
+    run(roots[1], 1)
+    resumed, resumed_losses = run(roots[1], 2)
+    fv, fo = whole._dp.full_state(whole.variables, whole.opt_state)
+    out = dict(whole_losses=whole_losses, resumed_losses=resumed_losses,
+               step=resumed.global_step, state=numpy_state(fv, fo),
+               local_shapes={k: tuple(t.shape) for k, t in whole.variables.params.items()},
+               resumed_equal=all(torch.equal(a, b) for a, b in zip(
+                   pt.core.tree.leaves((whole.variables, whole.opt_state.slots)),
+                   pt.core.tree.leaves((resumed.variables, resumed.opt_state.slots)))))
+    dp = whole._dp
+    v, o = dp.init(0, *[torch.from_numpy(b) for b in batches[0]],
+                   variables=Variables(tensors(params), {}))
+    (jv, jo), manifest = cks.load_sharded(jax_root, dp.state_template(v, o))
+    out["jax_loaded"] = (numpy_state(*dp.full_state(jv, jo)), int(jo.step), manifest["step"])
+    out["jax_loaded_shapes"] = {k: tuple(t.shape) for k, t in jv.params.items()}
+    return out
+
+
+def mp_pipeline(rank, axes, cases):
+    """``pipeline_apply`` on a mesh of ``axes`` per case ``(stage kind,
+    stage params, x, n_micro, remat, w)``: the outputs, and this rank's
+    gradients of ``sum(w * out)`` in the stacked parameters and the input
+    (whole on every stage)."""
+    from paddle_tpu_torch.parallel import pipeline_apply, split_microbatches, stack_stage_params
+
+    mesh = make_mesh(**axes)
+    out = {}
+    for name, (kind, stage_params, x, n_micro, remat, w) in cases.items():
+        def stage_fn(p, h):
+            y = h @ p["w"] + p["b"] if "b" in p else h @ p["w"]
+            return torch.tanh(y)
+
+        stacked = stack_stage_params([tensors(p) for p in stage_params])
+        stacked = {k: t.requires_grad_(True) for k, t in stacked.items()}
+        xt = torch.from_numpy(x).requires_grad_(True)
+        mbs = split_microbatches(xt, n_micro)
+        y = pipeline_apply(stage_fn, stacked, mbs, mesh, remat=remat)
+        grads = torch.autograd.grad((torch.from_numpy(w) * y).sum(), [xt] + list(stacked.values()))
+        out[name] = dict(out=y.detach().numpy(), dx=grads[0].numpy(),
+                         grads={k: g.numpy() for k, g in zip(stacked, grads[1:])},
+                         routes=collective.routes_taken())
+    return out

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Phase sp of ``chip_smoke.py`` over NCCL, one rank per card (up to 4):
-ring and Ulysses attention on ``seq=n`` and the MoE LM on ``expert=n``
-at ``BASE_CFG``, each held against the one-rank step as phase sp holds its
-two gloo ranks, with ``ppermute`` and ``all_to_all`` on NCCL's
-point-to-point and all-to-all (the route the phase's one card cannot
+"""Phases sp and mp of ``chip_smoke.py`` over NCCL, one rank per card (up
+to 4): ring and Ulysses attention on ``seq=n`` and the MoE LM on
+``expert=n`` at ``BASE_CFG`` (phase sp), and the LM and the NMT
+Transformer on ``model=n`` and the LM's GPipe pipeline on ``pipe=2`` (beside
+``data=n/2``) (phase mp), each held against the one-rank step as the phases
+hold their two gloo ranks, with ``ppermute`` and ``all_to_all`` on NCCL's
+point-to-point and all-to-all (the route the phases' one card cannot
 take); the ring's rank r launches r + 1 of each kernel a layer.
 
     python3 tools/torch_sp_nccl.py
 
-Prints the card's name and power limit, the phase's JSON lines, and last a
+Prints the card's name and power limit, the phases' JSON lines, and last a
 line with the failed checks (empty when all held). Exits 1 without two
 cards or when a check fails.
 """
@@ -38,8 +40,10 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     kbuild.build_all()
-    _, checks = chip_smoke.sp_phase(smi.splitlines()[0], ranks=n, device="cuda", backend=None)
-    failed = [k for k, good in checks.items() if not good]
+    failed = []
+    for name, run in (("sp", chip_smoke.sp_phase), ("mp", chip_smoke.mp_phase)):
+        _, checks = run(smi.splitlines()[0], ranks=n, device="cuda", backend=None)
+        failed += [f"{name} {k}" for k, good in checks.items() if not good]
     print(json.dumps({"failed": failed}), flush=True)
     return 1 if failed else 0
 
