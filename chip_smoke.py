@@ -241,8 +241,28 @@ Phases, each printing JSON lines:
                step ms, peak memory, the pipeline's exchange route.
                tools/torch_sp_nccl.py runs them over NCCL, one rank per
                card.
- 16. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8 and 10-15), its error and times at the
+ 16. catalog — the Fluid catalog (CATALOG_*, BOOK_*, SRL_*): (a) every
+               function of ops.math, the catalog's ops.nn functions,
+               ops.losses, ops.control_flow, ops.nn3d and ops.vision at
+               small shapes, on the card against the port on the CPU on the
+               same inputs (forward, gradients of the differentiable ones,
+               integer outputs equal, the random ops by shape and dtype),
+               each op's card ms and kernel launches a call; (b) the book's
+               chapters (fit_a_line, word2vec, recommender_system,
+               label_semantic_roles, understand_sentiment,
+               recognize_digits, image_classification) on synthetic rows of
+               tests/test_book.py's shapes, 4 Adam steps on one batch from
+               the same weights, card against CPU, the loss falls; (c) the
+               SRL tagger at the reference book's widths (SRL_CFG): the loss
+               falls over 8 steps, step ms, words/s, launches a step and the
+               CRF's forward and backward apart, peak memory, Viterbi tags
+               card against CPU equal or a near tie; (d)
+               nets.scaled_dot_product_attention at [8, 1024, 512], 8
+               heads, bf16, flash on: one launch of each flash kernel for a
+               forward and backward, output and gradients against the
+               composed route within TRAIN_GRAD_TOL.
+ 17. kernels — one line: each kernel with its launches on every path
+               (phases 4-6, 8, 10-16), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
                (not measured).
@@ -581,19 +601,210 @@ MP_PARTS = {
 MP_HELD, MP_TIMED = 1, 2
 
 
+# The Fluid catalog (phase catalog). (a) every op of the sweep, card against
+# the port on the CPU on the same inputs: forward within CATALOG_FWD_TOL
+# relative L2 (the recursions, CATALOG_REC_TOL: log-space sums over time
+# steps in another order), gradients within CATALOG_GRAD_TOL, integer
+# outputs equal. (b) the book's chapters (tests/test_book.py's nets on
+# synthetic rows of the same shapes): BOOK_STEPS Adam steps on one batch,
+# card against CPU within BOOK_LOSS_TOL relative, the loss falls.
+CATALOG_FWD_TOL, CATALOG_REC_TOL, CATALOG_GRAD_TOL = 1e-5, 1e-4, 1e-4
+BOOK_STEPS, BOOK_LOSS_TOL = 4, 1e-4
+# (c) the label_semantic_roles tagger at the reference book's published
+# widths: word_dim 32, mark_dim 5, hidden_dim 512 (each fc's width and each
+# LSTM's 4H, fluid's dynamic_lstm size: H = 128), depth 8 LSTMs of
+# alternating direction, a CRF over the 59 labels, the conll05
+# vocabularies (paddle_tpu/dataset/conll05.py:13-15), batch 10 with
+# lengths drawn in [5, 60]. Card against CPU Viterbi tags: equal, or the
+# two paths' scores within SRL_TIE_TOL relative (a near tie).
+SRL_CFG = dict(word_dim=32, mark_dim=5, hidden=512, depth=8, labels=59, words=44068,
+               preds=3162, batch=10, min_len=5, max_len=60)
+SRL_STEPS, SRL_LR, SRL_TIE_TOL = 8, 1e-3, 1e-4
+# (d) nets.scaled_dot_product_attention, bf16 and flash on, against the
+# composed route: [batch, T, width], heads
+CATALOG_ATTN = (8, 1024, 512, 8)
+
+# the book chapters' vocabularies (paddle_tpu/dataset: imikolov, imdb,
+# movielens, conll05) and the SRL chapter's clipped word vocabulary
+BOOK_VOCAB = dict(imikolov=2074, imdb=5149, users=6041, jobs=21, movies=3953, ages=7,
+                  srl_words=2000, srl_labels=59)
+
+
+def book_chapters(pt):
+    """The book's chapters (tests/test_book.py) over the package ``pt`` —
+    the port, or any package with its layer catalog: name → (net, Adam
+    learning rate)."""
+    L, V = pt.layers, BOOK_VOCAB
+
+    def fit_a_line(x, y):
+        return L.mean(pt.ops.nn.square_error_cost(L.fc(x, size=1), y))
+
+    def word2vec(ngram, label):
+        shared = pt.framework.ParamAttr(name="shared_emb")
+        embs = [L.embedding(ngram[:, i], size=[V["imikolov"], 32], param_attr=shared)
+                for i in range(4)]
+        hidden = L.fc(L.concat(embs, axis=-1), size=64, act="sigmoid")
+        logits = L.fc(hidden, size=V["imikolov"])
+        return L.mean(L.softmax_with_cross_entropy(logits, L.unsqueeze(label, [1])))
+
+    def recommender_system(user, gender, age, job, movie, score):
+        with pt.name_scope("user_tower"):
+            u = L.concat([L.embedding(user, size=[V["users"], 16]),
+                          L.embedding(gender, size=[2, 4]),
+                          L.embedding(age, size=[V["ages"], 4]),
+                          L.embedding(job, size=[V["jobs"], 8])], axis=-1)
+            u = L.fc(u, size=32, act="tanh")
+        with pt.name_scope("movie_tower"):
+            m = L.fc(L.embedding(movie, size=[V["movies"], 16]), size=32, act="tanh")
+        pred = L.scale(L.cos_sim(u, m), 5.0)
+        return L.mean(L.square(L.elementwise_sub(L.squeeze(pred, [1]), score)))
+
+    def label_semantic_roles(words, mark, labels, lengths):
+        k = V["srl_labels"]
+        x = L.concat([L.embedding(words, size=[V["srl_words"], 32]),
+                      L.embedding(mark, size=[2, 8])], axis=-1)
+        hidden, _ = L.dynamic_lstm(L.fc(x, size=4 * 32, num_flatten_dims=2), size=32,
+                                   lengths=lengths)
+        emissions = L.fc(hidden, size=k, num_flatten_dims=2)
+        trans = pt.create_parameter([k + 2, k], "float32", name="crf_transition")
+        return L.mean(L.linear_chain_crf(emissions, labels, lengths, trans))
+
+    def understand_sentiment(tokens, lengths, label):
+        emb = L.embedding(tokens, size=[V["imdb"], 32])
+        hidden, _ = L.dynamic_lstm(L.fc(emb, size=4 * 32, num_flatten_dims=2), size=32,
+                                   lengths=lengths)
+        pooled = L.sequence_pool(hidden, lengths, "max")
+        return L.mean(L.softmax_with_cross_entropy(L.fc(pooled, size=2), L.unsqueeze(label, [1])))
+
+    def recognize_digits(img, label):
+        b = img.shape[0]
+        conv = pt.nets.simple_img_conv_pool(L.reshape(img, [b, 28, 28, 1]), num_filters=8,
+                                            filter_size=3, pool_size=2, pool_stride=2, act="relu")
+        logits = L.fc(L.reshape(conv, [b, -1]), size=10)
+        return L.mean(L.softmax_with_cross_entropy(logits, label))
+
+    def image_classification(img, label):
+        b = img.shape[0]
+        x = L.transpose(L.reshape(img, [b, 3, 32, 32]), [0, 2, 3, 1])
+        x = L.conv2d(x, num_filters=8, filter_size=3, padding=1, act="relu")
+        x = L.pool2d(x, pool_size=2, pool_stride=2)
+        x = L.conv2d(x, num_filters=16, filter_size=3, padding=1, act="relu")
+        x = L.pool2d(x, pool_size=2, pool_stride=2)
+        return L.mean(L.softmax_with_cross_entropy(L.fc(L.reshape(x, [b, -1]), size=10), label))
+
+    return {"fit_a_line": (fit_a_line, 1e-2), "word2vec": (word2vec, 1e-3),
+            "recommender_system": (recommender_system, 5e-3),
+            "label_semantic_roles": (label_semantic_roles, 2e-3),
+            "understand_sentiment": (understand_sentiment, 2e-3),
+            "recognize_digits": (recognize_digits, 1e-3),
+            "image_classification": (image_classification, 1e-3)}
+
+
+def book_batch(name: str, seed: int = 0) -> tuple:
+    """A synthetic batch of the chapter's shapes and dtypes (numpy arrays):
+    tests/test_book.py's batch sizes, ids within the vocabularies,
+    ragged lengths with zeros past them."""
+    import numpy as np
+
+    rng, V = np.random.RandomState(seed), BOOK_VOCAB
+
+    def ids(high, *shape):
+        return rng.randint(0, high, size=shape).astype(np.int32)
+
+    def ragged(batch, t, lo):
+        lengths = rng.randint(lo, t + 1, size=batch).astype(np.int32)
+        return lengths, np.arange(t)[None, :] < lengths[:, None]
+
+    if name == "fit_a_line":
+        x = rng.randn(64, 13).astype(np.float32)
+        return x, (x @ rng.randn(13, 1) * 0.3 + 0.1 * rng.randn(64, 1)).astype(np.float32)
+    if name == "word2vec":
+        return ids(V["imikolov"], 64, 4), ids(V["imikolov"], 64)
+    if name == "recommender_system":
+        return (ids(V["users"], 32), ids(2, 32), ids(V["ages"], 32), ids(V["jobs"], 32),
+                ids(V["movies"], 32), rng.uniform(1, 5, size=32).astype(np.float32))
+    if name == "label_semantic_roles":
+        lengths, live = ragged(16, 30, 5)
+        return (ids(V["srl_words"], 16, 30) * live, ids(2, 16, 30) * live,
+                ids(V["srl_labels"], 16, 30) * live, lengths)
+    if name == "understand_sentiment":
+        lengths, live = ragged(32, 100, 10)
+        return ids(V["imdb"], 32, 100) * live, lengths, ids(2, 32)
+    if name == "recognize_digits":
+        return rng.uniform(-1, 1, size=(32, 784)).astype(np.float32), ids(10, 32, 1)
+    if name == "image_classification":
+        return rng.uniform(-1, 1, size=(16, 3072)).astype(np.float32), ids(10, 16, 1)
+    raise KeyError(name)
+
+
+def srl_net(pt, cfg):
+    """The label_semantic_roles tagger of the reference book (db_lstm) over
+    the package ``pt``: six word-window embeddings from one table (``emb``,
+    one lookup of the stacked windows), the
+    predicate's and the mark's, a tanh fc of each summed (the hidden layer),
+    an LSTM, then ``depth - 1`` blocks of two summed tanh fcs and an LSTM of
+    alternating direction, two summed fcs to the label scores, and the CRF
+    (``crfw``). Returns (mean NLL, emissions). The LSTMs take the fc's
+    output as their gates (``proj_input=False``), as fluid's dynamic_lstm
+    does; their activations are the standard sigmoid/tanh, where the book
+    asks for a relu candidate and a sigmoid cell."""
+    L, h = pt.layers, cfg["hidden"]
+
+    def fc(x, size, act=None):
+        return L.fc(x, size=size, num_flatten_dims=2, act=act)
+
+    def net(word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2, predicate, mark, target, lengths):
+        windows = L.stack([word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2], axis=0)
+        embs = L.unstack(L.embedding(windows, size=[cfg["words"], cfg["word_dim"]], name="emb"))
+        embs.append(L.embedding(predicate, size=[cfg["preds"], cfg["word_dim"]]))
+        embs.append(L.embedding(mark, size=[2, cfg["mark_dim"]]))
+        hidden = L.sums([fc(e, h, "tanh") for e in embs])
+        lstm, _ = L.dynamic_lstm(hidden, h // 4, lengths, proj_input=False)
+        pair = [hidden, lstm]
+        for i in range(1, cfg["depth"]):
+            mix = L.sums([fc(pair[0], h, "tanh"), fc(pair[1], h, "tanh")])
+            lstm, _ = L.dynamic_lstm(mix, h // 4, lengths, is_reverse=i % 2 == 1, proj_input=False)
+            pair = [mix, lstm]
+        emissions = L.sums([fc(pair[0], cfg["labels"]), fc(pair[1], cfg["labels"])])
+        trans = pt.create_parameter([cfg["labels"] + 2, cfg["labels"]], "float32", name="crfw")
+        return L.mean(L.linear_chain_crf(emissions, target, lengths, trans)), emissions
+
+    return net
+
+
+def srl_batch(cfg, seed: int = 0) -> tuple:
+    """A synthetic conll05 batch: 6 word windows, the predicate, the mark,
+    the labels and the lengths (uniform in [min_len, max_len]; zeros past
+    each row's length)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    b, t = cfg["batch"], cfg["max_len"]
+    lengths = rng.randint(cfg["min_len"], t + 1, size=b).astype(np.int32)
+    live = np.arange(t)[None, :] < lengths[:, None]
+
+    def ids(high):
+        return (rng.randint(0, high, size=(b, t)) * live).astype(np.int32)
+
+    words = [ids(cfg["words"]) for _ in range(6)]
+    return (*words, ids(cfg["preds"]), ids(2), ids(cfg["labels"]), lengths)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, sleep_cycles: int = 100_000_000) -> float:
     """Device time of one call of ``fn``: CUDA events around ``iters`` calls
-    enqueued behind a sleep kernel, so the host's enqueue time is hidden."""
+    enqueued behind a sleep kernel of ``sleep_cycles``, so the host's enqueue
+    time is hidden (where the host enqueues ``iters`` calls slower than the
+    sleep lasts, the host's time shows, as a caller would see it)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -2793,9 +3004,10 @@ def telemetry_phase(smi: str):
 
 
 def _rel_l2(a, b) -> float:
-    """||a - b|| / ||b|| over float32 copies."""
+    """||a - b|| / ||b|| over float32 copies (a reference of norm below 1e-6
+    divides by 1e-6: an all-zero gradient compares by its absolute error)."""
     a, b = a.float(), b.float()
-    return float((a - b).norm() / b.norm())
+    return float((a - b).norm()) / max(float(b.norm()), 1e-6)
 
 
 def infer_phase(smi: str):
@@ -3524,6 +3736,522 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
     return paths, checks
 
 
+def catalog_sweep_cases():
+    """Phase catalog (a): every function of the port's ops.math, the ops.nn
+    functions of the catalog slice, ops.losses, ops.control_flow, ops.nn3d
+    and ops.vision at small shapes: (id, fn(ns, *tensors), numpy args, grad
+    argnums, kind). ``ns`` holds the modules, the device and a seeded
+    generator on it; kind "fwd" holds at CATALOG_FWD_TOL, "rec" (the
+    recursions) at CATALOG_REC_TOL, "random" by shape, dtype and range. An
+    id starts with the function's name."""
+    import numpy as np
+    import torch
+
+    r = np.random.RandomState(0)
+
+    def f(*shape, scale=1.0):
+        x = r.randn(*shape) * scale
+        return (x + np.sign(x) * 0.3).astype(np.float32)  # away from kinks
+
+    def ids(high, *shape):
+        return r.randint(0, high, size=shape).astype(np.int32)
+
+    X, X3, P = f(4, 6), f(2, 3, 4), (np.abs(r.randn(4, 6)) + 0.5).astype(np.float32)
+    TIES = np.array([[3.0, 1.0, 3.0, 2.0, 1.0, 3.0], [0.0, 0.0, -1.0, 0.0, 5.0, 5.0]], np.float32)
+    BA, BB = r.rand(4, 6) > 0.5, r.rand(4, 6) > 0.5
+    IMG, IMG8, VOL = f(2, 8, 8, 4), f(2, 4, 4, 8), f(2, 4, 6, 6, 3)
+    SEQ, LENS = f(3, 6, 4), np.array([6, 2, 4], np.int32)
+    PR = r.uniform(0.05, 0.95, (3, 5)).astype(np.float32)
+    L01 = (r.rand(3, 5) > 0.5).astype(np.float32)
+    LP = np.log(r.dirichlet(np.ones(6), size=(3, 9))).astype(np.float32)
+    EM, TR = f(3, 7, 5), f(7, 5)
+    BEAM_T = np.log(r.dirichlet(np.ones(5), size=(2, 4))).astype(np.float32)  # [B, T, V]
+    fwd, rec, rnd = "fwd", "rec", "random"
+
+    def beam_step(o, table):
+        t_max = table.shape[1] - 1
+
+        def step(carry, tokens):
+            t, row = carry
+            return (t + 1, row), table[row, min(int(t[0]), t_max)]
+
+        return step
+
+    def rnn_step(h, x):
+        h = torch.tanh(h * 0.9 + x)
+        return h, h * 2.0
+
+    cases = [
+        # ops.math
+        ("elementwise_add", lambda o, x, y: o.m.elementwise_add(x, y, axis=1), [X3, f(3)], (0, 1), fwd),
+        ("elementwise_sub", lambda o, x, y: o.m.elementwise_sub(x, y), [X, X * 0.5], (0, 1), fwd),
+        ("elementwise_mul", lambda o, x, y: o.m.elementwise_mul(x, y), [X, X * 0.5], (0, 1), fwd),
+        ("elementwise_div", lambda o, x, y: o.m.elementwise_div(x, y), [X, P], (0, 1), fwd),
+        ("elementwise_min", lambda o, x, y: o.m.elementwise_min(x, y), [X, X[::-1].copy()], (0,), fwd),
+        ("elementwise_max", lambda o, x, y: o.m.elementwise_max(x, y), [X, X[::-1].copy()], (0,), fwd),
+        ("elementwise_pow", lambda o, x, y: o.m.elementwise_pow(x, y), [P, X * 0.5], (0, 1), fwd),
+    ]
+    for name in ("relu", "relu6", "sigmoid", "tanh", "softplus", "softsign", "square", "exp", "abs",
+                 "gelu", "leaky_relu", "elu", "hard_sigmoid", "swish", "sign", "sin", "cos",
+                 "floor", "ceil", "round"):
+        cases.append((name, lambda o, x, n=name: getattr(o.m, n)(x), [X], (0,), fwd))
+    for name in ("sqrt", "log", "reciprocal"):
+        cases.append((name, lambda o, x, n=name: getattr(o.m, n)(x), [P], (0,), fwd))
+    cases += [
+        ("prelu_fn", lambda o, x, a: o.m.prelu_fn(x, a), [X, f(6) * 0.2], (0, 1), fwd),
+        ("pow", lambda o, x: o.m.pow(x, 3.0), [X], (0,), fwd),
+        ("scale", lambda o, x: o.m.scale(x, 2.5, 1.0, False), [X], (0,), fwd),
+        ("clip", lambda o, x: o.m.clip(x, -1.0, 1.0), [X * 0.7], (0,), fwd),
+        ("clip_by_norm", lambda o, x: o.m.clip_by_norm(x, 0.8), [X], (0,), fwd),
+        ("matmul", lambda o, x, y: o.m.matmul(x, y, transpose_y=True, alpha=0.5),
+         [f(2, 3, 4), f(2, 5, 4)], (0, 1), fwd),
+        ("mul", lambda o, x, y: o.m.mul(x, y, 1, 2), [f(2, 3, 4), f(3, 4, 5)], (0, 1), fwd),
+        ("dot", lambda o, x, y: o.m.dot(x, y), [X, X * 0.3], (0, 1), fwd),
+        ("sum", lambda o, x, y: o.m.sum([x, y]) + o.m.sum(x), [X, X * 0.5], (0, 1), fwd),
+        ("reduce_sum", lambda o, x: o.m.reduce_sum(x, [0, 2], keep_dim=True), [X3], (0,), fwd),
+        ("reduce_mean", lambda o, x: o.m.reduce_mean(x, 1), [X3], (0,), fwd),
+        ("reduce_max", lambda o, x: o.m.reduce_max(x, -1), [X3], (0,), fwd),
+        ("reduce_min", lambda o, x: o.m.reduce_min(x), [X3], (0,), fwd),
+        ("reduce_prod", lambda o, x: o.m.reduce_prod(x, [0, 2]), [X3], (0,), fwd),
+        ("cumsum", lambda o, x: o.m.cumsum(x, -1, exclusive=True, reverse=True), [X3], (0,), fwd),
+        ("argmax", lambda o, x: o.m.argmax(x), [TIES], (), fwd),
+        ("argmin", lambda o, x: o.m.argmin(x, 0), [TIES], (), fwd),
+        ("argsort", lambda o, x: o.m.argsort(x, descending=True), [TIES], (), fwd),
+        ("topk", lambda o, x: o.m.topk(x, 3), [TIES], (), fwd),
+        ("cast", lambda o, x: o.m.cast(x * 3, "int32"), [X], (), fwd),
+        ("concat", lambda o, x, y: o.m.concat([x, y], axis=1), [X3, X3 * 2], (0, 1), fwd),
+        ("split", lambda o, x: o.m.split(x, [1, 3], dim=-1), [X3], (0,), fwd),
+        ("stack", lambda o, x, y: o.m.stack([x, y], axis=1), [X, X * 3], (0, 1), fwd),
+        ("unstack", lambda o, x: o.m.unstack(x, 1), [X3], (0,), fwd),
+        ("reshape", lambda o, x: o.m.reshape(x, [4, -1]), [X3], (0,), fwd),
+        ("flatten", lambda o, x: o.m.flatten(x, 2), [X3], (0,), fwd),
+        ("squeeze", lambda o, x: o.m.squeeze(x, [1]), [X3[:, :1]], (0,), fwd),
+        ("unsqueeze", lambda o, x: o.m.unsqueeze(x, [0, 3]), [X], (0,), fwd),
+        ("transpose", lambda o, x: o.m.transpose(x, [2, 0, 1]), [X3], (0,), fwd),
+        ("expand", lambda o, x: o.m.expand(x, [2, 1, 3]), [X3], (0,), fwd),
+        ("tile", lambda o, x: o.m.tile(x, (2, 1)), [X], (0,), fwd),
+        ("slice", lambda o, x: o.m.slice(x, [1, 2], [1, -3], [3, 100]), [X3], (0,), fwd),
+        ("gather", lambda o, x, i: o.m.gather(x, i, axis=1), [X3, np.array([2, 0, 2], np.int32)],
+         (0,), fwd),
+        ("gather_nd", lambda o, x, i: o.m.gather_nd(x, i), [X3, np.array([[1, 0], [0, 2]], np.int32)],
+         (0,), fwd),
+        ("scatter", lambda o, x, i, u: o.m.scatter(x, i, u), [X, np.array([3, 0], np.int32), f(2, 6)],
+         (0, 2), fwd),
+        ("scatter_add", lambda o, x, i, u: o.m.scatter_add(x, i, u),
+         [X, np.array([3, 0, 3], np.int32), f(3, 6)], (0, 2), fwd),
+        ("pad", lambda o, x: o.m.pad(x, [0, 1, 2, 0, 1, 1], pad_value=-1.5), [X3], (0,), fwd),
+        ("crop", lambda o, x: o.m.crop(x, [1, 2, 3], [2, 2, 3]), [X3], (0,), fwd),
+        ("reverse", lambda o, x: o.m.reverse(x, [0, 2]), [X3], (0,), fwd),
+        ("shape", lambda o, x: o.m.shape(x), [X3], (), fwd),
+        ("fill_constant", lambda o: o.m.fill_constant([2, 3], "float32", 1.5, device=o.dev), [], (), fwd),
+        ("zeros", lambda o: o.m.zeros([3, 2], device=o.dev), [], (), fwd),
+        ("ones", lambda o: o.m.ones([2], device=o.dev), [], (), fwd),
+        ("zeros_like", lambda o, x: o.m.zeros_like(x), [X3], (), fwd),
+        ("ones_like", lambda o, x: o.m.ones_like(x), [X3], (), fwd),
+        ("arange", lambda o: o.m.arange(1, 4, 0.5, dtype="float32", device=o.dev), [], (), fwd),
+        ("linspace", lambda o: o.m.linspace(-1.0, 2.0, 7, device=o.dev), [], (), fwd),
+        ("uniform_random", lambda o: o.m.uniform_random([64, 8], key=o.gen(), device=o.dev), [], (),
+         rnd),
+        ("gaussian_random", lambda o: o.m.gaussian_random([64, 8], key=o.gen(), device=o.dev), [], (),
+         rnd),
+        ("uniform_random_batch_size_like",
+         lambda o, x: o.m.uniform_random_batch_size_like(x, [-1, 5], key=o.gen()), [X], (), rnd),
+        ("gaussian_random_batch_size_like",
+         lambda o, x: o.m.gaussian_random_batch_size_like(x, [-1, 5], key=o.gen()), [X], (), rnd),
+        ("truncated_gaussian_random",
+         lambda o: o.m.truncated_gaussian_random([64, 8], key=o.gen(), device=o.dev), [], (), rnd),
+        ("sampling_id", lambda o, p: o.m.sampling_id(p, key=o.gen()), [PR], (), rnd),
+        ("isfinite", lambda o, x: o.m.isfinite(x), [X], (), fwd),
+        ("mean", lambda o, x: o.m.mean(x), [X3], (0,), fwd),
+        ("increment", lambda o, x: o.m.increment(x, 2.0), [X], (0,), fwd),
+        ("where", lambda o, c, x, y: o.m.where(c, x, y), [BA, X, X * -2], (1, 2), fwd),
+        ("maximum", lambda o, x, y: o.m.maximum(x, y), [X, X[::-1].copy()], (0, 1), fwd),
+        ("minimum", lambda o, x, y: o.m.minimum(x, y), [X, X[::-1].copy()], (0, 1), fwd),
+    ]
+    for name in ("equal", "not_equal", "less_than", "less_equal", "greater_than", "greater_equal"):
+        cases.append((name, lambda o, x, y, n=name: getattr(o.m, n)(x, y),
+                      [TIES, TIES[:, ::-1].copy()], (), fwd))
+    for name in ("logical_and", "logical_or", "logical_xor"):
+        cases.append((name, lambda o, a, b, n=name: getattr(o.m, n)(a, b), [BA, BB], (), fwd))
+    cases.append(("logical_not", lambda o, a: o.m.logical_not(a), [BA], (), fwd))
+    # ops.nn: the functions of the catalog slice
+    cases += [
+        ("conv2d_transpose", lambda o, x, w: o.nn.conv2d_transpose(x, w, 2, 1, 1),
+         [IMG, f(4, 3, 4, 5)], (0, 1), fwd),
+        ("depthwise_conv2d", lambda o, x, w: o.nn.depthwise_conv2d(x, w, 1, 1), [IMG, f(3, 3, 1, 8)],
+         (0, 1), fwd),
+        ("maxout", lambda o, x: o.nn.maxout(x, 2), [IMG8], (0,), fwd),
+        ("group_norm", lambda o, x, s, b: o.nn.group_norm(x, s, b, groups=2), [IMG, f(4), f(4)],
+         (0, 1, 2), fwd),
+        ("lrn", lambda o, x: o.nn.lrn(x), [IMG8], (0,), fwd),
+        ("log_softmax", lambda o, x: o.nn.log_softmax(x), [SEQ], (0,), fwd),
+        ("sigmoid_cross_entropy_with_logits",
+         lambda o, x, y: o.nn.sigmoid_cross_entropy_with_logits(x, y), [f(3, 5) * 3, L01], (0,), fwd),
+        ("smooth_l1", lambda o, x, y: o.nn.smooth_l1(x, y), [f(3, 2, 4), f(3, 2, 4)], (0, 1), fwd),
+        ("huber_loss", lambda o, x, y: o.nn.huber_loss(x, y, 0.8), [f(3, 4), f(3, 4)], (0, 1), fwd),
+        ("kldiv_loss", lambda o, x, t: o.nn.kldiv_loss(x, t), [np.log(PR), PR[::-1].copy()], (0, 1),
+         fwd),
+        ("log_loss", lambda o, p, y: o.nn.log_loss(p, y), [PR, L01], (0,), fwd),
+        ("margin_rank_loss", lambda o, lab, a, b: o.nn.margin_rank_loss(lab, a, b, 0.2),
+         [np.float32([1, -1, 1, -1]), f(4), f(4)], (1, 2), fwd),
+        ("embedding_grad_dense", lambda o, i, g: o.nn.embedding_grad_dense((7, 4), i, g),
+         [ids(7, 2, 3), f(2, 3, 4)], (1,), fwd),
+        ("prelu", lambda o, x, a: o.nn.prelu(x, a), [IMG, f(4) * 0.2], (0, 1), fwd),
+        ("pixel_shuffle", lambda o, x: o.nn.pixel_shuffle(x, 2), [IMG8], (0,), fwd),
+        ("pad2d", lambda o, x: o.nn.pad2d(x, [2, 1, 1, 2], "reflect"), [IMG], (0,), fwd),
+        ("resize_nearest", lambda o, x: o.nn.resize_nearest(x, (11, 5)), [IMG], (0,), fwd),
+        ("resize_bilinear_up", lambda o, x: o.nn.resize_bilinear(x, (11, 13)), [IMG], (0,), fwd),
+        ("resize_bilinear_down", lambda o, x: o.nn.resize_bilinear(x, (3, 5)), [IMG], (0,), fwd),
+        ("resize_bilinear_aligned", lambda o, x: o.nn.resize_bilinear(x, (11, 3), True), [IMG], (0,),
+         fwd),
+        ("cos_sim", lambda o, x, y: o.nn.cos_sim(x, y), [SEQ, f(3, 6, 4)], (0, 1), fwd),
+        ("l2_normalize", lambda o, x: o.nn.l2_normalize(x, 1), [SEQ], (0,), fwd),
+        ("matmul_bias", lambda o, x, w, b: o.nn.matmul_bias(x, w, b), [SEQ, f(4, 5), f(5)], (0, 1, 2),
+         fwd),
+        ("multiplex", lambda o, a, b, i: o.nn.multiplex([a, b], i),
+         [f(4, 3), f(4, 3), np.array([1, 0, 1, 1], np.int32)], (0, 1), fwd),
+        ("row_conv", lambda o, x, w, l: o.nn.row_conv(x, w, l), [SEQ, f(3, 4), LENS], (0, 1), fwd),
+        ("pad_constant_like", lambda o, x, y: o.nn.pad_constant_like(x, y, 1.5),
+         [f(4, 5, 3), f(2, 5, 1)], (1,), fwd),
+        ("rank_loss", lambda o, lab, a, b: o.nn.rank_loss(lab, a, b), [np.float32([1, 0, 1, .5]),
+                                                                         f(4), f(4)], (1, 2), fwd),
+        ("dice_loss", lambda o, p, y: o.nn.dice_loss(p, y), [PR, L01], (0,), fwd),
+        ("mean_iou", lambda o, p, l: o.nn.mean_iou(p, l, 5), [ids(5, 2, 8), ids(5, 2, 8)], (), fwd),
+        ("nce_loss", lambda o, x, w, b, y, s: o.nn.nce_loss(x, w, b, y, 3, None, 12, samples=s),
+         [f(5, 4), f(12, 4), f(12), ids(12, 5), ids(12, 5, 3)], (0, 1, 2), fwd),
+        ("hsigmoid_loss", lambda o, x, w, b, y: o.nn.hsigmoid_loss(x, w, b, y, 6),
+         [f(4, 3), f(5, 3), f(5), ids(6, 4)], (0, 1, 2), fwd),
+        # ops.nn3d
+        ("conv3d", lambda o, x, w: o.n3.conv3d(x, w, (1, 2, 2), "SAME"), [VOL, f(2, 3, 2, 3, 4)],
+         (0, 1), fwd),
+        ("conv3d_transpose", lambda o, x, w: o.n3.conv3d_transpose(x, w, 2, 1, 1),
+         [VOL, f(3, 3, 3, 3, 2)], (0, 1), fwd),
+        ("pool3d_max", lambda o, x: o.n3.pool3d(x, 3, "max", 2, 1), [VOL], (0,), fwd),
+        ("pool3d_avg", lambda o, x: o.n3.pool3d(x, 3, "avg", 2, 1), [VOL], (0,), fwd),
+        # ops.vision
+        ("image_resize", lambda o, x: o.v.image_resize(x, scale=1.5), [IMG], (0,), fwd),
+        ("image_resize_short", lambda o, x: o.v.image_resize_short(x, 5), [IMG], (0,), fwd),
+        ("random_crop", lambda o, x: o.v.random_crop(x, (5, 6), o.gen()), [IMG], (), rnd),
+        ("roi_pool", lambda o, x, b, i: o.v.roi_pool(x, b, i, 2, 3, 0.5),
+         [IMG, np.float32([[0, 0, 6, 6], [2, 4, 12, 10], [4, 2, 4, 2]]), np.array([0, 1, 1], np.int32)],
+         (0,), fwd),
+        ("im2sequence", lambda o, x: o.v.im2sequence(x, (3, 2), (2, 1), (1, 0)), [IMG], (0,), fwd),
+        # ops.losses
+        ("linear_chain_crf", lambda o, e, y, l, t: o.l.linear_chain_crf(e, y, l, t),
+         [EM, ids(5, 3, 7), np.array([7, 3, 5], np.int32), TR], (0, 3), rec),
+        ("crf_decoding", lambda o, e, l, t: o.l.crf_decoding(e, l, t),
+         [EM, np.array([7, 3, 5], np.int32), TR], (), rec),
+        ("ctc_loss", lambda o, p, y, il, ll: o.l.ctc_loss(p, y, il, ll),
+         [LP, np.array([[1, 2, 2], [3, 0, 0], [4, 5, 1]], np.int32), np.array([9, 6, 8], np.int32),
+          np.array([3, 0, 3], np.int32)], (0,), rec),
+        ("ctc_greedy_decode", lambda o, p, l: o.l.ctc_greedy_decode(p, l),
+         [LP, np.array([9, 6, 0], np.int32)], (), fwd),
+        ("edit_distance", lambda o, h, hl, rf, rl: o.l.edit_distance(h, hl, rf, rl, normalized=True),
+         [ids(4, 3, 6), np.array([6, 0, 4], np.int32), ids(4, 3, 5), np.array([5, 3, 0], np.int32)],
+         (), fwd),
+        # ops.control_flow
+        ("while_loop", lambda o, x: o.cf.while_loop(lambda s: s[0] < 4,
+                                                   lambda s: (s[0] + 1, torch.tanh(s[1] * 1.3)),
+                                                   (0, x))[1], [X], (0,), rec),
+        ("cond", lambda o, p, x: o.cf.cond(p, lambda v: v * 2, lambda v: v - 1, x),
+         [np.array(True), X], (1,), fwd),
+        ("switch_case", lambda o, x: o.cf.switch_case(torch.tensor(5), [torch.sin, torch.cos], x),
+         [X], (0,), fwd),
+        ("case", lambda o, x: o.cf.case([(x.sum() > 1e3, torch.sin), (x.sum() < 1e3, torch.cos)],
+                                        torch.tanh, x), [X], (0,), fwd),
+        ("TensorArray", lambda o, a, b: o.cf.TensorArray.create(3, (6,), device=o.dev)
+         .write(0, a).append(b).stack(), [f(6), f(6)], (0, 1), fwd),
+        ("create_array", lambda o, a: o.cf.array_read(o.cf.array_write(
+            o.cf.create_array(4, (6,), device=o.dev), 2, a), 2), [f(6)], (0,), fwd),
+        ("array_write", lambda o, a: o.cf.array_write(o.cf.create_array(2, (6,), device=o.dev), 1, a)
+         .stack(), [f(6)], (0,), fwd),
+        ("array_read", lambda o, a: o.cf.array_read(o.cf.create_array(2, (6,), device=o.dev)
+                                                    .write(0, a), 0), [f(6)], (0,), fwd),
+        ("array_length", lambda o, a: o.cf.array_length(o.cf.create_array(5, (6,), device=o.dev)
+                                                        .write(3, a)), [f(6)], (), fwd),
+        ("static_rnn", lambda o, x, h: o.cf.static_rnn(rnn_step, x, h), [SEQ, f(3, 4)], (0, 1), rec),
+        ("dynamic_rnn", lambda o, x, l, h: o.cf.dynamic_rnn(rnn_step, x, l, h), [SEQ, LENS, f(3, 4)],
+         (0, 2), rec),
+        ("rank_by_length", lambda o, l: o.cf.rank_by_length(l), [np.array([2, 9, 5, 9, 2], np.int32)],
+         (), fwd),
+        ("beam_search", lambda o, tab: o.cf.beam_search(
+            beam_step(o, tab), (torch.zeros(2, dtype=torch.long, device=tab.device),
+                                torch.arange(2, device=tab.device)),
+            batch_size=2, beam_size=3, vocab_size=5, max_len=4, bos_id=0, eos_id=1), [BEAM_T], (), rec),
+        ("beam_search_decode", lambda o, tk, pt: o.cf.beam_search_decode(tk, pt),
+         [ids(9, 4, 2, 3), ids(3, 4, 2, 3)], (), fwd),
+        ("greedy_search", lambda o, tab: o.cf.greedy_search(
+            lambda t, tok: (t + 1, tab[:, min(int(t), 3)]), torch.zeros((), device=tab.device),
+            batch_size=2, max_len=4, bos_id=0, eos_id=1), [BEAM_T], (), rec),
+    ]
+    return cases
+
+
+def _catalog_namespace(dev: str):
+    import types
+
+    import torch
+
+    from paddle_tpu_torch.ops import control_flow, losses, math, nn, nn3d, vision
+
+    return types.SimpleNamespace(
+        m=math, nn=nn, n3=nn3d, v=vision, l=losses, cf=control_flow, dev=dev,
+        gen=lambda: torch.Generator(device=dev).manual_seed(0))
+
+
+def _sweep_run(fn, args, argnums, dev, cotangents=None):
+    """One case on ``dev``: its output leaves (on the CPU) and, with
+    ``cotangents``, the gradients of sum(out * c) with respect to the
+    argnums."""
+    import torch
+
+    from paddle_tpu_torch.core import tree
+
+    ts = [torch.as_tensor(a).to(dev) for a in args]
+    for i in argnums:
+        ts[i].requires_grad_(True)
+    outs = tree.leaves(fn(_catalog_namespace(dev), *ts))
+    grads = None
+    if cotangents is not None:
+        loss = sum((o.float() * c.to(dev)).sum() for o, c in zip(outs, cotangents)
+                   if o.is_floating_point())
+        grads = [g.detach().cpu() for g in torch.autograd.grad(loss, [ts[i] for i in argnums])]
+    return [o.detach().cpu() for o in outs], grads
+
+
+def launches_by_range(prof, prefix: str) -> dict:
+    """Kernel launches (the CUDA runtime's launch calls) inside each
+    ``record_function`` range whose name starts with ``prefix``, from one
+    torch.profiler run: {range name: launches}."""
+    import bisect
+
+    events = prof.events()
+    launches = sorted(e.time_range.start for e in events if "LaunchKernel" in e.name)
+    out = {}
+    for e in events:
+        if e.name.startswith(prefix):
+            lo = bisect.bisect_left(launches, e.time_range.start)
+            hi = bisect.bisect_right(launches, e.time_range.end)
+            out[e.name[len(prefix):]] = hi - lo
+    return out
+
+
+def catalog_phase(smi: str):
+    """Phase 16: the Fluid catalog on the card. Returns the flash kernels'
+    launches in (d) as a path, and the checks."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.ops import losses as olosses
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+
+    t_phase = time.perf_counter()
+    checks = {}
+    set_flags(use_flash_attention=False, use_bf16_compute=False, check_nan_inf=False)
+
+    # (a) the op sweep, card against the port on the CPU
+    cases = catalog_sweep_cases()
+    from paddle_tpu_torch.ops import control_flow, losses, math, nn, nn3d, vision
+
+    earlier_nn = {"conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
+                  "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
+                  "adaptive_pool2d", "batch_norm_train", "batch_norm_infer", "one_hot",
+                  "label_smooth"}
+    names = (set(math.__all__) | (set(nn.__all__) - earlier_nn) | set(losses.__all__)
+             | set(nn3d.__all__) | set(vision.__all__)
+             | (set(control_flow.__all__) - {"BeamState", "beam_init", "beam_step", "beam_finish"}))
+    swept = {c[0] for c in cases}
+    unswept = sorted(n for n in names if not any(s == n or s.startswith(n + "_") for s in swept))
+    checks["sweep_covers_every_function"] = not unswept
+    rows, bad = [], []
+    for name, fn, args, argnums, kind in cases:
+        cpu_out, _ = _sweep_run(fn, args, (), "cpu")
+        cts = [torch.from_numpy(np.asarray(np.random.RandomState(1).randn(*o.shape), np.float32))
+               for o in cpu_out] if argnums else None
+        if argnums:
+            cpu_out, cpu_g = _sweep_run(fn, args, argnums, "cpu", cts)
+            card_out, card_g = _sweep_run(fn, args, argnums, "cuda", cts)
+        else:
+            card_out, card_g = _sweep_run(fn, args, (), "cuda")
+        tol = CATALOG_REC_TOL if kind == "rec" else CATALOG_FWD_TOL
+        row = {"op": name, "kind": kind}
+        ok = len(card_out) == len(cpu_out) and all(
+            a.shape == b.shape and a.dtype == b.dtype for a, b in zip(card_out, cpu_out))
+        if ok and kind == "random":
+            ok = all(bool(torch.isfinite(a.float()).all()) for a in card_out)
+        elif ok:
+            errs = [_rel_l2(a, b) if a.is_floating_point() else float(not torch.equal(a, b))
+                    for a, b in zip(card_out, cpu_out)]
+            row["fwd_rel_l2"] = max(errs)
+            ok = all(e <= (tol if a.is_floating_point() else 0.0) for e, a in zip(errs, card_out))
+            if argnums:
+                row["grad_rel_l2"] = max(_rel_l2(a, b) for a, b in zip(card_g, cpu_g))
+                ok = ok and row["grad_rel_l2"] <= CATALOG_GRAD_TOL
+        row["ok"] = ok
+        if not ok:
+            bad.append(name)
+        ts = [torch.as_tensor(a).cuda() for a in args]
+        ns = _catalog_namespace("cuda")
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: fn(ns, *ts), 10, sleep_cycles=5_000_000)
+        rows.append(row)
+    # launches per call: every op once more under the profiler, one range each
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ns = _catalog_namespace("cuda")
+        for name, fn, args, _, _ in cases:
+            ts = [torch.as_tensor(a).cuda() for a in args]
+            torch.cuda.synchronize()
+            with torch.no_grad(), record_function("catalog:" + name):
+                fn(ns, *ts)
+                torch.cuda.synchronize()
+    launches = launches_by_range(prof, "catalog:")
+    for row in rows:
+        row["launches"] = launches.get(row["op"])
+    for row in rows:
+        emit({"phase": "catalog", "part": "a_sweep", **row})
+    slowest = sorted(rows, key=lambda r: -r["ms"])[:8]
+    checks["sweep_card_vs_cpu_within_tol"] = not bad
+    emit({"phase": "catalog", "part": "a_sweep_summary", "ops": len(rows), "failed": bad,
+          "unswept": unswept, "fwd_tol": CATALOG_FWD_TOL, "rec_tol": CATALOG_REC_TOL,
+          "grad_tol": CATALOG_GRAD_TOL,
+          "slowest": [{k: r.get(k) for k in ("op", "ms", "launches")} for r in slowest],
+          "launches_total": sum(r["launches"] or 0 for r in rows), "card": smi})
+
+    # (b) the book's chapters, card against CPU from the same weights
+    book = {}
+    for chapter, (net, lr) in book_chapters(pt).items():
+        batch = book_batch(chapter)
+        model = pt.build(net)
+        v0 = model.init(0, *(torch.from_numpy(np.array(a)) for a in batch), device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tb = [torch.from_numpy(np.array(a)).to(dev) for a in batch]
+            v = pt.Variables({k: t.to(dev) for k, t in v0.params.items()},
+                             {k: t.to(dev) for k, t in v0.state.items()})
+            opt = pt.optimizer.Adam(learning_rate=lr)
+            state, step = opt.create_state(v.params), opt.minimize(model)
+            losses_, times = [], []
+            for _ in range(BOOK_STEPS):
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(v, state, *tb)
+                losses_.append(float(out.loss))
+                times.append(1e3 * (time.perf_counter() - t0))
+                v, state = out.variables, out.opt_state
+            runs[dev] = (losses_, times)
+        (cpu_l, _), (card_l, card_t) = runs["cpu"], runs["cuda"]
+        rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card_l, cpu_l))
+        book[chapter] = {"card_losses": card_l, "cpu_losses": cpu_l, "max_rel_diff": rel,
+                         "step_ms": min(card_t[1:])}
+        checks[f"book_{chapter}_card_vs_cpu"] = rel <= BOOK_LOSS_TOL
+        checks[f"book_{chapter}_loss_falls"] = card_l[-1] < card_l[0]
+    emit({"phase": "catalog", "part": "b_book", "steps": BOOK_STEPS, "loss_tol": BOOK_LOSS_TOL,
+          "chapters": book})
+
+    # (c) the SRL tagger at the reference book's widths
+    cfg = SRL_CFG
+    batch = srl_batch(cfg)
+    model = pt.build(srl_net(pt, cfg))
+    tb = [torch.from_numpy(a).cuda() for a in batch]
+    v = model.init(0, *tb)
+    opt = pt.optimizer.Adam(learning_rate=SRL_LR)
+    state, step = opt.create_state(v.params), opt.minimize(model)
+    srl_losses = []
+    for _ in range(SRL_STEPS):
+        out = step(v, state, *tb)
+        v, state = out.variables, out.opt_state
+        srl_losses.append(float(out.loss))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = best_step_ms(lambda: step(v, state, *tb))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("catalog:srl_step"):
+            step(v, state, *tb)
+            torch.cuda.synchronize()
+    (_, emissions), _ = model.apply(v, *tb)
+    emissions = emissions.detach()
+    lengths, target = tb[-1], tb[-2]
+    crfw = v.params["crfw"]
+    em_leaf = emissions.clone().requires_grad_()
+    tr_leaf = crfw.detach().clone().requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_crf:
+        with record_function("catalog:crf"):
+            nll = olosses.linear_chain_crf(em_leaf, target, lengths, tr_leaf).mean()
+            torch.autograd.grad(nll, (em_leaf, tr_leaf))
+            torch.cuda.synchronize()
+    step_launches = launches_by_range(prof, "catalog:").get("srl_step")
+    crf_launches = launches_by_range(prof_crf, "catalog:").get("crf")
+    with torch.no_grad():
+        tags_card, score_card = olosses.crf_decoding(emissions, lengths, crfw)
+        tags_cpu, score_cpu = olosses.crf_decoding(emissions.cpu(), lengths.cpu(), crfw.cpu())
+    tags_card = tags_card.cpu()
+    same = bool(torch.equal(tags_card, tags_cpu))
+    tie_gap = 0.0
+    if not same:  # the card's path scored under the CPU's arithmetic against the CPU's best
+        em_c, tr_c, len_c = emissions.cpu(), crfw.cpu(), lengths.cpu()
+
+        def path_score(tags):
+            return olosses._crf_scores(em_c, tags.long(), len_c, tr_c[0], tr_c[1], tr_c[2:])
+
+        rows_diff = (tags_card != tags_cpu).any(dim=1)
+        gap = (path_score(tags_cpu) - path_score(tags_card)).abs() / path_score(tags_cpu).abs()
+        tie_gap = float(gap[rows_diff].max())
+    words = int(lengths.sum())
+    checks["srl_loss_falls"] = srl_losses[-1] < srl_losses[0]
+    checks["srl_loss_finite"] = bool(np.isfinite(srl_losses).all())
+    checks["srl_viterbi_card_vs_cpu"] = same or tie_gap <= SRL_TIE_TOL
+    emit({"phase": "catalog", "part": "c_srl", "cfg": cfg, "words_per_batch": words,
+          "params": sum(p.numel() for p in v.params.values()), "losses": srl_losses,
+          "step_ms": min(step_ms), "step_ms_runs": step_ms, "words_per_s": words / min(step_ms) * 1e3,
+          "launches_per_step": step_launches, "crf_fwd_bwd_launches": crf_launches,
+          "peak_memory_bytes": peak, "viterbi_equal": same, "viterbi_tie_gap": tie_gap,
+          "viterbi_best_score_max_abs_diff": float((score_card.cpu() - score_cpu).abs().max()),
+          "card": smi})
+    del v, state, out, emissions, em_leaf
+
+    # (d) nets.scaled_dot_product_attention through the flash kernels
+    b, t, width, heads = CATALOG_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = [torch.randn(b, t, width, generator=gen, device="cuda").to(torch.bfloat16)
+           for _ in range(3)]
+    cot = torch.randn(b, t, width, generator=gen, device="cuda")
+
+    def attend(flash: bool):
+        set_flags(use_flash_attention=flash, use_bf16_compute=True)
+        ins = [x.detach().clone().requires_grad_() for x in qkv]
+        out = pt.nets.scaled_dot_product_attention(*ins, num_heads=heads)
+        grads = torch.autograd.grad((out.float() * cot).sum(), ins)
+        torch.cuda.synchronize()
+        return out.detach().float(), [g.float() for g in grads]
+
+    attend(True)  # warm
+    zero_kernel_counts()
+    out_f, g_f = attend(True)
+    attn_launches = kernel_launch_counts()
+    out_c, g_c = attend(False)
+    flash_ms = best_step_ms(lambda: attend(True))
+    composed_ms = best_step_ms(lambda: attend(False))
+    set_flags(use_flash_attention=True, use_bf16_compute=True)
+    out_rel = _rel_l2(out_f, out_c)
+    grad_rel = {n: _rel_l2(a, r) for n, a, r in zip("qkv", g_f, g_c)}
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        checks[f"attention_{k}_launched_once"] = attn_launches.get(k) == 1
+    checks["attention_out_vs_composed"] = out_rel <= TRAIN_GRAD_TOL
+    checks["attention_grads_vs_composed"] = max(grad_rel.values()) <= TRAIN_GRAD_TOL
+    emit({"phase": "catalog", "part": "d_attention", "shape": [b, t, width], "heads": heads,
+          "dtype": "bfloat16", "launches": attn_launches, "out_rel_l2": out_rel,
+          "grad_rel_l2": grad_rel, "tol": TRAIN_GRAD_TOL, "fwd_bwd_ms_flash": min(flash_ms),
+          "fwd_bwd_ms_composed": min(composed_ms), "card": smi})
+    del qkv, cot, out_f, out_c, g_f, g_c
+
+    emit({"phase": "catalog", "seconds": time.perf_counter() - t_phase, "checks": checks})
+    return {"catalog": attn_launches}, checks
+
+
 def main() -> int:
     import torch
 
@@ -3893,10 +4621,15 @@ def main() -> int:
     mp_paths, mp_checks = mp_phase(smi)
     failures += [f"mp check {k}" for k, good in mp_checks.items() if not good]
 
-    # 16. kernels
+    # 16. the Fluid catalog: the op sweep, the book's chapters, the SRL
+    # tagger at the book's widths, nets.scaled_dot_product_attention
+    catalog_paths, catalog_checks = catalog_phase(smi)
+    failures += [f"catalog check {k}" for k, good in catalog_checks.items() if not good]
+
+    # 17. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
              **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches,
-             **infer_paths, **sp_paths, **mp_paths}
+             **infer_paths, **sp_paths, **mp_paths, **catalog_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

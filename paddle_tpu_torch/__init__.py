@@ -26,7 +26,9 @@ shape buckets, replicas behind breakers) and ``Inferencer``,
 program that calls the flash kernel through the operator
 ``paddle_tpu_torch::flash_fwd``), BN folding for eval
 (``transpiler.inference``), remat policies (``transpiler.memory``) and the
-``fluid_benchmark`` CLI (``python -m paddle_tpu_torch.benchmark``).
+``fluid_benchmark`` CLI (``python -m paddle_tpu_torch.benchmark``) — and
+the Fluid op and layer catalog (``layers``, ``nets`` and ``ops``: math, nn,
+control flow, the CRF/CTC losses, 3-D conv, vision) but detection.
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401

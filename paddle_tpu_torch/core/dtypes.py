@@ -19,6 +19,18 @@ import contextlib
 
 import torch
 
+# The port's integer width for indices and counts. The JAX package runs
+# without x64, so its argmax/argmin/argsort/topk indices, ``shape``,
+# ``arange``, ``cast(x, "int64")``, ``sampling_id``, ``rank_by_length`` and
+# ``autoincreased_step_counter`` come back as int32 there; the port returns
+# them as int64, PyTorch's native index width (what ``gather``,
+# ``index_select`` and ``scatter`` take), so that no result is cast on its
+# way into the next indexing op. The values are equal. Where the JAX package
+# names int32 itself (decoded CRF tags, CTC and greedy/beam tokens, decoded
+# lengths, ``mean_iou``'s counts, ``chunk_eval``'s counts), the port keeps
+# int32.
+INDEX_DTYPE = torch.int64
+
 # Canonical dtype name -> torch dtype (the JAX package's name set).
 _DTYPES = {
     "bool": torch.bool,
@@ -136,6 +148,38 @@ def f32_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dt = torch.promote_types(x.dtype, w.dtype)
     out = f32_matmul(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.matmul(a, b, preferred_element_type=f32)`` for any ranks
+    (vectors, matrices, broadcast batches): an f32 result with f32
+    accumulation, the operands first promoted to one dtype. On the card a
+    2-D right operand goes through :func:`f32_project`, batches through
+    :func:`f32_bmm` (flattened after broadcasting); on the CPU the operands
+    are cast to f32 and multiplied there."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if not dt.is_floating_point:
+        dt = torch.float32
+    a, b = a.to(dt), b.to(dt)
+    vec_a, vec_b = a.dim() == 1, b.dim() == 1
+    if vec_a:
+        a = a[None]
+    if vec_b:
+        b = b[:, None]
+    if b.dim() == 2:
+        out = f32_project(a, b)
+    else:
+        lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        a3 = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+        b3 = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+        out = f32_bmm(a3, b3).reshape(*lead, a.shape[-2], b.shape[-1])
+    if vec_a:
+        out = out.squeeze(-2)
+    if vec_b:
+        out = out.squeeze(-1)
+    return out
 
 
 def _bmm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -124,6 +124,11 @@ def _current_frame() -> _Frame:
     return frame
 
 
+def in_frame() -> bool:
+    """Whether a ``Model.init``/``apply`` is running on this thread."""
+    return getattr(_tls, "frame", None) is not None
+
+
 def is_training() -> bool:
     """Whether the current run is a training-mode apply (dropout switch)."""
     return _current_frame().is_train
@@ -467,7 +472,8 @@ class Model:
         """Run the program against ``variables``. Returns ``(output,
         new_state)``: the given state with the entries this run updated
         (BatchNorm's moving statistics in training mode) replaced. It runs
-        on the device that holds the parameters.
+        on the device that holds the parameters (or, for a program with
+        none, its state).
 
         ``rng``: the ``torch.Generator`` of a training-mode run's random
         draws (dropout), on the device the draws should run on; None when
@@ -480,9 +486,10 @@ class Model:
             params, state = variables
         else:
             params, state = variables, {}
-        if not params:
-            raise EnforceError("Model.apply: no parameters given (run Model.init first)")
-        device = next(iter(params.values())).device
+        held = list(params.values()) or list(state.values())
+        if not held:
+            raise EnforceError("Model.apply: no parameters or state given (run Model.init first)")
+        device = held[0].device
         frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train,
                        state=state)
         from paddle_tpu_torch.parallel import mesh as mesh_mod

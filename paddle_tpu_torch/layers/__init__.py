@@ -1,9 +1,14 @@
-"""Declarative layer API — the subset of ``paddle_tpu.layers`` the ported
-slices use: ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
-``batch_norm``, ``layer_norm``, ``dropout``, ``dynamic_lstm``, the
-activations, and the functional ops re-exported under ``layers.*``
-(``softmax_with_cross_entropy``, ``reduce_mean``, ``accuracy``,
-``one_hot``, ``label_smooth``, the sequence ops, ...).
+"""Declarative layer API — the ``fluid.layers`` equivalent, port of
+``paddle_tpu/layers/__init__.py``: the layer functions (``fc``,
+``embedding``, ``conv2d``, ``conv2d_transpose``, ``pool2d``,
+``batch_norm``, ``layer_norm``, ``dropout``, ``prelu``, ``dynamic_lstm``,
+``dynamic_gru``, ``sequence_conv``, ``data``), the extended catalog
+(:mod:`.extended`), the reader layers (:mod:`.io_layers`), and the
+functional ops re-exported under their fluid names (all of ``ops.math``,
+the ``ops.nn``/``ops.sequence``/``ops.control_flow``/``ops.losses`` names,
+the learning-rate schedules). ``__all__`` is the JAX package's less the
+detection names (``multi_box_head``, ``prior_box``, ... : ROADMAP §A item
+5).
 
 Each layer function creates/fetches its named parameters through
 :mod:`paddle_tpu_torch.framework` (the JAX package's names) and returns the
@@ -13,66 +18,51 @@ transposed on entry, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from paddle_tpu_torch import framework, initializer as init_mod
 from paddle_tpu_torch.core.dtypes import f32_matmul, mxu_operands
-from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.enforce import enforce, enforce_in
 from paddle_tpu_torch.framework import create_parameter, create_state, name_scope, update_state
 from paddle_tpu_torch.ops import math as om
 from paddle_tpu_torch.ops import nn as on
 from paddle_tpu_torch.ops import rnn as orn
-from paddle_tpu_torch.ops.math import (  # noqa: F401
-    elu,
-    gelu,
-    leaky_relu,
-    reduce_mean,
-    relu,
-    relu6,
-    sigmoid,
-    swish,
-    tanh,
-)
+from paddle_tpu_torch.ops import sequence as oseq
+
 # functional ops re-exported under layers.* for fluid.layers parity
+from paddle_tpu_torch.ops.math import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.nn import (  # noqa: F401
-    accuracy,
-    cross_entropy,
-    label_smooth,
-    one_hot,
     softmax,
+    log_softmax,
+    cross_entropy,
     softmax_with_cross_entropy,
+    sigmoid_cross_entropy_with_logits,
     square_error_cost,
+    smooth_l1,
+    huber_loss,
+    kldiv_loss,
+    log_loss,
+    accuracy,
+    one_hot,
+    label_smooth,
+    l2_normalize,
+    cos_sim,
+    lrn,
+    pad2d,
+    resize_bilinear,
+    resize_nearest,
+    pixel_shuffle,
 )
 from paddle_tpu_torch.ops.sequence import (  # noqa: F401
-    sequence_concat,
-    sequence_enumerate,
-    sequence_expand,
-    sequence_expand_as,
+    sequence_pool,
+    sequence_softmax,
+    sequence_reverse,
     sequence_first_step,
     sequence_last_step,
-    sequence_mask,
-    sequence_pad,
-    sequence_pool,
-    sequence_reshape,
-    sequence_reverse,
-    sequence_scatter,
-    sequence_slice,
-    sequence_softmax,
+    sequence_expand,
 )
-
-__all__ = [
-    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "dynamic_lstm",
-    "relu", "relu6", "sigmoid", "tanh", "gelu", "leaky_relu", "swish", "elu",
-    "reduce_mean", "accuracy", "cross_entropy", "softmax", "softmax_with_cross_entropy",
-    "square_error_cost", "one_hot", "label_smooth",
-    "sequence_pool", "sequence_softmax", "sequence_reverse", "sequence_first_step",
-    "sequence_last_step", "sequence_expand", "sequence_pad", "sequence_concat",
-    "sequence_enumerate", "sequence_expand_as", "sequence_mask", "sequence_reshape",
-    "sequence_scatter", "sequence_slice",
-]
 
 _ACTS = {
     None: lambda x: x,
@@ -215,6 +205,33 @@ def conv2d(
         return _from_nhwc(_act(out, act), data_format)
 
 
+def conv2d_transpose(
+    input: torch.Tensor,
+    num_filters: int,
+    filter_size: Union[int, Sequence[int]],
+    stride: Union[int, Sequence[int]] = 1,
+    padding: Union[int, Sequence[int]] = 0,
+    param_attr=None,
+    bias_attr=None,
+    act: Optional[str] = None,
+    data_format: str = "NHWC",
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """Transposed 2-D convolution layer: ``w`` [kh, kw, Cin, num_filters]
+    (HWIO, Xavier init) and ``b`` [num_filters]."""
+    with name_scope(name or "conv2d_transpose"):
+        x = _to_nhwc(input, data_format)
+        kh, kw = (filter_size, filter_size) if isinstance(filter_size, int) else tuple(filter_size)
+        w = create_parameter([kh, kw, x.shape[-1], num_filters], x.dtype, name="w",
+                             attr=param_attr, default_initializer=init_mod.Xavier())
+        out = on.conv2d_transpose(x, w, stride=stride, padding=padding)
+        if bias_attr is not False:
+            b = create_parameter([num_filters], x.dtype, name="b", attr=bias_attr,
+                                 default_initializer=init_mod.Constant(0.0))
+            out = out + b
+        return _from_nhwc(_act(out, act), data_format)
+
+
 def pool2d(
     input: torch.Tensor,
     pool_size: Union[int, Sequence[int]] = 2,
@@ -345,3 +362,194 @@ def dynamic_lstm(
         )
         return orn.dynamic_lstm(input, w_ih, w_hh, b, lengths=lengths, reverse=is_reverse)
 
+
+
+def prelu(x: torch.Tensor, mode: str = "all", param_attr=None, name=None) -> torch.Tensor:
+    """PReLU with a learned slope ``alpha`` (init 0.25): one for ``all``,
+    one per channel (last axis) for ``channel``, one per element of a row
+    for ``element``."""
+    with name_scope(name or "prelu"):
+        enforce_in(mode, ["all", "channel", "element"], "prelu mode")
+        if mode == "all":
+            shape = [1]
+        elif mode == "channel":
+            shape = [x.shape[-1]]
+        else:
+            shape = list(x.shape[1:])
+        alpha = create_parameter(shape, x.dtype, name="alpha", attr=param_attr,
+                                 default_initializer=init_mod.Constant(0.25))
+        return on.prelu(x, alpha)
+
+
+def dynamic_gru(
+    input: torch.Tensor,
+    size: int,
+    lengths: Optional[torch.Tensor] = None,
+    param_attr=None,
+    bias_attr=None,
+    is_reverse: bool = False,
+    proj_input: bool = True,
+    name: Optional[str] = None,
+):
+    """GRU over padded [B, T, D] (reference ``dynamic_gru`` layer; ``size``
+    is the hidden size H, weights ``w_ih`` [D, 3H] / ``w_hh`` [H, 3H], bias
+    ``b`` [3H]). Returns (hidden [B, T, H], h_final). ``proj_input=False``:
+    the input is already projected to [B, T, 3H] and no ``w_ih`` is made."""
+    with name_scope(name or "gru"):
+        d = input.shape[-1]
+        if proj_input:
+            w_ih = create_parameter([d, 3 * size], input.dtype, name="w_ih", attr=param_attr)
+        else:
+            enforce(d == 3 * size, f"proj_input=False expects input dim {3*size}, got {d}")
+            w_ih = None
+        w_hh = create_parameter([size, 3 * size], input.dtype, name="w_hh", attr=param_attr)
+        b = (
+            create_parameter([3 * size], input.dtype, name="b", attr=bias_attr,
+                             default_initializer=init_mod.Constant(0.0))
+            if bias_attr is not False
+            else None
+        )
+        return orn.dynamic_gru(input, w_ih, w_hh, b, lengths=lengths, reverse=is_reverse)
+
+
+def sequence_conv(
+    input: torch.Tensor,
+    lengths: torch.Tensor,
+    num_filters: int,
+    filter_size: int = 3,
+    param_attr=None,
+    bias_attr=None,
+    act: Optional[str] = None,
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """Context-window convolution over padded [B, T, D] + lengths
+    (reference ``sequence_conv_op``): ``w`` [filter_size * D, num_filters]
+    and ``b``."""
+    with name_scope(name or "sequence_conv"):
+        d = input.shape[-1]
+        w = create_parameter([filter_size * d, num_filters], input.dtype, name="w", attr=param_attr)
+        out = oseq.sequence_conv(input, lengths, w, filter_size)
+        if bias_attr is not False:
+            b = create_parameter([num_filters], input.dtype, name="b", attr=bias_attr,
+                                 default_initializer=init_mod.Constant(0.0))
+            out = out + b
+        return _act(out, act)
+
+
+class DataSpec(NamedTuple):
+    """What :func:`data` declares: an input's shape and torch dtype."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def data(name: str, shape: Sequence[int], dtype="float32", lod_level: int = 0) -> DataSpec:
+    """Compatibility declaration: inputs are the program function's
+    arguments, so this makes no tensor; it returns the shape and torch dtype
+    (the JAX package returns a ``jax.ShapeDtypeStruct``), usable for
+    documentation and feeding order."""
+    from paddle_tpu_torch.core.dtypes import convert
+
+    return DataSpec(tuple(shape), convert(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Extended catalog: the tail of the fluid layers surface (reference
+# layers/nn.py:30 export list + tensor.py/control_flow.py/metric_op.py/io.py)
+# ---------------------------------------------------------------------------
+
+# param-creating wrappers, tensor helpers, control-flow adapters, metric ops
+from paddle_tpu_torch.layers.extended import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.layers.extended import __all__ as _ext_all  # noqa: E402
+
+# reader-pipeline layer API (py_reader / double_buffer / open_files / ...)
+from paddle_tpu_torch.layers.io_layers import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.layers.io_layers import __all__ as _io_all  # noqa: E402
+
+# functional op re-exports under their fluid names
+from paddle_tpu_torch.ops.nn import (  # noqa: F401,E402
+    maxout,
+    multiplex,
+    pad_constant_like,
+    rank_loss,
+    dice_loss,
+    mean_iou,
+)
+from paddle_tpu_torch.ops.sequence import (  # noqa: F401,E402
+    sequence_pad,
+    sequence_concat,
+    sequence_enumerate,
+    sequence_expand_as,
+    sequence_mask,
+    sequence_reshape,
+    sequence_scatter,
+    sequence_slice,
+    lod_reset,
+    reorder_by_rank as reorder_lod_tensor_by_rank,
+)
+from paddle_tpu_torch.ops.control_flow import (  # noqa: F401,E402
+    while_loop,
+    cond,
+    switch_case,
+    case,
+    TensorArray,
+    create_array,
+    array_write,
+    array_read,
+    array_length,
+    static_rnn,
+    dynamic_rnn,
+    rank_by_length as lod_rank_table,
+    beam_search,
+    beam_search_decode,
+    greedy_search,
+)
+from paddle_tpu_torch.ops.losses import (  # noqa: F401,E402
+    linear_chain_crf,
+    crf_decoding,
+    edit_distance,
+    ctc_loss as warpctc,
+    ctc_greedy_decode as ctc_greedy_decoder,
+)
+from paddle_tpu_torch.lr_scheduler import (  # noqa: F401,E402
+    exponential_decay,
+    natural_exp_decay,
+    inverse_time_decay,
+    polynomial_decay,
+    piecewise_decay,
+    noam_decay,
+    cosine_decay,
+    append_LARS,
+)
+
+# the export surface, in the JAX package's order: layer functions defined
+# here + the functional ops re-exported above, less the detection names
+# (ROADMAP §A item 5)
+_LOCAL_LAYERS = [
+    "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm",
+    "layer_norm", "dropout", "prelu", "dynamic_lstm", "dynamic_gru",
+    "sequence_conv", "data",
+]
+_OP_REEXPORTS = [
+    "softmax", "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "square_error_cost", "smooth_l1",
+    "huber_loss", "kldiv_loss", "log_loss", "accuracy", "one_hot",
+    "label_smooth", "l2_normalize", "cos_sim", "lrn", "pad2d",
+    "resize_bilinear", "resize_nearest", "pixel_shuffle",
+    "sequence_pool", "sequence_softmax", "sequence_reverse",
+    "sequence_first_step", "sequence_last_step", "sequence_expand",
+    # extended functional re-exports
+    "multiplex", "pad_constant_like", "rank_loss", "dice_loss", "mean_iou",
+    "sequence_pad", "sequence_concat", "sequence_enumerate", "sequence_expand_as",
+    "sequence_mask", "sequence_reshape", "sequence_scatter", "sequence_slice",
+    "lod_reset", "reorder_lod_tensor_by_rank",
+    "while_loop", "cond", "switch_case", "case", "TensorArray", "create_array",
+    "array_write", "array_read", "array_length", "static_rnn", "dynamic_rnn",
+    "lod_rank_table", "beam_search", "beam_search_decode", "greedy_search",
+    "linear_chain_crf", "crf_decoding", "edit_distance", "warpctc",
+    "ctc_greedy_decoder",
+    "exponential_decay", "natural_exp_decay", "inverse_time_decay",
+    "polynomial_decay", "piecewise_decay", "noam_decay", "cosine_decay",
+    "append_LARS",
+]
+__all__ = _LOCAL_LAYERS + _OP_REEXPORTS + list(om.__all__) + list(_ext_all) + list(_io_all)

@@ -1,5 +1,10 @@
-"""Composite network helpers — the part of ``paddle_tpu.nets`` (``fluid.nets``
-parity, reference ``python/paddle/fluid/nets.py``) the ported slices use."""
+"""Composite network helpers — ``fluid.nets`` parity, port of
+``paddle_tpu/nets.py``.
+
+Reference: ``python/paddle/fluid/nets.py`` (simple_img_conv_pool:24,
+img_conv_group:78, sequence_conv_pool:172, glu:213,
+scaled_dot_product_attention:332). Each helper composes layer functions.
+"""
 
 from __future__ import annotations
 
@@ -10,8 +15,15 @@ import torch
 from paddle_tpu_torch import layers
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.framework import name_scope
+from paddle_tpu_torch.ops import attention as oattn
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = [
+    "simple_img_conv_pool",
+    "img_conv_group",
+    "sequence_conv_pool",
+    "glu",
+    "scaled_dot_product_attention",
+]
 
 
 def simple_img_conv_pool(
@@ -107,3 +119,59 @@ def img_conv_group(
             pool_stride=pool_stride,
             data_format=data_format,
         )
+
+
+def sequence_conv_pool(
+    input: torch.Tensor,
+    lengths: torch.Tensor,
+    num_filters: int,
+    filter_size: int,
+    param_attr=None,
+    act: str = "sigmoid",
+    pool_type: str = "max",
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """sequence_conv + sequence_pool over padded [B, T, D] + lengths
+    (reference ``nets.py:172``; text-conv models)."""
+    with name_scope(name or "seq_conv_pool"):
+        conv_out = layers.sequence_conv(
+            input, lengths, num_filters=num_filters, filter_size=filter_size,
+            param_attr=param_attr, act=act,
+        )
+        return layers.sequence_pool(conv_out, lengths, pool_type=pool_type)
+
+
+def glu(input: torch.Tensor, dim: int = -1, name: Optional[str] = None) -> torch.Tensor:
+    """Gated linear unit: split in half along dim, a * sigmoid(b)
+    (reference ``nets.py:213``)."""
+    a, b = torch.chunk(input, 2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+def scaled_dot_product_attention(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    num_heads: int = 1,
+    dropout_rate: float = 0.0,
+    mask: Optional[torch.Tensor] = None,
+    name: Optional[str] = None,
+) -> torch.Tensor:
+    """Multi-head scaled dot-product attention over [B, T, D] inputs
+    (reference ``nets.py:332``). Projection-free like the reference: heads
+    are formed by splitting the feature axis, and
+    ``ops.attention.scaled_dot_product_attention`` attends over them. With
+    ``flags().use_flash_attention`` on, no mask and no dropout in effect,
+    and sequence lengths the block tiling divides, that is the hand-written
+    flash forward (and, under autograd, its dK/dV and dQ kernels). Dropout
+    acts only in a training-mode apply and draws from its generator
+    (``framework.next_rng``)."""
+    from paddle_tpu_torch import framework
+
+    q = oattn.split_heads(queries, num_heads)
+    k = oattn.split_heads(keys, num_heads)
+    v = oattn.split_heads(values, num_heads)
+    training = framework.in_frame() and framework.is_training()
+    out = oattn.scaled_dot_product_attention(
+        q, k, v, mask=mask, dropout_rate=dropout_rate, is_test=not training)
+    return oattn.combine_heads(out)

@@ -1,7 +1,9 @@
-"""Neural-network ops — the subset of ``paddle_tpu.ops.nn`` the ported slices
-use: conv, pooling and adaptive pooling, batch norm, softmax and losses,
-accuracy, layer norm, embedding lookup, dropout, one-hot and label
-smoothing.
+"""Neural-network ops — port of ``paddle_tpu/ops/nn.py``: conv (plain,
+depthwise, transposed), pooling and adaptive pooling, batch/layer/group
+norm and LRN, softmax and the losses (cross entropy, smooth L1, Huber, KL,
+log, rank, dice, NCE, hierarchical sigmoid), accuracy and mean IoU,
+embedding lookup and its dense gradient, dropout, one-hot and label
+smoothing, padding, resizing, pixel shuffle, row conv.
 
 Images are NHWC and conv weights HWIO at the API, as in the JAX package
 (``paddle_tpu/ops/nn.py:10,89``); the conv and pooling ops permute to
@@ -17,18 +19,25 @@ the moving statistics from the batch statistics that kernel saves.
 
 from __future__ import annotations
 
+import math as _math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.core.dtypes import compute_dtype, ieee_f32
+from paddle_tpu_torch.core.dtypes import compute_dtype, f32_product, ieee_f32, mxu_operands
 from paddle_tpu_torch.parallel import context as dp_context
 
 __all__ = [
-    "conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
-    "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
-    "adaptive_pool2d", "batch_norm_train", "batch_norm_infer", "one_hot", "label_smooth",
+    "conv2d", "conv2d_transpose", "depthwise_conv2d", "maxout", "pool2d", "adaptive_pool2d",
+    "batch_norm_infer", "batch_norm_train", "layer_norm", "group_norm", "lrn", "softmax",
+    "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "square_error_cost", "smooth_l1", "huber_loss",
+    "kldiv_loss", "log_loss", "margin_rank_loss", "dropout", "one_hot", "label_smooth",
+    "accuracy", "embedding_lookup", "embedding_grad_dense", "prelu", "pixel_shuffle", "pad2d",
+    "resize_nearest", "resize_bilinear", "cos_sim", "l2_normalize", "matmul_bias", "multiplex",
+    "row_conv", "pad_constant_like", "rank_loss", "dice_loss", "mean_iou", "nce_loss",
+    "hsigmoid_loss",
 ]
 
 _IntOrPair = Union[int, Sequence[int]]
@@ -49,27 +58,43 @@ def _same_pads(size: int, k: int, s: int, d: int) -> Tuple[int, int]:
 
 
 class _F32Conv(torch.autograd.Function):
-    """An f32 convolution on CUDA whose forward and backward both run under
+    """An f32 convolution on CUDA (2-D or 3-D, plain or transposed) whose
+    forward and backward both run under
     :func:`~paddle_tpu_torch.core.dtypes.ieee_f32`: cuDNN reads its TF32
     switch when each kernel runs, and autograd runs the backward after any
     ``with`` around the forward has exited."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, groups, transposed, output_padding):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, dilation, groups)
+        ctx.conf = (stride, padding, dilation, transposed, output_padding, groups)
         with ieee_f32():
-            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+            return torch.ops.aten.convolution(x, w, None, stride, padding, dilation, transposed,
+                                              output_padding, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.conf
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
         with ieee_f32():
-            dx, dw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, stride, padding, dilation, False, [0, 0], groups, mask)
-        return dx, dw, None, None, None, None
+            dx, dw, _ = torch.ops.aten.convolution_backward(g, x, w, None, *ctx.conf, mask)
+        return dx, dw, None, None, None, None, None, None
+
+
+def convolution(xn, wn, stride, padding, dilation=None, groups: int = 1, transposed: bool = False,
+                output_padding=None):
+    """``aten.convolution`` over channels-first operands (NC…, and OI… or,
+    transposed, IO… weights) of any spatial rank; f32 operands on CUDA
+    through :class:`_F32Conv` (full f32, forward and backward)."""
+    nd = xn.dim() - 2
+    dilation = dilation or (1,) * nd
+    output_padding = output_padding or (0,) * nd
+    conf = (tuple(stride), tuple(padding), tuple(dilation), groups, transposed, tuple(output_padding))
+    if xn.is_cuda and xn.dtype == torch.float32:
+        return _F32Conv.apply(xn, wn, *conf)
+    stride, padding, dilation, groups, transposed, output_padding = conf
+    return torch.ops.aten.convolution(xn, wn, None, stride, padding, dilation, transposed,
+                                      output_padding, groups)
 
 
 def conv2d(
@@ -81,10 +106,11 @@ def conv2d(
     groups: int = 1,
 ) -> torch.Tensor:
     """2-D convolution, NHWC activations × HWIO weights (reference
-    ``operators/conv_op.cc``): ``F.conv2d`` on the operands in the compute
-    dtype (bf16 under ``use_bf16_compute``), result in x's dtype. f32
-    operands on CUDA convolve in full f32, forward and backward
-    (:class:`_F32Conv`; the rule is in :mod:`paddle_tpu_torch.core.dtypes`).
+    ``operators/conv_op.cc``): a convolution (:func:`convolution`) on the
+    operands in the compute dtype (bf16 under ``use_bf16_compute``), result
+    in x's dtype. f32 operands on CUDA convolve in full f32, forward and
+    backward (:class:`_F32Conv`; the rule is in
+    :mod:`paddle_tpu_torch.core.dtypes`).
 
     Layout: the NHWC activation seen as NCHW is a channels-last view, and
     the weight is cast and copied once into OHWI order, so that its OIHW
@@ -109,11 +135,7 @@ def conv2d(
                 xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]))
     else:
         pad = _pair(padding)
-    conf = ((sh, sw), pad, (dh, dw), groups)
-    if xn.is_cuda and xn.dtype == torch.float32:
-        out = _F32Conv.apply(xn, wn, *conf)
-    else:
-        out = F.conv2d(xn, wn, None, *conf)
+    out = convolution(xn, wn, (sh, sw), pad, (dh, dw), groups)
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
@@ -433,3 +455,372 @@ def embedding_lookup(table, ids, padding_idx: Optional[int] = None):
     if padding_idx is not None:
         out = torch.where((ids2 == padding_idx)[..., None], 0.0, out)
     return out
+
+
+# -- the rest of the catalog --------------------------------------------------
+
+def depthwise_conv2d(x, weight, stride=1, padding=0, dilation=1):
+    """Depthwise conv (reference ``operators/math/depthwise_conv.cu``):
+    groups == channels; weight [kh, kw, 1, C * multiplier]."""
+    return conv2d(x, weight, stride, padding, dilation, groups=x.shape[-1])
+
+
+def conv2d_transpose(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    stride: _IntOrPair = 1,
+    padding: _IntOrPair = 0,
+    output_padding: _IntOrPair = 0,
+) -> torch.Tensor:
+    """Transposed conv (reference ``conv_transpose_op.cc``), NHWC x, HWIO
+    weight with I = in_channels of x, O = out_channels; output size
+    (in - 1) * stride - 2 * padding + k + output_padding. The JAX package
+    convolves the stride-dilated input with the spatially flipped kernel;
+    that is the adjoint of a strided convolution, which is what
+    ``aten.convolution(transposed=True)`` computes, with the weight seen as
+    [I, O, kh, kw]. Operands in the compute dtype; f32 on the card in full
+    f32 (:func:`convolution`). ``output_padding`` must be below the stride,
+    as PyTorch's transposed convolution requires."""
+    cdt = compute_dtype()
+    sh, sw = _pair(stride)
+    oph, opw = _pair(output_padding)
+    if oph >= sh or opw >= sw:
+        raise ValueError(f"conv2d_transpose: output_padding {(oph, opw)} must be below the "
+                         f"stride {(sh, sw)}")
+    xn = x.to(cdt).permute(0, 3, 1, 2)
+    wn = weight.to(cdt).permute(2, 3, 0, 1)
+    out = convolution(xn, wn, (sh, sw), _pair(padding), None, 1, True, (oph, opw))
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def maxout(x, groups: int):
+    """Maxout over channel groups (reference ``maxout_op.cc``), NHWC: output
+    channel ``i`` is ``max_k x[..., i*groups + k]``."""
+    c = x.shape[-1]
+    if c % groups:
+        raise ValueError(f"maxout: channels {c} not divisible by groups {groups}")
+    return x.reshape(tuple(x.shape[:-1]) + (c // groups, groups)).amax(dim=-1)
+
+
+def group_norm(x, scale=None, bias=None, groups: int = 32, epsilon: float = 1e-5):
+    """Group norm over the spatial dims and each group of the last-axis
+    channels, in f32, result in x's dtype."""
+    n, c = x.shape[0], x.shape[-1]
+    spatial = tuple(x.shape[1:-1])
+    xf = x.float().reshape((n,) + spatial + (groups, c // groups))
+    axes = tuple(range(1, xf.dim() - 2)) + (xf.dim() - 1,)
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = xf.var(dim=axes, keepdim=True, correction=0)
+    y = ((xf - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    if scale is not None:
+        y = y * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def lrn(x, n: int = 5, k: float = 1.0, alpha: float = 1e-4, beta: float = 0.75):
+    """Local response norm across channels, NHWC (reference ``lrn_op.cc``):
+    x / (k + alpha * Σ x² over the n channels centred on each)^beta."""
+    xf = x.float()
+    half = n // 2
+    window = F.pad(torch.square(xf), (half, half)).unfold(-1, n, 1).sum(-1)
+    return (xf / torch.pow(k + alpha * window, beta)).to(x.dtype)
+
+
+def l2_normalize(x, axis: int = -1, epsilon: float = 1e-12):
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def log_softmax(x, axis: int = -1):
+    return torch.log_softmax(x.float(), dim=axis).to(x.dtype)
+
+
+def sigmoid_cross_entropy_with_logits(x, label):
+    xf, lf = x.float(), label.float()
+    return torch.clamp_min(xf, 0) - xf * lf + torch.log1p(torch.exp(-torch.abs(xf)))
+
+
+def smooth_l1(x, y, sigma: float = 1.0):
+    """Reference ``smooth_l1_loss_op.cc``: per-example summed smooth-L1."""
+    s2 = sigma * sigma
+    d = torch.abs(x.float() - y.float())
+    loss = torch.where(d < 1.0 / s2, 0.5 * s2 * torch.square(d), d - 0.5 / s2)
+    return torch.sum(loss.reshape(loss.shape[0], -1), dim=1, keepdim=True)
+
+
+def huber_loss(x, y, delta: float = 1.0):
+    d = torch.abs(x.float() - y.float())
+    return torch.where(d <= delta, 0.5 * torch.square(d), delta * (d - 0.5 * delta))
+
+
+def kldiv_loss(x, target):
+    """x is log-probabilities, target probabilities."""
+    tf = target.float()
+    return tf * (torch.log(torch.clamp_min(tf, 1e-10)) - x.float())
+
+
+def log_loss(input, label, epsilon: float = 1e-4):
+    p, lf = input.float(), label.float()
+    return -lf * torch.log(p + epsilon) - (1 - lf) * torch.log(1 - p + epsilon)
+
+
+def margin_rank_loss(label, left, right, margin: float = 0.1):
+    return torch.clamp_min(-label * (left - right) + margin, 0.0)
+
+
+def cos_sim(x, y):
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    return torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(xn * yn, 1e-12)
+
+
+def embedding_grad_dense(table_shape, ids, grad_out):
+    """Dense embedding gradient by scatter-add (the reference emitted
+    SelectedRows sparse gradients, ``lookup_table_op.cc``); equal to
+    autograd's gradient of :func:`embedding_lookup`."""
+    ids2 = ids.reshape(-1).long()
+    g = grad_out.reshape(-1, table_shape[-1])
+    return torch.zeros(tuple(table_shape), dtype=g.dtype, device=g.device).index_add(0, ids2, g)
+
+
+def prelu(x, alpha, mode: str = "all"):
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def pixel_shuffle(x, upscale_factor: int):
+    n, h, w, c = x.shape
+    r = upscale_factor
+    oc = c // (r * r)
+    x = x.reshape(n, h, w, r, r, oc).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * r, w * r, oc)
+
+
+def pad2d(x, paddings: Sequence[int], mode: str = "constant", pad_value: float = 0.0):
+    """NHWC spatial padding: paddings = [top, bottom, left, right]; modes
+    constant, reflect (mirror without the edge) and edge."""
+    top, bottom, left, right = (int(p) for p in paddings)
+    if mode == "constant":
+        return F.pad(x, (0, 0, left, right, top, bottom), value=pad_value)
+    torch_mode = {"reflect": "reflect", "edge": "replicate"}[mode]
+    xn = x.permute(0, 3, 1, 2)
+    if not xn.is_floating_point():
+        raise TypeError(f"pad2d mode {mode!r} takes a floating tensor")
+    return F.pad(xn, (left, right, top, bottom), mode=torch_mode).permute(0, 2, 3, 1)
+
+
+def resize_nearest(x, out_shape: Tuple[int, int]):
+    """Nearest resize, NHWC: output row i reads input row i * H // OH (the
+    JAX package's formula)."""
+    n, h, w, c = x.shape
+    oh, ow = out_shape
+    rows = torch.arange(oh, device=x.device) * h // oh
+    cols = torch.arange(ow, device=x.device) * w // ow
+    return x[:, rows][:, :, cols]
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s bilinear weight matrix [out, in] in f32: the
+    triangle kernel at half-pixel centres, widened by in/out when shrinking
+    (the antialiasing filter), each row normalised to sum 1 and zero where
+    the sample falls outside the input (``jax._src.image.scale
+    .compute_weight_mat``)."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    pos = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = torch.clamp_min(1 - torch.abs(sample[:, None] - pos[None, :]) / kernel_scale, 0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None], w, 0.0)
+
+
+def resize_bilinear(x, out_shape: Tuple[int, int], align_corners: bool = False):
+    """Bilinear resize, NHWC. ``align_corners=False`` is
+    ``jax.image.resize(method="bilinear")``: half-pixel centres and, when a
+    side shrinks, the antialiasing triangle filter (``F.interpolate`` with
+    ``antialias=False`` does not filter). It contracts each changed side
+    with :func:`_resize_weights` as an f32 product (full f32 on the card).
+    ``align_corners=True`` (the fluid default) maps the corner pixels
+    exactly: sample positions i * (in - 1) / (out - 1), in f32."""
+    n, h, w, c = x.shape
+    oh, ow = out_shape
+    if not align_corners:
+        out = x if x.is_floating_point() else x.float()
+        if oh != h:
+            wh = _resize_weights(h, oh, x.device)
+            out = f32_product(wh, out.reshape(n, h, w * c)).reshape(n, oh, w, c).to(out.dtype)
+        if ow != w:
+            ww = _resize_weights(w, ow, x.device)
+            out = f32_product(ww, out.reshape(n * oh, w, c)).reshape(n, oh, ow, c).to(out.dtype)
+        return out
+
+    def coords(out_size, in_size):
+        if out_size == 1:
+            return torch.zeros((1,), dtype=torch.float32, device=x.device)
+        return torch.arange(out_size, dtype=torch.float32, device=x.device) * (
+            (in_size - 1) / (out_size - 1))
+
+    ys, xs = coords(oh, h), coords(ow, w)
+    y0 = torch.clamp(torch.floor(ys).long(), 0, h - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs).long(), 0, w - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = (ys - y0.float())[None, :, None, None]
+    wx = (xs - x0.float())[None, None, :, None]
+    xf = x.float()
+    top = xf[:, y0][:, :, x0] * (1 - wx) + xf[:, y0][:, :, x1] * wx
+    bot = xf[:, y1][:, :, x0] * (1 - wx) + xf[:, y1][:, :, x1] * wx
+    return (top * (1 - wy) + bot * wy).to(x.dtype)
+
+
+def matmul_bias(x, w, b=None):
+    """``x @ w (+ b)``: operands in the compute dtype, f32 accumulation,
+    result in x's dtype."""
+    out = f32_product(*mxu_operands(x, w)).to(x.dtype)
+    return out + b if b is not None else out
+
+
+def multiplex(inputs: Sequence[torch.Tensor], index: torch.Tensor) -> torch.Tensor:
+    """Row-wise select among N same-shaped inputs (reference
+    ``multiplex_op.cc``): out[b] = inputs[index[b]][b]."""
+    stacked = torch.stack(list(inputs), dim=0)  # [N, B, ...]
+    idx = index.reshape(-1).long()
+    return stacked[idx, torch.arange(stacked.shape[1], device=stacked.device)]
+
+
+def row_conv(x: torch.Tensor, weight: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+    """Lookahead row convolution (reference ``row_conv_op.cc``, DeepSpeech2):
+    out[b, t, d] = Σ_k w[k, d] · x[b, t+k, d] over the ``weight.shape[0]``
+    future steps, in f32; steps past a row's length read and give 0."""
+    b, t, d = x.shape
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(t, device=x.device)[None, :] < lengths.to(x.device)[:, None])[..., None]
+        x = torch.where(mask, x, 0.0)
+    out = torch.zeros((b, t, d), dtype=torch.float32, device=x.device)
+    for k in range(weight.shape[0]):
+        shifted = F.pad(x[:, k:], (0, 0, 0, k))
+        out = out + shifted.float() * weight[k].float()
+    out = out.to(x.dtype)
+    return torch.where(mask, out, 0.0) if mask is not None else out
+
+
+def pad_constant_like(x: torch.Tensor, y: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
+    """Pad ``y`` at the tail of every axis to ``x``'s shape (reference
+    ``pad_constant_like_op.cc``)."""
+    flat = []
+    for xs, ys in zip(reversed(x.shape), reversed(y.shape)):
+        flat += [0, int(xs - ys)]
+    return F.pad(y, flat, value=pad_value)
+
+
+def rank_loss(label: torch.Tensor, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """RankNet pairwise loss (reference ``rank_loss_op.cc``):
+    log(1 + e^o) - label * o with o = left - right, computed stably."""
+    o = (left - right).float()
+    return (torch.logaddexp(torch.zeros_like(o), o) - label.float() * o).to(left.dtype)
+
+
+def dice_loss(input: torch.Tensor, label: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
+    """Dice loss over per-row probability maps (reference fluid
+    ``layers.dice_loss``): 1 - 2|X∩Y| / (|X|+|Y|), averaged over rows."""
+    p = input.float().reshape(input.shape[0], -1)
+    g = label.float().reshape(label.shape[0], -1)
+    inter = torch.sum(p * g, dim=1)
+    union = torch.sum(p, dim=1) + torch.sum(g, dim=1)
+    return torch.mean(1.0 - (2.0 * inter + epsilon) / (union + epsilon))
+
+
+def mean_iou(pred: torch.Tensor, label: torch.Tensor, num_classes: int):
+    """Mean intersection-over-union (reference ``mean_iou_op.cc``):
+    ``(mean_iou f32 scalar, per-class wrong int32, per-class correct
+    int32)``, the mean over the classes present in pred or label."""
+    p = pred.reshape(-1).long()
+    lab = label.reshape(-1).long()
+
+    def count(ids):
+        return torch.bincount(ids, minlength=num_classes)[:num_classes].to(torch.int32)
+
+    correct = count(lab[p == lab])
+    union = count(p) + count(lab) - correct
+    wrong = union - correct
+    present = union > 0
+    iou = torch.where(present, correct / torch.clamp_min(union, 1), 0.0)
+    miou = torch.sum(iou) / torch.clamp_min(torch.sum(present.to(torch.int32)), 1)
+    return miou.float(), wrong, correct
+
+
+def nce_loss(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    labels: torch.Tensor,
+    num_neg_samples: int,
+    rng: Optional[torch.Generator],
+    num_total_classes: Optional[int] = None,
+    samples: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Noise-contrastive estimation loss (reference ``nce_op.cc``): binary
+    logistic discrimination of the true class against ``num_neg_samples``
+    uniformly drawn noise classes. ``weight`` [num_classes, D], ``x`` [B, D],
+    ``labels`` [B]. Returns per-row loss [B]. Only the (1 + S) rows of the
+    class matrix each example needs are gathered.
+
+    The noise ids are ``samples`` [B, S] when given, else drawn uniformly
+    from ``rng`` (a ``torch.Generator``; the JAX package's PRNG key), on the
+    generator's device: sampling is apart from the loss, so a test can give
+    the JAX package's draws to both."""
+    n_classes = num_total_classes or weight.shape[0]
+    b = x.shape[0]
+    if samples is None:
+        samples = torch.randint(0, n_classes, (b, num_neg_samples), generator=rng,
+                                device=rng.device)
+    ids = torch.cat([labels.reshape(b, 1).long(), samples.to(x.device).long()], dim=1)
+    w = weight[ids]  # [B, 1+S, D]
+    logits = f32_product(w.float(), x.float()[:, :, None])[..., 0]
+    if bias is not None:
+        logits = logits + bias[ids].float()
+    # NCE posterior correction: classify against k noise samples from the
+    # uniform prior q = 1/num_classes, i.e. with logit - log(k*q)
+    logits = logits - _math.log(num_neg_samples / n_classes)
+    labels01 = torch.zeros_like(logits)
+    labels01[:, 0] = 1.0
+    per = (torch.clamp_min(logits, 0.0) - logits * labels01
+           + torch.logaddexp(torch.zeros_like(logits), -torch.abs(logits)))
+    return torch.sum(per, dim=1)
+
+
+def hsigmoid_loss(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    labels: torch.Tensor,
+    num_classes: int,
+) -> torch.Tensor:
+    """Hierarchical sigmoid loss over the default complete binary tree
+    (reference ``hierarchical_sigmoid_op.cc`` with MatrixBitCode): class c's
+    leaf sits at heap id c + num_classes; the path to the root visits
+    internal nodes id//2 with the branch bit id&1. ``weight`` is
+    [num_classes - 1, D] (one row per internal node). Returns per-row loss
+    [B]."""
+    code_len = max(1, (max(num_classes, 2) - 1).bit_length())
+    node = labels.long() + num_classes  # heap ids, root = 1
+    total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for _ in range(code_len):
+        bit = (node & 1).float()  # branch taken at the parent
+        parent = node // 2
+        idx = torch.clamp(parent - 1, 0, num_classes - 2)
+        active = (parent >= 1).float()
+        logit = torch.sum(xf * weight[idx].float(), dim=-1)
+        if bias is not None:
+            logit = logit + bias[idx].float()
+        per = (torch.clamp_min(logit, 0.0) - logit * bit
+               + torch.logaddexp(torch.zeros_like(logit), -torch.abs(logit)))
+        total = total + per * active
+        node = parent
+    return total
