@@ -78,7 +78,7 @@ Phases, each printing JSON lines:
                below the first (see ZOO_STEPS); (e) one bf16
                amp_minimize step of ResNet-50 against the bf16 minimize
                step on the same batch and weights (those after (a)'s 8
-               steps).
+               steps) rounded to bf16, as amp's forward sees them.
   8. nmt     — the NMT Transformer at bench.py's cell: get_model("transformer",
                seq_len=256, scan_layers=True), BASE_CFG at full depth and
                width, batch 32, bf16 compute and flash on, Adam + Noam.
@@ -260,7 +260,25 @@ Phases, each printing JSON lines:
                nets.scaled_dot_product_attention at [8, 1024, 512], 8
                heads, bf16, flash on: one launch of each flash kernel for a
                forward and backward, output and gradients against the
-               composed route within TRAIN_GRAD_TOL.
+               composed route within TRAIN_GRAD_TOL. (a) also sweeps
+               ops.detection, ops.detection_rpn, ops.quant and
+               layers.multi_box_head, and the kinks and edge semantics of
+               ops.math/ops.nn at exact zeros, ties, NaNs and indices out of
+               range. (e) SSD300's head at its published widths (SSD300):
+               4 Adam steps of multi_box_head -> ssd_loss at 8732 priors, 21
+               classes, batch 8, card against CPU, the loss falls; step ms,
+               launches a step and ssd_loss's forward and backward apart,
+               then detection_output (400/200) and detection_map, ms and
+               launches an image, peak memory; detection_output's own
+               outputs card against CPU equal, or first differing at a
+               counted near tie, and detection_map on the card's
+               detections card against CPU. (f) Faster
+               R-CNN's RPN (RPN_CFG) on a 50 x 84 x 512 map, 50,400
+               anchors: rpn_target_assign and the loss, 4 Adam steps, card
+               against CPU; generate_proposals (6000 -> 1000) and
+               generate_proposal_labels, their ms, launches and peak memory,
+               the proposals under the same near-tie rule, the labels of
+               the card's proposals card against CPU.
  17. kernels — one line: each kernel with its launches on every path
                (phases 4-6, 8, 10-16), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
@@ -386,9 +404,12 @@ TRAINER_CONV_BATCH = 64
 # (tools/torch_conv_zoo_probe.py), and no fixed 1e-4 can hold.
 CONV_PARITY_LOSS, CONV_PARITY_MIN, CONV_PARITY_SPREAD = 1e-5, 1e-4, 4.0
 # one bf16 amp_minimize step against the bf16 minimize step on the same
-# weights and batch: the loss, absolute (BN's scale and bias and the fc
-# bias are rounded to bf16 too)
-AMP_LOSS_TOL = 2e-2
+# batch and the same weights rounded to bf16 (amp's forward runs on every
+# parameter cast to bf16): the loss, absolute. Measured bit-equal along 8
+# steps from two batches; against the unrounded weights the two differ by
+# 0.0003-0.040, the rounding of BN's scale and bias and the fc bias alone
+# (tools/torch_amp_rounding.py).
+AMP_LOSS_TOL = 1e-5
 # The NMT Transformer at bench.py's cell (bench.py:484-496): batch 32 of 256
 # tokens, BASE_CFG at full depth and width, bf16 compute and flash on;
 # 8 steps for "the loss falls"
@@ -459,6 +480,18 @@ DP_MOVEMENT_TOL = 0.25
 # TELEMETRY_FLOPS_TOL (relative) of the analytic count, and equal to the CPU
 # path's count of the same step (traced under FakeTensorMode: shapes only).
 TELEMETRY_STEPS, TELEMETRY_TURNS, TELEMETRY_FLOPS_TOL = 8, 2, 0.01
+# spin kernels launched before and after the work of a profiled run whose
+# device records are counted. torch.profiler drops a session's first device
+# records, more of them the longer the process has run
+# (tools/torch_profiler_records.py on an H100: 0 to 18 markers of ~0.5 ms
+# over 242 s; one session lost all of 64 one-cycle markers and 5 of the
+# work's records; by phase telemetry 11 markers of ~0.5 ms, 10 of ~1 ms), so
+# two runs of the same work counted apart. Each marker spins
+# PROFILER_MARKER_CYCLES clock cycles (~1 ms at the H100's 1.98 GHz): the 64
+# cover a session's first and last ~64 ms and are left out of the count; a
+# session that kept no marker on either side is not intact
+# (profile_intact), its loss may have reached the work
+PROFILER_MARKERS, PROFILER_MARKER_CYCLES = 64, 2_000_000
 # (c) one run of TELEMETRY_FAULT_STEPS steps with a NaN injected at step
 # TELEMETRY_NAN_STEP (nan_policy "skip_step") and the body of step
 # TELEMETRY_STALL_STEP slowed by TELEMETRY_STALL_S (the Trainer's timed
@@ -623,6 +656,40 @@ SRL_STEPS, SRL_LR, SRL_TIE_TOL = 8, 1e-3, 1e-4
 # (d) nets.scaled_dot_product_attention, bf16 and flash on, against the
 # composed route: [batch, T, width], heads
 CATALOG_ATTN = (8, 1024, 512, 8)
+
+# (e) SSD300's head at its published widths (Liu et al., "SSD: Single Shot
+# MultiBox Detector", ECCV 2016, SSD300 on VOC): the six source maps (NHWC,
+# the backbone left out, synthetic features from a seed) with their prior
+# sizes and aspect ratios, flip on: 8732 priors, 21 classes; batch 8 with up
+# to 16 padded ground-truth boxes an image. DET_STEPS Adam steps of
+# multi_box_head -> ssd_loss (the mean over images), card against CPU within
+# BOOK_LOSS_TOL, the loss falls; then detection_output (nms_top_k 400,
+# keep_top_k 200, the JAX package's defaults) and detection_map on the
+# trained head.
+SSD300 = dict(maps=((38, 512), (19, 1024), (10, 512), (5, 256), (3, 256), (1, 256)),
+              min_sizes=(30.0, 60.0, 111.0, 162.0, 213.0, 264.0),
+              max_sizes=(60.0, 111.0, 162.0, 213.0, 264.0, 315.0),
+              aspect_ratios=((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0), (2.0,), (2.0,)),
+              image=(300, 300), classes=21, batch=8, max_gt=16, priors=8732,
+              nms_top_k=400, keep_top_k=200, nms=0.3, score=0.01)
+# (f) Faster R-CNN's RPN (Ren et al., "Faster R-CNN", NIPS 2015): the
+# conv5 map of an 800 x 1344 image at stride 16 (50 x 84, 512 channels),
+# anchor_generator at the JAX package's defaults (4 sizes x 3 ratios: 50,400
+# anchors), a 3x3 conv of 512 and 1x1 heads of 12 and 48; 2 images with up
+# to 16 ground-truth boxes. rpn_target_assign (256 an image) and the loss
+# (sigmoid cross-entropy on the sampled anchors, smooth L1 on the fg),
+# DET_STEPS Adam steps as in (e); then generate_proposals (6000 -> NMS 0.7 ->
+# 1000) and generate_proposal_labels on the 1000 proposals, both devices
+# given the CPU's priorities.
+RPN_CFG = dict(map=(50, 84), channels=512, image=(800.0, 1344.0), batch=2, max_gt=16,
+               anchors=50400, per_im=256, pre_nms=6000, post_nms=1000, nms=0.7, classes=21)
+# Adam's learning rate: SSD's head 1e-3; the RPN's 3x3 conv (4608 inputs a
+# unit) 1e-4, since at 1e-3 Adam's first step sends its loss up fivefold
+DET_STEPS, SSD_LR, RPN_LR = 4, 1e-3, 1e-4
+# NMS outputs card against CPU on the same inputs: equal, or first differing
+# at a near tie (two scores, or an IoU and the threshold, within DET_TIE_TOL
+# relative; output_divergence); DET_CHECK_IMAGES images of (e) are held so
+DET_TIE_TOL, DET_CHECK_IMAGES = 1e-6, 2
 
 # the book chapters' vocabularies (paddle_tpu/dataset: imikolov, imdb,
 # movielens, conll05) and the SRL chapter's clipped word vocabulary
@@ -1194,6 +1261,7 @@ def conv_phase(smi: str):
     from paddle_tpu_torch.core import profiler as prof
     from paddle_tpu_torch.core.config import set_flags
     from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.framework import Variables
     from paddle_tpu_torch.models import get_model
     from paddle_tpu_torch.trainer import BeginEpochEvent, CheckpointConfig, EndStepEvent, Trainer
     from paddle_tpu_torch.transpiler import amp_minimize
@@ -1231,12 +1299,15 @@ def conv_phase(smi: str):
     checks["resnet50_loss_falls"] = losses[-1] < losses[0]
     checks["resnet50_losses_finite"] = bool(np.isfinite(losses).all())
 
-    # (e) amp_minimize against the bf16 minimize step, on the weights after
-    # those 8 steps (at init BN's scale 1 and bias 0 and the fc bias 0 are
-    # exact in bf16, so the two would agree to the bit)
-    ref_loss = float(step(v, st, x, y).loss)
+    # (e) amp_minimize against the bf16 minimize step on the weights after
+    # those 8 steps rounded to bf16, which is what amp's forward computes on
+    # (BN's scale and bias and the fc bias included); the unrounded
+    # weights' loss beside it, as a number
     amp = amp_minimize(opt, spec.model, compute_dtype="bfloat16")(v, st, None, x, y)
     amp_loss = float(amp.loss)
+    rounded = Variables({k: t.to(torch.bfloat16).float() for k, t in v.params.items()}, v.state)
+    ref_loss = float(step(rounded, st, x, y).loss)
+    unrounded_loss = float(step(v, st, x, y).loss)
     amp_err = abs(amp_loss - ref_loss)
     checks["amp_loss_within_tol"] = amp_err <= AMP_LOSS_TOL
     checks["amp_master_weights_f32"] = all(
@@ -1267,7 +1338,9 @@ def conv_phase(smi: str):
           "state_leaves": len(v0.state), "forward_flops_per_image": flops,
           "convolutions": n_convs, "conv_results_channels_last": nhwc_results,
           "train_flops_per_image": 3 * flops, "losses": losses, "by_batch": timing,
-          "amp_loss": amp_loss, "minimize_loss_same_weights": ref_loss, "amp_loss_abs_err": amp_err, "amp_loss_tol": AMP_LOSS_TOL, "card": smi})
+          "amp_loss": amp_loss, "minimize_loss_bf16_weights": ref_loss, "amp_loss_abs_err": amp_err,
+          "amp_loss_tol": AMP_LOSS_TOL, "minimize_loss_f32_weights": unrounded_loss,
+          "amp_vs_f32_weights_abs_diff": abs(amp_loss - unrounded_loss), "card": smi})
     del v0, st0, x, y
 
     # (b) f32 parity, card against CPU, TF32 switches untouched
@@ -2675,15 +2748,59 @@ def lm_step_flops(cfg, batch, seq_len):
     return 6 * weights * batch * seq_len + attn * 7 // 2
 
 
-def device_event_count(prof) -> int:
-    """Device activities (kernels, copies, fills) a torch.profiler run
-    recorded, from its raw events."""
-    try:
-        return sum(1 for e in prof.profiler.kineto_results.events()
-                   if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
-    except AttributeError:
-        return sum(evt.count for evt in prof.key_averages()
-                   if "CUDA" in str(getattr(evt, "device_type", "")))
+def profile_markers():
+    """PROFILER_MARKERS spin kernels, run to their end: the first and the
+    last device work of a profiled run whose records are counted."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_MARKERS):
+        torch.cuda._sleep(PROFILER_MARKER_CYCLES)
+    torch.cuda.synchronize()
+
+
+def _records(prof) -> list:
+    """The names of the device activities (kernels, copies, fills) a
+    torch.profiler run recorded, from its raw events, in the order they
+    started."""
+    return [n for _, n in sorted(
+        (e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+        if "CUDA" in str(e.device_type()) and not e.is_user_annotation())]
+
+
+def device_records(prof) -> list:
+    """_records bar the markers of profile_markers."""
+    return [n for n in _records(prof) if "spin_kernel" not in n]
+
+
+def markers_kept(prof) -> tuple:
+    """How many of profile_markers' spin kernels the run kept before its
+    first counted record and after its last."""
+    is_marker = ["spin_kernel" in n for n in _records(prof)]
+    first = is_marker.index(False) if False in is_marker else len(is_marker)
+    last = is_marker[::-1].index(False) if False in is_marker else 0
+    return first, last
+
+
+def profile_intact(prof) -> bool:
+    """Whether the run kept markers on both sides of its counted records, so
+    that no record of the work fell outside the session."""
+    return min(markers_kept(prof)) > 0
+
+
+def records_diff(a: list, b: list) -> dict:
+    """Which device records (names) one run kept and the other did not: the
+    counts each side lacks, at most 8 names a side, and whether the shorter
+    list is the longer one with its first or last records gone."""
+    import collections
+
+    short, long_ = sorted((a, b), key=len)
+    k = len(long_) - len(short)
+    place = ("none" if short == long_ else "start" if k and short == long_[k:]
+             else "end" if k and short == long_[:len(short)] else "elsewhere")
+    return {"a_lacks": dict((collections.Counter(b) - collections.Counter(a)).most_common(8)),
+            "b_lacks": dict((collections.Counter(a) - collections.Counter(b)).most_common(8)),
+            "shorter_lacks_at": place}
 
 
 def telemetry_phase(smi: str):
@@ -2788,16 +2905,23 @@ def telemetry_phase(smi: str):
             zero_kernel_counts()
             if p is not None:
                 p.__enter__()
+                profile_markers()
             if log_dir is not None:
                 with prof.profiler(log_dir):
+                    profile_markers()
                     t.train(num_epochs=1, event_handler=handler,
                             reader=lambda: iter(batches[:steps]))
+                    profile_markers()
             else:
                 t.train(num_epochs=1, event_handler=handler, reader=lambda: iter(batches[:steps]))
             torch.cuda.synchronize()
             if p is not None:
+                profile_markers()
                 p.__exit__(None, None, None)
-                out["device_events"] = device_event_count(p)
+                out["device_names"] = device_records(p)
+                out["device_events"] = len(out["device_names"])
+                out["markers_kept"] = markers_kept(p)
+                out["intact"] = profile_intact(p)
             out["launches"] = kernel_launch_counts()
             if on:
                 stop.set()
@@ -2870,7 +2994,8 @@ def telemetry_phase(smi: str):
             "a_launches_per_step_6_each_on_off": all(
                 s == {k: n_layers for k in s} for r in on_runs + off_runs for s in r["per_step"]),
             "a_profiler_device_events_equal_on_off":
-                prof_on["device_events"] == prof_off["device_events"] > 0,
+                prof_on["device_events"] == prof_off["device_events"] > 0
+                and prof_on["intact"] and prof_off["intact"],
             "a_mfu_gauge_is_counted_flops_over_step_s_x_peak": all(
                 abs(r["mfu_gauge"] / r["mfu_expected"] - 1.0) <= 1e-9 for r in on_runs),
             "a_flops_within_tol_of_analytic":
@@ -2991,6 +3116,9 @@ def telemetry_phase(smi: str):
           "mfu_gauges": [r["mfu_gauge"] for r in on_runs],
           "trainer_ledger": ledger[0] if ledger else None,
           "device_events_per_run": {"on": prof_on["device_events"], "off": prof_off["device_events"]},
+          "profiler_markers_kept_before_after": {
+              "on": prof_on["markers_kept"], "off": prof_off["markers_kept"], "of": PROFILER_MARKERS},
+          "device_records_off_vs_on": records_diff(prof_off["device_names"], prof_on["device_names"]),
           "scrapes_per_run": [r["scrapes"] for r in on_runs],
           "memory_sample": last["sample"], "max_memory_allocated": last["max_alloc"],
           "profiler_kernels": traced, "straggler_flags": flags, "watch_alerts": len(alerts),
@@ -3984,7 +4112,162 @@ def catalog_sweep_cases():
             lambda t, tok: (t + 1, tab[:, min(int(t), 3)]), torch.zeros((), device=tab.device),
             batch_size=2, max_len=4, bos_id=0, eos_id=1), [BEAM_T], (), rec),
     ]
-    return cases
+    return cases + catalog_detection_cases(r, f)
+
+
+def catalog_detection_cases(r, f):
+    """Phase catalog (a), continued: every function of ops.detection,
+    ops.detection_rpn and ops.quant and layers.multi_box_head at small
+    sizes (zero-width boxes, shared edges and exactly tied scores among the
+    inputs; the samplers given fixed priorities), then the kinks of §C.1
+    and the edge semantics of §C.2 at exact zeros, ties, NaNs and indices
+    out of range."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import detection as det
+
+    fwd = "fwd"
+    pri, pvar = (t.reshape(-1, 4).numpy() for t in det.prior_box(
+        (5, 5), (100, 100), [20.0], [40.0], [2.0], flip=True, device="cpu"))  # 100 priors
+    gt = np.array([[0.1, 0.1, 0.3, 0.3], [0.5, 0.3, 0.9, 0.7], [0.3, 0.3, 0.3, 0.7],
+                   [0.0, 0.6, 0.4, 1.0], [0.6, 0.0, 1.0, 0.2], [0.3, 0.5, 0.7, 0.9],
+                   [0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]], np.float32)
+    gt_valid, gt_labels = np.array([True] * 6 + [False] * 2), np.array([1, 2, 1, 3, 2, 3, 0, 0], np.int32)
+    loc = (r.randn(100, 4) * 0.1).astype(np.float32)
+    conf = r.randn(100, 4).astype(np.float32)
+    scores = np.exp(conf) / np.exp(conf).sum(-1, keepdims=True)
+    nbox = np.concatenate([gt[:6], gt[:6] + 0.02, np.float32([[0.2, 0.2, 0.2, 0.5]]),
+                           np.abs(r.randn(7, 4) * 0.3).cumsum(1).astype(np.float32)])
+    ns = r.uniform(0, 1, 20).astype(np.float32)
+    ns[[3, 9, 17]] = ns[5]
+    cs = r.uniform(0, 1, (4, 20)).astype(np.float32)
+    cs[2, [1, 4, 11]] = cs[2, 0]
+    sim = np.round(r.uniform(0, 1, (5, 9)), 1).astype(np.float32)
+    sim[2, 4] = sim[4, 7] = sim.max()
+    anchors = det.anchor_generator((6, 7), (16.0, 32.0), (0.5, 1.0, 2.0), stride=(8.0, 8.0),
+                                   device="cpu")[0].reshape(-1, 4).numpy()  # 252 anchors
+    rgt = np.float32([[10, 12, 40, 36], [20, 4, 28, 44], [30, 30, 30, 40], [0, 0, 0, 0]])
+    rvalid = np.array([True, True, True, False])
+    rois = np.concatenate([rgt[:3] + 1.0, anchors[::6] + r.randn(42, 4).astype(np.float32) * 2.0])
+    pscore = r.uniform(0, 1, len(anchors)).astype(np.float32)
+    pscore[[7, 40, 41, 200]] = pscore[100]
+    quad = np.float32([[1, 1, 9, 2, 10, 8, 0, 7], [3, 3, 11, 3, 11, 10, 3, 10],
+                       [-4, 2, 20, 0, 18, 15, -1, 13]])
+    kink = np.float32([[0, -0.0, 1.5, -2, 0, 6], [-1, 1, 0, 7, -3, 2.5]])
+    kink_b = np.float32([[0, 1, 1.5, -2, -0.0, 5], [-1, 2, 0, 7, -3, -2.5]])
+    nan_row = np.float32([[1, np.nan, 3, -1, np.nan, 3], [0, 2, np.nan, 2, -4, 0]])
+    grid = np.arange(12, dtype=np.float32).reshape(4, 3)
+    zlogit = np.float32([[0, 0, -0.0, 1.5, 0], [0, -2, 0, 0, 3], [0] * 5])
+    l01 = (r.rand(3, 5) > 0.5).astype(np.float32)
+    return [
+        # ops.detection
+        ("prior_box", lambda o: o.det.prior_box((5, 6), (120, 100), [20.0, 30.0], [40.0, 50.0],
+                                                [2.0, 3.0], flip=True, clip=True, device=o.dev),
+         [], (), fwd),
+        ("anchor_generator", lambda o: o.det.anchor_generator((4, 5), device=o.dev), [], (), fwd),
+        ("box_coder_encode", lambda o, p, v, t: o.det.box_coder(p, v, t), [pri, pvar, gt[[0, 1, 3]]],
+         (0, 2), fwd),
+        ("box_coder_decode", lambda o, p, v, c: o.det.box_coder(p, v, c, "decode_center_size"),
+         [pri, pvar, loc], (0, 2), fwd),
+        ("iou_similarity", lambda o, x, y: o.det.iou_similarity(x, y), [gt, pri], (0, 1), fwd),
+        ("bipartite_match", lambda o, x: o.det.bipartite_match(x), [sim], (0,), fwd),
+        ("nms", lambda o, b, x: o.det.nms(b, x, 8, 0.3, 0.1), [nbox, ns], (), fwd),
+        ("nms_classes", lambda o, b, x: o.det.nms(b, x, 7, 0.35, 0.2), [nbox, cs], (), fwd),
+        ("multiclass_nms", lambda o, b, x: o.det.multiclass_nms(b, x, 0.05, 0.4, 6, 10),
+         [nbox, cs], (), fwd),
+        ("target_assign", lambda o, t, i: o.det.target_assign(t, i, -1.5),
+         [f(5, 3), np.array([2, -1, 0, 4, -1, 2], np.int32)], (0,), fwd),
+        ("box_clip", lambda o, b: o.det.box_clip(b, (30.0, 40.0)),
+         [np.float32([[0, -1, 40, 30], [5, 30, 50, 30], [-3, 10, 12, 31]])], (0,), fwd),
+        ("detection_output", lambda o, l, x, p, v: o.det.detection_output(l, x, p, v, 0, 0.45, 30, 25),
+         [loc, scores, pri, pvar], (), fwd),
+        ("ssd_loss", lambda o, l, c, g, y, v, p, pv: o.det.ssd_loss(l, c, g, y, v, p, pv),
+         [loc, conf, gt, gt_labels, gt_valid, pri, pvar], (0, 1, 2), fwd),
+        ("detection_map", lambda o, l, x, p, v, g, y, gv: o.det.detection_map(
+            *o.det.detection_output(l, x, p, v, 0, 0.45, 30, 25), g, y, gv, 4, 0.3),
+         [loc, scores, pri, pvar, gt, gt_labels, gt_valid], (), fwd),
+        # ops.detection_rpn (the samplers given fixed priorities)
+        ("rpn_target_assign", lambda o, a, g, v, u: o.rpn.rpn_target_assign(
+            a, g, v, None, 24, 0.25, 0.5, 0.2, uniforms=u),
+         [anchors, rgt, rvalid, r.rand(2, len(anchors)).astype(np.float32)], (), fwd),
+        ("generate_proposals", lambda o, x, d, a, v: o.rpn.generate_proposals(
+            x, d, a, v, (50.0, 60.0), 120, 30, 0.6),
+         [pscore, (r.randn(len(anchors), 4) * 0.2).astype(np.float32), anchors,
+          np.full_like(anchors, 0.5)], (1,), fwd),
+        ("generate_proposal_labels", lambda o, x, g, y, v, u: o.rpn.generate_proposal_labels(
+            x, g, y, v, None, 16, 0.25, 0.4, 0.4, uniforms=u),
+         [rois, rgt, np.array([3, 1, 2, 0], np.int32), rvalid, r.rand(2, len(rois)).astype(np.float32)],
+         (0,), fwd),
+        ("roi_perspective_transform", lambda o, x, q: o.rpn.roi_perspective_transform(
+            x, q, 5, 6, 0.75), [f(1, 12, 14, 3), quad], (0, 1), fwd),
+        ("polygon_box_transform", lambda o, x: o.rpn.polygon_box_transform(x), [f(2, 4, 3, 5)], (0,),
+         fwd),
+        # ops.quant
+        ("fake_quantize_abs_max", lambda o, x: o.q.fake_quantize_abs_max(x, 4),
+         [np.float32([[0.5, -2.0, 2.0], [0.0, 1.3, -0.7]])], (0,), fwd),
+        ("fake_channel_wise_quantize_abs_max",
+         lambda o, x: o.q.fake_channel_wise_quantize_abs_max(x, 8, -1), [f(3, 3, 2, 5)], (0,), fwd),
+        ("fake_quantize_moving_average_abs_max",
+         lambda o, x, m: o.q.fake_quantize_moving_average_abs_max(x, m, 6, 0.8),
+         [f(4, 6), np.float32(1.5)], (0, 1), fwd),
+        ("fake_dequantize_max_abs", lambda o, x, m: o.q.fake_dequantize_max_abs(x, m, 127.0),
+         [np.round(f(4, 6) * 40), np.float32(2.5)], (0, 1), fwd),
+        # layers.multi_box_head: two maps, weights from one seeded init
+        ("multi_box_head", lambda o, a, b: multi_box_head_case(o.dev, a, b),
+         [f(2, 4, 4, 6), f(2, 2, 2, 8)], (0, 1), fwd),
+        # §C.1: exactly on the kinks and ties
+        ("relu_at_kink", lambda o, x: o.m.relu(x), [kink], (0,), fwd),
+        ("relu6_at_kink", lambda o, x: o.m.relu6(x), [kink], (0,), fwd),
+        ("clip_at_kink", lambda o, x: o.m.clip(x, -1.0, 1.0), [kink], (0,), fwd),
+        ("hard_sigmoid_at_kink", lambda o, x: o.m.hard_sigmoid(x), [kink], (0,), fwd),
+        ("abs_at_kink", lambda o, x: o.m.abs(x), [kink], (0,), fwd),
+        ("clip_by_norm_at_kink", lambda o, x: o.m.clip_by_norm(x, 5.0), [np.float32([[3, 0], [0, 4]])],
+         (0,), fwd),
+        ("maximum_ties", lambda o, x, y: o.m.maximum(x, y), [kink, kink_b], (0, 1), fwd),
+        ("minimum_ties", lambda o, x, y: o.m.minimum(x, y), [kink, kink_b], (0, 1), fwd),
+        ("sigmoid_cross_entropy_with_logits_at_kink",
+         lambda o, x, y: o.nn.sigmoid_cross_entropy_with_logits(x, y), [zlogit, l01], (0,), fwd),
+        ("margin_rank_loss_at_kink", lambda o, lab, a, b: o.nn.margin_rank_loss(lab, a, b, 0.25),
+         [np.float32([1, -1, 1, -1]), np.float32([1.25, 1, 2, 0.5]), np.float32([1, 1.25, 1, 0.5])],
+         (1, 2), fwd),
+        ("hsigmoid_loss_at_kink", lambda o, x, w, b, y: o.nn.hsigmoid_loss(x, w, b, y, 6),
+         [f(4, 3), np.concatenate([np.zeros((3, 3), np.float32), f(2, 3)]),
+          np.float32([0, 0, 0, 0.5, -0.5]), np.array([0, 5, 2, 3], np.int32)], (0, 1, 2), fwd),
+        ("nce_loss_at_kink", lambda o, x, w, b, y, s: o.nn.nce_loss(x, w, b, y, 5, None, 5, samples=s),
+         [f(3, 4), np.zeros((5, 4), np.float32), np.zeros(5, np.float32), np.array([1, 4, 0], np.int32),
+          r.randint(0, 5, (3, 5)).astype(np.int32)], (0, 1, 2), fwd),
+        # §C.2: the edge semantics
+        ("crop_negative_offset", lambda o, x: o.m.crop(x, [3, -1], [2, 2]), [grid], (0,), fwd),
+        ("sign_nan", lambda o, x: o.m.sign(x), [nan_row], (), fwd),
+        ("argsort_descending_nan", lambda o, x: o.m.argsort(x, descending=True), [nan_row], (), fwd),
+        ("gather_out_of_range_fills", lambda o, x, i: o.m.gather(x, i),
+         [grid, np.array([0, -1, 3, 4, -5], np.int32)], (0,), fwd),
+        ("gather_nd_out_of_range_clamps", lambda o, x, i: o.m.gather_nd(x, i),
+         [grid, np.array([[0, 1], [-1, 2], [5, 7], [-6, 0]], np.int32)], (0,), fwd),
+        ("scatter_out_of_range_drops", lambda o, x, i, u: o.m.scatter(x, i, u),
+         [f(3, 4), np.array([1, -1, 5, -6], np.int32), f(4, 4)], (0, 2), fwd),
+    ]
+
+
+_MULTI_BOX_HEAD = {}
+
+
+def multi_box_head_case(dev: str, f1, f2):
+    """layers.multi_box_head over two maps, its weights from one seeded
+    init on the CPU, moved once to ``dev``."""
+    import paddle_tpu_torch as pt
+
+    def net(a, b):
+        return pt.layers.multi_box_head([a, b], (64, 64), 3, [16.0, 32.0], [32.0, 48.0],
+                                        [[2.0], [2.0, 3.0]])
+
+    if dev not in _MULTI_BOX_HEAD:
+        model = pt.build(net)
+        params = model.init(0, f1.detach().cpu(), f2.detach().cpu(), device="cpu").params
+        _MULTI_BOX_HEAD[dev] = (model, {k: t.to(dev) for k, t in params.items()})
+    model, params = _MULTI_BOX_HEAD[dev]
+    out, _ = model.apply(params, f1, f2)
+    return out
 
 
 def _catalog_namespace(dev: str):
@@ -3992,10 +4275,12 @@ def _catalog_namespace(dev: str):
 
     import torch
 
-    from paddle_tpu_torch.ops import control_flow, losses, math, nn, nn3d, vision
+    from paddle_tpu_torch.ops import (control_flow, detection, detection_rpn, losses, math, nn, nn3d,
+                                      quant, vision)
 
     return types.SimpleNamespace(
-        m=math, nn=nn, n3=nn3d, v=vision, l=losses, cf=control_flow, dev=dev,
+        m=math, nn=nn, n3=nn3d, v=vision, l=losses, cf=control_flow, det=detection,
+        rpn=detection_rpn, q=quant, dev=dev,
         gen=lambda: torch.Generator(device=dev).manual_seed(0))
 
 
@@ -4019,6 +4304,19 @@ def _sweep_run(fn, args, argnums, dev, cotangents=None):
     return [o.detach().cpu() for o in outs], grads
 
 
+def _rel_l2_nan(a, b) -> float:
+    """:func:`_rel_l2` over the positions where ``b`` is finite; inf where
+    the non-finite positions (NaN, ±inf) are not the same in both."""
+    import torch
+
+    finite = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), finite) or not torch.equal(
+            torch.nan_to_num(a[~finite], 0.0), torch.nan_to_num(b[~finite], 0.0)) or not torch.equal(
+            torch.isnan(a), torch.isnan(b)):
+        return float("inf")
+    return _rel_l2(torch.where(finite, a, 0.0), torch.where(finite, b, 0.0))
+
+
 def launches_by_range(prof, prefix: str) -> dict:
     """Kernel launches (the CUDA runtime's launch calls) inside each
     ``record_function`` range whose name starts with ``prefix``, from one
@@ -4034,6 +4332,344 @@ def launches_by_range(prof, prefix: str) -> dict:
             hi = bisect.bisect_right(launches, e.time_range.end)
             out[e.name[len(prefix):]] = hi - lo
     return out
+
+
+def detection_gt(rng, batch: int, max_gt: int, classes: int, scale=(1.0, 1.0)):
+    """Padded ground truth (numpy): 1..max_gt boxes an image, [x1, y1, x2,
+    y2] scaled by (width, height), labels in [1, classes), a validity mask."""
+    import numpy as np
+
+    n = rng.randint(1, max_gt + 1, size=batch)
+    xy = rng.uniform(0.0, 0.7, (batch, max_gt, 2))
+    wh = rng.uniform(0.04, 0.3, (batch, max_gt, 2))
+    sx, sy = scale
+    boxes = np.concatenate([xy, xy + wh], -1) * np.array([sx, sy, sx, sy])
+    valid = np.arange(max_gt)[None, :] < n[:, None]
+    labels = np.where(valid, rng.randint(1, classes, (batch, max_gt)), 0).astype(np.int32)
+    return np.where(valid[..., None], boxes, 0.0).astype(np.float32), labels, valid
+
+
+def ssd300_net(pt, cfg, head_only: bool = False):
+    """SSD's multibox head over the source maps, then the mean ssd_loss of
+    the batch's images (or, ``head_only``, the head's outputs)."""
+    n_maps = len(cfg["maps"])
+
+    def net(*args):
+        locs, confs, boxes, variances = pt.layers.multi_box_head(
+            list(args[:n_maps]), cfg["image"], cfg["classes"], cfg["min_sizes"], cfg["max_sizes"],
+            [list(a) for a in cfg["aspect_ratios"]], flip=True)
+        if head_only:
+            return locs, confs, boxes, variances
+        return ssd_batch_loss(pt, locs, confs, *args[n_maps:], boxes, variances)
+
+    return net
+
+
+def ssd_batch_loss(pt, locs, confs, gt, labels, valid, boxes, variances):
+    """ssd_loss of each image (the op is single-image), averaged."""
+    per = [pt.layers.ssd_loss(locs[i], confs[i], gt[i], labels[i], valid[i], boxes, variances)
+           for i in range(locs.shape[0])]
+    return sum(per) / len(per)
+
+
+def rpn_net(pt, cfg, head_only: bool = False):
+    """The RPN head on the conv5 map, then rpn_target_assign of each image
+    against the anchors (the samplers given ``u`` [B, 2, A]) and the loss:
+    sigmoid cross-entropy over the sampled anchors plus smooth L1 over the
+    fg, each normalised by its count, averaged over images."""
+
+    def net(feat, gt=None, valid=None, u=None):
+        h = pt.layers.conv2d(feat, cfg["channels"], 3, padding=1, act="relu", name="rpn_conv")
+        cls = pt.layers.conv2d(h, 12, 1, name="rpn_cls_score")
+        box = pt.layers.conv2d(h, 48, 1, name="rpn_bbox_pred")
+        if head_only:
+            return cls, box
+        anchors = pt.layers.anchor_generator(cfg["map"], device=feat.device)[0].reshape(-1, 4)
+        total = 0.0
+        for i in range(feat.shape[0]):
+            labels, targets, loc_w, score_w = pt.layers.rpn_target_assign(
+                anchors, gt[i], valid[i], None, cfg["per_im"], uniforms=u[i])
+            ce = pt.layers.sigmoid_cross_entropy_with_logits(cls[i].reshape(-1), (labels == 1).float())
+            sl1 = pt.layers.smooth_l1(box[i].reshape(-1, 4) * loc_w[:, None], targets * loc_w[:, None])
+            total = total + ((ce * score_w).sum() / score_w.sum().clamp_min(1.0)
+                             + sl1.sum() / loc_w.sum().clamp_min(1.0))
+        return total / feat.shape[0]
+
+    return net
+
+
+def output_divergence(card, cpu, n_card: int, n_cpu: int, thr: float, by_class: bool) -> str:
+    """One NMS output from the card and from the CPU on the same inputs (CPU
+    tensors; rows [class,] score, x1, y1, x2, y2 in the output's order, the
+    first ``n_*`` valid, then padding). "equal": every row agrees, padding
+    included (classes exactly, scores and boxes each within
+    CATALOG_FWD_TOL relative) and so do the counts. "near_tie": the first
+    row that differs holds, on either side, a valid box whose IoU with an
+    earlier box (of its class) is within DET_TIE_TOL relative of the NMS
+    threshold ``thr``, or two valid detections with scores within
+    DET_TIE_TOL relative of each other that swapped places (each is found
+    in the other side's output). Else "other": a fault in the decode, the
+    gather, the merge or the padding shows so. Rows before the first
+    difference agree by construction."""
+    from paddle_tpu_torch.ops.detection import iou_similarity
+
+    c0 = 1 if by_class else 0
+
+    def close(x, y):
+        return float((x - y).norm()) <= CATALOG_FWD_TOL * max(float(y.norm()), 1e-30)
+
+    def same(x, y):
+        return (not by_class or x[0] == y[0]) and close(x[c0:c0 + 1], y[c0:c0 + 1]) and close(
+            x[c0 + 1:], y[c0 + 1:])
+
+    for j in range(cpu.shape[0]):
+        a, b = card[j], cpu[j]
+        if same(a, b):
+            continue
+        rows = [r for r, n in ((a, n_card), (b, n_cpu)) if j < n]
+        if (len(rows) == 2 and abs(float(a[c0] - b[c0])) <= DET_TIE_TOL * abs(float(b[c0]))
+                and any(same(a, r) for r in cpu[j + 1:n_cpu])
+                and any(same(r, b) for r in card[j + 1:n_card])):
+            return "near_tie"
+        for r in rows:
+            earlier = cpu[:j][cpu[:j, 0] == r[0]] if by_class else cpu[:j]
+            iou = iou_similarity(r[None, c0 + 1:], earlier[:, c0 + 1:])
+            if bool(((iou - thr).abs() <= DET_TIE_TOL * thr).any()):
+                return "near_tie"
+        return "other"
+    return "equal" if n_card == n_cpu else "other"
+
+
+def _det_train(pt, net, batch, dev: str, v0, lr: float):
+    """DET_STEPS Adam steps of ``net`` on ``batch`` (numpy) on ``dev`` from
+    the weights ``v0``: losses, step ms (host clock, synchronised), the
+    final variables and optimizer state, the step function and the batch."""
+    import torch
+
+    model = pt.build(net)
+    tb = [torch.from_numpy(a).to(dev) for a in batch]
+    v = pt.Variables({k: t.to(dev) for k, t in v0.params.items()},
+                     {k: t.to(dev) for k, t in v0.state.items()})
+    opt = pt.optimizer.Adam(learning_rate=lr)
+    state, step = opt.create_state(v.params), opt.minimize(model)
+    losses, times = [], []
+    for _ in range(DET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(v, state, *tb)
+        losses.append(float(out.loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+        v, state = out.variables, out.opt_state
+    return losses, times, v, state, step, tb
+
+
+def _det_profiled(calls: dict) -> tuple:
+    """Each callable of ``calls`` once, under a profiler of its own: {name:
+    the kernels its session ran (device records, the markers left out)},
+    and whether every session was intact (profile_intact)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out, intact = {}, True
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profile_markers()
+            fn()
+            profile_markers()
+        out[name] = sum(not n.startswith(("Memcpy", "Memset")) for n in device_records(prof))
+        intact = intact and profile_intact(prof)
+    return out, intact
+
+
+def _peak_bytes(fn) -> int:
+    """The card's peak allocated bytes over one call of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def ssd300_part(pt, smi: str) -> tuple:
+    """Phase catalog (e): SSD300's head trained on the card against the CPU,
+    then its detections. Returns (the part's line, its checks)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import detection as det
+
+    cfg = SSD300
+    t_part = time.perf_counter()
+    rng = np.random.RandomState(5)
+    feats = [rng.randn(cfg["batch"], s, s, c).astype(np.float32) for s, c in cfg["maps"]]
+    batch = (*feats, *detection_gt(rng, cfg["batch"], cfg["max_gt"], cfg["classes"]))
+    net = ssd300_net(pt, cfg)
+    v0 = pt.build(net).init(0, *(torch.from_numpy(a) for a in batch), device="cpu")
+    cpu_l, _, _, _, _, _ = _det_train(pt, net, batch, "cpu", v0, SSD_LR)
+    card_l, card_t, v, state, step, tb = _det_train(pt, net, batch, "cuda", v0, SSD_LR)
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card_l, cpu_l))
+    checks = {"ssd300_card_vs_cpu": rel <= BOOK_LOSS_TOL, "ssd300_loss_falls": card_l[-1] < card_l[0],
+              "ssd300_loss_finite": bool(np.isfinite(card_l).all())}
+    peak_step = _peak_bytes(lambda: step(v, state, *tb))
+
+    # the head's outputs, then ssd_loss's forward and backward apart
+    n_maps = len(cfg["maps"])
+    head = pt.build(ssd300_net(pt, cfg, head_only=True))
+    with torch.no_grad():
+        (locs, confs, boxes, variances), _ = head.apply(v.params, *tb[:n_maps])
+    checks["ssd300_priors"] = locs.shape[1] == cfg["priors"] == boxes.shape[0]
+    leaves = [locs.clone().requires_grad_(), confs.clone().requires_grad_()]
+    gt_args = tb[n_maps:]
+    held = {}
+
+    def loss_fwd():
+        held["loss"] = ssd_batch_loss(pt, *leaves, *gt_args, boxes, variances)
+
+    def loss_bwd():
+        torch.autograd.grad(held["loss"], leaves, retain_graph=True)
+
+    launches, intact = _det_profiled({"ssd_step": lambda: step(v, state, *tb),
+                                      "ssd_loss_fwd": loss_fwd, "ssd_loss_bwd": loss_bwd})
+    fwd_ms, bwd_ms = min(best_step_ms(loss_fwd)), min(best_step_ms(loss_bwd))
+
+    # detection_output and detection_map on the trained head
+    probs = torch.softmax(confs, dim=-1)
+    kw = dict(nms_threshold=cfg["nms"], nms_top_k=cfg["nms_top_k"], keep_top_k=cfg["keep_top_k"],
+              score_threshold=cfg["score"])
+
+    def detect(i, d="cuda"):
+        return det.detection_output(*(t.to(d) for t in (locs[i], probs[i], boxes, variances)), **kw)
+
+    def mean_ap(i, dets, n, d="cuda"):
+        return float(det.detection_map(dets.to(d), n.to(d), *(t[i].to(d) for t in gt_args),
+                                       cfg["classes"]))
+
+    with torch.no_grad():
+        outs = [detect(i) for i in range(cfg["batch"])]
+        peak_det = _peak_bytes(lambda: detect(0))
+        det_ms = best_step_ms(lambda: detect(0))
+        det_launches, det_intact = _det_profiled({"detection_output": lambda: detect(0)})
+        launches.update(det_launches)
+        maps = [mean_ap(i, d, n) for i, (d, n) in enumerate(outs)]
+        # card against CPU on the same inputs (the card's head outputs): the
+        # outputs of detection_output, and detection_map of the card's
+        # detections, on every checked image
+        agree = {"equal": 0, "near_tie": 0, "other": 0}
+        map_diff = 0.0
+        for i in range(DET_CHECK_IMAGES):
+            d_cpu, n_cpu = detect(i, "cpu")
+            d_card, n_card = (t.cpu() for t in outs[i])
+            agree[output_divergence(d_card, d_cpu, int(n_card), int(n_cpu), cfg["nms"], True)] += 1
+            map_diff = max(map_diff, abs(mean_ap(i, d_card, n_card, "cpu") - maps[i]))
+    checks["ssd300_detections_card_vs_cpu"] = agree["other"] == 0
+    checks["ssd300_map_card_vs_cpu"] = map_diff <= 1e-6
+    checks["ssd300_launch_counts_intact"] = intact and det_intact
+    line = {"phase": "catalog", "part": "e_ssd300", "cfg": {k: cfg[k] for k in (
+        "maps", "priors", "classes", "batch", "max_gt", "nms_top_k", "keep_top_k")},
+        "card_losses": card_l, "cpu_losses": cpu_l, "max_rel_diff": rel, "loss_tol": BOOK_LOSS_TOL,
+        "step_ms": min(card_t[1:]), "step_ms_runs": card_t, "launches_per_step": launches["ssd_step"],
+        "ssd_loss_fwd_launches": launches["ssd_loss_fwd"],
+        "ssd_loss_bwd_launches": launches["ssd_loss_bwd"],
+        "ssd_loss_fwd_launches_per_image": launches["ssd_loss_fwd"] / cfg["batch"],
+        "ssd_loss_fwd_ms": fwd_ms, "ssd_loss_bwd_ms": bwd_ms,
+        "detection_output_ms_per_image": min(det_ms),
+        "detection_output_launches_per_image": launches["detection_output"],
+        "detections_per_image": [int(n) for _, n in outs], "map_per_image": maps,
+        "map_card_vs_cpu_max_abs_diff": map_diff, "detections_card_vs_cpu": agree,
+        "peak_memory_bytes_step": peak_step, "peak_memory_bytes_detection_output": peak_det,
+        "seconds": time.perf_counter() - t_part, "card": smi}
+    return line, checks
+
+
+def rpn_part(pt, smi: str) -> tuple:
+    """Phase catalog (f): Faster R-CNN's RPN trained on the card against the
+    CPU, then its proposals and their labels. Returns (the part's line, its
+    checks)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import detection_rpn as rpn
+
+    cfg = RPN_CFG
+    t_part = time.perf_counter()
+    rng = np.random.RandomState(6)
+    h, w = cfg["map"]
+    img_h, img_w = cfg["image"]
+    feat = rng.randn(cfg["batch"], h, w, cfg["channels"]).astype(np.float32)
+    gt, labels, valid = detection_gt(rng, cfg["batch"], cfg["max_gt"], cfg["classes"], (img_w, img_h))
+    u = rng.uniform(0, 1, (cfg["batch"], 2, cfg["anchors"])).astype(np.float32)
+    batch = (feat, gt, valid, u)
+    net = rpn_net(pt, cfg)
+    v0 = pt.build(net).init(0, *(torch.from_numpy(a) for a in batch), device="cpu")
+    cpu_l, _, _, _, _, _ = _det_train(pt, net, batch, "cpu", v0, RPN_LR)
+    card_l, card_t, v, state, step, tb = _det_train(pt, net, batch, "cuda", v0, RPN_LR)
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card_l, cpu_l))
+    checks = {"rpn_card_vs_cpu": rel <= BOOK_LOSS_TOL, "rpn_loss_falls": card_l[-1] < card_l[0],
+              "rpn_loss_finite": bool(np.isfinite(card_l).all())}
+    peak_step = _peak_bytes(lambda: step(v, state, *tb))
+
+    anchors, variances = (t.reshape(-1, 4)
+                          for t in pt.layers.anchor_generator(cfg["map"], device="cuda"))
+    checks["rpn_anchors"] = anchors.shape[0] == cfg["anchors"]
+    head = pt.build(rpn_net(pt, cfg, head_only=True))
+    with torch.no_grad():
+        (cls, box), _ = head.apply(v.params, tb[0])
+    scores, deltas = torch.sigmoid(cls[0].reshape(-1)), box[0].reshape(-1, 4)
+    kw = dict(pre_nms_top_n=cfg["pre_nms"], post_nms_top_n=cfg["post_nms"], nms_thresh=cfg["nms"])
+    u_labels = torch.from_numpy(rng.uniform(0, 1, (2, cfg["post_nms"])).astype(np.float32))
+    gt0 = [t[0] for t in (torch.from_numpy(gt), torch.from_numpy(labels), torch.from_numpy(valid))]
+
+    def proposals(d="cuda"):
+        ins = [t.to(d) for t in (scores, deltas, anchors, variances)]
+        return rpn.generate_proposals(*ins, cfg["image"], **kw)
+
+    def labels_of(props, d="cuda"):
+        return rpn.generate_proposal_labels(props.to(d), *(t.to(d) for t in gt0), None,
+                                            uniforms=u_labels.to(d))
+
+    with torch.no_grad():
+        props, pscores, count = proposals()
+        peak_prop = _peak_bytes(proposals)
+        prop_ms = best_step_ms(proposals)
+        lab = labels_of(props)
+        lab_ms = best_step_ms(lambda: labels_of(props))
+        target, target_valid = gt0[0].cuda(), gt0[2].cuda()
+        launches, intact = _det_profiled({
+            "rpn_step": lambda: step(v, state, *tb),
+            "rpn_target_assign": lambda: rpn.rpn_target_assign(anchors, target, target_valid, None,
+                                                               cfg["per_im"], uniforms=tb[3][0]),
+            "generate_proposals": proposals,
+            "generate_proposal_labels": lambda: labels_of(props)})
+        # card against CPU on the same inputs (the card's head outputs):
+        # generate_proposals' own outputs, then generate_proposal_labels on
+        # the card's proposals
+        props_c, pscores_c, count_c = proposals("cpu")
+        rows = [torch.cat([sc.cpu()[:, None], pr.cpu()], 1)
+                for pr, sc in ((props, pscores), (props_c, pscores_c))]
+        res = output_divergence(*rows, int(count), int(count_c), cfg["nms"], False)
+        agree = {k: int(res == k) for k in ("equal", "near_tie", "other")}
+        lab_c = labels_of(props, "cpu")
+        labels_same = torch.equal(lab[0].cpu(), lab_c[0]) and all(
+            _rel_l2(a.cpu(), b) <= CATALOG_FWD_TOL for a, b in zip(lab[1:], lab_c[1:]))
+    checks["rpn_proposals_card_vs_cpu"] = agree["other"] == 0
+    checks["rpn_proposal_labels_card_vs_cpu"] = labels_same
+    checks["rpn_launch_counts_intact"] = intact
+    line = {"phase": "catalog", "part": "f_rpn", "cfg": {k: cfg[k] for k in (
+        "map", "channels", "anchors", "batch", "per_im", "pre_nms", "post_nms", "nms")},
+        "card_losses": card_l, "cpu_losses": cpu_l, "max_rel_diff": rel, "loss_tol": BOOK_LOSS_TOL,
+        "step_ms": min(card_t[1:]), "step_ms_runs": card_t, "launches_per_step": launches["rpn_step"],
+        "rpn_target_assign_launches": launches["rpn_target_assign"],
+        "generate_proposals_ms": min(prop_ms), "generate_proposals_launches": launches["generate_proposals"],
+        "generate_proposal_labels_ms": min(lab_ms),
+        "generate_proposal_labels_launches": launches["generate_proposal_labels"],
+        "proposals": int(count), "fg_rois": int((lab[0] > 0).sum()), "bg_rois": int((lab[0] == 0).sum()),
+        "proposals_card_vs_cpu": agree, "proposal_labels_equal": labels_same,
+        "peak_memory_bytes_step": peak_step, "peak_memory_bytes_proposals": peak_prop,
+        "seconds": time.perf_counter() - t_part, "card": smi}
+    return line, checks
 
 
 def catalog_phase(smi: str):
@@ -4054,7 +4690,8 @@ def catalog_phase(smi: str):
 
     # (a) the op sweep, card against the port on the CPU
     cases = catalog_sweep_cases()
-    from paddle_tpu_torch.ops import control_flow, losses, math, nn, nn3d, vision
+    from paddle_tpu_torch.ops import (control_flow, detection, detection_rpn, losses, math, nn, nn3d,
+                                      quant, vision)
 
     earlier_nn = {"conv2d", "pool2d", "softmax", "cross_entropy", "softmax_with_cross_entropy",
                   "square_error_cost", "accuracy", "layer_norm", "embedding_lookup", "dropout",
@@ -4062,7 +4699,8 @@ def catalog_phase(smi: str):
                   "label_smooth"}
     names = (set(math.__all__) | (set(nn.__all__) - earlier_nn) | set(losses.__all__)
              | set(nn3d.__all__) | set(vision.__all__)
-             | (set(control_flow.__all__) - {"BeamState", "beam_init", "beam_step", "beam_finish"}))
+             | (set(control_flow.__all__) - {"BeamState"}) | set(detection.__all__)
+             | set(detection_rpn.__all__) | set(quant.__all__) | {"multi_box_head"})
     swept = {c[0] for c in cases}
     unswept = sorted(n for n in names if not any(s == n or s.startswith(n + "_") for s in swept))
     checks["sweep_covers_every_function"] = not unswept
@@ -4083,7 +4721,7 @@ def catalog_phase(smi: str):
         if ok and kind == "random":
             ok = all(bool(torch.isfinite(a.float()).all()) for a in card_out)
         elif ok:
-            errs = [_rel_l2(a, b) if a.is_floating_point() else float(not torch.equal(a, b))
+            errs = [_rel_l2_nan(a, b) if a.is_floating_point() else float(not torch.equal(a, b))
                     for a, b in zip(card_out, cpu_out)]
             row["fwd_rel_l2"] = max(errs)
             ok = all(e <= (tol if a.is_floating_point() else 0.0) for e, a in zip(errs, card_out))
@@ -4247,6 +4885,14 @@ def catalog_phase(smi: str):
           "grad_rel_l2": grad_rel, "tol": TRAIN_GRAD_TOL, "fwd_bwd_ms_flash": min(flash_ms),
           "fwd_bwd_ms_composed": min(composed_ms), "card": smi})
     del qkv, cot, out_f, out_c, g_f, g_c
+
+    # (e) SSD300's head and (f) Faster R-CNN's RPN, f32
+    set_flags(use_flash_attention=False, use_bf16_compute=False)
+    for part in (ssd300_part, rpn_part):
+        line, part_checks = part(pt, smi)
+        emit(line)
+        checks.update(part_checks)
+    set_flags(use_flash_attention=True, use_bf16_compute=True)
 
     emit({"phase": "catalog", "seconds": time.perf_counter() - t_phase, "checks": checks})
     return {"catalog": attn_launches}, checks

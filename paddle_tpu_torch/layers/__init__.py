@@ -6,9 +6,9 @@
 (:mod:`.extended`), the reader layers (:mod:`.io_layers`), and the
 functional ops re-exported under their fluid names (all of ``ops.math``,
 the ``ops.nn``/``ops.sequence``/``ops.control_flow``/``ops.losses`` names,
-the learning-rate schedules). ``__all__`` is the JAX package's less the
-detection names (``multi_box_head``, ``prior_box``, ... : ROADMAP §A item
-5).
+the ``ops.detection``/``ops.detection_rpn`` names, the learning-rate
+schedules) and the SSD head :func:`multi_box_head`. ``__all__`` is the JAX
+package's.
 
 Each layer function creates/fetches its named parameters through
 :mod:`paddle_tpu_torch.framework` (the JAX package's names) and returns the
@@ -436,6 +436,47 @@ def sequence_conv(
         return _act(out, act)
 
 
+def multi_box_head(
+    inputs: Sequence[torch.Tensor],
+    image_shape: Tuple[int, int],
+    num_classes: int,
+    min_sizes: Sequence[float],
+    max_sizes: Sequence[float] = (),
+    aspect_ratios: Optional[Sequence[Sequence[float]]] = None,
+    flip: bool = True,
+    clip: bool = False,
+    name: Optional[str] = None,
+):
+    """SSD MultiBox head (reference fluid ``layers.detection.multi_box_head``):
+    for each NHWC feature map a 3x3 conv predicts per-prior location offsets
+    (``multi_box_head/loc_i``) and class scores (``multi_box_head/conf_i``),
+    and prior_box emits the matching priors on the map's device. Returns
+    (mbox_locs [B, P, 4], mbox_confs [B, P, C], boxes [P, 4], variances
+    [P, 4]) with P the priors of all maps."""
+    from paddle_tpu_torch.ops import detection as odet
+
+    aspect_ratios = aspect_ratios or [[2.0]] * len(inputs)
+    locs, confs, boxes_all, vars_all = [], [], [], []
+    with name_scope(name or "multi_box_head"):
+        for i, feat in enumerate(inputs):
+            h, w = feat.shape[1], feat.shape[2]
+            boxes, variances = odet.prior_box(
+                (h, w), image_shape, [min_sizes[i]],
+                [max_sizes[i]] if i < len(max_sizes) else (),
+                aspect_ratios[i], flip=flip, clip=clip, device=feat.device,
+            )
+            p = boxes.shape[2]  # priors per cell
+            loc = conv2d(feat, p * 4, 3, padding=1, name=f"loc_{i}")
+            conf = conv2d(feat, p * num_classes, 3, padding=1, name=f"conf_{i}")
+            b = feat.shape[0]
+            locs.append(loc.reshape(b, h * w * p, 4))
+            confs.append(conf.reshape(b, h * w * p, num_classes))
+            boxes_all.append(boxes.reshape(-1, 4))
+            vars_all.append(variances.reshape(-1, 4))
+    return (torch.cat(locs, dim=1), torch.cat(confs, dim=1), torch.cat(boxes_all),
+            torch.cat(vars_all))
+
+
 class DataSpec(NamedTuple):
     """What :func:`data` declares: an input's shape and torch dtype."""
 
@@ -511,6 +552,25 @@ from paddle_tpu_torch.ops.losses import (  # noqa: F401,E402
     ctc_loss as warpctc,
     ctc_greedy_decode as ctc_greedy_decoder,
 )
+from paddle_tpu_torch.ops.detection import (  # noqa: F401,E402
+    prior_box,
+    anchor_generator,
+    bipartite_match,
+    target_assign,
+    box_coder,
+    iou_similarity,
+    multiclass_nms,
+    detection_output,
+    ssd_loss,
+    detection_map,
+)
+from paddle_tpu_torch.ops.detection_rpn import (  # noqa: F401,E402
+    rpn_target_assign,
+    generate_proposals,
+    generate_proposal_labels,
+    roi_perspective_transform,
+    polygon_box_transform,
+)
 from paddle_tpu_torch.lr_scheduler import (  # noqa: F401,E402
     exponential_decay,
     natural_exp_decay,
@@ -523,8 +583,7 @@ from paddle_tpu_torch.lr_scheduler import (  # noqa: F401,E402
 )
 
 # the export surface, in the JAX package's order: layer functions defined
-# here + the functional ops re-exported above, less the detection names
-# (ROADMAP §A item 5)
+# here + the functional ops re-exported above
 _LOCAL_LAYERS = [
     "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d", "batch_norm",
     "layer_norm", "dropout", "prelu", "dynamic_lstm", "dynamic_gru",
@@ -548,6 +607,11 @@ _OP_REEXPORTS = [
     "lod_rank_table", "beam_search", "beam_search_decode", "greedy_search",
     "linear_chain_crf", "crf_decoding", "edit_distance", "warpctc",
     "ctc_greedy_decoder",
+    "prior_box", "anchor_generator", "bipartite_match", "target_assign",
+    "box_coder", "iou_similarity", "multiclass_nms",
+    "detection_output", "ssd_loss", "detection_map",
+    "rpn_target_assign", "generate_proposals", "generate_proposal_labels",
+    "roi_perspective_transform", "polygon_box_transform", "multi_box_head",
     "exponential_decay", "natural_exp_decay", "inverse_time_decay",
     "polynomial_decay", "piecewise_decay", "noam_decay", "cosine_decay",
     "append_LARS",

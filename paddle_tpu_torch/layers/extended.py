@@ -451,6 +451,7 @@ def auc(input: torch.Tensor, label: torch.Tensor, num_thresholds: int = 200) -> 
     pred = (pos_prob.reshape(-1)[None, :] >= thresholds[:, None]).float()  # [T, B]
     tp = torch.sum(pred * lab[None, :], dim=1)
     fp = torch.sum(pred * (1.0 - lab[None, :]), dim=1)
+    # label counts: not differentiated
     tpr = tp / torch.clamp_min(torch.sum(lab), 1e-6)
     fpr = fp / torch.clamp_min(torch.sum(1.0 - lab), 1e-6)
     order = torch.sort(tpr, stable=True).indices  # lexsort: by fpr, ties by tpr

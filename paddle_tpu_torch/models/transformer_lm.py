@@ -333,7 +333,7 @@ def _decode_ffn_fn(proj, swiglu: bool):
         if swiglu:
             h = proj(x, f"layer_{i}/ffn/fc1") * F.silu(proj(x, f"layer_{i}/ffn/gate"))
         else:
-            h = torch.clamp_min(proj(x, f"layer_{i}/ffn/fc1"), 0)
+            h = F.relu(proj(x, f"layer_{i}/ffn/fc1"))  # jax.nn.relu: gradient 0 at 0
         return proj(h, f"layer_{i}/ffn/fc2")
 
     return ffn

@@ -42,8 +42,8 @@ from paddle_tpu_torch.core.enforce import enforce
 __all__ = [
     "while_loop", "cond", "switch_case", "case", "TensorArray", "create_array", "array_write",
     "array_read", "array_length", "static_rnn", "dynamic_rnn", "rank_by_length", "beam_search",
-    "beam_search_decode", "greedy_search", "BeamState", "beam_init", "beam_step", "beam_finish",
-]
+    "beam_search_decode", "greedy_search", "BeamState",
+]  # the JAX package's; beam_init/beam_step/beam_finish are the port's own steps of beam_search
 
 # ---------------------------------------------------------------------------
 # Structured control flow (While / IfElse / Switch)
@@ -121,7 +121,7 @@ class TensorArray(NamedTuple):
     def write(self, index, value) -> "TensorArray":
         i = _clamp_index(index, self.data.shape[0])
         data = torch.cat([self.data[:i], value.to(self.data.dtype)[None], self.data[i + 1:]])
-        new_size = torch.clamp_min(self.size, int(index) + 1)
+        new_size = torch.clamp_min(self.size, int(index) + 1)  # an integer size
         return TensorArray(data=data, size=new_size)
 
     def append(self, value) -> "TensorArray":

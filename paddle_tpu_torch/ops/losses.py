@@ -188,7 +188,7 @@ def ctc_loss(
 
     # total = logaddexp(alpha[ext_len-1], alpha[ext_len-2])
     a_last = torch.gather(alpha, 1, (ext_len - 1)[:, None])[:, 0]
-    a_prev = torch.gather(alpha, 1, torch.clamp_min(ext_len - 2, 0)[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1, torch.clamp_min(ext_len - 2, 0)[:, None])[:, 0]  # an index
     # empty label (ext_len==1): only the all-blank cell counts
     a_prev = torch.where(ext_len >= 2, a_prev, NEG_INF)
     return -torch.logaddexp(a_last, a_prev)
@@ -243,5 +243,5 @@ def edit_distance(
         row = torch.where((i < hyp_lengths)[:, None], new_row, row)
     dist = torch.gather(row, 1, ref_lengths.long()[:, None])[:, 0]
     if normalized:
-        dist = dist / torch.clamp_min(ref_lengths.float(), 1.0)
+        dist = dist / torch.clamp_min(ref_lengths.float(), 1.0)  # integer lengths
     return dist

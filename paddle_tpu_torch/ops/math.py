@@ -18,6 +18,22 @@ Conventions kept from the JAX package:
 - ties: :func:`argsort` and :func:`topk` rank equal values by index, lower
   first (a stable sort), as ``jnp.argsort`` and ``lax.top_k`` do;
   :func:`argmax`/:func:`argmin` take the first extremum.
+- kinks: :func:`maximum`, :func:`minimum`, :func:`clip` and the ops built
+  on them (:func:`relu`, :func:`relu6`, :func:`hard_sigmoid`, ...) send
+  half the gradient to each side of a tie, as ``jnp.maximum``/``jnp.clip``
+  do (``torch.clamp`` would send all of it to x), and :func:`abs` has the
+  gradient sign(x) with 1 at 0, as ``jnp.abs`` has (``torch.abs``: 0).
+  With a Python bound they run torch's clamp forward and jnp's backward
+  (an ``autograd.Function``), so they cost a clamp's launches. Other
+  modules of the port use these for every ``jnp.maximum``,
+  ``jnp.minimum``, ``jnp.clip`` and ``jnp.abs`` of a differentiated value,
+  bar an eps floor (``maximum(norm, 1e-12)``), which no value ties: that
+  stays a ``clamp_min``, whose gradient is then the same.
+- indices out of range: :func:`gather` fills (``jnp.take``'s default),
+  :func:`gather_nd` clamps (JAX's indexing) and :func:`scatter`/
+  :func:`scatter_add` drop the update (``.at[]``); a negative index counts
+  from the end first, once, and :func:`crop` wraps a negative offset and
+  then clamps, as ``lax.dynamic_slice`` does.
 - index-valued results are int64 here where JAX gives int32 (the policy of
   :data:`~paddle_tpu_torch.core.dtypes.INDEX_DTYPE`); integer sums and
   cumulative sums keep the input's width, as in JAX.
@@ -180,14 +196,123 @@ elementwise_max = _elementwise(torch.maximum, "elementwise_max")
 elementwise_pow = _elementwise(torch.pow, "elementwise_pow")
 
 
+# -- the kinks, as jax.numpy differentiates them ------------------------------
+#
+# A Python bound keeps torch's one-launch clamps in the forward; the
+# backward below is jnp's. With no gradient wanted, the clamp alone runs.
+
+_HALF = {}
+
+
+def _step(d: torch.Tensor) -> torch.Tensor:
+    """The derivative of ``jnp.maximum(d, 0)``: 0 below 0, 1/2 at 0, 1
+    above (``torch.heaviside``; its 0-d 1/2 filled once a device and
+    dtype). Not differentiated further (relu's second derivative is 0)."""
+    half = _HALF.get((d.device, d.dtype))
+    if half is None:
+        half = _HALF[(d.device, d.dtype)] = torch.full((), 0.5, dtype=d.dtype, device=d.device)
+    return torch.heaviside(d.detach(), half)
+
+
+class _MaxMin(torch.autograd.Function):
+    """``jnp.maximum(x, c)`` (``sense`` 1) or ``jnp.minimum(x, c)`` (-1) for
+    a Python c: x takes the gradient g * step(sense * (x - c)), half of it
+    at a tie."""
+
+    @staticmethod
+    def forward(ctx, x, c, sense):
+        ctx.save_for_backward(x)
+        ctx.c, ctx.sense = c, sense
+        return torch.clamp_min(x, c) if sense > 0 else torch.clamp_max(x, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = x - ctx.c if ctx.c else x
+        return g * _step(d if ctx.sense > 0 else -d), None, None
+
+
+class _Clip(torch.autograd.Function):
+    """``jnp.clip(x, lo, hi)`` for Python bounds, as ``minimum(maximum(x,
+    lo), hi)`` differentiates: g * step(x - lo) * step(hi - x), half of it
+    at either bound."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _step(x - ctx.lo if ctx.lo else x) * _step(ctx.hi - x), None, None
+
+
+class _Abs(torch.autograd.Function):
+    """``jnp.abs``: the gradient is g where x >= 0 (at 0 and -0.0 too)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _number(y) -> bool:
+    return isinstance(y, (int, float)) and not isinstance(y, bool)
+
+
+def _bound(x: torch.Tensor, y) -> torch.Tensor:
+    """A bound as a tensor: a Python number as a 0-d tensor filled on x's
+    device (JAX promotes an integer x beside a float to float)."""
+    if isinstance(y, torch.Tensor):
+        return y
+    if isinstance(y, float) and not x.is_floating_point():
+        return x.new_full((), y, dtype=torch.get_default_dtype())
+    return x.new_full((), y)
+
+
+def _grad_wanted(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def maximum(x, y):
+    """``jnp.maximum``: at a tie each side takes half the gradient."""
+    if _number(y) and x.is_floating_point():
+        return _MaxMin.apply(x, y, 1) if _grad_wanted(x) else torch.clamp_min(x, y)
+    return torch.maximum(x, _bound(x, y))
+
+
+def minimum(x, y):
+    """``jnp.minimum``: at a tie each side takes half the gradient."""
+    if _number(y) and x.is_floating_point():
+        return _MaxMin.apply(x, y, -1) if _grad_wanted(x) else torch.clamp_max(x, y)
+    return torch.minimum(x, _bound(x, y))
+
+
+def clip(x, min, max):  # noqa: A002
+    """``jnp.clip``: ``minimum(maximum(x, min), max)``, so x at a bound
+    takes half the gradient."""
+    if _number(min) and _number(max) and x.is_floating_point():
+        return _Clip.apply(x, min, max) if _grad_wanted(x) else torch.clamp(x, min, max)
+    return minimum(maximum(x, min), max)
+
+
 # -- activations (reference operators/activation_op.cc) ----------------------
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0)
+    """``jnp.maximum(x, 0)``: gradient 0.5 at 0 (``jax.nn.relu``, and
+    ``F.relu``, give 0 there)."""
+    return maximum(x, 0.0)
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0, 6)
+    return clip(x, 0.0, 6.0)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -205,7 +330,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def softsign(x: torch.Tensor) -> torch.Tensor:
-    return x / (1 + torch.abs(x))
+    return x / (1 + abs(x))
 
 
 def sqrt(x):
@@ -225,7 +350,8 @@ def log(x):
 
 
 def abs(x):  # noqa: A001 - fluid op name
-    return torch.abs(x)
+    """``jnp.abs``: the gradient is sign(x) with 1 at 0 (and at -0.0)."""
+    return _Abs.apply(x) if x.is_floating_point() and _grad_wanted(x) else torch.abs(x)
 
 
 def floor(x):
@@ -258,7 +384,7 @@ def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
 
 
 def hard_sigmoid(x, slope: float = 0.2, offset: float = 0.5):
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
+    return clip(slope * x + offset, 0.0, 1.0)
 
 
 def swish(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -279,17 +405,15 @@ def scale(x, scale: float = 1.0, bias: float = 0.0, bias_after_scale: bool = Tru
     return (x + bias) * scale
 
 
-def clip(x, min, max):  # noqa: A002
-    return torch.clamp(x, min, max)
-
-
 def clip_by_norm(x, max_norm: float):
     norm = torch.sqrt(torch.sum(torch.square(x)))
-    return x * torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+    # an eps floor: never tied, so clamp_min's gradient is jnp.maximum's
+    return x * minimum(max_norm / norm.clamp_min(1e-12), 1.0)
 
 
 def sign(x):
-    return torch.sign(x)
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` gives 0)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x)) if x.is_floating_point() else torch.sign(x)
 
 
 def sin(x):
@@ -406,9 +530,10 @@ def argmin(x, axis: int = -1):
 
 def argsort(x, axis: int = -1, descending: bool = False):
     """Reference ``argsort_op``: returns (sorted, indices); a stable sort,
-    so equal values keep their order (``jnp.argsort`` of x, or of -x when
-    ``descending``)."""
-    return tuple(torch.sort(x, dim=axis, descending=descending, stable=True))
+    so equal values keep their order. Descending sorts -x ascending, as
+    the JAX package does, so a NaN comes last either way."""
+    idx = torch.sort(-x if descending else x, dim=axis, stable=True).indices
+    return torch.gather(x, axis, idx), idx
 
 
 def topk(x, k: int):
@@ -487,26 +612,68 @@ def slice(x, axes: Sequence[int], starts: Sequence[int], ends: Sequence[int]):  
     return x[tuple(slicer)]
 
 
+def _wrap(index: torch.Tensor, n: int) -> torch.Tensor:
+    """A negative index counted from the end (once, as JAX does)."""
+    index = index.long()
+    return torch.where(index < 0, index + n, index)
+
+
+def _fill_value(dtype: torch.dtype):
+    """``jnp.take``'s fill for an index out of range: NaN, the least
+    signed or the largest unsigned integer, True."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
 def gather(x, index, axis: int = 0):
     """``jnp.take(x, index, axis)``: the result's dims are x's before
-    ``axis``, index's, then x's after."""
-    index = _tensor(index, x)
+    ``axis``, index's, then x's after. An index outside [-n, n) gives the
+    fill of :func:`_fill_value` (``jnp.take``'s default mode) and no
+    gradient."""
+    index = _tensor(index, x).to(x.device)
     axis %= x.dim()
-    out = torch.index_select(x, axis, index.reshape(-1).to(device=x.device, dtype=torch.long))
+    n = x.shape[axis]
+    flat = _wrap(index.reshape(-1), n)
+    inside = (flat >= 0) & (flat < n)
+    out = torch.index_select(x, axis, torch.where(inside, flat, 0))
+    keep = inside.reshape((-1,) + (1,) * (x.dim() - axis - 1))
+    out = torch.where(keep, out, out.new_full((), _fill_value(x.dtype)))
     return out.reshape(tuple(x.shape[:axis]) + tuple(index.shape) + tuple(x.shape[axis + 1:]))
 
 
 def gather_nd(x, index):
-    return x[tuple(index.long().unbind(-1))]
+    """``x[tuple(index[..., k] for k)]``: an index out of range is clamped
+    into it, as JAX's indexing clamps, and (as JAX's scatter-add backward
+    drops it) takes no gradient."""
+    cols = [_wrap(c, x.shape[k]) for k, c in enumerate(index.long().unbind(-1))]
+    inside = torch.stack([(c >= 0) & (c < x.shape[k]) for k, c in enumerate(cols)]).all(0)
+    out = x[tuple(c.clamp(0, x.shape[k] - 1) for k, c in enumerate(cols))]
+    keep = inside.reshape(tuple(inside.shape) + (1,) * (out.dim() - inside.dim()))
+    return torch.where(keep, out, out.detach())
+
+
+def _scatter(x, index, updates, accumulate: bool):
+    """``x.at[index].set/add(updates)`` over x's rows: a row index outside
+    [-n, n) drops its update (it lands on a spare row, cut off after)."""
+    n = x.shape[0]
+    index = _wrap(index, n)
+    index = torch.where((index >= 0) & (index < n), index, n)
+    spare = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return spare.index_put((index,), updates.to(x.dtype), accumulate=accumulate)[:n]
 
 
 def scatter(x, index, updates):
-    """Overwrite rows of x at index (reference ``scatter_op`` overwrite mode)."""
-    return x.index_put((index.long(),), updates.to(x.dtype))
+    """Overwrite rows of x at index (reference ``scatter_op`` overwrite
+    mode); out-of-range rows are dropped."""
+    return _scatter(x, index, updates, False)
 
 
 def scatter_add(x, index, updates):
-    return x.index_put((index.long(),), updates.to(x.dtype), accumulate=True)
+    return _scatter(x, index, updates, True)
 
 
 def pad(x, paddings: Sequence[int], pad_value: float = 0.0):
@@ -518,10 +685,12 @@ def pad(x, paddings: Sequence[int], pad_value: float = 0.0):
 
 
 def crop(x, offsets: Sequence[int], shape: Sequence[int]):
-    """``lax.dynamic_slice``: each start clamped so the window fits."""
+    """``lax.dynamic_slice``: a negative start counts from the end (once),
+    then each start is clamped so the window fits."""
     out = x
     for a, (o, n) in enumerate(zip(offsets, shape)):
-        start = builtins.min(builtins.max(int(o), 0), x.shape[a] - int(n))
+        start = int(o) + (x.shape[a] if int(o) < 0 else 0)
+        start = builtins.min(builtins.max(start, 0), x.shape[a] - int(n))
         out = out.narrow(a, start, int(n))
     return out
 
@@ -645,6 +814,7 @@ def truncated_gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, key=Non
     g = _generator(key)
     lo, hi = (0.5 * (1.0 + _math.erf(b / _math.sqrt(2.0))) for b in (-2.0, 2.0))
     u = lo + (hi - lo) * torch.rand(tuple(shape), generator=g, device=g.device, dtype=torch.float64)
+    # a draw, not differentiated: the clamp only guards erfinv's rounding
     z = (_math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
     return (mean + std * z).to(device=_device(device), dtype=_d.convert(dtype))
 
@@ -653,7 +823,7 @@ def sampling_id(probs, key=None):
     """Sample one category id per row from a probability matrix (reference
     ``sampling_id_op``); ids int64 (``INDEX_DTYPE``), on probs' device."""
     g = _generator(key)
-    p = torch.clamp_min(probs.detach().float(), 1e-20).to(g.device)
+    p = torch.clamp_min(probs.detach().float(), 1e-20).to(g.device)  # detached: no gradient
     return torch.multinomial(p, 1, generator=g)[:, 0].to(probs.device)
 
 
@@ -706,10 +876,3 @@ def logical_xor(x, y):
 def where(cond, x, y):
     return torch.where(cond, x, y)
 
-
-def maximum(x, y):
-    return torch.maximum(x, _tensor(y, x))
-
-
-def minimum(x, y):
-    return torch.minimum(x, _tensor(y, x))

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import compute_dtype, f32_product, ieee_f32, mxu_operands
+from paddle_tpu_torch.ops import math as om
 from paddle_tpu_torch.parallel import context as dp_context
 
 __all__ = [
@@ -332,7 +333,8 @@ def cross_entropy(probs, label, soft_label: bool = False, ignore_index: int = -1
     """NLL on probabilities (reference ``cross_entropy_op.cc``): input is a
     probability distribution (post-softmax); label is int ids or soft dist.
     Returns per-example loss with a trailing 1 dim (fluid convention)."""
-    logp = torch.log(torch.clamp_min(probs.float(), 1e-10))
+    # an eps floor: never tied, so clamp_min's gradient is jnp.maximum's
+    logp = torch.log(probs.float().clamp_min(1e-10))
     if soft_label:
         return -torch.sum(label.float() * logp, dim=axis, keepdim=True)
     lab = _hard_labels(label, probs.dim())
@@ -530,7 +532,8 @@ def lrn(x, n: int = 5, k: float = 1.0, alpha: float = 1e-4, beta: float = 0.75):
 
 def l2_normalize(x, axis: int = -1, epsilon: float = 1e-12):
     norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))
-    return x / torch.clamp_min(norm, epsilon)
+    # an eps floor: never tied, so clamp_min's gradient is jnp.maximum's
+    return x / norm.clamp_min(epsilon)
 
 
 def log_softmax(x, axis: int = -1):
@@ -538,27 +541,31 @@ def log_softmax(x, axis: int = -1):
 
 
 def sigmoid_cross_entropy_with_logits(x, label):
+    """max(x, 0) - x * label + log(1 + e^-|x|), with the JAX package's
+    kinks: at a logit of exactly 0 the gradient is -label (the true
+    derivative is 0.5 - label; ROADMAP §C.10)."""
     xf, lf = x.float(), label.float()
-    return torch.clamp_min(xf, 0) - xf * lf + torch.log1p(torch.exp(-torch.abs(xf)))
+    return om.maximum(xf, 0.0) - xf * lf + torch.log1p(torch.exp(-om.abs(xf)))
 
 
 def smooth_l1(x, y, sigma: float = 1.0):
     """Reference ``smooth_l1_loss_op.cc``: per-example summed smooth-L1."""
     s2 = sigma * sigma
-    d = torch.abs(x.float() - y.float())
+    d = om.abs(x.float() - y.float())
     loss = torch.where(d < 1.0 / s2, 0.5 * s2 * torch.square(d), d - 0.5 / s2)
     return torch.sum(loss.reshape(loss.shape[0], -1), dim=1, keepdim=True)
 
 
 def huber_loss(x, y, delta: float = 1.0):
-    d = torch.abs(x.float() - y.float())
+    d = om.abs(x.float() - y.float())
     return torch.where(d <= delta, 0.5 * torch.square(d), delta * (d - 0.5 * delta))
 
 
 def kldiv_loss(x, target):
     """x is log-probabilities, target probabilities."""
     tf = target.float()
-    return tf * (torch.log(torch.clamp_min(tf, 1e-10)) - x.float())
+    # an eps floor: never tied, so clamp_min's gradient is jnp.maximum's
+    return tf * (torch.log(tf.clamp_min(1e-10)) - x.float())
 
 
 def log_loss(input, label, epsilon: float = 1e-4):
@@ -567,13 +574,14 @@ def log_loss(input, label, epsilon: float = 1e-4):
 
 
 def margin_rank_loss(label, left, right, margin: float = 0.1):
-    return torch.clamp_min(-label * (left - right) + margin, 0.0)
+    return om.maximum(-label * (left - right) + margin, 0.0)
 
 
 def cos_sim(x, y):
     xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
     yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
-    return torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(xn * yn, 1e-12)
+    # an eps floor: never tied, so clamp_min's gradient is jnp.maximum's
+    return torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn).clamp_min(1e-12)
 
 
 def embedding_grad_dense(table_shape, ids, grad_out):
@@ -630,6 +638,7 @@ def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     kernel_scale = max(inv_scale, 1.0)
     sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     pos = torch.arange(in_size, dtype=torch.float32, device=device)
+    # constants of the shapes: nothing here is differentiated
     w = torch.clamp_min(1 - torch.abs(sample[:, None] - pos[None, :]) / kernel_scale, 0)
     total = w.sum(dim=1, keepdim=True)
     eps = 1000.0 * torch.finfo(torch.float32).eps
@@ -665,6 +674,7 @@ def resize_bilinear(x, out_shape: Tuple[int, int], align_corners: bool = False):
             (in_size - 1) / (out_size - 1))
 
     ys, xs = coords(oh, h), coords(ow, w)
+    # integer indices: no gradient reaches them
     y0 = torch.clamp(torch.floor(ys).long(), 0, h - 1)
     y1 = torch.clamp(y0 + 1, 0, h - 1)
     x0 = torch.clamp(torch.floor(xs).long(), 0, w - 1)
@@ -749,6 +759,7 @@ def mean_iou(pred: torch.Tensor, label: torch.Tensor, num_classes: int):
     union = count(p) + count(lab) - correct
     wrong = union - correct
     present = union > 0
+    # integer counts: not differentiated
     iou = torch.where(present, correct / torch.clamp_min(union, 1), 0.0)
     miou = torch.sum(iou) / torch.clamp_min(torch.sum(present.to(torch.int32)), 1)
     return miou.float(), wrong, correct
@@ -789,8 +800,8 @@ def nce_loss(
     logits = logits - _math.log(num_neg_samples / n_classes)
     labels01 = torch.zeros_like(logits)
     labels01[:, 0] = 1.0
-    per = (torch.clamp_min(logits, 0.0) - logits * labels01
-           + torch.logaddexp(torch.zeros_like(logits), -torch.abs(logits)))
+    per = (om.maximum(logits, 0.0) - logits * labels01
+           + torch.logaddexp(torch.zeros_like(logits), -om.abs(logits)))
     return torch.sum(per, dim=1)
 
 
@@ -814,13 +825,13 @@ def hsigmoid_loss(
     for _ in range(code_len):
         bit = (node & 1).float()  # branch taken at the parent
         parent = node // 2
-        idx = torch.clamp(parent - 1, 0, num_classes - 2)
+        idx = torch.clamp(parent - 1, 0, num_classes - 2)  # an integer index
         active = (parent >= 1).float()
         logit = torch.sum(xf * weight[idx].float(), dim=-1)
         if bias is not None:
             logit = logit + bias[idx].float()
-        per = (torch.clamp_min(logit, 0.0) - logit * bit
-               + torch.logaddexp(torch.zeros_like(logit), -torch.abs(logit)))
+        per = (om.maximum(logit, 0.0) - logit * bit
+               + torch.logaddexp(torch.zeros_like(logit), -om.abs(logit)))
         total = total + per * active
         node = parent
     return total

@@ -120,6 +120,8 @@ def _ring_composed(q, k, v, axis: str, causal: bool, window=None, kv_len=None):
         kv = collective.ppermute(kv, axis, perm)
         bm, bl, bo = _block_attn(q32, kv[0], kv[1], block_bias(i))
         m, l, o = _merge(m, l, o, bm, bl, bo)
+    # l >= 1 (the row's maximum adds e^0), so the floor never ties and its
+    # gradient is jnp.maximum's
     out = o / torch.clamp_min(l, 1e-20)[..., None]
     return out.to(dtype)
 

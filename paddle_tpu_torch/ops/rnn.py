@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.core.dtypes import f32_project as _mm
+from paddle_tpu_torch.ops import math as om
 
 __all__ = [
     "LSTMState", "LSTMPState", "lstm_cell", "gru_cell", "dynamic_lstm", "dynamic_gru",
@@ -193,7 +194,7 @@ def lstmp_cell(
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     if cell_clip is not None:
-        new_c = torch.clamp(new_c, -cell_clip, cell_clip)
+        new_c = om.clip(new_c, -cell_clip, cell_clip)
     new_h = torch.sigmoid(o) * torch.tanh(new_c)
     new_r = _mm(new_h, w_proj).to(new_h.dtype)
     if proj_act == "tanh":
@@ -201,7 +202,7 @@ def lstmp_cell(
     elif proj_act == "sigmoid":
         new_r = torch.sigmoid(new_r)
     if proj_clip is not None:
-        new_r = torch.clamp(new_r, -proj_clip, proj_clip)
+        new_r = om.clip(new_r, -proj_clip, proj_clip)
     return LSTMPState(new_r, new_c)
 
 

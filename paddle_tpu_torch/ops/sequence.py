@@ -62,7 +62,7 @@ def sequence_pool(x: torch.Tensor, lengths: torch.Tensor, pool_type: str = "sum"
     t = x.shape[1]
     mask = length_mask(lengths, t)[..., None]  # [B, T, 1]
     xf = x.float()
-    n = lengths[:, None].float().clamp_min(1.0)
+    n = lengths[:, None].float().clamp_min(1.0)  # integer lengths: not differentiated
     if pool_type == "sum":
         out = torch.where(mask, xf, 0.0).sum(1)
     elif pool_type in ("average", "avg", "mean"):
@@ -73,7 +73,7 @@ def sequence_pool(x: torch.Tensor, lengths: torch.Tensor, pool_type: str = "sum"
         out = torch.where(mask, xf, -torch.inf).amax(1)
         out = torch.where(lengths[:, None] > 0, out, 0.0)
     elif pool_type == "last":
-        idx = (lengths - 1).clamp_min(0)
+        idx = (lengths - 1).clamp_min(0)  # an integer index
         out = _gather_time(xf, idx[:, None])[:, 0]
         out = torch.where(lengths[:, None] > 0, out, 0.0)
     elif pool_type == "first":
@@ -193,6 +193,7 @@ def sequence_concat(x: torch.Tensor, x_lens: torch.Tensor, y: torch.Tensor,
     pos = torch.arange(tx + ty, device=x.device)[None, :]
     xl = x_lens[:, None]
     from_x = pos < xl
+    # integer positions (here and below): no gradient reaches a clamp of them
     gx = _gather_time(x, pos.clamp(0, tx - 1).expand(x.shape[0], -1))
     gy = _gather_time(y, (pos - xl).clamp(0, ty - 1))
     sel = from_x if x.dim() == 2 else from_x[..., None]
@@ -212,7 +213,7 @@ def sequence_enumerate(ids: torch.Tensor, lengths: torch.Tensor, win_size: int,
     t = ids.shape[1]
     pos = (torch.arange(t, device=ids.device)[:, None]
            + torch.arange(win_size, device=ids.device)[None, :])  # [T, win]
-    gathered = ids[:, pos.clamp(0, t - 1)]  # [B, T, win]
+    gathered = ids[:, pos.clamp(0, t - 1)]  # [B, T, win]; integer positions
     valid = pos[None, :, :] < lengths[:, None, None]
     return torch.where(valid, gathered, pad_value).to(ids.dtype)
 
@@ -262,7 +263,7 @@ def sequence_slice(x: torch.Tensor, lengths: torch.Tensor, offset: torch.Tensor,
     ``sequence_slice_op.cc``), left-aligned into the padded output."""
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)[None, :]
-    out = _gather_time(x, (offset[:, None] + pos).clamp(0, t - 1))
+    out = _gather_time(x, (offset[:, None] + pos).clamp(0, t - 1))  # integer positions
     valid = pos < length[:, None]
     if x.dim() == 3:
         valid = valid[..., None]

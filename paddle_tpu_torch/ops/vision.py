@@ -92,6 +92,7 @@ def roi_pool(
     feats = x[roi_batch_idx.long().to(dev)]  # [R, H, W, C]
     r = rois.float().to(dev) * spatial_scale
     x1, y1, x2, y2 = (torch.round(r[:, i]) for i in range(4))
+    # the boxes are rounded and the bins floored: no gradient reaches them
     bin_h = torch.clamp_min(y2 - y1 + 1.0, 1.0) / pooled_height  # [R]
     bin_w = torch.clamp_min(x2 - x1 + 1.0, 1.0) / pooled_width
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops import math as om
+
 
 class Regularizer:
     def grad_term(self, param: torch.Tensor) -> torch.Tensor:
@@ -38,7 +40,7 @@ class L1Decay(Regularizer):
         return self.coeff * torch.sign(param)
 
     def loss_term(self, param):
-        return self.coeff * torch.sum(torch.abs(param))
+        return self.coeff * torch.sum(om.abs(param))  # gradient coeff at 0, as jnp.abs
 
 
 L1DecayRegularizer = L1Decay

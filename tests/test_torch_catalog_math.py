@@ -8,9 +8,16 @@ for outputs near 0); gradients of the differentiable ops (the JAX grad of
 ``sum(out * c)`` for a fixed cotangent ``c`` against autograd's) within 1e-4
 relative L2. Integer and boolean outputs are equal, and index-valued ones
 are int64 in the port where JAX gives int32 (``core.dtypes.INDEX_DTYPE``).
-Inputs sit away from kinks and ties where a gradient is compared; ties are
-exercised where the forward's order is the contract (argsort, topk). The
-random ops are held by distribution: the port's streams are its own.
+The kinkless inputs sit away from kinks and ties; the ``*_at_kink`` and
+``*_ties`` cases sit exactly on them (0 for relu and abs, the bounds of
+relu6, clip and hard_sigmoid, equal operands of maximum and minimum, a norm
+equal to clip_by_norm's bound), where the gradient is the JAX package's: a
+tie splits it 0.5/0.5 and |x| has gradient 1 at 0. Ties are also exercised
+where the forward's order is the contract (argsort, topk). The edge cases
+of §C.2 hold the JAX package's semantics: crop at a negative offset,
+sign(NaN), argsort(descending=True) with NaNs, and indices out of range
+(gather fills, gather_nd clamps, scatter and scatter_add drop). The random
+ops are held by distribution: the port's streams are its own.
 """
 
 import jax
@@ -47,6 +54,11 @@ IDX2 = np.array([[1, 0], [0, 2]], np.int32)
 BOOL_A = np.array([[True, False, True], [False, False, True]])
 BOOL_B = np.array([[True, True, False], [False, True, True]])
 MIXED = np.array([[1.0, np.inf, -2.0], [np.nan, 0.5, 3.0]], np.float32)
+KINK = np.array([[0.0, -0.0, 1.5, -2.0, 0.0, 6.0], [-1.0, 1.0, 0.0, 7.0, -3.0, 2.5]], np.float32)
+KINK_B = np.array([[0.0, 1.0, 1.5, -2.0, -0.0, 5.0], [-1.0, 2.0, 0.0, 7.0, -3.0, -2.5]], np.float32)
+NAN_ROW = np.array([[1.0, np.nan, 3.0, -1.0, np.nan, 3.0], [0.0, 2.0, np.nan, 2.0, -4.0, 0.0]],
+                   np.float32)
+GRID = np.arange(12, dtype=np.float32).reshape(4, 3)
 
 
 def _dev(m):
@@ -186,11 +198,43 @@ CASES = [
     ("sign", lambda m, x: m.sign(x), [np.array([-2.0, 0.0, 3.0], np.float32)], ()),
     ("sin", lambda m, x: m.sin(x), [X], (0,)),
     ("cos", lambda m, x: m.cos(x), [X], (0,)),
+    # exactly on the kinks and ties (§C.1)
+    ("relu_at_kink", lambda m, x: m.relu(x), [KINK], (0,)),
+    ("relu6_at_kink", lambda m, x: m.relu6(x), [KINK], (0,)),
+    ("clip_at_kink", lambda m, x: m.clip(x, -1.0, 1.0), [KINK], (0,)),
+    ("hard_sigmoid_at_kink", lambda m, x: m.hard_sigmoid(x), [KINK], (0,)),
+    ("abs_at_kink", lambda m, x: m.abs(x), [KINK], (0,)),
+    ("softsign_at_kink", lambda m, x: m.softsign(x), [KINK], (0,)),
+    ("clip_by_norm_at_kink", lambda m, x: m.clip_by_norm(x, 5.0), [np.float32([[3.0, 0.0], [0.0, 4.0]])],
+     (0,)),
+    ("maximum_ties", lambda m, x, y: m.maximum(x, y), [KINK, KINK_B], (0, 1)),
+    ("maximum_scalar_ties", lambda m, x: m.maximum(x, 1.5), [KINK], (0,)),
+    ("minimum_ties", lambda m, x, y: m.minimum(x, y), [KINK, KINK_B], (0, 1)),
+    ("elementwise_max_ties", lambda m, x, y: m.elementwise_max(x, y), [KINK, KINK_B], (0, 1)),
+    ("elementwise_min_ties", lambda m, x, y: m.elementwise_min(x, y), [KINK, KINK_B], (0, 1)),
+    # the edge semantics (§C.2)
+    ("crop_negative_offset", lambda m, x: m.crop(x, [3, -1], [2, 2]), [GRID], (0,)),
+    ("crop_negative_offset_3d", lambda m, x: m.crop(x, [-1, -2, -7], [1, 2, 3]), [X3], (0,)),
+    ("sign_nan", lambda m, x: m.sign(x), [NAN_ROW], ()),
+    ("argsort_descending_nan", lambda m, x: m.argsort(x, descending=True), [NAN_ROW], ()),
+    ("argsort_nan", lambda m, x: m.argsort(x), [NAN_ROW], ()),
+    ("gather_out_of_range_fills", lambda m, x, i: m.gather(x, i), [GRID, np.array([0, -1, 3, 4, -5],
+                                                                                  np.int32)], (0,)),
+    ("gather_out_of_range_fills_axis1", lambda m, x, i: m.gather(x, i, axis=1),
+     [X3, np.array([[1, -4], [3, -3]], np.int32)], (0,)),
+    ("gather_out_of_range_fills_int", lambda m, x, i: m.gather(x, i),
+     [np.arange(12, dtype=np.int32).reshape(4, 3), np.array([4, -5, 1], np.int32)], ()),
+    ("gather_nd_out_of_range_clamps", lambda m, x, i: m.gather_nd(x, i),
+     [GRID, np.array([[0, 1], [-1, 2], [5, 7], [-6, 0]], np.int32)], (0,)),
+    ("scatter_out_of_range_drops", lambda m, x, i, u: m.scatter(x, i, u),
+     [M34, np.array([1, -1, 5, -6], np.int32), _kinkless(4, 4)], (0, 2)),
+    ("scatter_add_out_of_range_drops", lambda m, x, i, u: m.scatter_add(x, i, u),
+     [M34, np.array([0, -1, 3, 0, -4], np.int32), _kinkless(5, 4)], (0, 2)),
 ]
 
 # index-valued outputs: int64 in the port, int32 in JAX (INDEX_DTYPE)
 INDEX_OUTPUTS = {"argmax", "argmin", "argsort", "argsort_descending", "argsort_axis0", "topk",
-                 "shape", "arange"}
+                 "shape", "arange", "argsort_descending_nan", "argsort_nan"}
 
 
 def _flat(out):
@@ -206,6 +250,7 @@ def _close(name, got, want, rtol, floor):
     assert got.shape == want.shape, (name, got.shape, want.shape)
     finite = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got), finite, err_msg=name)
+    np.testing.assert_array_equal(got[~finite], want[~finite], err_msg=name)  # NaN, ±inf alike
     err = np.linalg.norm(np.where(finite, got - want, 0.0))
     assert err <= rtol * max(np.linalg.norm(np.where(finite, want, 0.0)), floor), (name, err)
 
@@ -255,6 +300,16 @@ def test_gradient_matches_jax(case):
     got = torch.autograd.grad(loss, [ts[i] for i in argnums])
     for i, g, w in zip(argnums, got, want):
         _close(f"{name} d/darg{i}", g.numpy(), w, GRAD_RTOL, 1e-8)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_abs_at_kink_keeps_the_sign_of_zero(grad):
+    """``abs(-0.0)`` is +0.0 in both packages (a value compare cannot tell),
+    whether or not a gradient is wanted."""
+    want = np.signbit(np.asarray(jm.abs(jnp.asarray(KINK))))
+    got = tm.abs(torch.from_numpy(KINK.copy()).requires_grad_(grad))
+    np.testing.assert_array_equal(np.signbit(got.detach().numpy()), want)
+    assert not want.any()
 
 
 def test_all_equals_the_jax_package_and_every_name_is_held():

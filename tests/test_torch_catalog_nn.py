@@ -7,7 +7,12 @@ near 0); gradients (the JAX grad of ``sum(out * c)`` for a fixed cotangent
 Resizes go up and down (the JAX bilinear resize filters when it shrinks);
 transposed convolutions run at stride 2 with padding and output padding.
 ``nce_loss`` is given the JAX package's sampled noise ids, and its sampler
-and ``random_crop`` are held by distribution.
+and ``random_crop`` are held by distribution. The ``*_at_kink`` cases sit
+exactly on a kink: a logit of 0 in the three logistic losses (whose
+gradient there is the JAX package's -label, ROADMAP §C.10), a zero
+difference in smooth_l1 and huber_loss, the hinge of margin_rank_loss. The
+MNIST conv net at init on a batch whose top half is blank (ReLUs and max
+pools at exact zeros and ties) gives the JAX package's gradients.
 """
 
 import jax
@@ -43,6 +48,7 @@ PROBS = R.uniform(0.05, 0.95, (3, 5)).astype(np.float32)
 LABELS01 = (R.uniform(size=(3, 5)) > 0.5).astype(np.float32)
 SEQ = _x(3, 6, 4)
 LENS = np.array([6, 2, 4], np.int32)
+ZLOGIT = np.array([[0.0, 0.0, -0.0, 1.5, 0.0], [0.0, -2.0, 0.0, 0.0, 3.0], [0.0] * 5], np.float32)
 
 # (id, (jax module, port module) -> fn(module, *args), args, grad argnums)
 J = {"nn": jn, "nn3d": j3, "vision": jv}
@@ -71,7 +77,12 @@ CASES = [
     ("sigmoid_cross_entropy_with_logits",
      lambda m, x, y: m["nn"].sigmoid_cross_entropy_with_logits(x, y), [_x(3, 5) * 3, LABELS01],
      (0,)),
+    ("sigmoid_cross_entropy_with_logits_at_kink",
+     lambda m, x, y: m["nn"].sigmoid_cross_entropy_with_logits(x, y), [ZLOGIT, LABELS01], (0,)),
     ("smooth_l1", lambda m, x, y: m["nn"].smooth_l1(x, y), [_x(3, 2, 4), _x(3, 2, 4)], (0, 1)),
+    ("smooth_l1_at_kink", lambda m, x, y: m["nn"].smooth_l1(x, y), [ZLOGIT, ZLOGIT * 0.5], (0, 1)),
+    ("huber_loss_at_kink", lambda m, x, y: m["nn"].huber_loss(x, y, 1.5), [ZLOGIT, ZLOGIT * 0.0],
+     (0, 1)),
     ("smooth_l1_sigma", lambda m, x, y: m["nn"].smooth_l1(x, y, 3.0), [_x(3, 4), _x(3, 4)], (0, 1)),
     ("huber_loss", lambda m, x, y: m["nn"].huber_loss(x, y, 0.8), [_x(3, 4), _x(3, 4)], (0, 1)),
     ("kldiv_loss", lambda m, x, t: m["nn"].kldiv_loss(x, t), [np.log(PROBS), PROBS[::-1].copy()],
@@ -79,6 +90,9 @@ CASES = [
     ("log_loss", lambda m, p, y: m["nn"].log_loss(p, y), [PROBS, LABELS01], (0,)),
     ("margin_rank_loss", lambda m, lab, l, r: m["nn"].margin_rank_loss(lab, l, r, 0.2),
      [np.float32([1, -1, 1, -1]), _kinkless(4), _kinkless(4)], (1, 2)),
+    ("margin_rank_loss_at_kink", lambda m, lab, l, r: m["nn"].margin_rank_loss(lab, l, r, 0.25),
+     [np.float32([1, -1, 1, -1]), np.float32([1.25, 1.0, 2.0, 0.5]), np.float32([1.0, 1.25, 1.0, 0.5])],
+     (1, 2)),
     ("cos_sim", lambda m, x, y: m["nn"].cos_sim(x, y), [SEQ, _x(3, 6, 4)], (0, 1)),
     ("embedding_grad_dense", lambda m, ids, g: m["nn"].embedding_grad_dense((7, 4), ids, g),
      [np.array([[1, 3, 1], [6, 0, 3]], np.int32), _x(2, 3, 4)], (1,)),
@@ -115,6 +129,9 @@ CASES = [
      [_x(4, 3), _x(5, 3), _x(5), np.array([0, 5, 2, 3], np.int32)], (0, 1, 2)),
     ("hsigmoid_loss_no_bias", lambda m, x, w, y: m["nn"].hsigmoid_loss(x, w, None, y, 2),
      [_x(4, 3), _x(1, 3), np.array([0, 1, 1, 0], np.int32)], (0, 1)),
+    ("hsigmoid_loss_at_kink", lambda m, x, w, b, y: m["nn"].hsigmoid_loss(x, w, b, y, 6),
+     [_x(4, 3), np.concatenate([np.zeros((3, 3), np.float32), _x(2, 3)]),
+      np.float32([0, 0, 0, 0.5, -0.5]), np.array([0, 5, 2, 3], np.int32)], (0, 1, 2)),
     # 3-D
     ("conv3d", lambda m, x, w: m["nn3d"].conv3d(x, w), [VOL, _x(2, 2, 3, 3, 4)], (0, 1)),
     ("conv3d_stride_pad", lambda m, x, w: m["nn3d"].conv3d(x, w, 2, 1, 1), [VOL, _x(3, 3, 3, 3, 2)],
@@ -230,6 +247,50 @@ def test_nce_loss_on_the_jax_package_samples():
     _close("nce", got.detach().numpy(), want, FWD_RTOL, FWD_FLOOR)
     for g, ww in zip(torch.autograd.grad(got.sum(), (tx, tw, tb)), gw):
         _close("nce grad", g.numpy(), ww, GRAD_RTOL, 1e-8)
+
+
+def test_nce_loss_at_logit_zero_gives_the_jax_gradient():
+    """Zero weights and biases, and as many noise samples as classes (the
+    posterior correction log(k/n) is 0): every logit is exactly 0, where the
+    JAX package's gradient is -label."""
+    b, d, n_classes = 3, 4, 5
+    x, w, bias = _x(b, d), np.zeros((n_classes, d), np.float32), np.zeros(n_classes, np.float32)
+    labels = np.array([1, 4, 0], np.int32)
+    key = jax.random.PRNGKey(2)
+    samples = np.asarray(jax.random.randint(key, (b, n_classes), 0, n_classes))
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
+    want = jax.grad(lambda xx, ww, bb: jnp.sum(jn.nce_loss(xx, ww, bb, jnp.asarray(labels), n_classes,
+                                                           key, n_classes)), (0, 1, 2))(*args)
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, bias))
+    got = tn.nce_loss(tx, tw, tb, torch.from_numpy(labels), n_classes, None, n_classes,
+                      samples=torch.from_numpy(samples))
+    for g, ww in zip(torch.autograd.grad(got.sum(), (tx, tw, tb)), want):
+        _close("nce at 0", g.numpy(), ww, GRAD_RTOL, 1e-8)
+
+
+def test_mnist_net_on_a_blank_topped_batch_matches_jax_gradients():
+    """The MNIST conv net at init on a batch whose top half is blank: its
+    ReLUs and max pools sit on exact zeros and ties, and every parameter's
+    gradient is the JAX package's within 1e-4 relative L2."""
+    from paddle_tpu import backward as jbackward
+    from paddle_tpu import models as jmodels
+    from paddle_tpu_torch import backward as tbackward
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import models as tmodels
+
+    jspec, tspec = jmodels.get_model("mnist"), tmodels.get_model("mnist", device="cpu")
+    images, labels = jspec.synth_batch(8, np.random.RandomState(0))
+    images = np.asarray(images).copy()
+    images[:, :14] = 0.0
+    jvars = jspec.model.init(jax.random.PRNGKey(0), jnp.asarray(images), labels)
+    params = convert.params_from_jax({n: np.asarray(a) for n, a in jvars.params.items()}, "cpu")
+    _, (jgrads, _, _) = jax.jit(jbackward.append_backward(jspec.model, jnp.asarray(images), labels))(
+        jvars.params)
+    _, (tgrads, _, _) = tbackward.append_backward(
+        tspec.model, torch.from_numpy(images), torch.from_numpy(np.asarray(labels)))(params)
+    assert set(tgrads) == set(jgrads)
+    for n, g in jgrads.items():
+        _close(f"mnist d/d{n}", tgrads[n].numpy(), g, GRAD_RTOL, 1e-8)
 
 
 def test_nce_sampler_is_uniform_over_the_classes():

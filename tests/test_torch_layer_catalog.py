@@ -1,8 +1,9 @@
 """The port's layer catalog against the JAX package's, on the CPU in f32.
 
-- ``layers.__all__`` is the JAX package's less the 16 detection names (in
-  the same order), ``nets.__all__`` and ``ops.math.__all__`` are equal, and
-  every name resolves.
+- ``layers.__all__``, ``nets.__all__``, ``ops.math.__all__`` and
+  ``ops.__all__`` are the JAX package's (in the same order), every name
+  resolves, and ``ops`` holds the flat namespace (``ops.relu is
+  ops.math.relu``).
 - Each parameterised layer makes the JAX package's parameter (and state)
   names and shapes at ``init``, and with the JAX init's weights carried
   across (``convert.variables_from_jax``) gives the JAX package's outputs
@@ -25,22 +26,29 @@ from paddle_tpu_torch.core import config as tcfg
 
 RTOL, RNN_RTOL = 1e-5, 1e-4
 
-DETECTION = ["multi_box_head", "prior_box", "anchor_generator", "bipartite_match",
-             "target_assign", "box_coder", "iou_similarity", "multiclass_nms",
-             "detection_output", "ssd_loss", "detection_map", "rpn_target_assign",
-             "generate_proposals", "generate_proposal_labels", "roi_perspective_transform",
-             "polygon_box_transform"]
-
-
 def test_export_lists_equal_the_jax_package():
-    want = [n for n in jpt.layers.__all__ if n not in DETECTION]
-    assert len(jpt.layers.__all__) - len(want) == len(DETECTION)
-    assert tpt.layers.__all__ == want
+    assert tpt.layers.__all__ == jpt.layers.__all__
     assert tpt.nets.__all__ == jpt.nets.__all__
     assert tpt.ops.math.__all__ == jpt.ops.math.__all__
     missing = [n for n in tpt.layers.__all__ + tpt.nets.__all__ if
                not hasattr(tpt.layers, n) and not hasattr(tpt.nets, n)]
     assert not missing
+
+
+def test_ops_namespace_equals_the_jax_package():
+    assert tpt.ops.__all__ == jpt.ops.__all__
+    assert tpt.ops.relu is tpt.ops.math.relu
+    assert tpt.ops.ssd_loss is tpt.ops.detection.ssd_loss
+    assert tpt.ops.fake_quantize_abs_max is tpt.ops.quant.fake_quantize_abs_max
+    # a name of several modules is the last one's, in both packages
+    mods = ("math", "nn", "control_flow", "losses", "detection", "quant")
+    for n in jpt.ops.__all__:
+        home = [m for m in mods if n in getattr(jpt.ops, m).__all__]
+        if not home:  # a submodule
+            assert getattr(tpt.ops, n).__name__ == f"paddle_tpu_torch.ops.{n}"
+            continue
+        assert getattr(jpt.ops, n) is getattr(getattr(jpt.ops, home[-1]), n), n
+        assert getattr(tpt.ops, n) is getattr(getattr(tpt.ops, home[-1]), n), n
 
 
 def _x(seed, *shape):
