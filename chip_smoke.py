@@ -452,6 +452,29 @@ SERVE_WAIT_S = 600
 # re-prefills a slot whose step raised and still returns the right tokens, so
 # only these show that a step failed on the card
 SERVE_FAULT_COUNTERS = ("step_faults_total", "errors_total", "retries_exhausted_total")
+# Fleet serving (phase fleet): the LM at BASE_CFG behind the fleet entry
+# points, f32 pages, SERVE_CONFIG per engine, phase serve's traffic. (a) the
+# first FLEET_REQUESTS of serve's mixed requests through a DisaggRouter (one
+# prefill and one decode worker) on the "device" transport, then on the
+# "serialized" one, held against one DecodeEngine's burst of the same
+# requests (held_against's near-tie rule). Device-to-host copies are counted
+# under torch.profiler: on the device transport exactly the sampled-token
+# readbacks (one per decode step, one per finished prefill), on the
+# serialized one a copy more per handoff. The handoff's page copy alone
+# (gather + implant of the median request's pages) is timed over
+# FLEET_COPY_ITERS. (b) serve's shared-prefix requests on engine A over a
+# HostPagePool of FLEET_HOST_TIER_BYTES, then on engine B (its radix tree
+# cold, the same pool): B promotes the prefix's pages, the first request
+# alone before the other 15. (c) a DecodeFleet of two engines, A journaled:
+# A is killed once FLEET_KILL_TOKENS tokens are out and B resumes A's
+# journal; then FLEET_MIGRATE_REQUESTS requests pinned to an engine whose
+# steps fail after its first two (unhealthy_after 2) migrate to its peer.
+# (d) a journaled burst killed once half its tokens are out, replayed and
+# resumed on a fresh engine; the burst's tokens/s with the journal off and
+# on; FLEET_FSYNCS appends each fsync'd, timed. (e) FleetView over (a)'s
+# device router, and the exporter's /fleet and /trace/<id> of each request.
+FLEET_REQUESTS, FLEET_COPY_ITERS, FLEET_HOST_TIER_BYTES = 24, 50, 256 << 20
+FLEET_KILL_TOKENS, FLEET_MIGRATE_REQUESTS, FLEET_FSYNCS = 256, 8, 64
 # Data parallelism (phase dp): DataParallel steps of the LM at BASE_CFG;
 # ResNet-50 at 64 x 64, batch 8, f32 for BN across ranks. At one rank the
 # DP step runs minimize's very operations, so it must equal that step bit
@@ -1927,18 +1950,23 @@ def serve_burst(params, cfg, reqs, decode_kw, profile=False, **engine_kw):
              "metrics": snap, "step_p50_s_histogram": step_p50, "step_sizes": sizes,
              "spec_accept_rate": accept, "unjoined": unjoined, "no_leaks": True}
     if prof is not None:
-        try:  # the raw device events: building the profiler's event tree
-            # for the burst's ~10^5 kernels would take ~20 s of host time
-            busy_us = 1e-3 * sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                                 if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
-        except AttributeError:
-            busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                          if "CUDA" in str(getattr(evt, "device_type", ""))
-                          and not getattr(evt, "is_user_annotation", False))
-        stats["busy_ms"] = busy_us / 1e3
-        stats["idle_share"] = 1.0 - busy_us / 1e6 / wall if busy_us else None
+        stats["busy_ms"] = device_busy_ms(prof)
+        stats["idle_share"] = 1.0 - stats["busy_ms"] / 1e3 / wall if stats["busy_ms"] else None
         stats["profiler_post_s"] = time.perf_counter() - t_post
     return outs, stats
+
+
+def device_busy_ms(prof) -> float:
+    """The summed durations of a torch.profiler run's device activities."""
+    try:  # the raw device events: building the profiler's event tree
+        # for a burst's ~10^5 kernels would take ~20 s of host time
+        busy_us = 1e-3 * sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                             if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
+    except AttributeError:
+        busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                      if "CUDA" in str(getattr(evt, "device_type", ""))
+                      and not getattr(evt, "is_user_annotation", False))
+    return busy_us / 1e3
 
 
 def held_against(params, cfg, prompts, refs, outs):
@@ -2006,6 +2034,29 @@ def beam_flash_lockstep(params, cfg, prompt, beam, max_len):
     return results["flash"], results["composed"], diverged
 
 
+def serve_traffic(vocab: int) -> dict:
+    """Phase serve's requests, drawn from RandomState(0) in the phase's
+    order: the mixed burst (``lens``, ``mnts``, ``prompts``, ``reqs``),
+    the decode step's ``step_tokens`` and the shared-prefix requests
+    (``prefix_prompts``, ``prefix_reqs``); ``rng`` goes on from there.
+    Phase fleet drives the same."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    lens = rng.randint(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, size=SERVE_REQUESTS)
+    mnts = rng.randint(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, size=SERVE_REQUESTS)
+    prompts = [rng.randint(1, vocab, size=(int(n),)).astype(np.int32) for n in lens]
+    step_tokens = rng.randint(1, vocab, size=(SERVE_CONFIG["max_slots"],)).astype(np.int32)
+    shared = rng.randint(1, vocab, size=(SERVE_PREFIX,)).astype(np.int32)
+    tails = rng.randint(SERVE_PREFIX_TAIL[0], SERVE_PREFIX_TAIL[1] + 1, size=SERVE_PREFIX_REQUESTS)
+    pprompts = [np.concatenate([shared, rng.randint(1, vocab, size=(int(n),)).astype(np.int32)])
+                for n in tails]
+    return {"lens": lens, "mnts": mnts, "prompts": prompts,
+            "reqs": [(p, int(n)) for p, n in zip(prompts, mnts)], "step_tokens": step_tokens,
+            "prefix_prompts": pprompts, "prefix_reqs": [(p, SERVE_PREFIX_NEW) for p in pprompts],
+            "rng": rng}
+
+
 def serve_phase(smi: str):
     """Phase 10: decode serving at BASE_CFG through DecodeEngine, and
     generate_beam. Returns its kernel launches by path and its checks."""
@@ -2030,11 +2081,9 @@ def serve_phase(smi: str):
     params = spec.model.init(0, *spec.synth_batch(1, np.random.RandomState(0))).params
     setup_s = lap()
     n_params = sum(p.numel() for p in params.values())
-    rng = np.random.RandomState(0)
-    lens = rng.randint(SERVE_PROMPT_LEN[0], SERVE_PROMPT_LEN[1] + 1, size=SERVE_REQUESTS)
-    mnts = rng.randint(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, size=SERVE_REQUESTS)
-    prompts = [rng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32) for n in lens]
-    reqs = [(p, int(n)) for p, n in zip(prompts, mnts)]
+    traffic = serve_traffic(cfg["vocab"])
+    lens, mnts, prompts, reqs = traffic["lens"], traffic["mnts"], traffic["prompts"], traffic["reqs"]
+    rng = traffic["rng"]  # drawn on for generate_beam's prompts
     checks, paths = {}, {}
 
     # (a) the mixed burst, then the same burst under the profiler
@@ -2060,7 +2109,7 @@ def serve_phase(smi: str):
         S, P = SERVE_CONFIG["max_slots"], SERVE_CONFIG["max_context"] // SERVE_CONFIG["page_size"]
         tables = (1 + np.arange(S * P, dtype=np.int32)).reshape(S, P)
         positions = np.full((S,), SERVE_CONFIG["max_context"] * 11 // 16, np.int32)
-        tokens = rng.randint(1, cfg["vocab"], size=(S,)).astype(np.int32)
+        tokens = traffic["step_tokens"]
 
         def one_step():
             with torch.no_grad():
@@ -2133,11 +2182,7 @@ def serve_phase(smi: str):
     # (c) a shared 512-token prefix: the first request prefills it (and the
     # tree takes its pages) before the other 15 arrive, with the cache and
     # without
-    shared = rng.randint(1, cfg["vocab"], size=(SERVE_PREFIX,)).astype(np.int32)
-    tails = rng.randint(SERVE_PREFIX_TAIL[0], SERVE_PREFIX_TAIL[1] + 1, size=SERVE_PREFIX_REQUESTS)
-    pprompts = [np.concatenate([shared, rng.randint(1, cfg["vocab"], size=(int(n),)).astype(np.int32)])
-                for n in tails]
-    preqs = [(p, SERVE_PREFIX_NEW) for p in pprompts]
+    pprompts, preqs = traffic["prefix_prompts"], traffic["prefix_reqs"]
     outs_c, c, walls_c = {}, {}, {}
     for cached in (True, False):
         engine = DecodeEngine(params, cfg, decode=DecodeConfig(**SERVE_CONFIG, prefix_cache=cached))
@@ -2231,6 +2276,456 @@ def serve_phase(smi: str):
           "scores_max_abs_diff_equal_rows": scores_diff,
           "tie_tol": BEAM_TIE_TOL, "card": smi})
     emit({"phase": "serve", "seconds": marks[-1] - marks[0], "checks": checks})
+    set_flags(use_bf16_compute=True)
+    return paths, checks
+
+
+def fleet_results(handles, rids, replayed, resumed):
+    """Each request's tokens after an engine died under it: its handle's
+    (done before the death, or on a surviving engine), else the journal's
+    finished record, else its resumed handle's; None where none has it."""
+    out = []
+    for h, rid in zip(handles, rids):
+        try:
+            out.append(list(h.result(timeout=SERVE_WAIT_S).tokens))
+            continue
+        except Exception:
+            pass
+        rr = replayed.get(rid)
+        if rr is not None and rr.finished:
+            out.append(list(rr.generated))
+        elif rid in resumed:
+            out.append(list(resumed[rid][0].result(timeout=SERVE_WAIT_S).tokens))
+        else:
+            out.append(None)
+    return out
+
+
+def fleet_phase(smi: str):
+    """Phase 10b: the rest of serving at BASE_CFG (DisaggRouter on both
+    transports, the host KV tier, DecodeFleet, the journal, the fleet
+    rollup). Returns its kernel launches by path and its checks."""
+    import json
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from paddle_tpu_torch import tracing
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.observability import fleet as obs_fleet
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.observability.exporter import MetricsServer
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.circuit import OPEN
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine, DecodeFleet, DisaggRouter,
+                                          HostPagePool, RequestJournal, ServingConfig,
+                                          replay_journal, resume_incomplete)
+    from paddle_tpu_torch.serving.disagg import DECODE, PREFILL
+
+    set_flags(use_flash_attention=True, use_bf16_compute=False, check_nan_inf=False)
+    marks = [time.perf_counter()]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    spec = get_model("transformer_lm")  # BASE_CFG on CUDA
+    cfg = spec.extra["cfg"]
+    params = spec.model.init(0, *spec.synth_batch(1, np.random.RandomState(0))).params
+    traffic = serve_traffic(cfg["vocab"])
+    prompts, reqs = traffic["prompts"][:FLEET_REQUESTS], traffic["reqs"][:FLEET_REQUESTS]
+    pprompts, preqs = traffic["prefix_prompts"], traffic["prefix_reqs"]
+    ps = SERVE_CONFIG["page_size"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    checks, paths = {}, {}
+
+    def engine(label, host_tier=None, **kw):
+        return DecodeEngine(params, cfg, config=ServingConfig(engine_label=label),
+                            decode=DecodeConfig(**dict(SERVE_CONFIG, **kw)), host_tier=host_tier)
+
+    def span_ms(handles, name):
+        """(summed ms, summed "pages" attr, count) of the named spans of
+        the handles' traces."""
+        ms = pages = n = 0
+        for h in handles:
+            for sp in tracing.spans_for_trace(h.trace.trace_id):
+                if sp.name == name:
+                    ms += (sp.t1_us - sp.t0_us) / 1e3
+                    pages += sp.attrs.get("pages", 0)
+                    n += 1
+        return ms, pages, n
+
+    def no_faults(*engines):
+        return not any(e.metrics.snapshot()[k] for e in engines for k in SERVE_FAULT_COUNTERS)
+
+    def flash0(launches):
+        return all(launches[k] == 0 for k in HOPPER_KERNELS)
+
+    # (a) the disaggregated burst, device transport then serialized
+    ref_outs, ref = serve_burst(params, cfg, reqs, SERVE_CONFIG)
+    ref_toks = [o.tokens for o in ref_outs]
+    generated = sum(len(t) for t in ref_toks)
+    routers, a = {}, {}
+    for transport in ("device", "serialized"):
+        # the burst unprofiled (its wall time), then under the profiler on
+        # fresh workers (its device records)
+        pre, dec = engine(f"fleet-pre-{transport}-0"), engine(f"fleet-dec-{transport}-0")
+        router = DisaggRouter([pre, dec], [PREFILL, DECODE], transport=transport)
+        try:
+            t0 = time.perf_counter()
+            plain = [h.result(timeout=SERVE_WAIT_S) for h in [router.submit(p, n) for p, n in reqs]]
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+            plain_clean = no_faults(pre, dec)
+        finally:
+            router.close(timeout=SERVE_WAIT_S)
+        pre, dec = engine(f"fleet-pre-{transport}"), engine(f"fleet-dec-{transport}")
+        router = routers[transport] = DisaggRouter([pre, dec], [PREFILL, DECODE], transport=transport)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        profile_markers()
+        t0 = time.perf_counter()
+        handles = [router.submit(p, n) for p, n in reqs]
+        outs = [h.result(timeout=SERVE_WAIT_S) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        profile_markers()
+        t_post = time.perf_counter()
+        prof.__exit__(None, None, None)
+        paths[f"fleet_{transport}"] = launches = kernel_launch_counts()
+        names = device_records(prof)
+        sp, sd = pre.metrics.snapshot(), dec.metrics.snapshot()
+        # a decode step reads its sampled tokens back, so does a prefill's
+        # last chunk: admits that did not come in by handoff, plus resumes
+        readbacks = (sp["steps_total"] + sd["steps_total"] + sp["admitted_total"]
+                     + sp["resumed_total"] + sd["admitted_total"] - sd["handoffs_in_total"]
+                     + sd["resumed_total"])
+        dtoh = sum("DtoH" in n for n in names)
+        busy = device_busy_ms(prof)
+        transfer_ms, _, n_transfer = span_ms(handles, "serving.handoff.transfer")
+        adopt_ms, adopt_pages, _ = span_ms(handles, "serving.handoff.adopt")
+        post_s = time.perf_counter() - t_post
+        ok, gaps = held_against(params, cfg, prompts, ref_toks, [o.tokens for o in outs])
+        ok_plain, _ = held_against(params, cfg, prompts, ref_toks, [o.tokens for o in plain])
+        a[transport] = {"handles": handles, "wall_s_unprofiled": plain_wall,
+                        "wall_s": wall, "profiler_post_s": post_s, "busy_ms": busy,
+                        "idle_share": 1.0 - busy / 1e3 / wall, "device_records": len(names),
+                        "kernels": sum(not n.startswith("Memcpy") and not n.startswith("Memset")
+                                       for n in names),
+                        "dtoh_copies": dtoh, "sampled_readbacks": readbacks,
+                        "host_hops": dtoh - readbacks, "intact": profile_intact(prof),
+                        "handoffs": router.handoffs_total, "rejects": router.handoff_rejects_total,
+                        "transfer_ms_mean": transfer_ms / max(n_transfer, 1),
+                        "adopt_pages": adopt_pages, "steps": sd["steps_total"],
+                        "first_differences": {str(i): {"index": j, "gap": g}
+                                              for i, (j, g) in gaps.items()}}
+        t = transport
+        checks.update({
+            f"a_{t}_tokens_held": ok and ok_plain,
+            f"a_{t}_lengths": [len(o.tokens) for o in outs] == [n for _, n in reqs],
+            f"a_{t}_unprofiled_no_step_faults": plain_clean,
+            f"a_{t}_handoffs_eq_requests": (router.handoffs_total == len(reqs)
+                                           == sp["handoffs_out_total"] == sd["handoffs_in_total"]
+                                           and router.handoff_rejects_total == 0),
+            f"a_{t}_no_decode_on_prefill_worker": sp["steps_total"] == 0,
+            f"a_{t}_profile_intact": a[t]["intact"],
+            f"a_{t}_no_step_faults": no_faults(pre, dec),
+            f"a_{t}_flash_launches_0": flash0(launches),
+        })
+        if transport == "serialized":
+            router.close(timeout=SERVE_WAIT_S)
+            pre.kv.assert_no_leaks()
+            dec.kv.assert_no_leaks()
+    checks["a_device_no_host_hop"] = a["device"]["host_hops"] == 0
+    # the count sees copies: the wire format's one copy a handoff shows up
+    checks["a_serialized_one_host_copy_per_handoff"] = (a["serialized"]["host_hops"]
+                                                        == a["serialized"]["handoffs"])
+    # the device transport's page copy alone, at the median request's pages
+    pre, dec = routers["device"].engines
+    n_pages = int(np.median([-(-len(p) // ps) for p in prompts]))
+    pages = list(range(1, 1 + n_pages))  # free on both idle engines
+    copy_ms = time_ms(lambda: dec._implant_pages(pages, *pre._gather_pages(pages)),
+                      iters=FLEET_COPY_ITERS)
+    # its device work alone: the same two copies a page array, indices
+    # already on the card (the engine uploads them, a synchronizing copy)
+    idx = pre._page_index(pages)
+
+    def page_copies():
+        for src, dst in ((pre._k_pages, dec._k_pages), (pre._v_pages, dec._v_pages)):
+            dst.index_copy_(1, idx, src.index_select(1, idx))
+
+    copy_device_ms = time_ms(page_copies, iters=FLEET_COPY_ITERS)
+    page_bytes = pre._k_pages[:, 0].numel() * pre._k_pages.element_size()
+    copy_bytes = 4 * n_pages * page_bytes  # K and V pages read once, written once
+    emit({"phase": "fleet", "part": "a_disaggregated", "part_s": lap(), "model": "transformer_lm",
+          "params": sum(p.numel() for p in params.values()), "config": SERVE_CONFIG,
+          "dtype": "float32", "requests": len(reqs), "generated_tokens": generated,
+          "one_engine_wall_s": ref["wall_s"],
+          "one_engine_tokens_per_s": generated / ref["wall_s"],
+          "one_engine_steps": ref["metrics"]["steps_total"],
+          **{t: {k: v for k, v in r.items() if k != "handles"} | {
+              "tokens_per_s": generated / r["wall_s"]} for t, r in a.items()},
+          "handoff_copy": {"pages": n_pages, "page_bytes_k_or_v": page_bytes,
+                           "ms": copy_ms, "device_ms": copy_device_ms, "bytes": copy_bytes,
+                           "bound_ms": 1e3 * copy_bytes / PEAK_HBM_BYTES,
+                           "design": "index_select (prefill pages) + index_copy_ (decode pages)"},
+          "launches_device": paths["fleet_device"], "tie_tol": SERVE_TIE_TOL, "card": smi})
+
+    # (b) the host KV tier shared by two engines
+    pref_outs, pref = serve_burst(params, cfg, preqs, SERVE_CONFIG)
+    pref_toks = [o.tokens for o in pref_outs]
+    pool = HostPagePool(FLEET_HOST_TIER_BYTES, ps)
+    b = {}
+    zero_kernel_counts()
+    for name in ("A", "B"):
+        eng = engine(f"fleet-tier-{name}", prefix_cache=True, host_tier=pool)
+        try:
+            t0 = time.perf_counter()
+            h0 = eng.submit(*preqs[0])
+            first = h0.result(timeout=SERVE_WAIT_S)  # A: the tree takes the prefix; B: promotes
+            handles = [h0] + [eng.submit(p, n) for p, n in preqs[1:]]
+            toks = [first.tokens] + [h.result(timeout=SERVE_WAIT_S).tokens for h in handles[1:]]
+            torch.cuda.synchronize()
+            snap = eng.metrics.snapshot()
+            demote_ms, demote_pages, _ = span_ms(handles, "serving.host_tier.demote")
+            promote_p50 = obs_metrics.default_registry().quantile(
+                "serving.host_tier.promote_seconds", 0.5, {"engine": eng.metrics.engine_label})
+            ok, gaps = held_against(params, cfg, pprompts, pref_toks, toks)
+            b[name] = {"wall_s": time.perf_counter() - t0, "tokens_held": ok,
+                       "first_differences": {str(i): {"index": j, "gap": g}
+                                             for i, (j, g) in gaps.items()},
+                       "faults_clean": no_faults(eng),
+                       **{k: snap[k] for k in ("host_tier_hits_total", "host_promoted_pages_total",
+                                               "host_demoted_pages_total", "host_quarantined_total",
+                                               "host_backpressure_total", "prefix_hit_tokens_total",
+                                               "prefill_chunks_total")},
+                       "demote_ms_per_page": demote_ms / demote_pages if demote_pages else None,
+                       "promote_ms_p50_histogram": (1e3 * promote_p50 if promote_p50 else None)}
+        finally:
+            unjoined = eng.close(timeout=SERVE_WAIT_S)
+        eng.kv.assert_no_leaks()
+        b[name]["unjoined"] = unjoined
+    paths["fleet_host_tier"] = kernel_launch_counts()
+    # a demote's two costs alone, on an idle engine: the copy of 32 pages
+    # to the host (one copy a page array), then the pool's put (CRC) a page
+    eng = engine("fleet-tier-probe")
+    try:
+        probe_pages = list(range(1, 33))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v = eng._gather_pages(probe_pages)
+        k, v = k.contiguous().cpu(), v.contiguous().cpu()
+        t1 = time.perf_counter()
+        probe_pool = HostPagePool(FLEET_HOST_TIER_BYTES, ps)
+        toks = np.arange(1, 32 * ps + 1, dtype=np.int32)
+        for i in range(32):
+            probe_pool.put(toks, i, k[i], v[i])
+        t2 = time.perf_counter()
+    finally:
+        eng.close(timeout=SERVE_WAIT_S)
+    b["demote_probe"] = {"pages": 32, "copy_ms_per_page": 1e3 * (t1 - t0) / 32,
+                         "put_ms_per_page": 1e3 * (t2 - t1) / 32}
+    checks.update({
+        "b_tokens_held": b["A"]["tokens_held"] and b["B"]["tokens_held"],
+        "b_A_demoted": b["A"]["host_demoted_pages_total"] >= SERVE_PREFIX // ps,
+        "b_B_host_hits": b["B"]["host_tier_hits_total"] > 0,
+        "b_B_promotes": b["B"]["host_promoted_pages_total"] >= SERVE_PREFIX // ps,
+        "b_B_prefix_hits_after_promote": (b["B"]["prefix_hit_tokens_total"]
+                                          >= (SERVE_PREFIX_REQUESTS - 1) * SERVE_PREFIX),
+        "b_no_quarantine": b["B"]["host_quarantined_total"] == 0,
+        "b_no_step_faults": b["A"]["faults_clean"] and b["B"]["faults_clean"],
+        "b_no_leaks": not b["A"]["unjoined"] and not b["B"]["unjoined"],
+        "b_flash_launches_0": flash0(paths["fleet_host_tier"]),
+    })
+    emit({"phase": "fleet", "part": "b_host_tier", "part_s": lap(), "requests": len(preqs),
+          "prefix": SERVE_PREFIX, "pool_bytes": FLEET_HOST_TIER_BYTES, "pool": pool.stats(),
+          "page_pair_bytes": 2 * page_bytes, "one_engine_wall_s": pref["wall_s"], **b,
+          "card": smi})
+
+    # (c) a killed engine's journal resumed on its peer; a tripped breaker
+    zero_kernel_counts()
+    jpath = os.path.join(work, "fleet_kill.wal")
+    ea, eb = engine("fleet-kill-A", journal_path=jpath), engine("fleet-kill-B")
+    fleet = DecodeFleet([ea, eb])
+    try:
+        handles = [fleet.submit(p, n) for p, n in reqs]
+        rids = [h._req.rid for h in handles]
+        on_a = sum(r.startswith("fleet-kill-A") for r in rids)
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while ea.metrics.snapshot()["tokens_total"] < FLEET_KILL_TOKENS:
+            if time.monotonic() > deadline:
+                raise TimeoutError("fleet (c): engine A never generated its tokens")
+            time.sleep(0.001)
+        ea.kill()
+        replayed = replay_journal(jpath)
+        resumed = resume_incomplete(eb, jpath)
+        toks_c = fleet_results(handles, rids, replayed, resumed)
+        dedup = all(list(resumed[r][0].result(timeout=SERVE_WAIT_S).tokens)[:nd]
+                    == replayed[r].generated[:nd] for r, (_, nd) in resumed.items())
+        ok_c, gaps_c = held_against(params, cfg, prompts, ref_toks,
+                                    [t if t is not None else [] for t in toks_c])
+        c_kill = {"requests_on_A": on_a, "journaled": len(replayed),
+                  "finished_before_kill": sum(r.finished for r in replayed.values()),
+                  "resumed": len(resumed), "replayed_metric": eb.metrics.snapshot()["journal_replayed_total"],
+                  "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_c.items()}}
+        checks.update({
+            "c_kill_no_request_lost": all(t is not None and len(t) == n
+                                          for t, (_, n) in zip(toks_c, reqs)),
+            "c_kill_tokens_held": ok_c,
+            "c_kill_journal_covers_A": len(replayed) == on_a and on_a > 0,
+            "c_kill_resumed_prefix_dedup": dedup and len(resumed) > 0,
+            "c_kill_B_no_step_faults": no_faults(eb),
+        })
+    finally:
+        fleet.close(timeout=SERVE_WAIT_S)
+    eb.kv.assert_no_leaks()
+    mreqs = reqs[:FLEET_MIGRATE_REQUESTS]
+    ec, ed = engine("fleet-sick-C", unhealthy_after=2), engine("fleet-sick-D")
+    fleet = DecodeFleet([ec, ed])
+    try:
+        with faults.injected(faults.FaultSpec(faults.DECODE_STEP, "error", after=2, times=10 ** 9,
+                                              match={"engine": "fleet-sick-C"})):
+            t0 = time.perf_counter()
+            outs = [h.result(timeout=SERVE_WAIT_S) for h in [ec.submit(p, n) for p, n in mreqs]]
+            migrate_wall = time.perf_counter() - t0
+            state = ec.breaker.state
+        sc, sd = ec.metrics.snapshot(), ed.metrics.snapshot()
+        ok_m, gaps_m = held_against(params, cfg, prompts, ref_toks[:len(mreqs)],
+                                    [o.tokens for o in outs])
+        c_migrate = {"requests": len(mreqs), "migrated": sc["migrated_total"],
+                     "step_faults_C": sc["step_faults_total"], "wall_s": migrate_wall,
+                     "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_m.items()}}
+        checks.update({
+            "c_migrate_breaker_open": state == OPEN,
+            "c_migrate_all_migrated": sc["migrated_total"] == len(mreqs),
+            "c_migrate_no_request_lost": [len(o.tokens) for o in outs] == [n for _, n in mreqs],
+            "c_migrate_tokens_held": ok_m,
+            "c_migrate_D_no_step_faults": no_faults(ed),
+        })
+    finally:
+        fleet.close(timeout=SERVE_WAIT_S)
+    ed.kv.assert_no_leaks()
+    paths["fleet_migration"] = kernel_launch_counts()
+    checks["c_flash_launches_0"] = flash0(paths["fleet_migration"])
+    emit({"phase": "fleet", "part": "c_decode_fleet", "part_s": lap(), "kill": c_kill,
+          "kill_after_tokens": FLEET_KILL_TOKENS, "migrate": c_migrate, "card": smi})
+
+    # (d) the journal: tokens/s off and on, an abandoned burst replayed
+    zero_kernel_counts()
+    d = {"off": {"wall_s": [], "tokens_held": True}, "on": {"wall_s": [], "tokens_held": True}}
+    for turn, on in enumerate((False, True, True, False)):
+        side = d["on" if on else "off"]
+        eng = engine(f"fleet-journal-{turn}",
+                     journal_path=os.path.join(work, f"fleet_on_{turn}.wal") if on else None)
+        try:
+            t0 = time.perf_counter()
+            outs = [h.result(timeout=SERVE_WAIT_S) for h in [eng.submit(p, n) for p, n in reqs]]
+            torch.cuda.synchronize()
+            side["wall_s"].append(time.perf_counter() - t0)
+            side["journal_records"] = eng.metrics.snapshot()["journal_records_total"]
+        finally:
+            eng.close(timeout=SERVE_WAIT_S)
+        ok, _ = held_against(params, cfg, prompts, ref_toks, [o.tokens for o in outs])
+        side["tokens_held"] = side["tokens_held"] and ok
+    for side in d.values():
+        side["tokens_per_s"] = [generated / w for w in side["wall_s"]]
+    jpath = os.path.join(work, "fleet_abandon.wal")
+    ej = engine("fleet-abandoned", journal_path=jpath)
+    handles = [ej.submit(p, n) for p, n in reqs]
+    rids = [h._req.rid for h in handles]
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while ej.metrics.snapshot()["tokens_total"] < generated // 2:
+        if time.monotonic() > deadline:
+            raise TimeoutError("fleet (d): the journaled burst never reached half its tokens")
+        time.sleep(0.001)
+    ej.kill()
+    replayed = replay_journal(jpath)
+    ek = engine("fleet-replayed")
+    try:
+        t0 = time.perf_counter()
+        resumed = resume_incomplete(ek, jpath)
+        toks_d = fleet_results(handles, rids, replayed, resumed)
+        resume_wall = time.perf_counter() - t0
+        dedup = all(list(resumed[r][0].result(timeout=SERVE_WAIT_S).tokens)[:nd]
+                    == replayed[r].generated[:nd] for r, (_, nd) in resumed.items())
+        replayed_metric = ek.metrics.snapshot()["journal_replayed_total"]
+        ek_clean = no_faults(ek)
+    finally:
+        ek.close(timeout=SERVE_WAIT_S)
+    ek.kv.assert_no_leaks()
+    paths["fleet_journal"] = kernel_launch_counts()
+    ok_d, gaps_d = held_against(params, cfg, prompts, ref_toks,
+                                [t if t is not None else [] for t in toks_d])
+    probe = RequestJournal(os.path.join(work, "fsync.wal"), fsync_every=1)
+    t0 = time.perf_counter()
+    for i in range(FLEET_FSYNCS):
+        probe.log_token("fsync-probe", i)
+    fsync_ms = 1e3 * (time.perf_counter() - t0) / FLEET_FSYNCS
+    probe.close()
+    checks.update({
+        "d_off_on_tokens_held": d["off"]["tokens_held"] and d["on"]["tokens_held"],
+        "d_journal_records_every_token": d["on"]["journal_records"] >= generated + 2 * len(reqs),
+        "d_replay_covers_burst": len(replayed) == len(reqs),
+        "d_no_request_lost": all(t is not None and len(t) == n for t, (_, n) in zip(toks_d, reqs)),
+        "d_tokens_held": ok_d,
+        "d_resumed_prefix_dedup": dedup and len(resumed) > 0,
+        "d_replayed_metric": replayed_metric == len(resumed),
+        "d_no_step_faults": ek_clean,
+        "d_flash_launches_0": flash0(paths["fleet_journal"]),
+    })
+    emit({"phase": "fleet", "part": "d_journal", "part_s": lap(), **d,
+          "abandoned_after_tokens": generated // 2,
+          "finished_before_kill": sum(r.finished for r in replayed.values()),
+          "resumed": len(resumed), "resume_wall_s": resume_wall,
+          "fsync_ms_per_append": fsync_ms, "fsync_appends": FLEET_FSYNCS,
+          "first_differences": {str(i): {"index": j, "gap": g} for i, (j, g) in gaps_d.items()},
+          "card": smi})
+
+    # (e) the rollup and its endpoints over (a)'s device router
+    router = routers["device"]
+    view = obs_fleet.FleetView(router, name="fleet-smoke")
+    obs_fleet.install(view)
+    srv = MetricsServer(port=0).start()
+    try:
+        def get(path):
+            try:
+                with urllib.request.urlopen(srv.url + path, timeout=30) as resp:
+                    return resp.status, json.loads(resp.read().decode("utf-8"))
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read().decode("utf-8"))
+
+        status, doc = get("/fleet")
+        mine = [v for v in doc if v.get("fleet") == "fleet-smoke"] if status == 200 else []
+        roll = mine[0]["rollup"] if mine else {}
+        labels = [e.metrics.engine_label for e in router.engines]
+        traces = [get("/trace/" + h.trace.trace_id) for h in a["device"]["handles"]]
+        bad = [d.get("problems") or d.get("error") for st, d in traces
+               if st != 200 or d["problems"] or d["engines"] != labels]
+        checks.update({
+            "e_fleet_endpoint": status == 200 and len(mine) == 1,
+            "e_rollup_handoffs": roll.get("handoffs_total") == len(reqs),
+            "e_rollup_engines_healthy": roll.get("engines") == roll.get("engines_healthy") == 2,
+            "e_traces_valid_multi_engine": not bad and len(traces) == len(reqs),
+        })
+        emit({"phase": "fleet", "part": "e_rollup", "part_s": lap(), "rollup": roll,
+              "traces": len(traces), "trace_problems": bad[:4],
+              "spans_per_trace": float(np.mean([len(d["spans"]) for _, d in traces])), "card": smi})
+    finally:
+        obs_fleet.uninstall(view)
+        srv.close()
+        router.close(timeout=SERVE_WAIT_S)
+    for e in router.engines:
+        e.kv.assert_no_leaks()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "fleet", "seconds": marks[-1] - marks[0], "checks": checks})
     set_flags(use_bf16_compute=True)
     return paths, checks
 
@@ -5247,6 +5742,11 @@ def main() -> int:
     serve_paths, serve_checks = serve_phase(smi)
     failures += [f"serve check {k}" for k, good in serve_checks.items() if not good]
 
+    # 10b. the rest of serving: disaggregated prefill/decode, the host KV
+    # tier, DecodeFleet, the journal, the fleet rollup
+    fleet_paths, fleet_checks = fleet_phase(smi)
+    failures += [f"fleet check {k}" for k, good in fleet_checks.items() if not good]
+
     # 11. data parallelism
     dp_paths, dp_checks = dp_phase(smi)
     failures += [f"dp check {k}" for k, good in dp_checks.items() if not good]
@@ -5274,7 +5774,7 @@ def main() -> int:
 
     # 17. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths, **serve_paths, **dp_paths, "telemetry": telemetry_launches,
+             **nmt_paths, **serve_paths, **fleet_paths, **dp_paths, "telemetry": telemetry_launches,
              **infer_paths, **sp_paths, **mp_paths, **catalog_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}

@@ -18,14 +18,16 @@ Layered on the counter/gauge bridge in ``core.profiler``:
 - :mod:`~paddle_tpu_torch.observability.exporter` — stdlib Prometheus
   ``/metrics`` + ``/healthz`` HTTP endpoint, plus debug endpoints
   (``/runlog/tail``, ``/trace``, ``/roofline``, ``/alerts``, ``/slo``,
-  ``/tenants`` = ``/admission``, ``/locks``, ``/waterfall/<rid>``);
+  ``/tenants`` = ``/admission``, ``/locks``, ``/waterfall/<rid>``,
+  ``/fleet``, ``/trace/<trace_id>``);
 - :mod:`~paddle_tpu_torch.observability.flight_recorder` — post-mortem
   bundle writer: on a decode-engine fault, dumps span + runlog + alert
   tails, held locks, KV refcounts, and the breaker's state.
 
-The JAX package's fleet rollup (``observability/fleet.py``) waits for the
-port of ``DecodeFleet``; its ``/fleet`` and ``/trace/<id>`` endpoints
-answer 404 here.
+- :mod:`~paddle_tpu_torch.observability.fleet` — fleet rollups
+  (``FleetView``: ``serving.fleet.*`` over a ``DecodeFleet`` or
+  ``DisaggRouter``'s engines) served at ``/fleet``, and one request's
+  cross-engine timeline (``trace_doc``) at ``/trace/<trace_id>``.
 
 Cross-cutting: when :mod:`paddle_tpu_torch.tracing` is imported, every
 runlog event emitted inside an active span carries ``trace_id``/``span_id``
@@ -49,6 +51,7 @@ from typing import Optional
 from paddle_tpu_torch.core import locks
 from paddle_tpu_torch.observability import (
     exporter,
+    fleet,
     flight_recorder,
     metrics,
     mfu,
@@ -56,6 +59,7 @@ from paddle_tpu_torch.observability import (
     runlog,
 )
 from paddle_tpu_torch.observability.exporter import MetricsServer, render_text
+from paddle_tpu_torch.observability.fleet import FleetView
 from paddle_tpu_torch.observability.flight_recorder import FlightRecorder
 from paddle_tpu_torch.observability.metrics import (
     MetricRegistry,
@@ -76,7 +80,9 @@ __all__ = [
     "mfu",
     "roofline",
     "exporter",
+    "fleet",
     "flight_recorder",
+    "FleetView",
     "FlightRecorder",
     "MetricRegistry",
     "MetricsServer",

@@ -227,14 +227,6 @@ def _validate_histograms(families: Dict[str, dict]) -> None:
                     f"{name}: _count {counts[key]} != +Inf bucket {cums[-1]}")
 
 
-def _fleet_not_ported(endpoint: str) -> Tuple[bytes, int]:
-    return (json.dumps({
-        "error": f"{endpoint} needs the fleet rollup (observability/fleet.py "
-                 "with DecodeFleet), not ported to paddle_tpu_torch yet; see "
-                 "ROADMAP.md section A item 8",
-    }).encode() + b"\n", 404)
-
-
 class _Handler(BaseHTTPRequestHandler):
     registry: obs_metrics.MetricRegistry = None  # set per-server subclass
 
@@ -404,9 +396,23 @@ class _Handler(BaseHTTPRequestHandler):
 
     @staticmethod
     def _trace_by_id(trace_id: str) -> Tuple[bytes, int]:
-        """One request's cross-engine timeline needs the fleet rollup,
-        which waits for the port of ``DecodeFleet``: a 404 naming it."""
-        return _fleet_not_ported("/trace/<trace_id>")
+        """One request's cross-engine timeline: all spans for the trace
+        id, the engine hop order, ``validate_trace(multi_engine=True)``
+        problems (empty = no orphans), and correlated runlog events."""
+        from paddle_tpu_torch.observability import fleet as _fleet
+
+        if not re.fullmatch(r"[0-9a-f]{32}", trace_id):
+            return (json.dumps(
+                {"error": "trace id must be 32 lowercase hex chars"}
+            ).encode() + b"\n", 400)
+        try:
+            doc = _fleet.trace_doc(trace_id)
+        except Exception as e:  # never take the exporter down with tracing
+            return (json.dumps({"error": repr(e)}).encode() + b"\n", 500)
+        if not doc["spans"] and not doc["events"]:
+            return (json.dumps({"error": "unknown trace id",
+                                "trace_id": trace_id}).encode() + b"\n", 404)
+        return json.dumps(doc).encode() + b"\n", 200
 
     @staticmethod
     def _roofline() -> Tuple[bytes, int]:
@@ -447,9 +453,20 @@ class _Handler(BaseHTTPRequestHandler):
 
     @staticmethod
     def _fleet() -> Tuple[bytes, int]:
-        """Fleet rollups need ``observability/fleet.py``, which waits for
-        the port of ``DecodeFleet``: a 404 naming it."""
-        return _fleet_not_ported("/fleet")
+        """Merged fleet rollups from every installed
+        :class:`~paddle_tpu_torch.observability.fleet.FleetView` — the
+        ``serving.fleet.*`` numbers plus per-engine snapshots."""
+        from paddle_tpu_torch.observability import fleet as _fleet
+
+        try:
+            views = _fleet.installed_views()
+            doc = [v.doc() for v in views]
+        except Exception as e:  # never take the exporter down with serving
+            return (json.dumps({"error": repr(e)}).encode() + b"\n", 500)
+        if not doc:
+            return (json.dumps({"error": "no fleet views installed"}
+                               ).encode() + b"\n", 404)
+        return json.dumps(doc).encode() + b"\n", 200
 
     def log_message(self, fmt, *args):  # quiet: route through framework log
         ptlog.vlog(2, "metrics exporter: " + fmt, *args)
@@ -465,8 +482,10 @@ class MetricsServer:
     serving admission controllers' per-tenant quotas, queue depths, and
     shed/brownout state), ``/locks`` (the ``core.locks``
     held-locks registry, lock-order graph, and any recorded order
-    violations), ``/fleet`` and ``/trace/<trace_id>`` (404: the fleet
-    rollup is not ported yet),
+    violations), ``/fleet`` (installed ``FleetView`` rollups: merged
+    ``serving.fleet.*`` numbers plus per-engine snapshots),
+    ``/trace/<trace_id>`` (one request's cross-engine span timeline,
+    hop order, validation problems, and correlated runlog events),
     ``/roofline`` (the cost ledger: per-callable FLOPs/bytes,
     arithmetic intensity, achieved-vs-peak rates, and compute/memory/
     overhead-bound verdicts), and ``/waterfall/<rid>`` (one decode

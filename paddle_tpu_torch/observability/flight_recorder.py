@@ -7,7 +7,7 @@ instrumented locks were held, which KV pages were still referenced. By
 the time someone attaches, the process is gone. A :class:`FlightRecorder`
 keeps nothing extra at steady state (spans and runlog already ring); on a
 trip it snapshots the tails plus the engine's crash-state — held locks,
-``PageAllocator.refcounts()``, the breaker's state, the full
+``PageAllocator.refcounts()``, host-tier and breaker state, the full
 metrics snapshot, and the roofline cost-ledger snapshot (which kernels
 were compute/memory/overhead-bound when it died) — into one JSON bundle,
 written atomically (tmp +
@@ -177,6 +177,12 @@ class FlightRecorder:
             pass
         try:
             state["kv_refcounts"] = engine.kv.allocator.refcounts()
+        except Exception:
+            pass
+        try:
+            tier = getattr(engine, "host_tier", None)
+            if tier is not None:
+                state["host_tier"] = tier.stats()
         except Exception:
             pass
         return state

@@ -31,9 +31,26 @@ decoding and in-engine step-fault recovery (``serving.recovery``)::
     out = eng.infer(prompt_ids, max_new_tokens=64)   # DecodeOutput
     eng.close()
 
-Not ported yet (``ROADMAP.md`` §A item 6): the request journal,
-``DecodeFleet``, disaggregated prefill/decode, the host KV tier and
-replica groups.
+Several engines make a fleet: :class:`DecodeFleet` routes to the
+least-loaded healthy engine (by cached-prefix depth first, with
+``DecodeConfig(prefix_digest=True)``) and migrates a tripped engine's
+requests; :class:`RequestJournal` (``DecodeConfig(journal_path=...)``)
+makes requests survive the process (:func:`replay_journal`,
+:func:`resume_incomplete`); a shared :class:`HostPagePool`
+(``DecodeEngine(host_tier=...)``) keeps demoted prefix pages in host RAM
+across engines; :class:`DisaggRouter` splits prefill and decode onto
+separate workers with a KV-page handoff (:class:`HandoffPayload`) and an
+:class:`Autoscaler` to rebalance them::
+
+    from paddle_tpu_torch.serving import DisaggRouter
+    from paddle_tpu_torch.serving.disagg import DECODE, PREFILL
+
+    router = DisaggRouter([pre, dec], [PREFILL, DECODE], transport="device")
+    out = router.submit(prompt_ids, 64).result()
+    router.close()
+
+Not ported yet: replica groups (``serving.shardgroup``, ``ROADMAP.md`` §A
+item 4c).
 """
 
 from paddle_tpu_torch.serving.admission import (
@@ -51,6 +68,13 @@ from paddle_tpu_torch.serving.decode import (
     DecodeHandle,
     DecodeOutput,
 )
+from paddle_tpu_torch.serving.disagg import (
+    Autoscaler,
+    AutoscalerConfig,
+    DisaggRouter,
+    HandoffCorrupt,
+    HandoffPayload,
+)
 from paddle_tpu_torch.serving.engine import (
     DeadlineExceeded,
     EngineClosedError,
@@ -59,10 +83,23 @@ from paddle_tpu_torch.serving.engine import (
     ServingConfig,
     ServingEngine,
 )
+from paddle_tpu_torch.serving.host_tier import (
+    HostPageCorrupt,
+    HostPagePool,
+    prefix_digests,
+)
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE, PageAllocator, PagedKVCache
 from paddle_tpu_torch.serving.metrics import DecodeMetrics, ServingMetrics
 from paddle_tpu_torch.serving.prefix_cache import RadixPrefixCache
-from paddle_tpu_torch.serving.recovery import EngineUnhealthy, RescuePacket, RetriesExhausted
+from paddle_tpu_torch.serving.recovery import (
+    DecodeFleet,
+    EngineUnhealthy,
+    RequestJournal,
+    RescuePacket,
+    RetriesExhausted,
+    replay_journal,
+    resume_incomplete,
+)
 from paddle_tpu_torch.serving.scheduler import (
     BATCH,
     CLASSES,
@@ -78,4 +115,7 @@ __all__ = [
     "DecodeConfig", "DecodeCostModel", "DecodeEngine", "DecodeHandle", "DecodeOutput",
     "SCRATCH_PAGE", "PageAllocator", "PagedKVCache", "DecodeMetrics", "RadixPrefixCache",
     "EngineUnhealthy", "RescuePacket", "RetriesExhausted",
+    "RequestJournal", "replay_journal", "resume_incomplete", "DecodeFleet",
+    "HostPagePool", "HostPageCorrupt", "prefix_digests",
+    "HandoffPayload", "HandoffCorrupt", "DisaggRouter", "Autoscaler", "AutoscalerConfig",
 ]

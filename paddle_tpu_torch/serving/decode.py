@@ -47,13 +47,23 @@ engine's device, seeded from ``DecodeConfig.rng_seed``, so sampled tokens
 differ from the JAX package's (``jax.random``); greedy decode is
 token-exact against it.
 
+The fleet hooks are the JAX package's: the durable request journal
+(``DecodeConfig.journal_path``, ``serving.recovery.RequestJournal``:
+admission journaled before enqueue, every token, every finish), migration
+on a tripped breaker (``_rescue_sink``, set by a ``DecodeFleet``), the
+host KV tier behind the radix tree (``host_tier=``/``host_tier_bytes``,
+``serving.host_tier``: write-through demote on a finished prefill,
+budgeted promotes on the loop thread), prefix-digest publication
+(``prefix_digest``) and disaggregated prefill/decode (``_handoff_sink``
+on a prefill worker, :meth:`DecodeEngine.adopt_handoff` on a decode
+worker, ``serving.disagg``). A handed-off request's pages move card to
+card without a host hop: one ``index_select`` from the prefill worker's
+page arrays, one ``index_copy_`` into the decode worker's.
+
 Not ported yet, and refused with ``NotImplementedError``: replica groups
-(``group=``/``layout=``), the host KV tier (``host_tier=``,
-``host_tier_bytes``), the request journal (``journal_path``),
-disaggregated prefill/decode and prefix-digest routing
-(``prefix_digest``, ``adopt_handoff``, ``_handoff_sink``), all
-``ROADMAP.md`` §A item 6; and manifest prewarm (``prewarm=True``, the
-``tune/`` warm-up manifest, item 7).
+(``group=``/``layout=``, ``serving.shardgroup``: ``ROADMAP.md`` §A item
+4c) and manifest prewarm (``prewarm=True``, the ``tune/`` warm-up
+manifest, item 7).
 
 Telemetry as in the JAX package: with tracing on
 (``tracing.tracing_enabled()``, the default) every request is a trace
@@ -74,8 +84,9 @@ import dataclasses
 import itertools
 import os
 import time
+import zlib
 from collections import deque
-from typing import Any, Deque, List, Optional
+from typing import Any, Callable, Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,11 +117,13 @@ from paddle_tpu_torch.serving.engine import (
     PendingResult,
     ServingConfig,
 )
+from paddle_tpu_torch.serving.host_tier import HostPageCorrupt, HostPagePool
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE, PagedKVCache
 from paddle_tpu_torch.serving.metrics import DecodeMetrics
 from paddle_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from paddle_tpu_torch.serving.recovery import (
     EngineUnhealthy,
+    RequestJournal,
     RescuePacket,
     RetriesExhausted,
 )
@@ -128,10 +141,16 @@ __all__ = [
 _RID_SALT = os.urandom(3).hex()
 
 
-def _not_ported(what: str, item: int = 6) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"DecodeEngine: {what} is not ported to paddle_tpu_torch yet "
         f"(ROADMAP.md §A item {item})")
+
+
+def _page_stack(pages) -> torch.Tensor:
+    """A handoff's pages as one ``[n, ...]`` tensor (the device transport's
+    gather is one already)."""
+    return pages if isinstance(pages, torch.Tensor) else torch.stack(list(pages))
 
 
 @dataclasses.dataclass
@@ -198,13 +217,30 @@ class DecodeConfig:
     unhealthy_after: int = 3
     breaker_cooldown_s: float = 0.25
     breaker_max_cooldown_s: float = 5.0
-    # -- not ported yet: setting any of these raises NotImplementedError --
-    # durable request journal (serving.recovery.RequestJournal)
+    # durable request journal (WAL): records admissions + every
+    # generated token; recovery.replay_journal()/resume_incomplete()
+    # rebuild in-flight work after a process restart. None = off.
     journal_path: Optional[str] = None
-    # private host-RAM page pool behind the radix tree (serving.host_tier)
+    journal_fsync_every: int = 16
+    # WAL size (bytes) that triggers an in-place compaction: finished
+    # requests drop, incomplete ones are rewritten as snapshots into a
+    # fresh segment (atomic publish). None = unbounded growth.
+    journal_compact_bytes: Optional[int] = None
+    # -- hierarchical KV host tier (serving.host_tier) --------------------
+    # byte budget for a PRIVATE host-RAM page pool behind the radix tree
+    # (requires prefix_cache): radix inserts write through to host RAM,
+    # radix misses whose continuation the pool holds promote back
+    # asynchronously. None = no private pool; pass a shared HostPagePool
+    # to DecodeEngine(host_tier=...) for fleet-wide sharing + crash
+    # recovery (the pool survives any one engine's kill()).
     host_tier_bytes: Optional[int] = None
-    # prefix-digest publication for prefix-aware fleet routing
+    # publish a compact per-prefix digest set for prefix-aware fleet
+    # routing: DecodeFleet/DisaggRouter route each prompt to the engine
+    # with the longest cached prefix (least-loaded tiebreak)
     prefix_digest: bool = False
+    # promote-apply budget: pages implanted from the host tier per loop
+    # iteration — bounds the latency promotion adds to one iteration
+    host_promote_pages_per_iter: int = 4
 
 
 @dataclasses.dataclass
@@ -387,15 +423,9 @@ class DecodeEngine:
         self.decode_config = dconf = decode or DecodeConfig()
         self.model_cfg = dict(model_cfg)
         if group is not None or layout is not None:
-            raise _not_ported("group=/layout= (serving.shardgroup replica groups)")
-        if host_tier is not None or dconf.host_tier_bytes:
-            raise _not_ported("host_tier=/host_tier_bytes (serving.host_tier)")
-        if dconf.journal_path:
-            raise _not_ported("journal_path (serving.recovery.RequestJournal)")
-        if dconf.prefix_digest:
-            raise _not_ported("prefix_digest (serving.disagg / DecodeFleet routing)")
+            raise _not_ported("group=/layout= (serving.shardgroup replica groups)", "4c")
         if dconf.prewarm:
-            raise _not_ported("prewarm=True (the tune/ warmup manifest)", item=7)
+            raise _not_ported("prewarm=True (the tune/ warmup manifest)", "7")
         enforce(dconf.max_slots >= 1,
                 f"max_slots must be >= 1, got {dconf.max_slots}")
         enforce(dconf.prefill_chunk >= 1,
@@ -471,6 +501,39 @@ class DecodeEngine:
                 self._kv.allocator, dconf.page_size,
                 max_pages=dconf.prefix_cache_pages)
 
+        # -- hierarchical KV host tier (serving.host_tier) ----------------
+        # a pool passed in is SHARED (fleet-wide prefix sharing + crash
+        # recovery: it survives this engine's kill()); host_tier_bytes
+        # builds a private one. Draft-model engines skip the tier — the
+        # pool carries only target-cache pages, and adopting them without
+        # the draft's would desynchronize speculation (same rationale as
+        # handoff adoption degrading to re-prefill).
+        self._host_tier: Optional[HostPagePool] = host_tier
+        if self._host_tier is None and dconf.host_tier_bytes:
+            self._host_tier = HostPagePool(dconf.host_tier_bytes, dconf.page_size)
+        if self._host_tier is not None and self._spec_k:
+            ptlog.warning(
+                "host tier disabled for engine %s: the pool carries only "
+                "target-cache pages, which a speculative engine cannot "
+                "adopt", self.config.engine_label)
+            self._host_tier = None
+        if self._host_tier is not None:
+            enforce(self._prefix is not None,
+                    "host tier requires DecodeConfig(prefix_cache=True): "
+                    "it extends the radix tree, not the raw page pool")
+            enforce(self._host_tier.compatible(dconf.page_size),
+                    f"host tier page_size {self._host_tier.page_size} != "
+                    f"engine page_size {dconf.page_size}")
+        # promote jobs applied on the loop thread, budgeted per iteration
+        # (host_promote_pages_per_iter); keys dedup in-flight prefixes
+        self._promote_jobs: Deque = deque()
+        self._promote_keys: set = set()
+        # prefix-aware routing digest: republished (lock-free swap of an
+        # immutable frozenset) on the loop thread whenever the tree's
+        # digest_version moved; fleets read it from any thread
+        self._digest_pub: frozenset = frozenset()
+        self._digest_seen = -1
+
         # tenants / scheduler / admission; deadline feasibility runs
         # through the per-token cost model
         tenant_cfgs = [t.resolved() for t in (self.config.tenants or ())]
@@ -506,6 +569,12 @@ class DecodeEngine:
         self._active: List[_DecodeRequest] = []     # admission order
         self._resume: Deque[_DecodeRequest] = deque()
         self._pending_admit: Deque[_DecodeRequest] = deque()
+        # disaggregated serving (serving.disagg): a prefill-role engine
+        # publishes finished prefills through _handoff_sink instead of
+        # decoding them; a decode-role engine admits adopted payloads
+        # from _pending_handoff (implanted on the loop thread)
+        self._handoff_sink: Optional[Callable[..., None]] = None
+        self._pending_handoff: Deque = deque()  # (req, HandoffPayload)
         self._closed = False
         self._close_lock = locks.Lock("serving.decode_close")
         # zero-loss recovery state (serving.recovery)
@@ -513,9 +582,18 @@ class DecodeEngine:
             failure_threshold=dconf.unhealthy_after,
             cooldown_s=dconf.breaker_cooldown_s,
             max_cooldown_s=dconf.breaker_max_cooldown_s)
+        self._rescue_sink: Optional[Callable[..., int]] = None  # DecodeFleet
         self._consec_faults = 0
         self._recover_prev_delay = 0.0
         self._breaker_dirty = False
+        self._journal: Optional[RequestJournal] = None
+        # a DisaggRouter may swap in a journal SHARED across its workers;
+        # then close()/kill() must not close it (the router owns its fd)
+        self._journal_owned = True
+        if dconf.journal_path:
+            self._journal = RequestJournal(
+                dconf.journal_path, fsync_every=dconf.journal_fsync_every,
+                compact_bytes=dconf.journal_compact_bytes)
         self._rid_seq = itertools.count()
         self._killed = False
         self._drain_abort = False
@@ -607,22 +685,22 @@ class DecodeEngine:
         return self._breaker
 
     @property
-    def _handoff_sink(self):
-        return None
-
-    @_handoff_sink.setter
-    def _handoff_sink(self, sink) -> None:
-        raise _not_ported("the prefill-role handoff sink (serving.disagg)")
-
-    def adopt_handoff(self, payload, from_engine: Optional[str] = None):
-        """Adopting a disaggregated prefill's KV pages is not ported yet."""
-        raise _not_ported("adopt_handoff (serving.disagg)")
+    def tp_degree(self) -> int:
+        """Devices one decode step spans: 1 (replica groups, whose steps
+        span several, are ``ROADMAP.md`` §A item 4c). A handoff gathered
+        under another degree is re-prefilled, not adopted."""
+        return 1
 
     def load(self) -> float:
         """Live work on this engine: active slots plus every parked or
-        queued request. Read lock-free from any thread."""
+        queued request. ``DecodeFleet._pick`` routes new work to the
+        least-loaded healthy engine by this number. Read lock-free from
+        any thread — ``len()`` is atomic under the GIL, and staleness only
+        costs routing optimality, never correctness."""
         return float(len(self._active) + len(self._resume)
-                     + len(self._pending_admit) + self._queue.qsize())
+                     + len(self._pending_admit)
+                     + len(self._pending_handoff)
+                     + self._queue.qsize())
 
     # -- the model calls ---------------------------------------------------
 
@@ -651,6 +729,27 @@ class DecodeEngine:
             pages += [self._dk_pages, self._dv_pages]
         for p in pages:
             p[:, dst] = p[:, src]
+
+    def _page_index(self, pages: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pages, np.int64)).to(self._device)
+
+    def _gather_pages(self, pages: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K and V of physical ``pages``, each ``[n, L, H_kv, page_size,
+        dh]`` (page ``i`` = ``[i]``), gathered on the engine's device by one
+        ``index_select`` per page array: the handoff's and the demote's
+        source, the JAX package's ``gather_kv_page`` for n pages at once."""
+        idx = self._page_index(pages)
+        return (self._k_pages.index_select(1, idx).transpose(0, 1),
+                self._v_pages.index_select(1, idx).transpose(0, 1))
+
+    def _implant_pages(self, pages: Sequence[int], k, v) -> None:
+        """Write ``k``/``v`` (``[n, L, H_kv, page_size, dh]``, on any
+        device, any float dtype) into physical ``pages`` by one
+        ``index_copy_`` per page array (``scatter_kv_page`` of the JAX
+        package for n pages)."""
+        idx = self._page_index(pages)
+        for dst, src in ((self._k_pages, k), (self._v_pages, v)):
+            dst.index_copy_(1, idx, src.to(self._device, self._cache_dtype).transpose(0, 1))
 
     # -- admission cost ----------------------------------------------------
 
@@ -724,15 +823,20 @@ class DecodeEngine:
         waterfall.start(req.rid, time.perf_counter(),
                         engine=self.metrics.engine_label, tenant=req.tenant,
                         cls=req.cls)
+        # journal BEFORE enqueue: the loop may start generating (and
+        # journaling tokens) the instant the scheduler has the request
+        self._j_admit(req)
         try:
             if self._admission is not None:
                 self._admission.admit(req)
             else:
                 self._queue.send(req, timeout=timeout)
         except ChannelClosedError:
+            self._j_fin(req, "shed")
             waterfall.finish(req.rid, time.perf_counter(), "shed")
             raise EngineClosedError("engine is closed") from None
         except (AdmissionRejected, TimeoutError):
+            self._j_fin(req, "shed")
             waterfall.finish(req.rid, time.perf_counter(), "shed")
             self._finish_trace(req, time.perf_counter(), status="shed")
             raise
@@ -745,6 +849,27 @@ class DecodeEngine:
 
     def _new_rid(self) -> str:
         return f"{self.metrics.engine_label}-{_RID_SALT}-{next(self._rid_seq)}"
+
+    # -- journal hooks (no-ops with journaling off) ------------------------
+
+    def _j_admit(self, req: _DecodeRequest) -> None:
+        if self._journal is not None and req.rid is not None:
+            self._journal.log_admit(req.rid, req.prompt, req.mnt,
+                                    req.generated, req.tenant, req.cls,
+                                    trace=(req.trace.to_traceparent()
+                                           if req.trace is not None
+                                           else None))
+            self.metrics.record_journal_records(1)
+
+    def _j_tok(self, req: _DecodeRequest, tok: int) -> None:
+        if self._journal is not None and req.rid is not None:
+            self._journal.log_token(req.rid, tok)
+            self.metrics.record_journal_records(1)
+
+    def _j_fin(self, req: _DecodeRequest, reason: str) -> None:
+        if self._journal is not None and req.rid is not None:
+            self._journal.log_finish(req.rid, reason)
+            self.metrics.record_journal_records(1)
 
     # -- completion paths (loop thread, except _expire) --------------------
 
@@ -776,6 +901,7 @@ class DecodeEngine:
         generation (loop check)."""
         self.metrics.record_timeout()
         self.metrics.record_evict("deadline")
+        self._j_fin(req, "deadline")
         waterfall.finish(req.rid, time.perf_counter(), "deadline")
         self._finish_trace(req, time.perf_counter(),
                            status="deadline_exceeded")
@@ -793,6 +919,7 @@ class DecodeEngine:
 
     def _finish(self, req: _DecodeRequest, reason: str) -> None:
         self._release(req)
+        self._j_fin(req, reason)
         self.metrics.record_evict(reason)
         if reason == "cancelled":
             self.metrics.record_cancel()
@@ -810,6 +937,7 @@ class DecodeEngine:
 
     def _fail(self, req: _DecodeRequest, exc: BaseException) -> None:
         self._release(req)
+        self._j_fin(req, "error")
         self.metrics.record_error()
         self.metrics.record_evict("error")
         waterfall.finish(req.rid, time.perf_counter(), "error")
@@ -828,7 +956,8 @@ class DecodeEngine:
         except BaseException as e:  # fail everything rather than hang
             ptlog.error("decode loop died: %r", e)
             for req in (list(self._active) + list(self._resume)
-                        + list(self._pending_admit)):
+                        + list(self._pending_admit)
+                        + [item[0] for item in self._pending_handoff]):
                 try:
                     self._fail(req, RuntimeError(f"decode loop died: {e!r}"))
                 except Exception:
@@ -844,16 +973,19 @@ class DecodeEngine:
                 self._force_drain()
                 break
             self._sweep_cancel_deadline()
+            self._admit_handoffs()
             self._admit()
             t0 = time.perf_counter()
+            did_promote = self._apply_promotes()
             did_prefill = self._prefill_some()
             did_step = self._decode_step()
-            if did_prefill or did_step:
+            if did_prefill or did_step or did_promote:
                 self.metrics.set_pages(self._kv.pages_in_use,
                                        self._kv.pages_free)
                 self.metrics.set_active_slots(len(self._active))
                 self.metrics.set_load(self.load())
                 self.metrics.set_queue_depth(self._queue.qsize())
+                self._publish_digest()
                 if self._loop_trace is not None:
                     tracing.record_span(
                         "serving.decode.step", t0, time.perf_counter(),
@@ -861,7 +993,8 @@ class DecodeEngine:
                         active=len(self._active))
                 continue
             # idle: nothing to prefill or step — wait for work or drain out
-            if self._active or self._resume or self._pending_admit:
+            if (self._active or self._resume or self._pending_admit
+                    or self._pending_handoff):
                 continue
             try:
                 req, ok = self._queue.recv(timeout=dconf.idle_poll_s)
@@ -872,6 +1005,9 @@ class DecodeEngine:
             self._pending_admit.append(req)
         if self._prefix is not None:
             self._prefix.clear()  # drained: drop the tree's page refs
+        self._promote_jobs.clear()
+        self._promote_keys.clear()
+        self._publish_digest()  # tree gone: publish the empty digest
         self.metrics.set_active_slots(0)
         self.metrics.set_pages(self._kv.pages_in_use, self._kv.pages_free)
 
@@ -891,6 +1027,14 @@ class DecodeEngine:
                 elif req.deadline is not None and now > req.deadline:
                     pool.remove(req)
                     self._expire(req)
+        for item in list(self._pending_handoff):
+            req = item[0]
+            if req.cancelled:
+                self._pending_handoff.remove(item)
+                self._finish(req, "cancelled")
+            elif req.deadline is not None and now > req.deadline:
+                self._pending_handoff.remove(item)
+                self._expire(req)
 
     def _admit(self) -> None:
         """Fill free slots: preempted requests first (front of line), then
@@ -944,6 +1088,90 @@ class DecodeEngine:
                         req.t_admit_pc, parent=req.trace,
                         engine=self.metrics.engine_label)
 
+    def _admit_handoffs(self) -> None:
+        """Admit handed-off requests (serving.disagg): implant the
+        transferred KV pages into this engine's page arrays and enter the
+        decode phase directly — no re-prefill. Any failure (geometry
+        mismatch, page-pool pressure, implant error) degrades to the
+        resume path, which re-prefills ``prompt + generated``
+        token-exactly — a bad transfer costs latency, never a request."""
+        dconf = self.decode_config
+        page_shape = (self._k_pages.shape[0],) + tuple(self._k_pages.shape[2:])
+        while (self._pending_handoff
+               and len(self._active) < dconf.max_slots):
+            req, payload = self._pending_handoff.popleft()
+            if req.cancelled:
+                self._finish(req, "cancelled")
+                continue
+            slot = self._kv.acquire_slot()
+            if slot is None:  # raced vs max_slots accounting; park
+                self._pending_handoff.appendleft((req, payload))
+                return
+            req.slot = slot
+            n_pages = -(-int(payload.cur_len) // dconf.page_size)
+            t0_adopt = time.perf_counter()
+            ok = False
+            # a draft model keeps its own page arrays, which the payload
+            # does not carry — re-prefill fills both caches correctly. A
+            # payload gathered under a DIFFERENT tp degree ran a different
+            # partitioned program; adopting its pages verbatim would
+            # splice two programs' numerics mid-sequence, so cross-degree
+            # adoption degrades to re-prefill.
+            if (not self._spec_k
+                    and int(getattr(payload, "tp_degree", 1)) == self.tp_degree
+                    and payload.page_size == dconf.page_size
+                    and 0 < payload.cur_len <= dconf.max_context
+                    and len(payload.k_pages) == n_pages
+                    and len(payload.v_pages) == n_pages
+                    and all(tuple(p.shape) == page_shape for p in
+                            itertools.chain(payload.k_pages, payload.v_pages))):
+                try:
+                    if self._ensure_pages(req, int(payload.cur_len)):
+                        k, v = _page_stack(payload.k_pages), _page_stack(payload.v_pages)
+                        ready = getattr(payload, "ready", None)
+                        if ready is not None:
+                            # the gather ran on the publisher's stream:
+                            # order the implant after it, and keep its
+                            # memory alive until this stream has read it
+                            stream = torch.cuda.current_stream(self._device)
+                            stream.wait_event(ready)
+                            for t in (k, v):
+                                if t.device.type == "cuda":
+                                    t.record_stream(stream)
+                        self._implant_pages(
+                            self._kv.page_tables[req.slot][:n_pages], k, v)
+                        ok = True
+                except Exception as e:
+                    ptlog.warning(
+                        "handoff page adoption failed (%r); "
+                        "re-prefilling request %s", e, req.rid)
+            if not ok:
+                self._release(req)
+                self._requeue(req)
+                self.metrics.record_recover(1)
+                continue
+            # the adopted pages cover positions [0, cur_len); last_tok is
+            # the token pending its KV write — exactly mid-decode state
+            req.seq = None
+            req.phase = "decode"
+            req.cur_len = int(payload.cur_len)
+            req.chunks_done = self._n_chunks(
+                int(req.prompt.size) + len(req.generated))
+            req.last_tok = int(payload.last_tok)
+            self._kv.seq_lens[req.slot] = req.cur_len
+            req.t_admit_pc = time.perf_counter()
+            self._active.append(req)
+            self.metrics.record_handoff_in()
+            self.metrics.record_slot_admit()
+            if req.trace is not None:
+                tracing.record_span(
+                    "serving.handoff.adopt", t0_adopt, time.perf_counter(),
+                    parent=req.trace, engine=self.metrics.engine_label,
+                    from_engine=payload.src, pages=n_pages, rid=req.rid)
+            runlog.emit("handoff_adopted", rid=req.rid,
+                        from_engine=payload.src, pages=n_pages,
+                        engine=self.metrics.engine_label)
+
     def _maybe_prefix_adopt(self, req: _DecodeRequest) -> None:
         """Consult the radix prefix cache at slot assignment: adopt the
         longest cached page run of ``req.seq`` (capped at ``len(seq)-1`` —
@@ -965,6 +1193,14 @@ class DecodeEngine:
             return
         pages = self._prefix.match(req.seq, max_pages)
         m = len(pages)
+        # hierarchical KV: the tree's true depth (pre-CoW-shrink) is the
+        # promote frontier — when the host tier holds the NEXT page of
+        # this prefix, enqueue an async promote so the next same-prefix
+        # request hits on the card. THIS request prefills as usual either
+        # way (token-exact regardless of promotion timing).
+        if (self._host_tier is not None and m < max_pages
+                and self._host_tier.contains(req.seq, m + 1)):
+            self._host_request_promote(req.seq, max_pages, trace=req.trace)
         while m > 0:
             c0 = (m * ps) // C
             lo = (c0 * C) // ps  # first logical page the next chunk touches
@@ -990,6 +1226,184 @@ class DecodeEngine:
         runlog.emit("decode_prefix_hit", hit_tokens=m * ps,
                     saved_chunks=c0, cow=cow_done,
                     engine=self.metrics.engine_label)
+
+    # -- hierarchical KV host tier (serving.host_tier) ---------------------
+
+    def _host_demote(self, req: _DecodeRequest, n_full: int) -> None:
+        """Write-through demote: copy ``req``'s first ``n_full`` fully-
+        written pages off the card and store them in the host tier. Called
+        on the loop thread right after the radix insert, while the tree
+        holds refs — the pages are immutable and cannot be recycled under
+        a stale key. The pages not yet in the pool come over in one
+        ``index_select`` and one copy to the host per page array. Also the
+        crash-recovery write: with a SHARED pool, these bytes outlive this
+        engine's kill()."""
+        if self._host_tier is None:
+            return
+        pages = self._kv.slot_pages(req.slot)[:n_full]
+        wrote = 0
+        bp = 0
+        t0_demote = time.perf_counter()
+        try:
+            todo = [i for i in range(len(pages))
+                    if not self._host_tier.contains(req.seq, i + 1)]  # dedup
+            if todo:
+                k, v = self._gather_pages([pages[i] for i in todo])
+                k, v = k.contiguous().cpu(), v.contiguous().cpu()
+                for j, i in enumerate(todo):
+                    res = self._host_tier.put(
+                        req.seq, i, k[j], v[j], engine=self.metrics.engine_label)
+                    wrote += res["added"]
+                    if res["evicted"]:
+                        bp += 1
+        except Exception as e:
+            # demote is strictly best-effort: an injected stall/error (or
+            # real host-memory pressure) must never fail the request —
+            # the page simply stays device-only
+            ptlog.warning("host-tier demote failed: %r; page stays "
+                          "device-only", e)
+        if wrote:
+            self.metrics.record_host_demote(wrote)
+            if req.trace is not None:
+                tracing.record_span(
+                    "serving.host_tier.demote", t0_demote,
+                    time.perf_counter(), parent=req.trace,
+                    engine=self.metrics.engine_label, pages=wrote)
+        if bp:
+            self.metrics.record_host_backpressure(bp)
+        self.metrics.set_host_tier_bytes(self._host_tier.bytes_used,
+                                         self._host_tier.max_bytes)
+
+    def _host_request_promote(self, seq: np.ndarray, want_pages: int,
+                              trace=None) -> None:
+        """Enqueue an async promote of this prefix up to ``want_pages``
+        pages; dedup by prefix digest so a storm of same-prefix requests
+        enqueues one job. The hit is counted HERE (the routing-visible
+        event), not at apply time. ``trace`` is the enqueueing request's
+        span context — the applied promote parents its span there."""
+        ps = self.decode_config.page_size
+        toks = np.asarray(seq[:want_pages * ps], np.int32)
+        key = zlib.crc32(toks.tobytes()) & 0xFFFFFFFF
+        if key in self._promote_keys:
+            return
+        self._promote_keys.add(key)
+        self._promote_jobs.append((key, toks, want_pages, trace))
+        self.metrics.record_host_hit()
+
+    def _apply_promotes(self) -> bool:
+        """Apply queued host-tier promotions on the loop thread, at most
+        ``host_promote_pages_per_iter`` pages per iteration — off the
+        request path (the enqueueing request prefilled normally) and
+        bounded so promotion stays decode-latency-neutral.
+
+        Each application re-checks the tree (``peek``) because the job
+        may be stale: a concurrent admission may have prefilled the
+        prefix already, or eviction may have shortened it since enqueue.
+        Page ownership follows the loader-handoff discipline documented
+        on ``PageAllocator.refcounts``: alloc (ref 1) → implant →
+        ``insert`` refs for the tree (→ 2) → free the loader ref (→ 1,
+        tree-owned). A CRC failure quarantines the host page and drops
+        the job — the prefix simply stays cold and re-prefills."""
+        if self._host_tier is None or not self._promote_jobs:
+            return False
+        ps = self.decode_config.page_size
+        budget = self.decode_config.host_promote_pages_per_iter
+        did = False
+        while budget > 0 and self._promote_jobs:
+            key, toks, want, job_trace = self._promote_jobs.popleft()
+            if self._prefix.max_pages is not None:
+                # promoting past the tree's own size cap is wasted motion:
+                # the insert would be trimmed right back out
+                want = min(want, self._prefix.max_pages)
+            tree_pages = self._prefix.peek(toks, want)
+            d = len(tree_pages)
+            if d >= want:  # stale: someone prefilled it meanwhile
+                self._promote_keys.discard(key)
+                continue
+            t0 = time.perf_counter()
+            try:
+                got = self._host_tier.get(
+                    toks, d, engine=self.metrics.engine_label)
+            except HostPageCorrupt:
+                # bit-flipped host page: quarantined by the pool; the
+                # prefix stays cold and the next request re-prefills
+                # token-exactly instead of trusting it
+                self.metrics.record_host_quarantine()
+                self._promote_keys.discard(key)
+                continue
+            except Exception as e:
+                ptlog.warning("host-tier promote read failed: %r", e)
+                self._promote_keys.discard(key)
+                continue
+            if got is None:  # evicted from the pool since enqueue
+                self._promote_keys.discard(key)
+                continue
+            alloced = self._kv.allocator.alloc(1)
+            if alloced is None:
+                # never steal device pages from live traffic for a
+                # warm-ahead; drop the job — the next admission re-probes
+                self._promote_keys.discard(key)
+                continue
+            page = alloced[0]
+            self._implant_pages([page], got[0][None], got[1][None])
+            self._prefix.insert(toks[:(d + 1) * ps], tree_pages + [page])
+            self._kv.allocator.free([page])  # hand ownership to the tree
+            budget -= 1
+            did = True
+            t1 = time.perf_counter()
+            self.metrics.record_host_promote(t1 - t0)
+            parent = job_trace if job_trace is not None else self._loop_trace
+            if parent is not None:
+                tracing.record_span(
+                    "serving.host_tier.promote", t0, t1, parent=parent,
+                    engine=self.metrics.engine_label, page=d)
+            # progress guard: the insert can be trimmed straight back out
+            # (size-cap eviction, allocator pressure). Re-enqueue only on
+            # real depth growth — otherwise a capped tree and a warm pool
+            # would promote-evict-promote forever and the loop never idles
+            nd = len(self._prefix.peek(toks, want))
+            if d < nd < want and self._host_tier.contains(toks, nd + 1):
+                self._promote_jobs.append((key, toks, want, job_trace))
+            else:
+                self._promote_keys.discard(key)
+        if did:
+            self.metrics.set_pages(self._kv.pages_in_use,
+                                   self._kv.pages_free)
+        return did
+
+    def _publish_digest(self) -> None:
+        """Republish the routing digest when the tree changed. Loop-thread
+        only; readers (DecodeFleet._pick, any thread) see an immutable
+        frozenset swapped atomically under the GIL."""
+        if not self.decode_config.prefix_digest or self._prefix is None:
+            return
+        v = self._prefix.digest_version
+        if v != self._digest_seen:
+            self._digest_seen = v
+            self._digest_pub = self._prefix.digests()
+
+    def prefix_digest(self) -> frozenset:
+        """The engine's published prefix-digest set (empty unless
+        ``DecodeConfig.prefix_digest``). Lock-free snapshot."""
+        return self._digest_pub
+
+    def prefix_match_depth(self, digests: List[int]) -> int:
+        """Longest prefix (in pages) of a prompt's digest chain (from
+        :func:`serving.host_tier.prefix_digests`) this engine has cached.
+        The routing score: fleets send each prompt to the deepest match."""
+        pub = self._digest_pub
+        depth = 0
+        for dg in digests:
+            if dg not in pub:
+                break
+            depth += 1
+        return depth
+
+    @property
+    def host_tier(self) -> Optional[HostPagePool]:
+        """The engine's host-RAM page pool (shared or private; None when
+        the tier is off)."""
+        return self._host_tier
 
     def _ensure_pages(self, req: _DecodeRequest, n_positions: int) -> bool:
         """Grow ``req``'s slot to ``n_positions``, evicting prefix-cache
@@ -1033,6 +1447,7 @@ class DecodeEngine:
     def _append_token(self, req: _DecodeRequest, tok: int) -> None:
         """Host-side finish checks for one sampled token."""
         req.generated.append(tok)
+        self._j_tok(req, tok)
         eos = self.decode_config.eos_id
         if eos is not None and tok == eos:
             self._finish(req, "eos")
@@ -1098,12 +1513,23 @@ class DecodeEngine:
                     if n_full:
                         self._prefix.insert(
                             req.seq, self._kv.slot_pages(req.slot)[:n_full])
+                        # write-through demote: the same immutable pages,
+                        # while the tree holds refs (no recycle race)
+                        self._host_demote(req, n_full)
                 req.phase = "decode"
                 req.cur_len = len(req.seq)
                 # the final chunk's sample IS the next token after the
                 # prefilled sequence
                 self._wf_tokens(req, t1, 1, "prefill")
                 self._append_token(req, tok)
+                # prefill role (serving.disagg): publish instead of
+                # decoding here — unless that one sampled token already
+                # finished the request (it left _active via _finish).
+                # Draft-model engines keep their work local: the payload
+                # carries only the target cache.
+                if (self._handoff_sink is not None and not self._spec_k
+                        and req in self._active):
+                    self._publish_handoff(req)
         return progressed
 
     def _decode_step(self) -> bool:
@@ -1295,9 +1721,10 @@ class DecodeEngine:
     def _recover_step_fault(self, exc: BaseException) -> None:
         """A decode step failed: every live request is reconstructible from
         host state, whatever the step left in the pages. Ladder: quarantine
-        + re-admit (per-request budget); ``unhealthy_after`` consecutive
-        faults trip the breaker. A fault inside recovery itself
-        (DECODE_RECOVER) fails every in-flight request instead."""
+        + re-admit (per-request budget) → after ``unhealthy_after``
+        consecutive faults, migrate everything to a healthy engine via the
+        fleet's rescue sink. A fault inside recovery itself
+        (DECODE_RECOVER) escalates one rung."""
         dconf = self.decode_config
         self.metrics.record_step_fault()
         self._consec_faults += 1
@@ -1315,14 +1742,22 @@ class DecodeEngine:
             self._consec_faults)
         try:
             faults.inject(faults.DECODE_RECOVER, engine=self.metrics.engine_label)
+            if (self._consec_faults >= dconf.unhealthy_after
+                    and self._rescue_sink is not None):
+                self._migrate_out(exc)
+                return
             self._quarantine(exc)
         except Exception as rexc:
-            # recovery itself faulted: fail everything (never hang the
-            # handles)
+            # recovery itself faulted: escalate straight to migration
+            # when a fleet can take the work, else fail everything (never
+            # hang the handles)
             ptlog.error("decode recovery failed: %r", rexc)
-            for req in list(self._active):
-                self._fail(req, rexc)
-            self._kv.release_all()
+            if self._rescue_sink is not None:
+                self._migrate_out(rexc)
+            else:
+                for req in list(self._active):
+                    self._fail(req, rexc)
+                self._kv.release_all()
             return
         # spread repeated quarantine cycles out
         d = retry_mod.decorrelated_backoff(
@@ -1359,7 +1794,8 @@ class DecodeEngine:
             requeued += 1
             runlog.emit("request_recovered", rid=req.rid,
                         recoveries=req.recoveries, generated=len(req.generated),
-                        engine=self.metrics.engine_label)
+                        engine=self.metrics.engine_label,
+                        trace_id=req.trace.trace_id if req.trace else None)
         self._kv.release_all()  # nothing survives the poisoned iteration
         if requeued:
             self.metrics.record_recover(requeued)
@@ -1380,7 +1816,58 @@ class DecodeEngine:
         self.metrics.record_recover(1)
         runlog.emit("request_recovered", rid=req.rid,
                     recoveries=req.recoveries, generated=len(req.generated),
-                    engine=self.metrics.engine_label)
+                    engine=self.metrics.engine_label,
+                    trace_id=req.trace.trace_id if req.trace else None)
+
+    def _drain_packets(self) -> List[RescuePacket]:
+        """Drain every live request's host state (active slots, parked
+        queues, and the scheduler backlog) into RescuePackets. Slots are
+        released and each rid closes in the journal with "migrated" so a
+        replay of THIS engine's journal won't resurrect them — the
+        adopting engine journals them afresh."""
+        drained: List[_DecodeRequest] = []
+        for req in list(self._active):
+            self._release(req)
+            drained.append(req)
+        while self._resume:
+            drained.append(self._resume.popleft())
+        while self._pending_admit:
+            drained.append(self._pending_admit.popleft())
+        while self._pending_handoff:
+            drained.append(self._pending_handoff.popleft()[0])
+        drained += self._drain_queue()
+        self._kv.release_all()
+        packets: List[RescuePacket] = []
+        for req in drained:
+            self._j_fin(req, "migrated")
+            packets.append(RescuePacket(
+                rid=req.rid or "", prompt=req.prompt, mnt=req.mnt,
+                generated=list(req.generated), tenant=req.tenant,
+                cls=req.cls, deadline=req.deadline, t_submit=req.t_submit,
+                n_preemptions=req.n_preemptions, handle=req.handle,
+                trace=req.trace, cancelled=req.cancelled))
+        return packets
+
+    def _migrate_out(self, exc: BaseException) -> None:
+        """Declare this engine unhealthy: trip the breaker (the fleet
+        stops routing here until a half-open probe succeeds) and hand
+        every live request to the rescue sink for adoption elsewhere."""
+        self._breaker.trip()
+        self._breaker_dirty = True
+        self._flight_dump("breaker_trip")
+        packets = self._drain_packets()
+        runlog.emit("engine_unhealthy", engine=self.metrics.engine_label,
+                    error=repr(exc), in_flight=len(packets),
+                    consecutive=self._consec_faults)
+        ptlog.error(
+            "engine %s unhealthy after %d consecutive step faults; "
+            "migrating %d request(s)", self.metrics.engine_label,
+            self._consec_faults, len(packets))
+        adopted = self._rescue_sink(self, packets) if packets else 0
+        self.metrics.record_migrate(adopted)
+        self._consec_faults = 0
+        self._recover_prev_delay = 0.0
+        self.metrics.set_consecutive_faults(0)
 
     def adopt_rescue(self, packet: RescuePacket,
                      from_engine: Optional[str] = None) -> DecodeHandle:
@@ -1411,16 +1898,11 @@ class DecodeEngine:
         if req.trace is not None:
             req.handle.trace = req.trace
             req.t_enqueue_pc = time.perf_counter()
-        # already satisfied: complete without re-decoding a single token
-        eos = self.decode_config.eos_id
-        done_eos = eos is not None and req.generated and req.generated[-1] == eos
-        if done_eos or len(req.generated) >= req.mnt:
-            req.handle._complete(DecodeOutput(
-                tokens=np.asarray(req.generated, dtype=np.int32),
-                finish_reason="eos" if done_eos else "length",
-                prompt_len=int(req.prompt.size),
-                n_preemptions=req.n_preemptions))
+        # already satisfied (e.g. a crash landed between the last token and
+        # its fin record): complete without re-decoding a single token
+        if self._complete_if_satisfied(req):
             return req.handle
+        self._j_admit(req)
         self.metrics.record_submit()
         if req.trace is not None:
             tracing.record_span(
@@ -1438,36 +1920,166 @@ class DecodeEngine:
         self._queue.poke()  # an idle loop is parked in recv(idle_poll_s)
         return req.handle
 
+    def _complete_if_satisfied(self, req: _DecodeRequest) -> bool:
+        """An adopted request whose generated prefix already ends it (eos,
+        or its budget): journal and complete it without a single step."""
+        eos = self.decode_config.eos_id
+        done_eos = bool(eos is not None and req.generated and req.generated[-1] == eos)
+        if not done_eos and len(req.generated) < req.mnt:
+            return False
+        reason = "eos" if done_eos else "length"
+        self._j_admit(req)
+        self._j_fin(req, reason)
+        req.handle._complete(DecodeOutput(
+            tokens=np.asarray(req.generated, dtype=np.int32),
+            finish_reason=reason, prompt_len=int(req.prompt.size),
+            n_preemptions=req.n_preemptions))
+        return True
+
+    # -- disaggregated prefill/decode handoff (serving.disagg) -------------
+
+    def _publish_handoff(self, req: _DecodeRequest) -> None:
+        """Prefill-role exit: prefill just completed, so the slot's pages
+        hold the request's full context — gather them (on the card, one
+        ``index_select`` per page array, an event recorded after it),
+        release the slot, and hand the payload to the router's sink.
+        Durability (journal handoff record + receiver ack) is the router's
+        job; a sink failure degrades to decoding locally through the
+        resume path, so a broken transfer never loses the request."""
+        from paddle_tpu_torch.serving.disagg import HandoffPayload
+
+        dconf = self.decode_config
+        n_pages = -(-req.cur_len // dconf.page_size)
+        # gather BEFORE _release: the freed pages' next writes are queued
+        # behind the gather on this stream
+        k_pages, v_pages = self._gather_pages(self._kv.slot_pages(req.slot)[:n_pages])
+        ready = None
+        if self._device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self._device))
+        payload = HandoffPayload(
+            rid=req.rid or "", prompt=req.prompt,
+            generated=list(req.generated), mnt=req.mnt,
+            tenant=req.tenant, cls=req.cls, deadline=req.deadline,
+            t_submit=req.t_submit, n_preemptions=req.n_preemptions,
+            cur_len=int(req.cur_len), last_tok=int(req.last_tok),
+            page_size=dconf.page_size, k_pages=k_pages, v_pages=v_pages,
+            src=self.metrics.engine_label, handle=req.handle,
+            trace=req.trace, tp_degree=self.tp_degree, ready=ready)
+        self._release(req)
+        try:
+            self._handoff_sink(self, payload)
+        except Exception as e:
+            ptlog.warning("KV handoff failed (%r); request %s continues "
+                          "decoding locally", e, req.rid)
+            self._requeue(req)
+            return
+        self.metrics.record_handoff_out()
+        # with a per-engine WAL, close the rid here — the adopting engine
+        # journals it afresh, so a replay of THIS file cannot resurrect a
+        # request that now lives elsewhere. With a journal SHARED across
+        # the fleet the rid must stay open (the adopter keeps appending
+        # under it); the handoff/ack records carry the transfer state.
+        if self._journal_owned:
+            self._j_fin(req, "migrated")
+        runlog.emit("handoff_published", rid=req.rid, pages=n_pages,
+                    engine=self.metrics.engine_label)
+
+    def adopt_handoff(self, payload,
+                      from_engine: Optional[str] = None) -> DecodeHandle:
+        """Adopt a prefilled request handed off by a prefill-role engine
+        (:class:`~paddle_tpu_torch.serving.disagg.HandoffPayload`): its KV
+        pages are implanted on the loop thread and decode continues from
+        ``cur_len`` without re-prefilling. The client's original handle
+        is repointed here, mirroring :meth:`adopt_rescue`. Thread-safe;
+        returns the (possibly fresh) handle."""
+        if self._closed:
+            raise EngineClosedError("engine is closed")
+        prompt = np.asarray(payload.prompt, np.int32).reshape(-1)
+        req = _DecodeRequest(
+            prompt, int(payload.mnt),
+            self._n_chunks(int(prompt.size) + len(payload.generated)),
+            payload.deadline, payload.t_submit or time.monotonic(),
+            tenant=payload.tenant, cls=payload.cls)
+        req.generated = [int(t) for t in payload.generated]
+        req.n_preemptions = payload.n_preemptions
+        req.rid = payload.rid or self._new_rid()
+        if payload.handle is not None:
+            req.handle = payload.handle
+            payload.handle._req = req  # cancel() must target the new req
+        req.trace = payload.trace
+        if req.trace is None and tracing.tracing_enabled():
+            req.trace = tracing.SpanContext.new_trace()
+        if req.trace is not None:
+            req.handle.trace = req.trace
+            req.t_enqueue_pc = time.perf_counter()
+        # the prefill worker's final-chunk sample may already satisfy the
+        # request: complete without decoding (same as adopt_rescue)
+        if self._complete_if_satisfied(req):
+            return req.handle
+        self._j_admit(req)
+        self.metrics.record_submit()
+        if from_engine is not None:
+            runlog.emit(
+                "request_handed_off", rid=req.rid, from_engine=from_engine,
+                to_engine=self.metrics.engine_label,
+                generated=len(req.generated),
+                trace_id=req.trace.trace_id if req.trace else None)
+        self._pending_handoff.append((req, payload))
+        self._queue.poke()  # an idle loop is parked in recv(idle_poll_s)
+        return req.handle
+
+    def _drain_queue(self) -> List[_DecodeRequest]:
+        """Every request still in the scheduler, popped without waiting."""
+        out: List[_DecodeRequest] = []
+        while True:
+            try:
+                req, ok = self._queue.recv(timeout=0)
+            except Exception:
+                break
+            if not ok:
+                break
+            out.append(req)
+        return out
+
     def kill(self) -> None:
-        """Simulate abrupt engine death (chaos/testing): no drain. In-flight
-        handles fail with :class:`EngineUnhealthy`."""
+        """Simulate abrupt engine death (chaos/testing): no drain, no
+        journal fin records — exactly the state a crashed process leaves
+        behind. In-flight handles fail with :class:`EngineUnhealthy`; the
+        journal file still names every incomplete request, which is what
+        ``recovery.resume_incomplete()`` rebuilds from."""
         with self._close_lock:
             if self._closed:
                 return
             self._closed = True
+        # the "crash" happens NOW: nothing more reaches the WAL (in
+        # particular no fin records for in-flight requests)
+        journal, self._journal = self._journal, None
         self._killed = True
         # post-mortem first, while slots/refcounts still show the crash
         # state the bundle exists to explain
         self._flight_dump("kill")
         self._queue.close()
         self._thread.join(5.0)
+        if journal is not None and self._journal_owned:
+            journal.close()  # release the fd; on-disk bytes stay as-is
         exc = EngineUnhealthy(f"engine {self.metrics.engine_label} killed")
         drained = (list(self._active) + list(self._resume)
-                   + list(self._pending_admit))
+                   + list(self._pending_admit)
+                   + [item[0] for item in self._pending_handoff])
         self._active.clear()
         self._resume.clear()
         self._pending_admit.clear()
-        while True:
-            try:
-                req, ok = self._queue.recv(timeout=0)
-            except TimeoutError:
-                break
-            if not ok:
-                break
-            drained.append(req)
+        self._pending_handoff.clear()
+        drained += self._drain_queue()
         self._kv.release_all()
         if self._prefix is not None:
             self._prefix.clear()
+        # the host tier is deliberately NOT cleared: a shared pool is the
+        # crash-recovery substrate — the restarted engine repopulates its
+        # radix tree from it
+        self._promote_jobs.clear()
+        self._promote_keys.clear()
         for req in drained:
             if not req.handle.done():
                 req.handle._fail(exc)
@@ -1486,17 +2098,12 @@ class DecodeEngine:
         instead of leaving its handle hanging forever, then prove no KV
         page leaked."""
         drained = (list(self._active) + list(self._resume)
-                   + list(self._pending_admit))
+                   + list(self._pending_admit)
+                   + [item[0] for item in self._pending_handoff])
         self._resume.clear()
         self._pending_admit.clear()
-        while True:
-            try:
-                req, ok = self._queue.recv(timeout=0)
-            except TimeoutError:
-                break
-            if not ok:
-                break
-            drained.append(req)
+        self._pending_handoff.clear()
+        drained += self._drain_queue()
         for req in drained:
             self._finish(req, "drain_timeout")
         if self._prefix is not None:
@@ -1527,6 +2134,8 @@ class DecodeEngine:
         if unjoined:
             ptlog.error("DecodeEngine.close: loop failed to join within %s",
                         timeout)
+        if self._journal is not None and self._journal_owned:
+            self._journal.close()
         if self._admission is not None:
             admission_mod.uninstall(self._admission)
         return unjoined

@@ -6,13 +6,15 @@ continuous-batching engine's :class:`DecodeMetrics`.
 Everything mirrors into the typed registry
 (:func:`paddle_tpu_torch.observability.metrics.default_registry`) under the
 JAX package's ``serving.*``, ``serving.decode.*``, ``serving.recovery.*``
-and ``serving.tenant.*`` family names, each child labeled with the engine
-(``engine="serving0"``, ``engine="decode1"``, ... from one sequence per
-process, as in the JAX package), so two engines in one process never
-collide. ``snapshot()`` returns the same counts as a plain dict, with the
-JAX package's keys, for tests and scripts. The counters of the parts of
-the decode engine not ported yet (host tier, handoff, replica groups, the
-journal: ``ROADMAP.md`` §A item 6) come with them.
+(step faults, recovery, migration, the request journal),
+``serving.host_tier.*`` (the host KV tier), ``serving.disagg.*`` (the
+prefill/decode handoff) and ``serving.tenant.*`` family names, each child
+labeled with the engine (``engine="serving0"``, ``engine="decode1"``, ...
+from one sequence per process, as in the JAX package), so two engines in
+one process never collide. ``snapshot()`` returns the same counts as a
+plain dict, with the JAX package's keys, for tests and scripts. The
+``serving.group.*`` families of replica groups come with their port
+(``ROADMAP.md`` §A item 4c).
 """
 
 from __future__ import annotations
@@ -337,6 +339,11 @@ class DecodeMetrics:
                  "Speculation-aware: a verify step landing n tokens books "
                  "n samples, so spec on/off distributions are comparable.",
             buckets=obs_metrics.exponential_buckets(0.0001, 2.0, 15))
+        reg.histogram(
+            "serving.host_tier.promote_seconds",
+            help="Wall time to promote one host-tier page into the radix "
+                 "tree (CRC verify + device implant + insert).",
+            buckets=_LATENCY_BUCKETS)
         self.requests_total = 0
         self.responses_total = 0
         self.tokens_total = 0          # generated tokens across all requests
@@ -353,6 +360,9 @@ class DecodeMetrics:
         self.step_faults_total = 0       # poisoned decode/prefill iterations
         self.recovered_total = 0         # requests re-admitted after a fault
         self.retries_exhausted_total = 0  # requests past their retry budget
+        self.migrated_total = 0          # requests drained to another engine
+        self.journal_records_total = 0   # WAL records appended
+        self.journal_replayed_total = 0  # requests resumed from the journal
         # speculative decoding (serving.decode.spec_* families)
         self.verify_steps_total = 0       # draft-and-verify iterations run
         self.spec_tokens_total = 0        # tokens appended by verify steps
@@ -363,6 +373,16 @@ class DecodeMetrics:
         self.prefix_hit_tokens_total = 0  # prompt tokens served from cache
         self.prefix_saved_chunks_total = 0  # prefill chunks skipped outright
         self.cow_copies_total = 0         # copy-on-write page copies
+        # hierarchical KV host tier (serving.host_tier.* families)
+        self.host_tier_hits_total = 0     # admissions whose continuation
+        #                                   the host tier held (promote queued)
+        self.host_promoted_pages_total = 0  # pages implanted tree-ward
+        self.host_demoted_pages_total = 0   # pages written through to host
+        self.host_quarantined_total = 0     # CRC-failed host pages dropped
+        self.host_backpressure_total = 0    # demotes that forced LRU eviction
+        # disaggregated prefill/decode (serving.disagg.* families)
+        self.handoffs_out_total = 0       # prefilled requests published
+        self.handoffs_in_total = 0        # handed-off requests adopted
         # tenant-quota admission accounting (serving.tenant.* families)
         self._tenant_admitted: collections.Counter = collections.Counter()
         self._tenant_shed: collections.Counter = collections.Counter()
@@ -553,6 +573,76 @@ class DecodeMetrics:
             self.cow_copies_total += n
         self._inc("serving.decode.cow_copies_total", n)
 
+    def prefix_saved_frac(self) -> float:
+        """Fraction of admitted prompt tokens whose prefill was served from
+        the prefix cache."""
+        with self._lock:
+            if not self.prompt_tokens_total:
+                return 0.0
+            return self.prefix_hit_tokens_total / self.prompt_tokens_total
+
+    # -- hierarchical KV host tier (serving.host_tier.* families) ------------
+
+    def record_host_hit(self) -> None:
+        """An admission's radix miss had its continuation resident in the
+        host tier — a promote job was enqueued (the request itself
+        prefills as usual; the NEXT hit lands on the card)."""
+        with self._lock:
+            self.host_tier_hits_total += 1
+        self._inc("serving.host_tier.hits_total")
+
+    def record_host_promote(self, seconds: float) -> None:
+        """One host page promoted into the radix tree (CRC verify +
+        device implant + tree insert), timed: promotion is budgeted per
+        loop iteration, so this histogram bounds what it can cost a
+        decode step."""
+        with self._lock:
+            self.host_promoted_pages_total += 1
+        self._inc("serving.host_tier.promoted_pages_total")
+        self._observe("serving.host_tier.promote_seconds", seconds)
+
+    def record_host_demote(self, pages: int) -> None:
+        with self._lock:
+            self.host_demoted_pages_total += pages
+        self._inc("serving.host_tier.demoted_pages_total", pages)
+
+    def record_host_quarantine(self, n: int = 1) -> None:
+        """A host page failed CRC verification at promote time and was
+        quarantined — the request re-prefills token-exactly instead."""
+        with self._lock:
+            self.host_quarantined_total += n
+        self._inc("serving.host_tier.quarantined_total", n)
+
+    def record_host_backpressure(self, n: int = 1) -> None:
+        """A demote pushed the pool past its byte budget and forced LRU
+        eviction; the gauge mirror climbs while the fleet's warm working
+        set outgrows host RAM."""
+        with self._lock:
+            self.host_backpressure_total += n
+            total = self.host_backpressure_total
+        self._inc("serving.host_tier.backpressure_total", n)
+        self._set("serving.host_tier.demote_backpressure", total)
+
+    def set_host_tier_bytes(self, used: int, budget: int) -> None:
+        self._set("serving.host_tier.bytes_used", used)
+        self._set("serving.host_tier.bytes_budget", budget)
+
+    # -- disaggregated prefill/decode (serving.disagg.* families) ------------
+
+    def record_handoff_out(self) -> None:
+        """This engine finished a prefill and published the request's KV
+        pages to the router's handoff sink (prefill-worker role)."""
+        with self._lock:
+            self.handoffs_out_total += 1
+        self._inc("serving.disagg.handoffs_out_total")
+
+    def record_handoff_in(self) -> None:
+        """This engine adopted a handed-off request's KV pages straight
+        into its decode loop (decode-worker role)."""
+        with self._lock:
+            self.handoffs_in_total += 1
+        self._inc("serving.disagg.handoffs_in_total")
+
     # -- gauges ------------------------------------------------------------
 
     def set_load(self, load: float) -> None:
@@ -581,10 +671,25 @@ class DecodeMetrics:
             self.recovered_total += n
         self._inc("serving.recovery.recovered_total", n)
 
+    def record_migrate(self, n: int = 1) -> None:
+        with self._lock:
+            self.migrated_total += n
+        self._inc("serving.recovery.migrated_total", n)
+
     def record_retries_exhausted(self) -> None:
         with self._lock:
             self.retries_exhausted_total += 1
         self._inc("serving.recovery.retries_exhausted_total")
+
+    def record_journal_records(self, n: int = 1) -> None:
+        with self._lock:
+            self.journal_records_total += n
+        self._inc("serving.recovery.journal_records_total", n)
+
+    def record_journal_replayed(self, n: int = 1) -> None:
+        with self._lock:
+            self.journal_replayed_total += n
+        self._inc("serving.recovery.journal_replayed_total", n)
 
     def set_consecutive_faults(self, n: int) -> None:
         """Consecutive faulted iterations on this engine; resets to 0 on
@@ -609,7 +714,10 @@ class DecodeMetrics:
                 "errors_total": self.errors_total,
                 "step_faults_total": self.step_faults_total,
                 "recovered_total": self.recovered_total,
+                "migrated_total": self.migrated_total,
                 "retries_exhausted_total": self.retries_exhausted_total,
+                "journal_records_total": self.journal_records_total,
+                "journal_replayed_total": self.journal_replayed_total,
                 "verify_steps_total": self.verify_steps_total,
                 "spec_tokens_total": self.spec_tokens_total,
                 "spec_drafts_proposed_total": self.spec_drafts_proposed_total,
@@ -622,6 +730,13 @@ class DecodeMetrics:
                 "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
                 "prefix_saved_chunks_total": self.prefix_saved_chunks_total,
                 "cow_copies_total": self.cow_copies_total,
+                "host_tier_hits_total": self.host_tier_hits_total,
+                "host_promoted_pages_total": self.host_promoted_pages_total,
+                "host_demoted_pages_total": self.host_demoted_pages_total,
+                "host_quarantined_total": self.host_quarantined_total,
+                "host_backpressure_total": self.host_backpressure_total,
+                "handoffs_out_total": self.handoffs_out_total,
+                "handoffs_in_total": self.handoffs_in_total,
                 "ttft_observed_total": self.ttft_observed_total,
                 "tpot_samples_total": self.tpot_samples_total,
                 "mean_step_occupancy": (

@@ -8,7 +8,8 @@
   children, histograms and special values included, and each package's
   strict parser reads the other's text.
 - Goodput and MFU arithmetic are the same; the exporter serves every
-  endpoint (``/fleet`` and ``/trace/<id>`` answer 404 naming ROADMAP.md);
+  endpoint (``/fleet`` and ``/trace/<id>`` answer 404 with no fleet view
+  installed and no span of the id);
   the run log gains trace ids inside spans; the flight recorder writes and
   prunes bundles; the profiler's host spans and ``torch.profiler`` trace
   land in ``log_dir``.
@@ -144,9 +145,12 @@ def test_exporter_endpoints(tmp_path):
             assert status == 200, path
             json.loads(body)
         assert json.loads(_get(base + "/runlog/tail?n=1")[1])[-1]["kind"] == "step"
-        for path in ("/fleet", "/trace/" + "0" * 32):
-            status, body = _get(base + path)
-            assert status == 404 and "ROADMAP.md" in body, path
+        # no fleet view installed, no span of this trace id: both 404
+        status, body = _get(base + "/fleet")
+        assert status == 404 and json.loads(body) == {"error": "no fleet views installed"}
+        status, body = _get(base + "/trace/" + "0" * 32)
+        assert status == 404 and json.loads(body)["error"] == "unknown trace id"
+        assert _get(base + "/trace/not-hex")[0] == 400
         assert _get(base + "/nope")[0] == 404
         assert _get(base + "/admission")[0] == 404  # the JAX exporter's /tenants only
     finally:
