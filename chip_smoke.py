@@ -642,19 +642,69 @@ SP_RING_F32_TOL, SP_RING_BF16_RATIO = 1e-5, 1.5
 # model=2 is as far from the one-rank bf16 step as bf16 rounding puts
 # either from f32 (PERF.md section 6). The pipeline runs each row's
 # arithmetic unchanged and holds bf16 at phase sp's limits.
+# (e)-(h): the axes composed as the JAX package's GSPMD composes them, the
+# LM at BASE_CFG, 8 x 1024, on four gloo ranks sharing the card ((h): the
+# phase's two). (e) pipe=2 x model=2, 4 microbatches: outside the stages
+# the embedding and the logits split over model; inside, each rank runs its
+# stage's 3 layers on its one row of each 2-row microbatch with the stage's
+# weights gathered whole: 12 launches of each kernel a step. (f) the ring on
+# seq=2 x model=2 with P("data", "seq"): 4 heads and 512 tokens of each row
+# a rank, the ring within the rank's seq group: 6 or 12 of each kernel by
+# its ring position. (g) Ulysses on the same mesh: 2 heads a rank after the
+# exchange, 6 of each kernel. (e), (f) and (g) are held by (a)'s rule: their
+# model axis sums partial products of each row (the row-parallel
+# projections of (f) and (g); in (e) the logits' input gradient over the
+# vocabulary's blocks and each stage weight's gradient over the two ranks'
+# rows). (h) the MoE LM of phase sp on expert=2 with ZeRO-1 (each rank its
+# 4 experts and their slots; the replicated parameters' slots split over
+# data): after its held step its parameters equal the same step's without
+# ZeRO-1 bit for bit, and the one-rank step at phase sp's limits; 6 of each
+# kernel a rank.
 MP_NMT = dict(n_layers=2, attn_dropout=0.0, relu_dropout=0.0, residual_dropout=0.0)
-MP_F32_HELD = ("a_model2", "d_nmt_model2")
+MP_F32_HELD = ("a_model2", "d_nmt_model2", "e_pipe2_model2", "f_ring_seq2_model2",
+               "g_ulysses_seq2_model2")
 MP_BF16_SPREAD = 2.0
-# each part: (model, seq_len, batch, the axis the ranks split, LM or NMT
-# overrides, each kernel's launches a step on a rank (forward, dK/dV, dQ))
+# each part: (model, seq_len, batch, the axis the ranks split (or the
+# composed mesh's axes beside data=1 on MP_COMPOSED_RANKS ranks), LM or NMT
+# overrides, each kernel's launches a step on a rank (forward, dK/dV, dQ);
+# None: by the rank's ring position)
 MP_PARTS = {
     "a_model2": ("transformer_lm", 1024, TRAIN_BATCH, "model", {}, (6, 6, 6)),
     "b_pipe2": ("transformer_lm", 1024, TRAIN_BATCH, "pipe", {"pipe_n_micro": 4}, (12, 12, 12)),
     "c_pipe2_remat": ("transformer_lm", 1024, TRAIN_BATCH, "pipe",
                       {"pipe_n_micro": 4, "remat": True}, (24, 12, 12)),
     "d_nmt_model2": ("transformer", NMT_SEQ, NMT_BATCH, "model", MP_NMT, (6, 6, 6)),
+    "e_pipe2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"pipe": 2, "model": 2},
+                       {"pipe_n_micro": 4}, (12, 12, 12)),
+    "f_ring_seq2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"seq": 2, "model": 2},
+                           {}, None),
+    "g_ulysses_seq2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"seq": 2, "model": 2},
+                              {}, (6, 6, 6)),
+    "h_moe_expert2_zero1": ("transformer_lm", 1024, TRAIN_BATCH, "expert", SP_MOE, (6, 6, 6)),
 }
+MP_COMPOSED_RANKS = 4
+# the sequence-parallel mode of a part over its mesh's seq axis, and the
+# parts run with ZeRO-1
+MP_SEQ_MODE = {"f_ring_seq2_model2": "ring", "g_ulysses_seq2_model2": "ulysses"}
+MP_ZERO = ("h_moe_expert2_zero1",)
 MP_HELD, MP_TIMED = 1, 2
+
+
+def mp_composed(part: str) -> bool:
+    """Whether a phase mp part runs on a composed mesh of its own
+    (MP_COMPOSED_RANKS ranks) rather than on the phase's ranks."""
+    return isinstance(MP_PARTS[part][3], dict)
+
+
+def mp_launches(part: str, rank: int):
+    """A phase mp part's launches of each kernel a step on ``rank``
+    (forward, dK/dV, dQ): the ring's by its seq coordinate (rank // model
+    on data=1 x seq x model), as phase sp's."""
+    want = MP_PARTS[part][5]
+    if want is None:
+        n = 6 * (rank // MP_PARTS[part][3]["model"] + 1)
+        want = (n, n, n)
+    return dict(zip(HOPPER_KERNELS, want))
 
 
 # The Fluid catalog (phase catalog). (a) every op of the sweep, card against
@@ -4178,23 +4228,79 @@ def sp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
 
 
 def mp_mesh(part: str, ranks: int):
-    """The mesh of a phase mp part over ``ranks``: model=ranks, or the
-    pipeline's pipe=2 beside data=ranks/2."""
+    """The mesh of a phase mp part over ``ranks``: model=ranks or
+    expert=ranks, the pipeline's pipe=2 beside data=ranks/2, or a composed
+    part's own axes beside data=1."""
     from paddle_tpu_torch.parallel import make_mesh
 
-    if MP_PARTS[part][3] == "model":
-        return make_mesh(data=1, model=ranks)
+    axis = MP_PARTS[part][3]
+    if mp_composed(part):
+        return make_mesh(data=1, **axis)
+    if axis in ("model", "expert"):
+        return make_mesh(data=1, **{axis: ranks})
     return make_mesh(data=ranks // 2, pipe=2)
 
 
 def mp_spec(part: str, mesh=None):
     """The model of a phase mp part (with ``mesh`` as its pipe_mesh for the
-    pipeline's parts)."""
+    pipeline's parts, its ring or Ulysses mesh for the sequence-parallel
+    ones)."""
     from paddle_tpu_torch.models import get_model
 
     name, seq_len, _, axis, overrides = MP_PARTS[part][:5]
-    kw = dict(overrides, pipe_mesh=mesh) if (axis == "pipe" and mesh is not None) else overrides
+    kw = dict(overrides)
+    if mesh is not None and part in MP_SEQ_MODE:
+        kw[f"{MP_SEQ_MODE[part]}_mesh"] = mesh
+    elif mesh is not None and mesh.shape.get("pipe", 1) > 1:
+        kw["pipe_mesh"] = mesh
     return get_model(name, seq_len=seq_len, **kw)
+
+
+def exchange_timer():
+    """A context that times the step's exchanges: every all-reduce,
+    all-gather, broadcast and all-to-all through ``torch.distributed`` and
+    every point-to-point permutation (``collective._permuted``, its host
+    staging included), each between two synchronizations of the card so
+    that queued kernels are not counted. Yields a dict whose ``ms`` and
+    ``calls`` it fills."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import collective
+
+    @contextlib.contextmanager
+    def run():
+        got = {"ms": 0.0, "calls": 0}
+        saved = []
+
+        def timed(owner, attr):
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, fn))
+
+            def wrapper(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    got["ms"] += 1e3 * (time.perf_counter() - t0)
+                    got["calls"] += 1
+
+            setattr(owner, attr, wrapper)
+
+        for attr in ("all_reduce", "all_gather", "broadcast", "all_to_all_single"):
+            timed(dist, attr)
+        timed(collective, "_permuted")
+        try:
+            yield got
+        finally:
+            for owner, attr, fn in reversed(saved):
+                setattr(owner, attr, fn)
+
+    return run()
 
 
 def mp_runs(part: str):
@@ -4237,16 +4343,18 @@ def mp_reference(part: str, work: str, compute: str = "bf16", held: int = MP_HEL
 
 
 def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
-    """One rank of phase mp: the part's DataParallel steps on its mesh (the
-    whole batch, each rank its blocks over ``model`` or its stage over
-    ``pipe``) in ``compute``, held against the one-rank run in
-    ``work/<part>_<compute>.pt``; the routes its exchanges took and the
-    shapes of its blocks."""
+    """One rank of phase mp: the part's DataParallel steps on its mesh (each
+    rank its blocks over ``model`` or ``expert``, its stage over ``pipe``,
+    its segment of each row over ``seq``) in ``compute``, held against the
+    one-rank run in ``work/<part>_<compute>.pt``; the routes its exchanges
+    took, their share of a step (one more step, timed with
+    :func:`exchange_timer`) and the shapes of its blocks; under ZeRO-1 the
+    held steps again without it, for the bit-equality."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.core.config import set_flags
-    from paddle_tpu_torch.parallel import DataParallel, collective
+    from paddle_tpu_torch.parallel import DataParallel, P, collective
 
     set_flags(use_flash_attention=True, use_bf16_compute=compute == "bf16", check_nan_inf=True)
     _, seq_len, batch_size = MP_PARTS[part][:3]
@@ -4254,7 +4362,13 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
     spec = mp_spec(part, mesh)
     batch = spec.synth_batch(batch_size, np.random.RandomState(0))
     v0 = spec.model.init(0, *batch)
-    dp = DataParallel(spec.model, spec.optimizer(), mesh=mesh, batch_outputs=())
+    specs = [P("data", "seq")] * 2 if part in MP_SEQ_MODE else None
+
+    def data_parallel(zero):
+        return DataParallel(spec.model, spec.optimizer(), mesh=mesh, batch_outputs=(),
+                            batch_specs=specs, zero_shard_optimizer=zero)
+
+    dp = data_parallel(part in MP_ZERO)
     v, o = dp.init(0, *batch, variables=v0)
     local = dp.put_batch(*batch)
     collective.reset_routes()
@@ -4262,7 +4376,16 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
     res["routes"] = collective.routes_taken()
     res["tokens_per_s"] = batch_size * seq_len / (res["step_ms"] / 1e3)
     res["mesh"] = dict(mesh.shape)
-    q = next(k for k in v.params if k.endswith("self_attn/q/w"))
+    res["local_batch"] = list(local[0].shape)
+    if timed:  # one more step with its exchanges timed (synchronized around each)
+        with exchange_timer() as ex:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp.step(v, o, *local)
+            torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        res["exchange"] = {"step_ms": step_ms, **ex, "share": ex["ms"] / step_ms}
+    q = next((k for k in v.params if k.endswith("self_attn/q/w")), None)
     res["q_block"] = [list(v.params[q].shape), list(v0.params[q].shape)]
     ref = torch.load(os.path.join(work, f"{part}_{compute}.pt"),
                      map_location=torch.device("cuda"))
@@ -4272,50 +4395,75 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
         del ref
         ref = torch.load(os.path.join(work, f"{part}_f32.pt"), map_location=torch.device("cuda"))
         res["agreement_f32"] = dp_agreement(fv.params, fo.slots["moment1"], ref, v0.params)
+    if part in MP_ZERO:  # the held steps without ZeRO-1: the same parameters, bit for bit
+        plain = data_parallel(False)
+        pv, po = plain.init(0, *batch, variables=v0)
+        for _ in range(held):
+            r = plain.step(pv, po, *local)
+            pv, po = r.variables, r.opt_state
+        pfv, _ = plain.full_state(pv, po)
+        res["zero_equals_plain"] = all(torch.equal(fv.params[k], pfv.params[k]) for k in pfv.params)
+        res["slot_bytes"] = [sum(t.numel() * t.element_size() for d in st.slots.values()
+                                 for t in d.values()) for st in (o, po)]
+        local_w_in = next(t for k, t in v.params.items() if k.endswith("moe_ffn/w_in"))
+        res["local_experts"] = int(local_w_in.shape[0])
+        del plain, pv, po, pfv, r
     del dp, v, o, fv, fo, ref, v0, batch, local
     torch.cuda.empty_cache()
     return res
 
 
-def mp_ranks(rank, work):
-    """One rank of phase mp: every run of every part in turn (one spawn for
-    the phase)."""
+def mp_ranks(rank, work, parts):
+    """One rank of phase mp: every run of each of ``parts`` in turn (one
+    spawn for them)."""
     return {(part, run[0]): mp_rank(rank, work, part, *run)
-            for part in MP_PARTS for run in mp_runs(part)}
+            for part in parts for run in mp_runs(part)}
 
 
 def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
-    """Phase 15: tensor and pipeline parallelism, by default on two gloo
-    ranks sharing the card (``tools/torch_sp_nccl.py``: one rank
-    per card over NCCL). Returns its kernel launches by path and its
-    checks."""
+    """Phase 15: tensor and pipeline parallelism and the axes composed, by
+    default on two gloo ranks sharing the card and four for the composed
+    meshes (``tools/torch_sp_nccl.py``: one rank per card over NCCL, the
+    composed meshes with four cards or more). Returns its kernel launches
+    by path and its checks."""
     import shutil
     import tempfile
 
     import numpy as np
+    import torch
 
     from paddle_tpu_torch.parallel import launch
 
     checks, paths = {}, {}
     work = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    # one spawn of the phase's ranks, one of MP_COMPOSED_RANKS (one card a
+    # rank over NCCL: only with that many cards)
+    groups = [(ranks, [p for p in MP_PARTS if not mp_composed(p)])]
+    if device != "cuda" or torch.cuda.device_count() >= MP_COMPOSED_RANKS:
+        groups.append((MP_COMPOSED_RANKS, [p for p in MP_PARTS if mp_composed(p)]))
     try:
         t0 = time.perf_counter()
         refs = {(part, run[0]): mp_reference(part, work, *run)
-                for part in MP_PARTS for run in mp_runs(part)}
+                for _, parts in groups for part in parts for run in mp_runs(part)}
         ref_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        by_rank = launch.spawn(mp_ranks, ranks, args=(work,), device=device, backend=backend)
-        ranks_s = time.perf_counter() - t0
+        by_rank, ranks_s = {}, {}
+        for n, parts in groups:
+            t0 = time.perf_counter()
+            for rank, res in enumerate(launch.spawn(mp_ranks, n, args=(work, parts),
+                                                    device=device, backend=backend)):
+                for key, value in res.items():
+                    by_rank.setdefault(key, []).append(value)
+            ranks_s[n] = time.perf_counter() - t0
         route_want = "gloo_host" if backend == "gloo" else "nccl"
         for (part, compute), ref in refs.items():
-            per_rank = [res[(part, compute)] for res in by_rank]
-            want = dict(zip(HOPPER_KERNELS, MP_PARTS[part][5]))
+            per_rank = by_rank[(part, compute)]
             # held at phase sp's limits: f32 for the model-axis parts
             # (MP_F32_HELD), whose bf16 step is held to the bf16 spread
             held = compute == ("f32" if part in MP_F32_HELD else "bf16")
             spread = refs[(part, "f32")]["bf16_vs_f32"] if part in MP_F32_HELD else None
             tag = part if compute == "bf16" else f"{part}_{compute}"
             for r, res in enumerate(per_rank):
+                want = mp_launches(part, r)
                 if compute == "bf16":
                     paths[f"mp_{part}_rank{r}"] = res["launches_first_step"]
                 checks[f"{tag}_rank{r}_launches"] = all(
@@ -4333,18 +4481,32 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
                     for metric in ("moment1", "movement"):
                         checks[f"{tag}_rank{r}_{metric}_within_bf16_spread"] = \
                             res["agreement_f32"][metric][0] <= MP_BF16_SPREAD * spread[metric][0]
-                if MP_PARTS[part][3] == "model":  # its heads: a block of q's columns
+                if res["mesh"].get("model", 1) > 1:  # its heads: a block of q's columns
                     got, whole = res["q_block"]
-                    checks[f"{part}_rank{r}_holds_its_heads"] = \
+                    checks[f"{tag}_rank{r}_holds_its_heads"] = \
                         got[1] * res["mesh"]["model"] == whole[1]
-                else:  # activations stage to stage, point to point
-                    checks[f"{part}_rank{r}_ppermute_{route_want}"] = set(
-                        res["routes"].get("ppermute", {})) == {route_want}
+                # activations stage to stage and the ring's K/V point to point,
+                # Ulysses' all-to-all
+                route = ("ppermute" if res["mesh"].get("pipe", 1) > 1
+                         or MP_SEQ_MODE.get(part) == "ring" else
+                         "all_to_all" if part in MP_SEQ_MODE else None)
+                if route is not None:
+                    checks[f"{tag}_rank{r}_{route}_{route_want}"] = set(
+                        res["routes"].get(route, {})) == {route_want}
+                if part in MP_SEQ_MODE:  # its segment of every row
+                    checks[f"{tag}_rank{r}_holds_its_segment"] = res["local_batch"] == [
+                        MP_PARTS[part][2], MP_PARTS[part][1] // res["mesh"]["seq"]]
+                if part in MP_ZERO:
+                    checks[f"{tag}_rank{r}_equals_plain_bitwise"] = res["zero_equals_plain"]
+                    checks[f"{tag}_rank{r}_its_experts"] = \
+                        res["local_experts"] * res["mesh"]["expert"] == SP_MOE["moe_experts"]
             emit({"phase": "mp", "part": part, "compute": compute,
                   "agreement_checked": held or spread is not None, "model": MP_PARTS[part][0],
                   "seq_len": MP_PARTS[part][1], "batch": MP_PARTS[part][2],
                   "mesh": per_rank[0]["mesh"], "overrides": MP_PARTS[part][4],
-                  "launches_predicted": want, "backend": backend, "one_rank": ref,
+                  "seq_mode": MP_SEQ_MODE.get(part), "zero1": part in MP_ZERO,
+                  "launches_predicted": [mp_launches(part, r) for r in range(len(per_rank))],
+                  "backend": backend, "one_rank": ref,
                   "ranks": per_rank, "loss_tol": TRAIN_LOSS_TOL,
                   "moment1_tol": TRAIN_GRAD_TOL, "movement_tol": DP_MOVEMENT_TOL,
                   "bf16_spread": spread, "bf16_spread_factor": MP_BF16_SPREAD, "card": smi,
@@ -4352,8 +4514,8 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
                           "the backend; the pipeline's activations go point to point (with two "
                           "gloo ranks sharing the card, route gloo_host: staged through host "
                           "memory)"})
-        emit({"phase": "mp", "ranks": ranks, "backend": backend, "one_rank_seconds": ref_s,
-              "ranks_seconds": ranks_s, "checks": checks})
+        emit({"phase": "mp", "ranks": [n for n, _ in groups], "backend": backend,
+              "one_rank_seconds": ref_s, "ranks_seconds": ranks_s, "checks": checks})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return paths, checks

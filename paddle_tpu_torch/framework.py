@@ -26,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -245,12 +245,19 @@ def split_axis(name: str, dim: int) -> Optional[str]:
     the run was given against the whole shape its init recorded, so a dim
     that the axis does not divide, held whole, reads as whole."""
     frame = _current_frame()
-    full = "/".join(frame.name_stack + [name])
-    info, got = frame.whole.get(full), frame.params.get(full)
-    if (info is None or got is None or info.sharding is None
-            or dim >= len(info.sharding) or got.shape[dim] == info.shape[dim]):
-        return None
-    return info.sharding[dim]
+    return dict(held_blocks("/".join(frame.name_stack + [name]))).get(dim)
+
+
+def held_blocks(full_name: str) -> List[Tuple[int, str]]:
+    """``(dim, axis)`` of each dim of the parameter ``full_name`` that this
+    run holds as its block over that mesh axis (its shape against the whole
+    shape its init recorded); empty where it is whole."""
+    frame = _current_frame()
+    info, got = frame.whole.get(full_name), frame.params.get(full_name)
+    if info is None or got is None or info.sharding is None:
+        return []
+    return [(d, info.sharding[d]) for d in range(min(got.dim(), len(info.sharding)))
+            if got.shape[d] != info.shape[d]]
 
 
 @contextlib.contextmanager

@@ -21,7 +21,11 @@ dropout masks). ``scan_layers`` runs as the plain layer loop, whose math is
 identical. Pipeline parallelism (``pipe_mesh``) runs the layers as GPipe
 stages over the mesh's ``pipe`` axis (:func:`_pipeline_lm_blocks`), and
 tensor parallelism splits every projection, the embedding and the logits
-over a ``model`` axis (``models/transformer.py``, ``layers.fc``).
+over a ``model`` axis (``models/transformer.py``, ``layers.fc``). The two
+compose as in the JAX package: on a ``pipe_mesh`` with a ``model`` axis
+the embedding and the logits split over ``model`` and the stages run on
+their whole weights, each rank on its rows of every microbatch. Beside
+``model`` the ring and Ulysses run on each rank's block of the heads.
 
 Sequence parallelism (``ring_mesh``/``ulysses_mesh``) runs in two modes:
 
@@ -72,7 +76,7 @@ from paddle_tpu_torch.ops.attention import (
     scaled_dot_product_attention,
 )
 from paddle_tpu_torch.parallel import context as dp_context
-from paddle_tpu_torch.parallel.mesh import DATA_AXIS
+from paddle_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from paddle_tpu_torch.parallel.moe import moe_ffn
 
 __all__ = [
@@ -119,15 +123,19 @@ def _seq_core(cfg):
     window = cfg.get("attention_window")
 
     def core(qh, kh, vh, kv_len=None):
+        # beside tensor parallelism the rank holds its block of the heads;
+        # Ulysses may need them whole (ops/ulysses.py)
+        kw = {} if is_ring or qh.shape[1] == cfg["num_heads"] else {"head_axis": MODEL_AXIS}
         split = dp_context.seq_split()
         if split is not None:
             body = ring.ring_attention if is_ring else ulysses.ulysses_attention
             with split[0]:
-                return body(qh, kh, vh, axis=split[1], causal=True, window=window, kv_len=kv_len)
+                return body(qh, kh, vh, axis=split[1], causal=True, window=window,
+                            kv_len=kv_len, **kw)
         sharded = ring.ring_attention_sharded if is_ring else ulysses.ulysses_attention_sharded
         batch_axis = None if dp_context.active() else DATA_AXIS
         return sharded(qh, kh, vh, mesh, causal=True, window=window, kv_len=kv_len,
-                       batch_axis=batch_axis)
+                       batch_axis=batch_axis, **kw)
 
     return core
 
@@ -199,10 +207,15 @@ def _pipeline_lm_blocks(x, cfg):
     :func:`framework.overlay_frame`), and microbatch activations flow stage
     to stage through :func:`parallel.pipeline.pipeline_apply` (the GPipe
     schedule; ``cfg['remat']`` recomputes each step in the backward).
-    Embedding and projection compute stays replicated across the stages.
+    Embedding and projection compute stays replicated across the stages
+    (split over ``model`` where the mesh has it, as outside a pipeline).
+    Inside a stage the layers run on their whole parameters: a block a
+    rank holds over ``model`` is gathered at stage entry, and the
+    microbatch rows split over ``model`` (and ``data`` on global arrays),
+    as the JAX package's ``shard_map`` does (``pipeline.py:119-135``).
     Dense batches and deterministic layers only; both are enforced in
     :func:`lm_forward`, as in the JAX package."""
-    from paddle_tpu_torch.parallel.mesh import MODEL_AXIS, PIPE_AXIS
+    from paddle_tpu_torch.parallel.mesh import PIPE_AXIS
     from paddle_tpu_torch.parallel.pipeline import pipeline_apply, split_microbatches
 
     mesh = cfg["pipe_mesh"]
@@ -212,16 +225,15 @@ def _pipeline_lm_blocks(x, cfg):
         L % n_stages == 0,
         f"pipe parallelism needs n_layers ({L}) divisible by the pipe axis ({n_stages})",
     )
-    if mesh.shape.get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "transformer_lm pipe_mesh with a 'model' axis: tensor parallelism inside pipeline "
-            "stages is not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4c)")
     lps = L // n_stages
     # [S, L/S, ...] per suffix: stage s runs index s
     stacked = {
         s: v.reshape((n_stages, lps) + tuple(v.shape[1:]))
         for s, v in framework.gather_layer_params(L, lambda i: f"layer_{i}").items()
     }
+    # the dims of each stacked leaf this rank holds as a block (every layer
+    # alike: layer 0's), two to the right of the parameter's own
+    blocks = {s: [(d + 2, a) for d, a in framework.held_blocks(f"layer_0/{s}")] for s in stacked}
 
     def stage_fn(stage_params, h):
         for j in range(lps):
@@ -237,7 +249,7 @@ def _pipeline_lm_blocks(x, cfg):
     out = pipeline_apply(
         stage_fn, stacked, mbs, mesh,
         # remat matters only for the backward; in eval it is a pure slowdown
-        remat=bool(cfg.get("remat")) and framework.is_training(),
+        remat=bool(cfg.get("remat")) and framework.is_training(), blocks=blocks,
     )
     return out.reshape(x.shape)
 

@@ -35,6 +35,12 @@ under ``flags().use_bf16_compute``, as ``ops/attention.py`` feeds the
 flash kernel and returns its output); the merge and the gradient carriers
 accumulate in f32. The JAX package keeps q and the merged output in f32;
 on f32 operands the two are the same.
+
+Beside tensor parallelism (a ``seq × model`` mesh) each rank holds its
+block of the heads, and the ring runs within its ``seq`` group (the ranks
+that share its ``model`` coordinate: a collective over ``seq`` reaches
+only those) on its ``H/model`` query and ``H_kv/model`` KV heads. The JAX
+package runs the ring on whole heads; per head the function is the same.
 """
 
 from __future__ import annotations

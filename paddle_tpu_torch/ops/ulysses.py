@@ -13,6 +13,17 @@ re-shard the activations from sequence-sharded to HEAD-sharded, ordinary
   is the plain flash forward (``ops/cuda/flash_attention.py``), and its
   backward the fused dK/dV and dQ kernels;
 - requires num_heads % n_ranks == 0 (the ring has no such constraint).
+
+Beside tensor parallelism (a ``seq × model`` mesh) each rank holds its
+block of the heads (``H/model`` query and ``H_kv/model`` KV heads) and the
+exchanges run within its ``seq`` group, the ranks that share its ``model``
+coordinate, on those heads. The JAX package runs the core on whole heads
+(its ``shard_map`` spec leaves the head dim whole); per head the function
+is the same. Where the rank's heads do not split over the ``seq`` axis
+but the whole heads do, the core takes the whole heads (gathered over
+``head_axis``) and keeps the rank's block of the result, as the JAX
+package would run it; where the whole heads do not split either, the JAX
+package's error.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ def ulysses_attention(
     use_flash: Optional[bool] = None,
     window: Optional[int] = None,
     kv_len: Optional[torch.Tensor] = None,
+    head_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Per-rank body: q/k/v are LOCAL [B, H, T_local, d] blocks of the
     sequence, sharded over ``axis`` of the current mesh. Returns the local
@@ -83,8 +95,15 @@ def ulysses_attention(
     all_to_all #1: seq-sharded -> head-sharded ([B, H/n, T, d]); local
     full-sequence attention; all_to_all #2: back. ``kv_len``: [B] GLOBAL
     lengths — after the first exchange the local sequence IS global, so
-    the kernel's kv_len masking applies directly."""
+    the kernel's kv_len masking applies directly. ``head_axis``: the mesh
+    axis the heads are split over (this rank holds its block of them), or
+    None when they are whole (module docstring)."""
     n = collective.axis_size(axis)
+    if head_axis is not None and (q.shape[1] % n or k.shape[1] % n):
+        whole = [collective.gather_replicated(t, head_axis, 1) for t in (q, k, v)]
+        out = ulysses_attention(*whole, axis=axis, causal=causal, use_flash=use_flash,
+                                window=window, kv_len=kv_len)
+        return collective.shard_replicated(out, head_axis, 1)
     enforce(q.shape[1] % n == 0, f"num_heads {q.shape[1]} not divisible by {axis} size {n}")
     enforce(k.shape[1] % n == 0,
             f"kv heads {k.shape[1]} not divisible by {axis} size {n} (GQA "
@@ -110,19 +129,21 @@ def ulysses_attention_sharded(
     batch_axis: Optional[str] = mesh_mod.DATA_AXIS,
     window: Optional[int] = None,
     kv_len: Optional[torch.Tensor] = None,
+    head_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Convenience wrapper mirroring
     :func:`~paddle_tpu_torch.ops.ring_attention.ring_attention_sharded`:
-    q/k/v are GLOBAL [B, H, T, d], the same on every rank; shards T over
-    ``axis`` (and batch over ``batch_axis`` when present and divisible),
-    runs :func:`ulysses_attention`, returns the global result on every
-    rank. ``kv_len``: [B] GLOBAL lengths (sharded with the batch)."""
+    q/k/v are GLOBAL [B, H, T, d], the same on every rank (of a
+    ``head_axis`` group: its block of the heads); shards T over ``axis``
+    (and batch over ``batch_axis`` when present and divisible), runs
+    :func:`ulysses_attention`, returns the global result on every rank.
+    ``kv_len``: [B] GLOBAL lengths (sharded with the batch)."""
     b_axis = batch_axis if (batch_axis and batch_axis in mesh.axis_names) else None
     if b_axis is not None and q.shape[0] % mesh.shape[b_axis] != 0:
         b_axis = None
 
     def body(q_, k_, v_, kl):
         return ulysses_attention(q_, k_, v_, axis=axis, causal=causal, use_flash=use_flash,
-                                 window=window, kv_len=kl)
+                                 window=window, kv_len=kl, head_axis=head_axis)
 
     return sharded_call(body, q, k, v, mesh, axis, b_axis, kv_len)

@@ -10,15 +10,17 @@ gloo on the CPU); a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` names
 axes over the ranks. Ported: the mesh, the collectives (``ppermute`` and
 ``all_to_all`` point to point), the sharding spec arithmetic, replicated,
 expert-sharded and model-sharded placement, ``DataParallel`` (with ZeRO-1)
-over ``data``, ``seq``, ``expert``, ``model`` and ``pipe`` axes, the
-global-batch context its step runs in, the mixture-of-experts layer
-(``moe``: ``moe_ffn``, ``switch_gate``, ``top2_gate``, ``MoEOutput``) and
-the GPipe schedule (``pipeline``: ``pipeline_apply``,
-``stack_stage_params``, ``split_microbatches``). Not ported yet, each
-raising ``NotImplementedError`` naming ``ROADMAP.md``: the ``tp`` axis in
-``DataParallel``, ``model`` or ``pipe`` beside ``seq``, ``expert`` or each
-other, ``DataParallel.resize`` (elastic training) and ZeRO-1 on an
-``expert`` axis.
+over ``data``, ``seq``, ``expert``, ``model`` and ``pipe`` axes and their
+compositions ``pipe × model``, ``seq × model`` and ``seq × expert`` (each
+beside ``data``), the global-batch context its step runs in, the
+mixture-of-experts layer (``moe``: ``moe_ffn``, ``switch_gate``,
+``top2_gate``, ``MoEOutput``) and the GPipe schedule (``pipeline``:
+``pipeline_apply``, ``stack_stage_params``, ``split_microbatches``). Not
+ported yet, each raising ``NotImplementedError`` naming ``ROADMAP.md``: the
+``tp`` axis in ``DataParallel``, ``model`` beside ``expert``, ``pipe``
+beside ``seq`` or ``expert``, batch specs over other axes, parameter specs
+over ``data``, ``seq`` or ``pipe``, and ``DataParallel.resize`` (elastic
+training).
 """
 
 from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)

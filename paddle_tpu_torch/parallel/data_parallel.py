@@ -43,19 +43,31 @@ annotated over ``model`` (Megatron's column- and row-parallel projections,
 ``layers.fc``, the embedding split over d_model); the layers' conjugate
 collectives (``copy_to_axis``/``reduce_from_axis``) leave every gradient
 whole on each rank of the group, a block's for its block. On a ``pipe``
-axis (alone or beside ``data``) every rank holds every parameter and runs
-its stage of the model's pipeline (``parallel/pipeline.py``), whose
-backward sums the stages' gradients over ``pipe``: every gradient leaves
-it whole on each stage.
+axis every rank runs its stage of the model's pipeline
+(``parallel/pipeline.py``), whose backward sums the stages' gradients over
+``pipe``: every gradient leaves it whole on each stage.
+
+The axes compose as the JAX package's GSPMD composes them:
+
+- ``pipe × model`` (× ``data``): outside the stages the model runs as on
+  ``model``; inside them each rank runs its stage on its rows of every
+  microbatch (split over ``model``) with the stage's parameters gathered
+  whole, and a block's gradient is the rows' sum cut to the block;
+- ``seq × model`` (× ``data``): the sequence-sharded step with Megatron's
+  projections; the ring or Ulysses runs within the ``seq`` group of the
+  ranks that share a ``model`` coordinate, on that rank's heads;
+- ``seq × expert`` (× ``data``) as before, and ZeRO-1 beside ``expert``:
+  the slots of an expert-sharded parameter keep its blocks, those of a
+  replicated one split over ``data`` (the JAX package's rule,
+  ``paddle_tpu/parallel/data_parallel.py:221-229``).
 
 Gradients are reduced by placement: a mean over every axis the tokens are
 split over (``data``, and ``seq`` when the batch specs split it), never
 over ``expert``, ``model`` or ``pipe``, a block's within its block. A norm
 clip reads the whole gradients' norms (:meth:`DataParallel._sq_norms`).
-``tp`` axes raise ``NotImplementedError`` naming ROADMAP.md, and so do
-``pipe`` or ``model`` beside ``seq`` or ``expert``, ``pipe`` beside
-``model`` (item 4c) and ZeRO-1 on a mesh whose ``expert`` axis is larger
-than one (item 4b).
+Still refused, with ``NotImplementedError`` naming ROADMAP.md (§A item
+4c): a ``tp`` axis, ``model`` beside ``expert``, ``pipe`` beside ``seq``
+or ``expert``, and batch specs over other axes.
 """
 
 from __future__ import annotations
@@ -89,6 +101,12 @@ from paddle_tpu_torch.parallel.sharding import (
     param_shardings,
     shard_variables,
 )
+
+
+# the split axes (beside data) a step may hold together: the JAX package's
+# compositions the port runs
+_COMPOSED = ((mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS), (mesh_mod.PIPE_AXIS, mesh_mod.MODEL_AXIS),
+             (mesh_mod.SEQ_AXIS, mesh_mod.MODEL_AXIS))
 
 
 class DataParallel:
@@ -162,7 +180,7 @@ class DataParallel:
                                   f"{self.mesh.shape[axis]}")
         split = big & {mesh_mod.SEQ_AXIS, mesh_mod.EXPERT_AXIS, mesh_mod.MODEL_AXIS,
                        mesh_mod.PIPE_AXIS}
-        if len(split) > 1 and split & {mesh_mod.MODEL_AXIS, mesh_mod.PIPE_AXIS}:
+        if not any(split <= set(axes) for axes in _COMPOSED):
             raise _not_ported(f"DataParallel over {sorted(split)} together")
         # the axis each batch dim may split over: rows over data, positions over seq
         dim_axes = (batch_axis, mesh_mod.SEQ_AXIS)
@@ -178,10 +196,6 @@ class DataParallel:
                     self._seq_axis = mesh_mod.SEQ_AXIS
         # the axes this step's tokens are split over, data first
         self._token_axes = (batch_axis,) + ((self._seq_axis,) if self._seq_axis else ())
-        if zero_shard_optimizer and self.mesh.shape.get(mesh_mod.EXPERT_AXIS, 1) > 1:
-            raise NotImplementedError(
-                "DataParallel: ZeRO-1 (zero_shard_optimizer) on a mesh with an 'expert' axis "
-                "is not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4b)")
         if device is None:
             device = mesh_mod.process_device() or "cuda"
         self.device = resolve_device(device)
@@ -242,8 +256,8 @@ class DataParallel:
         """ZeRO-1: the dim each parameter's slots are sharded on — the first
         whose size the data-axis size divides (the JAX package's rule);
         none for an optimizer whose update reads whole parameters, nor for
-        a parameter split over ``model`` (its slots keep its layout, as in
-        the JAX package)."""
+        a parameter split over ``model`` or ``expert`` (its slots keep its
+        layout, as in the JAX package)."""
         if not self.zero_shard_optimizer or not self.optimizer.elementwise:
             return {}
         n, out, blocks = self._n, {}, self._blocks(params)

@@ -16,29 +16,39 @@ than ranks. ``device="cpu"`` runs gloo on the CPU; two ranks share one card
 only when the caller names both: ``device="cuda:0", backend="gloo"``. On a
 cluster, launch with ``torchrun`` and call
 :func:`~paddle_tpu_torch.parallel.mesh.initialize_distributed` instead.
+
+``fn`` and ``args`` reach the ranks through a file in that directory, not
+through the process's start pipe: a start blocks until the child has read
+what the pipe carries, which it does only after importing the parent's main
+module, so large arguments on the pipe would start the ranks one after the
+other.
 """
 
 from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import queue
 import shutil
 import tempfile
 import time
 import traceback
+from multiprocessing.reduction import ForkingPickler
 from typing import Any, Callable, List, Optional, Sequence
 
 __all__ = ["spawn"]
 
 
-def _rank_main(rank: int, nprocs: int, fn: Callable, args: Sequence[Any], init_method: str,
+def _rank_main(rank: int, nprocs: int, call_path: str, init_method: str,
                device: str, backend: Optional[str], results) -> None:
     import torch
 
     from paddle_tpu_torch.parallel import mesh as mesh_mod
 
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)  # N ranks share the host's cores
         mesh_mod.initialize_distributed(
@@ -68,9 +78,12 @@ def spawn(fn: Callable, nprocs: int, args: Sequence[Any] = (), *, device: str = 
     ctx = multiprocessing.get_context("spawn")
     workdir = tempfile.mkdtemp(prefix="paddle_tpu_torch_spawn_")
     init_method = "file://" + os.path.join(workdir, "store")
+    call_path = os.path.join(workdir, "call.pkl")
+    with open(call_path, "wb") as f:
+        f.write(ForkingPickler.dumps((fn, tuple(args))))
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-        r, nprocs, fn, tuple(args), init_method, device, backend, results)) for r in range(nprocs)]
+        r, nprocs, call_path, init_method, device, backend, results)) for r in range(nprocs)]
     got, failures = {}, []
     try:
         for p in procs:

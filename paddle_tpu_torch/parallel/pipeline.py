@@ -36,11 +36,21 @@ does in the JAX package. So every gradient is whole on every rank: what
 fed the microbatches and what reads the outputs alike.
 
 Microbatch rows split over the non-``pipe`` axes of size > 1 as in the JAX
-package (``pipeline.py:121-136``): called on global arrays, each rank runs
-its rows of every microbatch and the outputs are gathered back (the
-microbatches' and the parameters' gradients summed over those axes, as
-``shard_map`` sums a replicated input's); inside a ``DataParallel`` step
-the rows are already the rank's.
+package (``pipeline.py:121-136``, ``mb_spec = P(None, other_axes)``): each
+rank runs its rows of every microbatch and the outputs are gathered back
+(the microbatches' and the parameters' gradients summed over those axes,
+as ``shard_map`` sums a replicated input's). Called on global arrays the
+rows split over every such axis, in mesh order; inside a ``DataParallel``
+step the rows over the step's token axes (``data``, ``seq``) are already
+the rank's, and they split over the others (``model``: the ranks of a
+``model`` group hold the same rows outside the stages).
+
+Inside a stage the body runs on the stage's WHOLE parameters, as the JAX
+package's ``shard_map`` hands every rank its stage's parameters whole
+(``P("pipe")``): a leaf a rank holds as its block over ``model``
+(``blocks``) is gathered over that axis at stage entry, and its gradient
+is the rows' sum kept as the rank's block (the gather's adjoint, a sum
+over the axis cut to the block).
 """
 
 from __future__ import annotations
@@ -203,10 +213,25 @@ class _Pipeline(torch.autograd.Function):
 
 def _row_axes(mesh, axis: str) -> List[str]:
     """The non-pipe axes of size > 1 the microbatch rows split over, in
-    mesh order; none inside a DataParallel step (the rows are the rank's)."""
-    if dp_context.active() is not None:
-        return []
-    return [a for a in mesh.axis_names if a != axis and mesh.shape[a] > 1]
+    mesh order; inside a DataParallel step not its token axes (the rank's
+    rows over those are already its own)."""
+    group = dp_context.active()
+    done = set(group.axes) if group is not None else set()
+    return [a for a in mesh.axis_names if a != axis and a not in done and mesh.shape[a] > 1]
+
+
+def _whole(t: torch.Tensor, dims, rows: Sequence[str]) -> torch.Tensor:
+    """A stacked leaf as the stage body takes it: gathered whole over each
+    (row) axis it is a block on, whose adjoint sums the ranks' gradients
+    and cuts the block (``all_gather``), and its gradient summed over the
+    other row axes (the ranks' rows join)."""
+    for dim, a in dims:
+        enforce(a in rows, f"pipeline_apply: a block over {a!r}, which the rows do not split")
+        t = collective.all_gather(t, a, axis=dim)
+    for a in rows:
+        if a not in {b for _, b in dims}:
+            t = collective.copy_to_axis(t, a)
+    return t
 
 
 def pipeline_apply(
@@ -216,6 +241,7 @@ def pipeline_apply(
     mesh: mesh_mod.Mesh,
     axis: str = mesh_mod.PIPE_AXIS,
     remat: bool = False,
+    blocks=None,
 ):
     """Run ``y_mb = stage_{S-1}(...stage_0(x_mb))`` for each microbatch with
     the stages laid out along the ``axis`` mesh dimension (every rank of the
@@ -226,7 +252,10 @@ def pipeline_apply(
     :func:`stack_stage_params`); rank s runs ``stage_fn`` on index s.
     ``microbatches`` is ``[n_micro, mb, ...]``. Returns ``[n_micro, mb,
     ...]`` outputs, held by every rank. ``remat=True`` recomputes each
-    step's activations in the backward pass (module docstring)."""
+    step's activations in the backward pass (module docstring).
+    ``blocks`` (``stacked_params`` a flat dict): ``{name: [(dim, axis),
+    ...]}``, the dims of each leaf the rank holds as its block over that
+    axis; such leaves enter the stage whole."""
     n_micro = microbatches.shape[0]
     enforce(axis in mesh.shape, f"pipeline_apply: axis {axis!r} not in mesh axes "
             f"{mesh.axis_names}")
@@ -242,11 +271,16 @@ def pipeline_apply(
     leaves = tree_mod.leaves(stacked_params)
     enforce(all(t.shape[0] == mesh.shape[axis] for t in leaves),
             f"pipeline_apply: stacked_params need a leading stage dim of {mesh.shape[axis]}")
+    split = [()] * len(leaves)
+    if blocks:
+        enforce(isinstance(stacked_params, dict),
+                "pipeline_apply: blocks= needs stacked_params as a flat dict")
+        split = [tuple(blocks.get(k, ())) for k in sorted(stacked_params)]
     with mesh:
         mbs = microbatches
         for a in rows:
             mbs = collective.shard_replicated(mbs, a, 1)
-            leaves = [collective.copy_to_axis(t, a) for t in leaves]
+        leaves = [_whole(t, dims, rows) for t, dims in zip(leaves, split)]
         sched = _Schedule(stage_fn, stacked_params, mbs, collective._Axis(axis), remat)
         grad = torch.is_grad_enabled() and (mbs.requires_grad or any(
             t.requires_grad for t in leaves))

@@ -61,8 +61,10 @@ class NamedSharding:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: data, sequence, expert, tensor (over 'model') and pipeline (over 'pipe') "
-        "parallelism are ported to paddle_tpu_torch; other layouts, and 'model' or 'pipe' "
-        "beside 'seq', 'expert' or each other, are not yet (ROADMAP.md §A item 4c)")
+        "parallelism are ported to paddle_tpu_torch, and 'pipe' x 'model', 'seq' x 'model' "
+        "and 'seq' x 'expert' together; a 'tp' axis, 'model' beside 'expert', 'pipe' beside "
+        "'seq' or 'expert', batch specs over other axes and parameter specs over 'data', "
+        "'seq' or 'pipe' are not yet (ROADMAP.md §A item 4c)")
 
 
 def replicated(mesh: Mesh) -> NamedSharding:

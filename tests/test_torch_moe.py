@@ -237,7 +237,8 @@ def test_moe_decoders_and_unported_meshes_refused():
         s.model.apply(s.model.init(0, *tb, device="cpu"), *tb)
     # model-axis parameter specs and model/pipe mesh axes are ported
     # (test_torch_tensor_parallel.py, test_torch_pipeline.py), and not beside
-    # an expert axis; ZeRO-1 on an expert mesh stays refused
+    # an expert axis; ZeRO-1 on an expert mesh is taken
+    # (test_torch_composed_parallel.py)
     m = make_mesh(data=1, model=2, devices=[0, 1])
     fc = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=(None, "model"))),
                   name="tp")
@@ -247,9 +248,9 @@ def test_moe_decoders_and_unported_meshes_refused():
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu",
                          mesh=make_mesh(**axes, devices=[0, 1, 2, 3]))
-    with pytest.raises(NotImplementedError, match="(?s)ZeRO-1.*ROADMAP.md"):
-        DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu", zero_shard_optimizer=True,
-                     mesh=make_mesh(data=1, expert=2, devices=[0, 1]))
+    zero = DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu", zero_shard_optimizer=True,
+                        mesh=make_mesh(data=1, expert=2, devices=[0, 1]))
+    assert zero.zero_shard_optimizer and zero.num_devices == 2
 
 
 # -- on gloo ranks ----------------------------------------------------------------
@@ -320,10 +321,12 @@ def moe_ranks(tmp_path_factory):
 
 # the JAX tests' mesh shapes (seq=4 x data=2, seq=2 x data=4, expert=4 x
 # data=2, seq=2 x expert=2 x data=2, seq=8; data=4 x model=2, pipe=2 x
-# data=4) at four ranks
+# data=4) at four ranks, and the composed meshes of
+# test_torch_composed_parallel.py
 FOUR_RANK_MESHES = [dict(seq=2, data=2), dict(seq=2, data=2, expert=1), dict(expert=2, data=2),
                     dict(seq=2, expert=2, data=1), dict(seq=4), dict(data=2, model=2),
-                    dict(pipe=2, data=2), dict(model=4)]
+                    dict(pipe=2, data=2), dict(model=4), dict(pipe=2, model=2, data=1),
+                    dict(data=1, seq=2, model=2)]
 
 
 def test_mesh_axes_groups_match_jax(moe_ranks):

@@ -292,19 +292,22 @@ def test_one_rank_dp_step_equals_minimize_bit_for_bit(request, group, zero):
 def test_model_parallel_mesh_and_specs_raise():
     """``model`` and ``pipe`` mesh axes are taken (tensor and pipeline
     parallelism: ``test_torch_tensor_parallel.py``,
-    ``test_torch_pipeline.py``), and a parameter spec over ``model`` on any
-    dim, and a norm clip on a ``model`` axis; what stays refused: a ``tp``
-    axis, ``model`` or ``pipe`` beside ``seq``/``expert`` or each other
-    (ROADMAP.md §A item 4c), a batch spec over any axis but ``data`` on dim 0
-    and ``seq`` on dim 1 (a ``seq`` spec on a mesh without that axis too),
-    and a parameter sharded over an axis other than ``expert`` (dim 0) and
-    ``model``."""
-    for axes in (dict(data=1, model=2), dict(data=1, pipe=2)):
+    ``test_torch_pipeline.py``), and so are ``pipe`` beside ``model`` and
+    ``model`` beside ``seq`` (``test_torch_composed_parallel.py``), a
+    parameter spec over ``model`` on any dim, and a norm clip on a ``model``
+    axis; what stays refused: a ``tp`` axis, ``model`` beside ``expert``,
+    ``pipe`` beside ``seq`` or ``expert`` (ROADMAP.md §A item 4c), a batch
+    spec over any axis but ``data`` on dim 0 and ``seq`` on dim 1 (a ``seq``
+    spec on a mesh without that axis too), and a parameter sharded over an
+    axis other than ``expert`` (dim 0) and ``model``."""
+    for axes in (dict(data=1, model=2), dict(data=1, pipe=2), dict(data=1, model=2, seq=2),
+                 dict(data=1, pipe=2, model=2)):
+        n = int(np.prod(list(axes.values())))
         dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
-                          mesh=tmesh.make_mesh(**axes, devices=[0, 1]))
-        assert dp.num_devices == 2 and dp._token_axes == ("data",)
-    for axes in (dict(data=1, tp=2), dict(data=1, model=2, seq=2),
-                 dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, model=2)):
+                          mesh=tmesh.make_mesh(**axes, devices=list(range(n))))
+        assert dp.num_devices == n and dp._token_axes == ("data",)
+    for axes in (dict(data=1, tp=2), dict(data=1, model=2, expert=2),
+                 dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, seq=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
             DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                          mesh=tmesh.make_mesh(**axes, devices=list(range(
@@ -346,15 +349,16 @@ def test_model_parallel_mesh_and_specs_raise():
 
 
 def test_resize_pipeline_and_moe_raise():
-    """``resize`` still raises naming ROADMAP.md, and so does ZeRO-1 on an
-    ``expert`` axis; the pipeline names (``parallel/pipeline.py``) and the
-    MoE names (``parallel/moe.py``) are ported."""
+    """``resize`` still raises naming ROADMAP.md; ZeRO-1 on an ``expert``
+    axis is taken (``test_torch_composed_parallel.py``); the pipeline names
+    (``parallel/pipeline.py``) and the MoE names (``parallel/moe.py``) are
+    ported."""
     dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu")
     with pytest.raises(NotImplementedError, match="(?s)elastic.*ROADMAP.md"):
         dp.resize([0])
-    with pytest.raises(NotImplementedError, match="(?s)ZeRO-1.*ROADMAP.md"):
-        DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", zero_shard_optimizer=True,
-                     mesh=tmesh.make_mesh(data=1, expert=2, devices=[0, 1]))
+    zero = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", zero_shard_optimizer=True,
+                        mesh=tmesh.make_mesh(data=1, expert=2, devices=[0, 1]))
+    assert zero.zero_shard_optimizer and zero.num_devices == 2
     from paddle_tpu_torch.parallel import pipeline
 
     assert (parallel.pipeline_apply, parallel.stack_stage_params,

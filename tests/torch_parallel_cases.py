@@ -638,20 +638,24 @@ def clipped_sgd(clip, package):
 
 def mp_model(kind, kw, mesh=None):
     """(model, optimizer factory) of a tensor- or pipeline-parallel case:
-    ``kind`` "lm" (``kw`` may hold ``flash`` and ``pipe_n_micro``; a mesh
-    with a ``pipe`` axis becomes its ``pipe_mesh``), "nmt" or "mlp";
+    ``kind`` "lm" (``kw`` may hold ``flash``, ``pipe_n_micro`` and
+    ``seq_mode``, "ring" or "ulysses" over ``mesh``; else a mesh with a
+    ``pipe`` axis becomes its ``pipe_mesh``), "nmt" or "mlp";
     ``kw["grad_clip"]``: a clipped SGD instead (:func:`clipped_sgd`)."""
     from paddle_tpu_torch.core.config import set_flags
 
     kw = dict(kw)
     set_flags(use_flash_attention=kw.pop("flash", False))
     clip = kw.pop("grad_clip", None)
+    mode = kw.pop("seq_mode", None)
     if kind == "mlp":
         return port_model("mlp")
     if kind == "nmt":
         spec = tmodels.get_model("transformer", device="cpu", **kw)
     else:
-        if mesh is not None and mesh.shape.get("pipe", 1) > 1:
+        if mode is not None:
+            kw[f"{mode}_mesh"] = mesh
+        elif mesh is not None and mesh.shape.get("pipe", 1) > 1:
             kw["pipe_mesh"] = mesh
         spec = tmodels.get_model("transformer_lm", device="cpu", **kw)
     return spec.model, spec.optimizer if clip is None else clipped_sgd(clip, pt)
@@ -834,4 +838,38 @@ def mp_pipeline(rank, axes, cases):
         out[name] = dict(out=y.detach().numpy(), dx=grads[0].numpy(),
                          grads={k: g.numpy() for k, g in zip(stacked, grads[1:])},
                          routes=collective.routes_taken())
+    return out
+
+
+# -- the axes composed (test_torch_composed_parallel.py) ------------------------
+def cx_trainer(rank, root, axes, kw, specs, zero, batches, jax_root):
+    """``Trainer(parallel=True)`` of the LM (``kw`` as :func:`mp_model`'s)
+    on a mesh of ``axes`` (``specs``: the batch specs, or None; ``zero``:
+    ZeRO-1) for one epoch of ``batches``, a sharded checkpoint at its end
+    in ``root``: its losses, step and whole state; and, given
+    ``jax_root``, the JAX package's checkpoint there loaded at this rank's
+    layout (gathered whole)."""
+    from paddle_tpu_torch.trainer import CheckpointConfig, EndStepEvent, Trainer
+
+    mesh = make_mesh(**axes)
+    model, opt = mp_model("lm", kw, mesh)
+    kwargs = dict(mesh=mesh, zero_shard_optimizer=zero)
+    if specs is not None:
+        kwargs["batch_specs"] = [P(*s) for s in specs]
+    losses = []
+    t = Trainer(lambda: model, opt, parallel=True, place="cpu", parallel_kwargs=kwargs,
+                checkpoint_config=CheckpointConfig(root, step_interval=len(batches),
+                                                   sharded=True))
+    t.train(num_epochs=1, reader=lambda: iter(batches),
+            event_handler=lambda ev: losses.append(ev.metrics)
+            if isinstance(ev, EndStepEvent) else None)
+    dp = t._dp
+    out = dict(losses=losses, step=t.global_step,
+               state=numpy_state(*dp.full_state(t.variables, t.opt_state)),
+               local_shapes={k: tuple(v.shape) for k, v in t.variables.params.items()})
+    if jax_root is not None:
+        (jv, jo), manifest = cks.load_sharded(jax_root, dp.state_template(t.variables,
+                                                                           t.opt_state))
+        out["jax_loaded"] = (numpy_state(*dp.full_state(jv, jo)), int(jo.step),
+                             manifest["step"])
     return out

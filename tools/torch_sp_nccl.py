@@ -2,8 +2,11 @@
 """Phases sp and mp of ``chip_smoke.py`` over NCCL, one rank per card (up
 to 4): ring and Ulysses attention on ``seq=n`` and the MoE LM on
 ``expert=n`` at ``BASE_CFG`` (phase sp), and the LM and the NMT
-Transformer on ``model=n`` and the LM's GPipe pipeline on ``pipe=2`` (beside
-``data=n/2``) (phase mp), each held against the one-rank step as the phases
+Transformer on ``model=n``, the LM's GPipe pipeline on ``pipe=2`` (beside
+``data=n/2``) and the MoE LM with ZeRO-1 on ``expert=n`` (phase mp), and
+with four cards or more the composed meshes on four of them: the LM on
+``pipe=2 x model=2`` and with the ring and Ulysses on ``seq=2 x model=2``
+(phase mp (e)-(g)), each held against the one-rank step as the phases
 hold their two gloo ranks, with ``ppermute`` and ``all_to_all`` on NCCL's
 point-to-point and all-to-all (the route the phases' one card cannot
 take); the ring's rank r launches r + 1 of each kernel a layer.
