@@ -203,7 +203,8 @@ Phases, each printing JSON lines:
                to the eager forward, 6 launches of the hand-written forward
                inside the loaded program (the operator
                paddle_tpu_torch::flash_fwd) and no library attention under
-               torch.profiler; (d) the fluid_benchmark CLI in process
+               torch.profiler, the run between profile_markers and its
+               session intact; (d) the fluid_benchmark CLI in process
                (run_benchmark(parse_args(...))): resnet, transformer,
                transformer_lm, mnist, resnet --infer_only and a profiled
                transformer_lm pass: the JAX record's keys, finite losses,
@@ -475,6 +476,28 @@ SERVE_FAULT_COUNTERS = ("step_faults_total", "errors_total", "retries_exhausted_
 # device router, and the exporter's /fleet and /trace/<id> of each request.
 FLEET_REQUESTS, FLEET_COPY_ITERS, FLEET_HOST_TIER_BYTES = 24, 50, 256 << 20
 FLEET_KILL_TOKENS, FLEET_MIGRATE_REQUESTS, FLEET_FSYNCS = 256, 8, 64
+# Replica groups (phase group): the LM at BASE_CFG, f32 weights and pages,
+# greedy, SERVE_CONFIG per engine, the first GROUP_REQUESTS of serve's
+# requests. (a) a tp=2 group, both members on cuda:0, against a tp=1
+# engine's burst (held_against's near-tie rule): one step shape, no flash
+# launch; each member's page bytes and layout-sharded weight bytes half of
+# tp=1's; the replicated hidden states bit-equal across members at one step;
+# tokens/s, a decode step's ms and launches and peak memory at tp=1 and
+# tp=2. (b) GROUP_VARIANTS (two kv heads with rope: the pages split; one kv
+# head: the pages whole, k/v gathered), each tp=2 against tp=1. (c) the
+# target as its own draft, GROUP_SPEC_TOKENS tokens, GROUP_SPEC_REQUESTS
+# requests. (d) DecodeFleet.from_groups over two tp=2 groups (four members
+# on the card): a GROUP_MEMBER error on member 1 of group 0 once
+# GROUP_FAULT_TOKENS tokens are out ejects the whole group, its requests
+# migrate, the half-open probe re-admits it; then a GROUP_STALL_S stall on
+# member 1's canary is flagged at shard 1. (e) DisaggRouter on the device
+# transport over GROUP_HANDOFF_REQUESTS requests, a tp=2 prefill group to a
+# tp=2 decode group (adopted) and to a tp=1 engine (re-prefilled). (f) (a)
+# with the members on cuda:0 and cuda:1, where the machine has two cards.
+GROUP_REQUESTS, GROUP_SPEC_REQUESTS, GROUP_SPEC_TOKENS, GROUP_HANDOFF_REQUESTS = 24, 8, 4, 8
+GROUP_FAULT_TOKENS, GROUP_STALL_S = 256, 0.02
+GROUP_VARIANTS = {"gqa2_rope": dict(num_kv_heads=2, pos_encoding="rope"),
+                  "gqa1": dict(num_kv_heads=1)}
 # Data parallelism (phase dp): DataParallel steps of the LM at BASE_CFG;
 # ResNet-50 at 64 x 64, batch 8, f32 for BN across ranks. At one rank the
 # DP step runs minimize's very operations, so it must equal that step bit
@@ -2780,6 +2803,311 @@ def fleet_phase(smi: str):
     return paths, checks
 
 
+def group_phase(smi: str, device: str = "cuda:0"):
+    """Phase 10c: decode serving on tensor-parallel replica groups at
+    BASE_CFG (``DecodeEngine(group=)``, ``DecodeFleet.from_groups``,
+    ``DisaggRouter`` across groups), every member on ``device`` (part (f):
+    on two cards). Returns its kernel launches by path and its checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.core.dtypes import ieee_f32
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.observability import runlog
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.circuit import CLOSED, OPEN
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine, DecodeFleet, DisaggRouter,
+                                          ServingConfig, default_layout, make_groups)
+    from paddle_tpu_torch.serving.disagg import DECODE, PREFILL
+
+    set_flags(use_flash_attention=True, use_bf16_compute=False, check_nan_inf=False)
+    marks = [time.perf_counter()]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    cuda0 = torch.device(device)
+
+    def lm(**over):
+        spec = get_model("transformer_lm", device=cuda0, **over)  # BASE_CFG
+        batch = spec.synth_batch(1, np.random.RandomState(0))
+        return spec.model.init(0, *batch, device=cuda0).params, spec.extra["cfg"]
+
+    params, cfg = lm()
+    traffic = serve_traffic(cfg["vocab"])
+    prompts, reqs = traffic["prompts"][:GROUP_REQUESTS], traffic["reqs"][:GROUP_REQUESTS]
+    checks, paths = {}, {}
+
+    def flash0(launches):
+        return all(launches[k] == 0 for k in HOPPER_KERNELS)
+
+    def firsts(gaps):
+        return {str(i): {"index": j, "gap": g} for i, (j, g) in gaps.items()}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def step_probe(eng):
+        """One decode step at full occupancy as serve (a) times it: (host
+        ms of 11 runs, kernel launches a step)."""
+        S, P = SERVE_CONFIG["max_slots"], SERVE_CONFIG["max_context"] // SERVE_CONFIG["page_size"]
+        tables = (1 + np.arange(S * P, dtype=np.int32)).reshape(S, P)
+        positions = np.full((S,), SERVE_CONFIG["max_context"] * 11 // 16, np.int32)
+
+        def one_step():
+            with torch.no_grad(), ieee_f32():
+                return eng._step_call(eng._dev(traffic["step_tokens"]), eng._dev(positions),
+                                      eng._dev(tables)).cpu()
+
+        return best_step_ms(one_step, runs=11), profiled_gemms(one_step)[0], tables, positions
+
+    def tp_pair(params, cfg, members, name, probe=False):
+        """The requests on one tp=1 engine, then on a tp=2 group over
+        ``members``: the group's tokens held against the engine's."""
+        outs1, r1 = serve_burst(params, cfg, reqs, SERVE_CONFIG, device=cuda0)
+        group = make_groups(2, devices=members)[0]
+        outs2, r2 = serve_burst(params, cfg, reqs, SERVE_CONFIG, group=group)
+        toks1 = [o.tokens for o in outs1]
+        ok, gaps = held_against(params, cfg, prompts, toks1, [o.tokens for o in outs2])
+        generated = sum(len(t) for t in toks1)
+        rec = {"tokens_held": ok, "first_differences": firsts(gaps), "generated_tokens": generated}
+        for tp, r in ((1, r1), (2, r2)):
+            rec[f"tp{tp}"] = {"wall_s": r["wall_s"], "tokens_per_s": generated / r["wall_s"],
+                              "steps": r["metrics"]["steps_total"],
+                              "peak_memory_bytes": r["peak_memory_bytes"],
+                              "burst_memory_bytes": r["burst_memory_bytes"],
+                              "launches": r["launches"], "faults": r["faults"],
+                              "decode_step_cache_size": r["step_sizes"][0]}
+        checks.update({
+            f"{name}_tokens_equal_tp1_or_near_tie": ok,
+            f"{name}_lengths": [len(o.tokens) for o in outs2] == [n for _, n in reqs],
+            f"{name}_decode_step_one_shape": r2["step_sizes"][0] == 1,
+            f"{name}_flash_launches_0": flash0(r2["launches"]) and flash0(r1["launches"]),
+            f"{name}_no_leaks": not r1["unjoined"] and not r2["unjoined"],
+            f"{name}_no_step_faults": not any(r1["faults"].values())
+            and not any(r2["faults"].values()),
+        })
+        if probe:
+            one = DecodeEngine(params, cfg, decode=DecodeConfig(**SERVE_CONFIG), device=cuda0)
+            two = DecodeEngine(params, cfg, decode=DecodeConfig(**SERVE_CONFIG), group=group)
+            try:
+                for tp, eng in ((1, one), (2, two)):
+                    ms, launches, tables, positions = step_probe(eng)
+                    rec[f"tp{tp}"].update(decode_step_ms_median=float(np.median(ms)),
+                                          decode_step_ms_runs=ms, launches_per_decode_step=launches)
+                layout = default_layout()
+                sharded = [n for n, v in params.items()
+                           if any(a is not None for a in
+                                  layout.param_spec(n, tuple(v.shape), group.mesh))]
+                w1 = sum(nbytes(params[n]) for n in sharded)
+                w2 = [sum(nbytes(mp[n]) for n in sharded) for mp in two._model.members]
+                p1 = nbytes(one._k_pages) + nbytes(one._v_pages)
+                p2 = [nbytes(k) + nbytes(v) for k, v in zip(two._k_pages, two._v_pages)]
+                with torch.no_grad(), ieee_f32():
+                    xs = two._model.run(two._dev(traffic["step_tokens"])[:, None],
+                                        two._dev(positions)[:, None], two._dev(tables),
+                                        two._k_pages, two._v_pages)
+                    torch.cuda.synchronize()
+                rec.update(sharded_weight_bytes={"tp1": w1, "tp2_members": w2},
+                           page_bytes={"tp1": p1, "tp2_members": p2},
+                           sharded_params=len(sharded))
+                checks.update({
+                    f"{name}_member_weight_bytes_half": all(2 * w == w1 for w in w2),
+                    f"{name}_member_page_bytes_half": all(2 * p == p1 for p in p2),
+                    f"{name}_replicated_hidden_bit_equal": all(torch.equal(xs[0], x)
+                                                               for x in xs[1:]),
+                    # so that the bit-equality tests the step: each member
+                    # computes on its own copies, on one card as on two
+                    f"{name}_members_hold_own_copies": all(
+                        two._model.members[0][n].data_ptr() != two._model.members[1][n].data_ptr()
+                        for n in params if n not in sharded),
+                })
+            finally:
+                one.close(timeout=SERVE_WAIT_S)
+                two.close(timeout=SERVE_WAIT_S)
+            one.kv.assert_no_leaks()
+            two.kv.assert_no_leaks()
+        return outs1, r2, rec
+
+    # (a) a tp=2 group, both members on cuda:0, against tp=1
+    outs_ref, r2, rec = tp_pair(params, cfg, [cuda0, cuda0], "a", probe=True)
+    paths["group"] = r2["launches"]
+    ref_toks = [o.tokens for o in outs_ref]
+    generated = rec["generated_tokens"]
+    emit({"phase": "group", "part": "a_tp2_one_card", "part_s": lap(), "model": "transformer_lm",
+          "params": sum(p.numel() for p in params.values()), "config": SERVE_CONFIG,
+          "dtype": "float32", "requests": len(reqs), "members": ["cuda:0", "cuda:0"], **rec,
+          "tie_tol": SERVE_TIE_TOL, "card": smi})
+
+    # (b) grouped-query variants: the pages split (two kv heads), and whole
+    # (one kv head: k/v gathered on each member)
+    for name, over in GROUP_VARIANTS.items():
+        vparams, vcfg = lm(**over)
+        _, _, vrec = tp_pair(vparams, vcfg, [cuda0, cuda0], f"b_{name}")
+        emit({"phase": "group", "part": f"b_{name}", "part_s": lap(), "overrides": over,
+              **vrec, "card": smi})
+        del vparams
+        torch.cuda.empty_cache()
+
+    # (c) speculative decoding under a group, the target as its own draft
+    sreqs = reqs[:GROUP_SPEC_REQUESTS]
+    group = make_groups(2, devices=[cuda0, cuda0])[0]
+    outs_c, c = serve_burst(params, cfg, sreqs, dict(SERVE_CONFIG, spec_tokens=GROUP_SPEC_TOKENS),
+                            draft_variables=params, group=group)
+    ok_c, gaps_c = held_against(params, cfg, prompts, ref_toks[:len(sreqs)],
+                                [o.tokens for o in outs_c])
+    checks.update({
+        "c_tokens_equal_tp1_or_near_tie": ok_c,
+        "c_verify_step_one_shape": c["step_sizes"][2] == 1,
+        "c_no_leaks": not c["unjoined"],
+        "c_no_step_faults": not any(c["faults"].values()),
+        "c_flash_launches_0": flash0(c["launches"]),
+    })
+    emit({"phase": "group", "part": "c_speculative", "part_s": lap(), "requests": len(sreqs),
+          "spec_tokens": GROUP_SPEC_TOKENS, "acceptance_rate": c["spec_accept_rate"],
+          "verify_steps": c["metrics"]["verify_steps_total"], "wall_s": c["wall_s"],
+          "first_differences": firsts(gaps_c), "card": smi})
+
+    # (d) a fleet of two groups (four members on the card): a member fault
+    # ejects its whole group, then the group is re-admitted; a stall on one
+    # member is localized
+    zero_kernel_counts()
+    fleet = DecodeFleet.from_groups(params, cfg, make_groups(2, devices=[cuda0] * 4),
+                                    decode=DecodeConfig(**SERVE_CONFIG, group_probe_every_s=0.0))
+    ga, gb = fleet.engines
+    d = {}
+    try:
+        handles = [ga.submit(p, n) for p, n in reqs]  # pinned to group 0
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while ga.metrics.snapshot()["tokens_total"] < GROUP_FAULT_TOKENS:
+            if time.monotonic() > deadline:
+                raise TimeoutError("group (d): group 0 never generated its tokens")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        with faults.injected(faults.FaultSpec(
+                faults.GROUP_MEMBER, "error", match={"engine": ga.metrics.engine_label,
+                                                     "shard": 1})) as plan:
+            outs_d = [h.result(timeout=SERVE_WAIT_S) for h in handles]
+            fired = plan.all_fired()
+        d["burst_after_fault_s"] = time.perf_counter() - t0
+        state = ga.breaker.state
+        sa, sb = ga.metrics.snapshot(), gb.metrics.snapshot()
+        ok_d, gaps_d = held_against(params, cfg, prompts, ref_toks, [o.tokens for o in outs_d])
+        shortest = min(range(len(reqs)), key=lambda i: len(prompts[i]) + reqs[i][1])
+        t0 = time.perf_counter()
+        probes = 0
+        deadline = time.monotonic() + 120
+        while ga.breaker.state != CLOSED and time.monotonic() < deadline:
+            out = fleet.submit(*reqs[shortest]).result(timeout=SERVE_WAIT_S)
+            probes += 1
+            ok_d = ok_d and held_against(params, cfg, [prompts[shortest]], [ref_toks[shortest]],
+                                         [out.tokens])[0]
+            time.sleep(0.02)
+        d.update(readmit_s=time.perf_counter() - t0, readmit_requests=probes,
+                 migrated=sa["migrated_total"], member_faults=sa["group_member_faults_total"],
+                 first_differences=firsts(gaps_d))
+        readmitted = ga.breaker.state == CLOSED
+        # the stall: the watch names the flagged shard in the run log
+        work = tempfile.mkdtemp(prefix="chip_smoke_group_")
+        slog = runlog.RunLog(os.path.join(work, "group.runlog"))
+        prev_log = runlog.set_runlog(slog)
+        flagged = []
+        try:
+            with faults.injected(faults.FaultSpec(
+                    faults.GROUP_MEMBER, "stall", stall_s=GROUP_STALL_S, times=10 ** 9,
+                    match={"engine": ga.metrics.engine_label, "shard": 1})):
+                deadline = time.monotonic() + 60
+                while 1 not in flagged and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                    flagged = [r["shard"] for r in runlog.read_runlog(slog.path)
+                               if r["kind"] == "group_shard_straggler"
+                               and r.get("engine") == ga.metrics.engine_label]
+        finally:
+            runlog.set_runlog(prev_log)
+            slog.close()
+            shutil.rmtree(work, ignore_errors=True)
+        skew = obs_metrics.default_registry().get(
+            "serving.group.shard_skew", labels={"engine": ga.metrics.engine_label})
+    finally:
+        fleet.close(timeout=SERVE_WAIT_S)
+    paths["group_fleet"] = kernel_launch_counts()
+    d.update(straggler_skew=skew, flagged_shards=flagged)
+    checks.update({
+        "d_member_fault_fired": fired,
+        "d_group_ejected": state == OPEN and sa["group_member_faults_total"] >= 1,
+        "d_requests_migrated": sa["migrated_total"] > 0,
+        "d_no_request_lost": [len(o.tokens) for o in outs_d] == [n for _, n in reqs],
+        "d_tokens_equal_tp1_or_near_tie": ok_d,
+        "d_group_readmitted": readmitted,
+        "d_stall_flagged_at_shard_1": 1 in flagged,
+        "d_no_step_faults": not any(s[k] for s in (sa, sb) for k in SERVE_FAULT_COUNTERS),
+        "d_flash_launches_0": flash0(paths["group_fleet"]),
+    })
+    for e in fleet.engines:
+        e.kv.assert_no_leaks()
+    emit({"phase": "group", "part": "d_from_groups", "part_s": lap(), "groups": 2,
+          "members_on_card": 4, "fault_after_tokens": GROUP_FAULT_TOKENS,
+          "stall_s": GROUP_STALL_S, **d, "card": smi})
+
+    # (e) disaggregated prefill/decode across groups, device transport
+    hreqs = reqs[:GROUP_HANDOFF_REQUESTS]
+    zero_kernel_counts()
+    e = {}
+    for name, dec_group in (("tp2_to_tp2", True), ("tp2_to_tp1", False)):
+        g0, g1 = make_groups(2, devices=[cuda0] * 4)
+        pre = DecodeEngine(params, cfg, config=ServingConfig(engine_label=f"group-pre-{name}"),
+                           decode=DecodeConfig(**SERVE_CONFIG), group=g0)
+        dec = DecodeEngine(params, cfg, config=ServingConfig(engine_label=f"group-dec-{name}"),
+                           decode=DecodeConfig(**SERVE_CONFIG), group=g1 if dec_group else None,
+                           device=None if dec_group else cuda0)
+        router = DisaggRouter([pre, dec], [PREFILL, DECODE], transport="device")
+        try:
+            t0 = time.perf_counter()
+            outs = [h.result(timeout=SERVE_WAIT_S) for h in [router.submit(p, n) for p, n in hreqs]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sd = dec.metrics.snapshot()
+            clean = not any(en.metrics.snapshot()[k] for en in (pre, dec)
+                            for k in SERVE_FAULT_COUNTERS)
+        finally:
+            router.close(timeout=SERVE_WAIT_S)
+        pre.kv.assert_no_leaks()
+        dec.kv.assert_no_leaks()
+        ok, gaps = held_against(params, cfg, prompts, ref_toks[:len(hreqs)], [o.tokens for o in outs])
+        e[name] = {"wall_s": wall, "handoffs_in": sd["handoffs_in_total"],
+                   "recovered": sd["recovered_total"], "first_differences": firsts(gaps)}
+        adopted = sd["handoffs_in_total"] == len(hreqs) and sd["recovered_total"] == 0
+        reprefilled = sd["handoffs_in_total"] == 0 and sd["recovered_total"] == len(hreqs)
+        checks.update({
+            f"e_{name}_tokens_equal_tp1_or_near_tie": ok,
+            f"e_{name}_{'adopted' if dec_group else 'reprefilled'}": adopted if dec_group
+            else reprefilled,
+            f"e_{name}_no_step_faults": clean,
+        })
+    paths["group_disagg"] = kernel_launch_counts()
+    checks["e_flash_launches_0"] = flash0(paths["group_disagg"])
+    emit({"phase": "group", "part": "e_disagg_device", "part_s": lap(), "requests": len(hreqs),
+          **e, "card": smi})
+
+    # (f) the members on two cards, where there are two
+    if torch.cuda.device_count() >= 2:
+        _, _, frec = tp_pair(params, cfg, [cuda0, torch.device("cuda", 1)], "f")
+        emit({"phase": "group", "part": "f_two_cards", "part_s": lap(),
+              "members": ["cuda:0", "cuda:1"], **frec, "card": smi})
+    else:
+        print("chip_smoke: group (f) did not run: one card visible, its two members need two",
+              flush=True)
+    emit({"phase": "group", "seconds": marks[-1] - marks[0], "checks": checks})
+    set_flags(use_bf16_compute=True)
+    return paths, checks
+
+
 def tree_digest(tree) -> str:
     """sha256 over the bytes of every tensor leaf of ``tree`` in checkpoint
     order (and of the int leaves): two ranks' states are bit-equal exactly
@@ -3870,11 +4198,16 @@ def infer_phase(smi: str):
         run(ids)
         torch.cuda.synchronize()
         zero_kernel_counts()
+        # the run between profile_markers: the session's first device records
+        # are dropped by this point of the process (PROFILER_MARKERS)
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_c:
+            profile_markers()
             got = run(ids)
             torch.cuda.synchronize()
+            profile_markers()
         paths["infer_export"] = kernel_launch_counts()
         names = [e.name for e in prof_c.events()]
+        c_kernels = device_records(prof_c)
         c_checks = {
             "c_loaded_logits_bit_equal_eager": bool(torch.equal(got, eager)),
             "c_loaded_program_flash_launches_eq_n_layers":
@@ -3882,7 +4215,8 @@ def infer_phase(smi: str):
             "c_graph_holds_the_flash_operator": graph_ops.count(
                 torch.ops.paddle_tpu_torch.flash_fwd.default) == n_layers,
             "c_no_library_attention": not any("scaled_dot_product" in n for n in names),
-            "c_profiler_sees_the_kernel": sum("flash_fwd_bf16_kernel" in n for n in names)
+            "c_profile_intact": profile_intact(prof_c),
+            "c_profiler_sees_the_kernel": sum("flash_fwd_bf16_kernel" in n for n in c_kernels)
             == n_layers,
         }
         checks.update(c_checks)
@@ -3890,6 +4224,7 @@ def infer_phase(smi: str):
               "shape": list(INFER_EXPORT_SHAPE), "save_s": save_s, "load_s": load_s,
               "program_bytes": os.path.getsize(os.path.join(d, "program.pt2")),
               "launches": paths["infer_export"],
+              "profiler_markers_kept_before_after": markers_kept(prof_c),
               "max_abs_diff": float((got.float() - eager.float()).abs().max()),
               "checks": c_checks})
         del got, eager, variables, run
@@ -5909,6 +6244,11 @@ def main() -> int:
     fleet_paths, fleet_checks = fleet_phase(smi)
     failures += [f"fleet check {k}" for k, good in fleet_checks.items() if not good]
 
+    # 10c. tensor-parallel replica groups: DecodeEngine(group=),
+    # DecodeFleet.from_groups, handoffs across groups
+    group_paths, group_checks = group_phase(smi)
+    failures += [f"group check {k}" for k, good in group_checks.items() if not good]
+
     # 11. data parallelism
     dp_paths, dp_checks = dp_phase(smi)
     failures += [f"dp check {k}" for k, good in dp_checks.items() if not good]
@@ -5936,7 +6276,8 @@ def main() -> int:
 
     # 17. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
-             **nmt_paths, **serve_paths, **fleet_paths, **dp_paths, "telemetry": telemetry_launches,
+             **nmt_paths, **serve_paths, **fleet_paths, **group_paths, **dp_paths,
+             "telemetry": telemetry_launches,
              **infer_paths, **sp_paths, **mp_paths, **catalog_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}

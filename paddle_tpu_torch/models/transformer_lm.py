@@ -81,6 +81,7 @@ from paddle_tpu_torch.parallel.moe import moe_ffn
 
 __all__ = [
     "get_model", "lm_forward", "generate", "generate_beam", "CachedDecoder", "PagedDecoder",
+    "GroupPagedDecoder",
     "paged_cache_shape", "paged_prefill_chunk", "paged_decode_step", "paged_verify_step",
     "BASE_CFG",
 ]
@@ -645,10 +646,11 @@ def paged_cache_shape(cfg: dict, num_pages: int, page_size: int):
     return (cfg["n_layers"], num_pages, H_kv, page_size, cfg["d_model"] // H)
 
 
-class PagedDecoder(_DecoderOps):
-    """The paged-cache decoder behind ``serving.DecodeEngine``: one model's
-    parameters and position tables for pages of ``page_size`` positions
-    and page tables ``table_width`` wide.
+class GroupPagedDecoder:
+    """The paged-cache decoder behind ``serving.DecodeEngine``, over the
+    members of a tensor-parallel replica group (``serving.shardgroup``);
+    :class:`PagedDecoder` is its one-member case. Pages hold
+    ``page_size`` positions and page tables are ``table_width`` wide.
 
     Every entry point takes ``N`` sequences of ``Q`` new tokens at absolute
     positions ``pos`` [N, Q], writes their K/V into their pages through
@@ -660,84 +662,242 @@ class PagedDecoder(_DecoderOps):
     the JAX package, which has no paged-attention kernel
     (``paddle_tpu/models/transformer_lm.py:867-870``). The gather
     materializes each sequence's ``[H_kv, P * page_size, dh]`` context per
-    layer. Pages may be bf16 (storage); the math is f32."""
+    layer. Pages may be bf16 (storage); the math is f32.
 
-    def __init__(self, params: dict, cfg: dict, page_size: int, table_width: int):
+    ``member_params`` holds, per member, what ``GroupLayout.shard_params``
+    gave it (its block of each parameter, on its device); ``shapes`` the
+    whole parameters' shapes. ``k_pages``/``v_pages`` are lists of the
+    members' page tensors (one tensor for one member): ``[L, num_pages,
+    H_kv/tp, page_size, dh]`` each when ``kv_split`` (the layout shards the
+    head dim), whole otherwise.
+
+    Member ``m`` owns the query heads ``[m H/tp, (m+1) H/tp)`` and the FFN
+    columns ``[m F/tp, (m+1) F/tp)`` (member 0 owns all when ``tp`` does not
+    divide ``H`` or ``F``), and computes the K/V heads its pages hold. At
+    construction each member keeps, per parameter, the slice it computes
+    with (``members``): a view of its own block where the block covers that
+    slice, else the slice of the parameter gathered whole from every
+    member's block, once, as GSPMD gathers it. So any layout serves:
+    ``num_kv_heads=1`` at ``tp=2`` splits k/v's ``dh`` columns while the
+    pages stay whole, and a layout that shards the embedding, a layer norm
+    or the logits leaves each member the whole tensor. The row-parallel
+    partials (attention out, FFN fc2) are the collective: brought to member
+    0's device, summed in member order, the bias added once, and the sum
+    copied to every other member, so the replicated hidden states are
+    bit-equal on every member."""
+
+    def __init__(self, member_params, shapes: dict, cfg: dict, page_size: int,
+                 table_width: int, kv_split: bool):
         enforce(not cfg.get("scan_layers"),
                 "paged decode: scan_layers is not supported in the paged path (as in "
                 "the JAX package); use generate() for scan-layers decode")
         enforce(not cfg.get("moe_experts"),
                 "paged decode: MoE FFNs are not supported in the cached decoders — "
                 "use a dense-FFN config")
-        super().__init__(params, cfg, table_width * page_size)
-        self.page_size = page_size
-        self.t_eff = table_width * page_size
+        blocks = list(member_params)
+        tp = len(blocks)
+        shapes = {k: tuple(v) for k, v in shapes.items()}
+        H = cfg["num_heads"]
+        H_kv = cfg.get("num_kv_heads") or H
+        self.dh = cfg["d_model"] // H
+        self.page_size, self.t_eff = page_size, table_width * page_size
+        self.swiglu = cfg.get("ffn_activation", "relu") == "swiglu"
 
-    def run(self, tokens, pos, tables, k_pages, v_pages) -> torch.Tensor:
-        """``tokens``/``pos`` [N, Q], ``tables`` [N, P] → the last layer's
-        hidden states [N, Q, D]; the pages are written in place."""
+        def owned(n):  # each member's [lo, hi) of n units
+            if n % tp == 0:
+                return [(m * n // tp, (m + 1) * n // tp) for m in range(tp)]
+            return [(0, n)] + [(0, 0)] * (tp - 1)
+
+        self.q_heads = owned(H)
+        self.kv_split = kv_split
+        self.kv_heads = ([(m * H_kv // tp, (m + 1) * H_kv // tp) for m in range(tp)]
+                         if kv_split else [(0, H_kv)] * tp)
+        self.ffn_cols = owned(shapes["layer_0/ffn/fc1/w"][1])
+        self.members = [self._held(m, blocks, shapes, cfg["n_layers"]) for m in range(tp)]
+        self.ops = [_DecoderOps(p, cfg, self.t_eff) for p in self.members]
+        self.devices = [o.device for o in self.ops]
+        o = self.ops[0]
+        self.D, self.H, self.H_kv, self.G, self.L = o.D, o.H, o.H_kv, o.G, o.L
+
+    def _held(self, m: int, blocks, shapes: dict, n_layers: int) -> dict:
+        """Member ``m``'s parameters as its step uses them: each the slice
+        ``(dim, lo, hi)`` it computes with, whole where it needs all."""
+        dh = self.dh
+        q = (self.q_heads[m][0] * dh, self.q_heads[m][1] * dh)
+        kv = (self.kv_heads[m][0] * dh, self.kv_heads[m][1] * dh)
+        f = self.ffn_cols[m]
+        need = {}
+        for i in range(n_layers):
+            attn, ffn = f"layer_{i}/self_attn", f"layer_{i}/ffn"
+            for n, cols in (("q", q), ("k", kv), ("v", kv)):
+                need[f"{attn}/{n}/w"], need[f"{attn}/{n}/b"] = (1,) + cols, (0,) + cols
+            need[f"{attn}/out/w"] = (0,) + q
+            for n in ("fc1", "gate"):
+                need[f"{ffn}/{n}/w"], need[f"{ffn}/{n}/b"] = (1,) + f, (0,) + f
+            need[f"{ffn}/fc2/w"] = (0,) + f
+        dev = blocks[m]["emb/embedding/word_emb"].device
+        held = {}
+        for name, t in blocks[m].items():
+            whole = shapes[name]
+            split = [d for d in range(t.dim()) if t.shape[d] != whole[d]]
+            enforce(len(split) <= 1,
+                    f"group decode: {name}'s block {tuple(t.shape)} of {whole} is cut on "
+                    "more than one dim")
+            dim, lo, hi = need.get(name, (0, 0, whole[0]))  # (0, 0, n): used whole
+            base = m * t.shape[dim] if split == [dim] else 0
+            if hi == lo:  # a member that computes none of it
+                t = t.new_empty(t.shape[:dim] + (0,) + t.shape[dim + 1:])
+            elif split and not (split == [dim] and base <= lo and hi <= base + t.shape[dim]):
+                # its block is not the slice it computes with: the slice of
+                # the parameter gathered whole, once, from every member's block
+                t = torch.cat([b[name].to(dev) for b in blocks], split[0])
+                if (lo, hi) != (0, t.shape[dim]):
+                    t = t.narrow(dim, lo, hi - lo).contiguous()
+            elif (lo - base, hi - base) != (0, t.shape[dim]):
+                t = t.narrow(dim, lo - base, hi - lo)
+            held[name] = t
+        return held
+
+    def _cols(self, m, x, pfx):
+        """Member ``m``'s columns of a column-parallel projection."""
+        p = self.members[m]
+        return x @ p[f"{pfx}/w"] + p[f"{pfx}/b"]
+
+    def _psum(self, partials, bias_name: str):
+        """The row-parallel reduction: the members' partials summed in
+        member order on member 0's device, the replicated bias added once,
+        and the sum copied to every other member (its own tensor, also on
+        the same device)."""
+        dev0 = self.devices[0]
+        acc = None
+        for p in partials:
+            acc = p.to(dev0) if acc is None else acc + p.to(dev0)
+        acc = acc + self.members[0][bias_name]
+        return [acc] + [acc.to(dev, copy=True) for dev in self.devices[1:]]
+
+    def _attend(self, m, q, k_pages_m, v_pages_m, i, tables, live, N, Q):
+        """Member ``m``'s query heads against the K/V heads its pages hold:
+        the context [N, Q, heads * dh]."""
+        dh, G = self.dh, self.G
+        qlo, qhi = self.q_heads[m]
+        klo = self.kv_heads[m][0]
+        hk = k_pages_m.shape[2]
+        kl = k_pages_m[i][tables].permute(0, 2, 1, 3, 4).reshape(N, hk, self.t_eff, dh)
+        vl = v_pages_m[i][tables].permute(0, 2, 1, 3, 4).reshape(N, hk, self.t_eff, dh)
+        lo, hi = qlo // G, (qhi - 1) // G + 1  # the kv heads these q heads read
+        nq, nk = qhi - qlo, hi - lo
+        g = nq // nk
+        if nq % nk == 0 and all((h - qlo) // g + lo == h // G for h in range(qlo, qhi)):
+            kl, vl = kl[:, lo - klo:hi - klo], vl[:, lo - klo:hi - klo]
+        else:  # q heads straddle kv groups unevenly: one kv row per q head
+            idx = torch.tensor([h // G - klo for h in range(qlo, qhi)], device=kl.device)
+            kl, vl, nk, g = kl[:, idx], vl[:, idx], nq, 1
+        qg = q.permute(0, 2, 1, 3).reshape(N, nk, g, Q, dh)
+        s = torch.einsum("nkgqd,nktd->nkgqt", qg, kl.to(q.dtype)) * self.ops[m].scale
+        s = torch.where(live, s, -1e9)
+        ctx = torch.einsum("nkgqt,nktd->nkgqd", torch.softmax(s, -1), vl.to(q.dtype))
+        return ctx.reshape(N, nq, Q, dh).permute(0, 2, 1, 3).reshape(N, Q, nq * dh)
+
+    def run(self, tokens, pos, tables, k_pages, v_pages):
+        """``tokens``/``pos`` [N, Q], ``tables`` [N, P] → every member's
+        last-layer hidden states [N, Q, D] (replicated: bit-equal); the
+        members' pages are written in place."""
+        if isinstance(k_pages, torch.Tensor):
+            k_pages, v_pages = [k_pages], [v_pages]
         N, Q = pos.shape
-        D, H, H_kv, G, dh = self.D, self.H, self.H_kv, self.G, self.dh
-        tables = tables.long()
-        pos = pos.long()
-        x = self.params["emb/embedding/word_emb"][tokens.long()] * (D ** 0.5)
-        if self.rope:
-            cos, sin = self.rope_cos[pos][:, :, None], self.rope_sin[pos][:, :, None]
+        D, dh = self.D, self.dh
+        x, args = [], []
+        for m, (o, dev) in enumerate(zip(self.ops, self.devices)):
+            tab, p = tables.to(dev).long(), pos.to(dev).long()
+            h = o.params["emb/embedding/word_emb"][tokens.to(dev).long()] * (D ** 0.5)
+            rot = None
+            if o.rope:
+                cos, sin = o.rope_cos[p][:, :, None], o.rope_sin[p][:, :, None]
 
-            def rot(y):  # [N, Q, n, dh] rotated at each token's own position
-                half = dh // 2
-                y1, y2 = y[..., :half].float(), y[..., half:].float()
-                return torch.cat([y1 * cos - y2 * sin, y1 * sin + y2 * cos], -1).to(y.dtype)
-        else:
-            x = x + self.pe[pos]
-        phys = torch.gather(tables, 1, pos // self.page_size)  # [N, Q]
-        off = pos % self.page_size
-        live = _live_mask(self.t_eff, pos[..., None], self.window, self.device)[:, None, None]
-        cdt = k_pages.dtype
+                def rot(y, cos=cos, sin=sin):  # rotated at each token's own position
+                    half = dh // 2
+                    y1, y2 = y[..., :half].float(), y[..., half:].float()
+                    return torch.cat([y1 * cos - y2 * sin, y1 * sin + y2 * cos], -1).to(y.dtype)
+            else:
+                h = h + o.pe[p]
+            live = _live_mask(self.t_eff, p[..., None], o.window, dev)[:, None, None]
+            x.append(h)
+            args.append((tab, torch.gather(tab, 1, p // self.page_size), p % self.page_size,
+                         live, rot))
         for i in range(self.L):
             pfx = f"layer_{i}/self_attn"
-            q = self.proj(x, f"{pfx}/q").reshape(N, Q, H, dh)
-            k = self.proj(x, f"{pfx}/k").reshape(N, Q, H_kv, dh)
-            v = self.proj(x, f"{pfx}/v").reshape(N, Q, H_kv, dh)
-            if self.rope:
-                q, k = rot(q), rot(k)
-            # advanced indices around a slice: the indexed shape is
-            # [N, Q, H_kv, dh], as NumPy's and JAX's ``.at[...]`` give it
-            k_pages[i][phys, :, off] = k.to(cdt)
-            v_pages[i][phys, :, off] = v.to(cdt)
-            kl = k_pages[i][tables].permute(0, 2, 1, 3, 4).reshape(N, H_kv, self.t_eff, dh)
-            vl = v_pages[i][tables].permute(0, 2, 1, 3, 4).reshape(N, H_kv, self.t_eff, dh)
-            qg = q.permute(0, 2, 1, 3).reshape(N, H_kv, G, Q, dh)
-            s = torch.einsum("nkgqd,nktd->nkgqt", qg, kl.to(q.dtype)) * self.scale
-            s = torch.where(live, s, -1e9)
-            ctx = torch.einsum("nkgqt,nktd->nkgqd", torch.softmax(s, -1), vl.to(q.dtype))
-            ctx = ctx.reshape(N, H, Q, dh).permute(0, 2, 1, 3).reshape(N, Q, D)
-            x = self.ln(x + self.proj(ctx, f"{pfx}/out"), f"layer_{i}/layer_norm")
-            x = self.ln(x + self.ffn(x, i), f"layer_{i}/layer_norm_1")
+            partials = []
+            for m in range(len(self.members)):
+                tab, phys, off, live, rot = args[m]
+                klo, khi = self.kv_heads[m]
+                k = self._cols(m, x[m], f"{pfx}/k").reshape(N, Q, khi - klo, dh)
+                v = self._cols(m, x[m], f"{pfx}/v").reshape(N, Q, khi - klo, dh)
+                if rot is not None:
+                    k = rot(k)
+                # advanced indices around a slice: the indexed shape is
+                # [N, Q, heads, dh], as NumPy's and JAX's ``.at[...]`` give it
+                cdt = k_pages[m].dtype
+                k_pages[m][i][phys, :, off] = k.to(cdt)
+                v_pages[m][i][phys, :, off] = v.to(cdt)
+                qlo, qhi = self.q_heads[m]
+                if qhi == qlo:
+                    continue
+                q = self._cols(m, x[m], f"{pfx}/q").reshape(N, Q, qhi - qlo, dh)
+                if rot is not None:
+                    q = rot(q)
+                ctx = self._attend(m, q, k_pages[m], v_pages[m], i, tab, live, N, Q)
+                partials.append(ctx @ self.members[m][f"{pfx}/out/w"])
+            y = self._psum(partials, f"{pfx}/out/b")
+            x = [o.ln(xm + ym, f"layer_{i}/layer_norm") for o, xm, ym in zip(self.ops, x, y)]
+            fpfx = f"layer_{i}/ffn"
+            partials = []
+            for m in range(len(self.members)):
+                lo, hi = self.ffn_cols[m]
+                if hi == lo:
+                    continue
+                if self.swiglu:
+                    h = self._cols(m, x[m], f"{fpfx}/fc1") * F.silu(
+                        self._cols(m, x[m], f"{fpfx}/gate"))
+                else:
+                    h = F.relu(self._cols(m, x[m], f"{fpfx}/fc1"))
+                partials.append(h @ self.members[m][f"{fpfx}/fc2/w"])
+            y = self._psum(partials, f"{fpfx}/fc2/b")
+            x = [o.ln(xm + ym, f"layer_{i}/layer_norm_1") for o, xm, ym in zip(self.ops, x, y)]
         return x
 
     def prefill_chunk(self, tokens, pos0: int, last_index: int, page_table, k_pages, v_pages):
         """One sequence's chunk ``tokens`` [C] at positions [pos0, pos0+C)
         through ``page_table`` [P]: the logits [vocab] at chunk index
         ``last_index``, clamped into [0, C) as the JAX package's dynamic
-        index clamps it (a chunk before the prompt's last ignores them)."""
+        index clamps it (a chunk before the prompt's last ignores them), on
+        member 0's device."""
         C = tokens.shape[0]
-        pos = (pos0 + torch.arange(C, device=self.device))[None]
-        x = self.run(tokens[None], pos, page_table[None], k_pages, v_pages)
-        return self.logits_of(x[0, min(max(last_index, 0), C - 1)])
+        pos = (pos0 + torch.arange(C, device=tokens.device))[None]
+        x = self.run(tokens[None], pos, page_table[None], k_pages, v_pages)[0]
+        return self.ops[0].logits_of(x[0, min(max(last_index, 0), C - 1)])
 
     def decode_step(self, tokens, positions, page_tables, k_pages, v_pages):
         """``tokens``/``positions`` [S], ``page_tables`` [S, P]: the logits
         [S, vocab] after each slot's token."""
-        x = self.run(tokens[:, None], positions[:, None], page_tables, k_pages, v_pages)
-        return self.logits_of(x[:, 0])
+        x = self.run(tokens[:, None], positions[:, None], page_tables, k_pages, v_pages)[0]
+        return self.ops[0].logits_of(x[:, 0])
 
     def verify_step(self, tokens, positions, page_tables, k_pages, v_pages):
         """``tokens`` [S, K+1] at positions ``positions[s] .. +K``: the greedy
         argmax [S, K+1] after each position."""
-        pos = positions.long()[:, None] + torch.arange(tokens.shape[1], device=self.device)
-        x = self.run(tokens, pos, page_tables, k_pages, v_pages)
-        return torch.argmax(self.logits_of(x), -1).to(torch.int32)
+        pos = positions.long()[:, None] + torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.run(tokens, pos, page_tables, k_pages, v_pages)[0]
+        return torch.argmax(self.ops[0].logits_of(x), -1).to(torch.int32)
+
+
+class PagedDecoder(GroupPagedDecoder):
+    """:class:`GroupPagedDecoder` over one member: one model's whole
+    parameters ``params`` on their device, and one ``k_pages``/``v_pages``
+    tensor each ``[L, num_pages, H_kv, page_size, dh]``."""
+
+    def __init__(self, params: dict, cfg: dict, page_size: int, table_width: int):
+        super().__init__([params], {n: v.shape for n, v in params.items()}, cfg, page_size,
+                         table_width, kv_split=False)
 
 
 def _paged_sampling(temperature: float, generator) -> None:

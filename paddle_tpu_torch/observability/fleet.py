@@ -15,9 +15,8 @@ per-engine snapshots into fleet-scope rollup families under
   hierarchical-KV effectiveness per request and promoted pages per hit;
 - ``serving.fleet.breaker_open`` / ``load`` / ``shard_skew`` — per
   engine (``engine=`` label), the health/placement inputs
-  (``shard_skew`` only where an engine publishes
-  ``serving.group.shard_skew``, which the port's engines do not yet:
-  replica groups are ``ROADMAP.md`` §A item 4c);
+  (``shard_skew`` per ``group=``, where a group-backed engine publishes
+  ``serving.group.shard_skew``);
 - ``serving.fleet.engines`` / ``engines_healthy`` / ``handoffs_total``
   / ``rescued_total`` — fleet counts.
 

@@ -158,7 +158,7 @@ class Mesh:
     → size. ``with mesh:`` makes it the mesh that collectives resolve axis
     names against (as JAX's ``with mesh:``)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str], *, local: bool = False):
         self.devices = np.asarray(devices)
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = {
@@ -166,7 +166,11 @@ class Mesh:
         self._groups: Dict[str, Optional[object]] = {}
         # this rank's fellow members of each axis, in axis order
         self._members: Dict[str, list] = {}
-        self._make_groups()
+        # a local mesh lays out this process's own devices (a serving
+        # replica group's members): it owns no process group
+        self.local = local
+        if not local:
+            self._make_groups()
 
     @property
     def size(self) -> int:
@@ -304,17 +308,20 @@ def default_mesh() -> Mesh:
 
 
 def tp_submesh(devices: Sequence) -> Mesh:
-    """A single-axis ``tp`` Mesh over an explicit ordered rank tuple — the
-    program scope of one serving replica group. Rank ORDER is the caller's
-    contract."""
+    """A single-axis ``tp`` mesh over an explicit ordered member tuple — the
+    program scope of one serving replica group. The members are devices
+    that this process drives (``torch.device``\\ s, which may repeat: four
+    members on one card), so the mesh lays out member indices ``0..n-1``
+    and owns no process group. Member ORDER is the caller's contract."""
     devices = list(devices)
     enforce(devices, "tp_submesh needs at least one device")
-    return make_mesh({TP_AXIS: len(devices)}, devices=devices)
+    return Mesh(np.arange(len(devices), dtype=np.int64), (TP_AXIS,), local=True)
 
 
 def partition_devices(tp: int, devices: Optional[Sequence] = None):
-    """Slice a rank list into contiguous groups of ``tp``. Leftover ranks
-    that don't fill a group are dropped — returns a list of rank tuples."""
+    """Slice a device list (member devices, or ranks) into contiguous
+    groups of ``tp``. Leftover devices that don't fill a group are dropped —
+    returns a list of tuples. Without ``devices``: every rank of the world."""
     devices = list(devices if devices is not None else range(world_size()))
     enforce(tp >= 1, f"partition_devices: tp must be >= 1, got {tp}")
     return [

@@ -49,8 +49,15 @@ separate workers with a KV-page handoff (:class:`HandoffPayload`) and an
     out = router.submit(prompt_ids, 64).result()
     router.close()
 
-Not ported yet: replica groups (``serving.shardgroup``, ``ROADMAP.md`` §A
-item 4c).
+An engine may also serve on a tensor-parallel replica group
+(``serving.shardgroup``): the members are devices this process drives,
+each holding its block of the parameters and of the KV pages, and
+:meth:`DecodeFleet.from_groups` builds one engine per group::
+
+    from paddle_tpu_torch.serving import DecodeFleet, make_groups
+    fleet = DecodeFleet.from_groups(variables, cfg, make_groups(2))  # every card
+    out = fleet.submit(prompt_ids, 64).result()
+    fleet.close()
 """
 
 from paddle_tpu_torch.serving.admission import (
@@ -106,6 +113,14 @@ from paddle_tpu_torch.serving.scheduler import (
     INTERACTIVE,
     WeightedFairScheduler,
 )
+from paddle_tpu_torch.serving.shardgroup import (
+    GroupLayout,
+    GroupStragglerWatch,
+    ReplicaGroup,
+    default_layout,
+    make_groups,
+    probe_members,
+)
 
 __all__ = [
     "ServingEngine", "ServingConfig", "PendingResult", "DeadlineExceeded",
@@ -118,4 +133,6 @@ __all__ = [
     "RequestJournal", "replay_journal", "resume_incomplete", "DecodeFleet",
     "HostPagePool", "HostPageCorrupt", "prefix_digests",
     "HandoffPayload", "HandoffCorrupt", "DisaggRouter", "Autoscaler", "AutoscalerConfig",
+    "GroupLayout", "GroupStragglerWatch", "ReplicaGroup", "default_layout", "make_groups",
+    "probe_members",
 ]

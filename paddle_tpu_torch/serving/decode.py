@@ -60,10 +60,24 @@ worker, ``serving.disagg``). A handed-off request's pages move card to
 card without a host hop: one ``index_select`` from the prefill worker's
 page arrays, one ``index_copy_`` into the decode worker's.
 
-Not ported yet, and refused with ``NotImplementedError``: replica groups
-(``group=``/``layout=``, ``serving.shardgroup``: ``ROADMAP.md`` §A item
-4c) and manifest prewarm (``prewarm=True``, the ``tune/`` warm-up
-manifest, item 7).
+**Replica groups** (``group=``, ``serving.shardgroup``): the engine's
+steps span a tensor-parallel group's member devices, all driven by this
+process. The layout lint (``analysis.shard_analysis``) runs before
+anything is placed; then every member holds its block of the parameters
+(``GroupLayout.shard_params``) and of the KV pages (the head dim), the
+draft's too, and the step is ``GroupPagedDecoder``'s, whose row-parallel
+sums are the group's collective. The scheduler, page allocator, prefix
+cache, journal and breaker stay single: page ids are global across the
+members. A per-member canary (``probe_members``, every
+``group_probe_every_s``) feeds the shard-skew straggler watch; a member
+fault ejects the whole group (breaker trip, then migration through the
+fleet, else quarantine). Handoff and host-tier pages are always whole
+logical pages: gathered from the members' head shards, split back on
+implant.
+
+Not ported yet, and refused with ``NotImplementedError``: manifest
+prewarm (``prewarm=True``, the ``tune/`` warm-up manifest, ``ROADMAP.md``
+§A item 7).
 
 Telemetry as in the JAX package: with tracing on
 (``tracing.tracing_enabled()``, the default) every request is a trace
@@ -100,6 +114,7 @@ from paddle_tpu_torch.core import retry as retry_mod
 from paddle_tpu_torch.core.dtypes import ieee_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.models.transformer_lm import (
+    GroupPagedDecoder,
     PagedDecoder,
     _params_on,
     _sample,
@@ -126,6 +141,14 @@ from paddle_tpu_torch.serving.recovery import (
     RequestJournal,
     RescuePacket,
     RetriesExhausted,
+)
+from paddle_tpu_torch.serving.shardgroup import (
+    KV_HEAD_DIM,
+    GroupLayout,
+    GroupStragglerWatch,
+    ReplicaGroup,
+    default_layout,
+    probe_members,
 )
 from paddle_tpu_torch.tracing import waterfall
 
@@ -226,6 +249,19 @@ class DecodeConfig:
     # requests drop, incomplete ones are rewritten as snapshots into a
     # fresh segment (atomic publish). None = unbounded growth.
     journal_compact_bytes: Optional[int] = None
+    # -- replica groups (serving.shardgroup) ------------------------------
+    # per-member canary cadence when the engine is group-backed: each
+    # member device is timed individually so a fault or stall is
+    # attributable to ONE member of the group
+    group_probe_every_s: float = 0.05
+    # per-shard probe-time skew (vs the median shard) that flags a
+    # straggler member inside the group
+    group_skew_ratio: float = 4.0
+    # statically lint the GroupLayout against the actual param tree + KV
+    # geometry BEFORE placing anything on devices (analysis.shard_analysis):
+    # layout errors (dead rules, rank mismatches, kv-geometry violations)
+    # raise here instead of surfacing as a wrong placement
+    lint_layout: bool = True
     # -- hierarchical KV host tier (serving.host_tier) --------------------
     # byte budget for a PRIVATE host-RAM page pool behind the radix tree
     # (requires prefix_cache): radix inserts write through to host RAM,
@@ -403,6 +439,12 @@ class DecodeEngine:
     ``DecodeConfig.prefix_cache=True`` adds the radix prefix cache: hot
     prompt prefixes prefill once and later requests adopt the shared
     pages (refcounted, copy-on-write).
+
+    ``group=`` (a :class:`~paddle_tpu_torch.serving.shardgroup.ReplicaGroup`)
+    serves on a tensor-parallel replica group under ``layout`` (default
+    :func:`~paddle_tpu_torch.serving.shardgroup.default_layout`): the
+    engine's device is the group's member 0, and the parameters (on any
+    device) are placed block by block on the members.
     """
 
     def __init__(
@@ -414,16 +456,14 @@ class DecodeEngine:
         decode: Optional[DecodeConfig] = None,
         draft_variables=None,
         draft_cfg: Optional[dict] = None,
-        group=None,
-        layout=None,
+        group: Optional[ReplicaGroup] = None,
+        layout: Optional[GroupLayout] = None,
         host_tier=None,
-        device="cuda",
+        device=None,
     ):
         self.config = config or ServingConfig()
         self.decode_config = dconf = decode or DecodeConfig()
         self.model_cfg = dict(model_cfg)
-        if group is not None or layout is not None:
-            raise _not_ported("group=/layout= (serving.shardgroup replica groups)", "4c")
         if dconf.prewarm:
             raise _not_ported("prewarm=True (the tune/ warmup manifest)", "7")
         enforce(dconf.max_slots >= 1,
@@ -437,7 +477,13 @@ class DecodeEngine:
         enforce(dconf.max_context % dconf.prefill_chunk == 0,
                 f"max_context ({dconf.max_context}) must be a multiple of "
                 f"prefill_chunk ({dconf.prefill_chunk})")
-        self._device = cfg_mod.resolve_device(device)
+        if group is not None:
+            members = [cfg_mod.resolve_device(d) for d in group.devices]
+            enforce(device is None or cfg_mod.resolve_device(device) == members[0],
+                    f"DecodeEngine: device={device!r} is not the group's member 0 "
+                    f"({members[0]}); a group engine runs on its members")
+            device = members[0]
+        self._device = cfg_mod.resolve_device("cuda" if device is None else device)
         pages_per_slot = dconf.max_context // dconf.page_size
         num_pages = (dconf.num_pages if dconf.num_pages is not None
                      else 1 + dconf.max_slots * pages_per_slot)
@@ -447,19 +493,46 @@ class DecodeEngine:
         self.metrics = DecodeMetrics(engine_label=self.config.engine_label)
         self.cost = DecodeCostModel()
 
-        params = _params_on(variables, self._device, "DecodeEngine")
+        # replica-group mode (serving.shardgroup): every member holds its
+        # block of the parameters and of the pages, and the step functions
+        # are GroupPagedDecoder's over the members' tensors
+        self._group = group
+        self._layout = (layout or default_layout()) if group is not None else None
+        self._straggler = (GroupStragglerWatch(group, ratio=dconf.group_skew_ratio)
+                           if group is not None else None)
+        self._last_probe = 0.0
         cdt = (dconf.cache_dtype if dconf.cache_dtype is not None
                else self.config.cache_dtype)
         self._cache_dtype = cdt or torch.float32
         pshape = paged_cache_shape(self.model_cfg, num_pages, dconf.page_size)
-        self._model = PagedDecoder(params, self.model_cfg, dconf.page_size, pages_per_slot)
+        # one logical page [L, H_kv, page_size, dh]: a handoff's and the
+        # host tier's unit, whole whatever the group splits
+        self._page_shape = (pshape[0],) + tuple(pshape[2:])
+        if group is None:
+            params = _params_on(variables, self._device, "DecodeEngine")
+            self._model = PagedDecoder(params, self.model_cfg, dconf.page_size, pages_per_slot)
+            self._k_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
+            self._v_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
+        else:
+            params = variables.params if hasattr(variables, "params") else variables
+            if dconf.lint_layout:
+                # fail on a bad layout BEFORE any placement: errors raise
+                # with every finding listed, warnings warn_once
+                from paddle_tpu_torch.analysis.shard_analysis import (
+                    lint_group_layout_or_raise,
+                )
+
+                lint_group_layout_or_raise(
+                    params, self._layout, group.mesh,
+                    kv_page_shape=pshape, kv_geometry=self._kv.geometry(),
+                    where=f"DecodeEngine[{group.name}]")
+            self._model, self._k_pages, self._v_pages = self._place_group(
+                params, self.model_cfg, pshape, pages_per_slot)
         # roofline-instrumented model calls: each call's counted costs on
         # its first call, its device time after that
         self._prefill = roofline.instrument("serving.decode.prefill", self._model.prefill_chunk)
         self._step = roofline.instrument("serving.decode.step", self._decode_and_sample)
         self._verify = roofline.instrument("serving.decode.verify", self._model.verify_step)
-        self._k_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
-        self._v_pages = torch.zeros(pshape, dtype=self._cache_dtype, device=self._device)
         self._gen = (torch.Generator(device=self._device).manual_seed(dconf.rng_seed)
                      if dconf.temperature > 0.0 else None)
         # distinct argument signatures each step function was called with
@@ -480,19 +553,28 @@ class DecodeEngine:
                     "draft and target models must share a vocabulary "
                     f"({self.draft_cfg.get('vocab')} vs "
                     f"{self.model_cfg.get('vocab')})")
-            dparams = _params_on(draft_variables, self._device, "DecodeEngine draft")
             self._spec_k = int(dconf.spec_tokens)
             # the draft reads/writes THROUGH the same page tables: its own
             # page tensors, same (num_pages, page_size) geometry, so slot
             # bookkeeping (grow/preempt/trim) covers both caches at once
             dshape = paged_cache_shape(self.draft_cfg, num_pages, dconf.page_size)
-            self._draft = PagedDecoder(dparams, self.draft_cfg, dconf.page_size, pages_per_slot)
+            if group is None:
+                dparams = _params_on(draft_variables, self._device, "DecodeEngine draft")
+                self._draft = PagedDecoder(dparams, self.draft_cfg, dconf.page_size,
+                                           pages_per_slot)
+                self._dk_pages = torch.zeros(dshape, dtype=self._cache_dtype,
+                                             device=self._device)
+                self._dv_pages = torch.zeros(dshape, dtype=self._cache_dtype,
+                                             device=self._device)
+            else:
+                dparams = (draft_variables.params if hasattr(draft_variables, "params")
+                           else draft_variables)
+                self._draft, self._dk_pages, self._dv_pages = self._place_group(
+                    dparams, self.draft_cfg, dshape, pages_per_slot)
             self._draft_prefill = roofline.instrument("serving.decode.draft_prefill",
                                                       self._draft.prefill_chunk)
             self._draft_step = roofline.instrument("serving.decode.draft_step",
                                                    self._draft.decode_step)
-            self._dk_pages = torch.zeros(dshape, dtype=self._cache_dtype, device=self._device)
-            self._dv_pages = torch.zeros(dshape, dtype=self._cache_dtype, device=self._device)
 
         # -- radix prefix cache -------------------------------------------
         self._prefix: Optional[RadixPrefixCache] = None
@@ -607,11 +689,41 @@ class DecodeEngine:
 
     # -- startup -----------------------------------------------------------
 
+    def _place_group(self, params, cfg: dict, pshape, pages_per_slot: int):
+        """Place one model on the group: each member's block of the
+        parameters (the layout's), zero page tensors per member (split on
+        the head dim where the layout shards it), and the group decoder
+        over them. Returns ``(decoder, k_pages, v_pages)``."""
+        group, layout = self._group, self._layout
+        spec = layout.kv_page_spec(pshape, group.mesh)
+        enforce(all(a is None for d, a in enumerate(spec) if d != KV_HEAD_DIM),
+                f"DecodeEngine[{group.name}]: KV page spec {spec} shards a dim other than "
+                f"the head dim ({KV_HEAD_DIM}); page ids and offsets are global across a group")
+        kv_split = spec[KV_HEAD_DIM] is not None
+        mshape = list(pshape)
+        if kv_split:
+            mshape[KV_HEAD_DIM] //= group.tp
+        members = layout.shard_params(group, params)
+        model = GroupPagedDecoder(members, {n: v.shape for n, v in params.items()}, cfg,
+                                  self.decode_config.page_size, pages_per_slot, kv_split)
+        k = [torch.zeros(mshape, dtype=self._cache_dtype, device=d) for d in group.devices]
+        v = [torch.zeros(mshape, dtype=self._cache_dtype, device=d) for d in group.devices]
+        return model, k, v
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self._device)
 
-    def _sign(self, kind: str, *tensors: torch.Tensor) -> None:
-        self._signatures[kind].add(tuple((tuple(t.shape), t.dtype) for t in tensors))
+    def _sign(self, kind: str, *tensors) -> None:
+        """Note one call's argument signature (a group's page lists count
+        every member's page tensor)."""
+        flat = [t for x in tensors for t in (x if isinstance(x, list) else [x])]
+        self._signatures[kind].add(tuple((tuple(t.shape), t.dtype) for t in flat))
+
+    def _synchronize(self) -> None:
+        """Wait for every card this engine runs on."""
+        for dev in self._model.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _warmup(self) -> None:
         """Run the prefill chunk and the decode step (and the draft and
@@ -635,8 +747,7 @@ class DecodeEngine:
                                   self._dev(z), tables)
             if self._prefix is not None:
                 self._copy_page(SCRATCH_PAGE, SCRATCH_PAGE)
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        self._synchronize()
 
     def decode_step_cache_size(self) -> int:
         """Distinct argument signatures of the decode step seen so far: 1
@@ -685,11 +796,31 @@ class DecodeEngine:
         return self._breaker
 
     @property
+    def group(self) -> Optional[ReplicaGroup]:
+        """The tp replica group backing this engine (None = the classic
+        single-device mode)."""
+        return self._group
+
+    @property
     def tp_degree(self) -> int:
-        """Devices one decode step spans: 1 (replica groups, whose steps
-        span several, are ``ROADMAP.md`` §A item 4c). A handoff gathered
-        under another degree is re-prefilled, not adopted."""
-        return 1
+        """Tensor-parallel degree of the backing step (1 = single device).
+        Stamped into handoff payloads so cross-group adoption with a
+        DIFFERENT degree degrades to re-prefill instead of implanting pages
+        computed by another partition of the step."""
+        return self._group.tp if self._group is not None else 1
+
+    def _manifest_name(self) -> str:
+        """This engine's warm-up manifest identity (the JAX package's):
+        model dims + the static decode-shape knobs, and ``_tp{n}`` for a
+        group, whose step is another program than the single-device one."""
+        d = self.decode_config
+        mc = self.model_cfg
+        name = "decode_L{l}_D{dm}_S{s}_P{p}_C{c}".format(
+            l=mc.get("n_layers", 0), dm=mc.get("d_model", 0),
+            s=d.max_slots, p=d.page_size, c=d.prefill_chunk)
+        if self._group is not None:
+            name += f"_tp{self._group.tp}"
+        return name
 
     def load(self) -> float:
         """Live work on this engine: active slots plus every parked or
@@ -723,33 +854,52 @@ class DecodeEngine:
         return self._verify(block, positions, tables, self._k_pages, self._v_pages)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Device-side page copy for copy-on-write, in every page tensor."""
+        """Device-side page copy for copy-on-write, in every page tensor
+        (every member's, in a group)."""
         pages = [self._k_pages, self._v_pages]
         if self._spec_k:
             pages += [self._dk_pages, self._dv_pages]
         for p in pages:
-            p[:, dst] = p[:, src]
+            for t in (p if isinstance(p, list) else [p]):
+                t[:, dst] = t[:, src]
 
     def _page_index(self, pages: Sequence[int]) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pages, np.int64)).to(self._device)
 
+    def _member_pages(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The K and V page tensors, one per member (one on one device)."""
+        return tuple(p if isinstance(p, list) else [p] for p in (self._k_pages, self._v_pages))
+
     def _gather_pages(self, pages: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """K and V of physical ``pages``, each ``[n, L, H_kv, page_size,
         dh]`` (page ``i`` = ``[i]``), gathered on the engine's device by one
-        ``index_select`` per page array: the handoff's and the demote's
-        source, the JAX package's ``gather_kv_page`` for n pages at once."""
+        ``index_select`` per page tensor: the handoff's and the demote's
+        source, the JAX package's ``gather_kv_page`` for n pages at once.
+        A group's pages are always whole logical pages: the members' head
+        shards, concatenated in member order."""
         idx = self._page_index(pages)
-        return (self._k_pages.index_select(1, idx).transpose(0, 1),
-                self._v_pages.index_select(1, idx).transpose(0, 1))
+        # pages whole on every member (replicated) are member 0's
+        n = len(self._model.devices) if self._model.kv_split else 1
+
+        def whole(members):
+            parts = [t.index_select(1, idx.to(t.device)).to(self._device) for t in members[:n]]
+            return (parts[0] if n == 1 else torch.cat(parts, KV_HEAD_DIM)).transpose(0, 1)
+
+        k, v = self._member_pages()
+        return whole(k), whole(v)
 
     def _implant_pages(self, pages: Sequence[int], k, v) -> None:
         """Write ``k``/``v`` (``[n, L, H_kv, page_size, dh]``, on any
         device, any float dtype) into physical ``pages`` by one
-        ``index_copy_`` per page array (``scatter_kv_page`` of the JAX
-        package for n pages)."""
+        ``index_copy_`` per page tensor (``scatter_kv_page`` of the JAX
+        package for n pages); each member takes its heads."""
         idx = self._page_index(pages)
-        for dst, src in ((self._k_pages, k), (self._v_pages, v)):
-            dst.index_copy_(1, idx, src.to(self._device, self._cache_dtype).transpose(0, 1))
+        for m, (kp, vp) in enumerate(zip(*self._member_pages())):
+            lo, hi = self._model.kv_heads[m]
+            dev = self._model.devices[m]
+            for dst, src in ((kp, k), (vp, v)):
+                part = src.narrow(2, lo, hi - lo)  # [n, L, H_kv, page_size, dh]
+                dst.index_copy_(1, idx.to(dev), part.to(dev, self._cache_dtype).transpose(0, 1))
 
     # -- admission cost ----------------------------------------------------
 
@@ -973,6 +1123,7 @@ class DecodeEngine:
                 self._force_drain()
                 break
             self._sweep_cancel_deadline()
+            self._probe_group()
             self._admit_handoffs()
             self._admit()
             t0 = time.perf_counter()
@@ -1096,7 +1247,7 @@ class DecodeEngine:
         resume path, which re-prefills ``prompt + generated``
         token-exactly — a bad transfer costs latency, never a request."""
         dconf = self.decode_config
-        page_shape = (self._k_pages.shape[0],) + tuple(self._k_pages.shape[2:])
+        page_shape = self._page_shape
         while (self._pending_handoff
                and len(self._active) < dconf.max_slots):
             req, payload = self._pending_handoff.popleft()
@@ -1717,6 +1868,45 @@ class DecodeEngine:
         self._breaker_dirty = False
         if self._breaker.record_success():
             runlog.emit("engine_recovered", engine=self.metrics.engine_label)
+
+    def _probe_group(self) -> None:
+        """Group-backed engines only: per-member canary at
+        ``group_probe_every_s`` cadence. ANY member fault is fatal for the
+        WHOLE group — the step spans every member, so one sick member
+        poisons every shard's sums: trip the breaker and eject (migrate via
+        the fleet when attached, else quarantine through the resume path).
+        Healthy probes feed the shard-skew straggler watch, which localizes
+        a slow member by shard index."""
+        if self._group is None:
+            return
+        now = time.monotonic()
+        if now - self._last_probe < self.decode_config.group_probe_every_s:
+            return
+        self._last_probe = now
+        try:
+            times = probe_members(self._group, engine_label=self.metrics.engine_label)
+        except Exception as e:
+            self.metrics.record_member_fault()
+            self._breaker_dirty = True
+            runlog.emit("group_member_fault", engine=self.metrics.engine_label,
+                        group=self._group.name, error=repr(e),
+                        in_flight=len(self._active))
+            ptlog.error("group %s member fault (%r): ejecting whole group",
+                        self._group.name, e)
+            if self._rescue_sink is not None:
+                self._migrate_out(e)
+            else:
+                self._breaker.trip()
+                self._quarantine(e)
+            return
+        skew, flagged = self._straggler.observe(times)
+        self.metrics.set_shard_skew(skew)
+        for shard, secs in times.items():
+            self.metrics.set_shard_probe_seconds(shard, secs)
+        if flagged is not None:
+            self.metrics.record_shard_straggler()
+            runlog.emit("group_shard_straggler", engine=self.metrics.engine_label,
+                        group=self._group.name, shard=flagged, skew=round(skew, 3))
 
     def _recover_step_fault(self, exc: BaseException) -> None:
         """A decode step failed: every live request is reconstructible from

@@ -17,7 +17,10 @@ framework's trainer/pserver role split, made elastic:
   the ``"device"`` transport the pages never leave the card: the prefill
   worker gathers them with one ``index_select`` from its page arrays and
   the decode worker implants them with one ``index_copy_``, ordered by a
-  CUDA event recorded after the gather. On the ``"serialized"``
+  CUDA event recorded after the gather. A replica group
+  (``serving.shardgroup``) gathers from each member and concatenates the
+  head shards, so a payload always holds whole logical pages, and an
+  adopting group splits them back over its members. On the ``"serialized"``
   transport they travel as a :class:`HandoffPayload` wire blob with a CRC
   per page — the JAX package's format byte for byte, bf16 pages included
   — and a receiver rejects torn transfers (:class:`HandoffCorrupt`)

@@ -8,13 +8,13 @@ Everything mirrors into the typed registry
 JAX package's ``serving.*``, ``serving.decode.*``, ``serving.recovery.*``
 (step faults, recovery, migration, the request journal),
 ``serving.host_tier.*`` (the host KV tier), ``serving.disagg.*`` (the
-prefill/decode handoff) and ``serving.tenant.*`` family names, each child
+prefill/decode handoff), ``serving.group.*`` (replica groups: member
+faults, the shard-skew straggler watch) and ``serving.tenant.*`` family
+names, each child
 labeled with the engine (``engine="serving0"``, ``engine="decode1"``, ...
 from one sequence per process, as in the JAX package), so two engines in
 one process never collide. ``snapshot()`` returns the same counts as a
-plain dict, with the JAX package's keys, for tests and scripts. The
-``serving.group.*`` families of replica groups come with their port
-(``ROADMAP.md`` §A item 4c).
+plain dict, with the JAX package's keys, for tests and scripts.
 """
 
 from __future__ import annotations
@@ -383,6 +383,9 @@ class DecodeMetrics:
         # disaggregated prefill/decode (serving.disagg.* families)
         self.handoffs_out_total = 0       # prefilled requests published
         self.handoffs_in_total = 0        # handed-off requests adopted
+        # tp replica groups (serving.group.* families)
+        self.group_member_faults_total = 0  # member canary faults (ejections)
+        self.shard_stragglers_total = 0     # probes that flagged a slow shard
         # tenant-quota admission accounting (serving.tenant.* families)
         self._tenant_admitted: collections.Counter = collections.Counter()
         self._tenant_shed: collections.Counter = collections.Counter()
@@ -643,6 +646,29 @@ class DecodeMetrics:
             self.handoffs_in_total += 1
         self._inc("serving.disagg.handoffs_in_total")
 
+    # -- tp replica groups (serving.group.* families) ------------------------
+
+    def record_member_fault(self) -> None:
+        """A per-member canary probe raised — the whole group is being
+        ejected (breaker trip + migration); counted once per probe pass."""
+        with self._lock:
+            self.group_member_faults_total += 1
+        self._inc("serving.group.member_faults_total")
+
+    def record_shard_straggler(self) -> None:
+        """The straggler watch localized a slow member inside the group."""
+        with self._lock:
+            self.shard_stragglers_total += 1
+        self._inc("serving.group.shard_stragglers_total")
+
+    def set_shard_skew(self, skew: float) -> None:
+        """Worst shard's recent probe-time mean over the median shard mean
+        (1.0 = perfectly balanced) — the watch layer's localization signal."""
+        self._set("serving.group.shard_skew", skew)
+
+    def set_shard_probe_seconds(self, shard: int, seconds: float) -> None:
+        self._set("serving.group.shard_probe_seconds", seconds, shard=str(shard))
+
     # -- gauges ------------------------------------------------------------
 
     def set_load(self, load: float) -> None:
@@ -737,6 +763,8 @@ class DecodeMetrics:
                 "host_backpressure_total": self.host_backpressure_total,
                 "handoffs_out_total": self.handoffs_out_total,
                 "handoffs_in_total": self.handoffs_in_total,
+                "group_member_faults_total": self.group_member_faults_total,
+                "shard_stragglers_total": self.shard_stragglers_total,
                 "ttft_observed_total": self.ttft_observed_total,
                 "tpot_samples_total": self.tpot_samples_total,
                 "mean_step_occupancy": (

@@ -22,9 +22,10 @@ Three nested safety rings, as in the JAX package:
    format is the JAX package's byte for byte, so either package replays
    the other's journal.
 
-``DecodeFleet.from_groups`` (engines over tensor-parallel replica groups)
-is not ported: it raises ``NotImplementedError`` (``ROADMAP.md`` §A item
-4c).
+``DecodeFleet.from_groups`` builds a fleet whose engines serve on
+tensor-parallel replica groups (``serving.shardgroup``): a member fault
+ejects its whole group, and the fleet migrates the group's requests to a
+healthy one.
 """
 
 from __future__ import annotations
@@ -482,12 +483,27 @@ class DecodeFleet:
             eng._rescue_sink = self._rescue
 
     @classmethod
-    def from_groups(cls, variables, model_cfg, groups, **kwargs) -> "DecodeFleet":
-        """One engine per tensor-parallel replica group
-        (``serving.shardgroup``): not ported yet."""
-        raise NotImplementedError(
-            "DecodeFleet.from_groups (serving.shardgroup replica groups) is "
-            "not ported to paddle_tpu_torch yet (ROADMAP.md §A item 4c)")
+    def from_groups(cls, variables, model_cfg, groups, *,
+                    layout=None, config=None, decode=None,
+                    **engine_kwargs) -> "DecodeFleet":
+        """Build a fleet with one group-backed engine per
+        :class:`~paddle_tpu_torch.serving.shardgroup.ReplicaGroup`, all in
+        this process — the pod-scale shape where the routing unit is a tp
+        group, not a device. Engine labels default to the group names so
+        breaker trips, migrations and shard-skew gauges attribute to a
+        group."""
+        # imported here: decode.py imports this module's RescuePacket
+        from paddle_tpu_torch.serving.decode import DecodeEngine
+        from paddle_tpu_torch.serving.engine import ServingConfig
+        engines = []
+        for g in groups:
+            sc = dataclasses.replace(
+                config if config is not None else ServingConfig(),
+                engine_label=g.name)
+            engines.append(DecodeEngine(
+                variables, model_cfg, config=sc, decode=decode,
+                group=g, layout=layout, **engine_kwargs))
+        return cls(engines)
 
     def _order(self, candidates: Optional[List[Any]] = None) -> List[Any]:
         """Rotating view over ``candidates`` (default: every engine) —

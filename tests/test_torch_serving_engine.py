@@ -459,7 +459,7 @@ def test_close_timeout_force_finishes_with_drain_timeout(lm):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(group=object()), dict(layout=object()), dict(host_tier="pool"),
+    dict(group=2), dict(layout="default"), dict(host_tier="pool"),
     dict(decode=dict(host_tier_bytes=1 << 20, prefix_cache=True)),
     dict(decode=dict(journal_path="decode.wal")),
     dict(decode=dict(prefix_digest=True, prefix_cache=True)),
@@ -467,19 +467,20 @@ def test_close_timeout_force_finishes_with_drain_timeout(lm):
 ], ids=["group", "layout", "host_tier", "host_tier_bytes", "journal_path", "prefix_digest",
         "prewarm"])
 def test_unported_knobs_raise(lm, knob, tmp_path):
-    """The knobs the engine refused before the fleet slice. Those still
-    unported (replica groups, the warm-up manifest) raise naming their
-    ``ROADMAP.md`` item; the rest build an engine that serves token-exactly
-    (``tests/test_torch_serving_recovery.py``, ``test_torch_host_tier.py``
-    and ``test_torch_serving_disagg.py`` hold their flows against the JAX
+    """The knobs the engine refused before the fleet slice. The one still
+    unported (the warm-up manifest) raises naming its ``ROADMAP.md`` item;
+    the rest build an engine that serves token-exactly: ``group=`` a tp=2
+    replica group on two CPU members, ``layout=`` the same group under an
+    explicit ``default_layout()`` (``tests/test_torch_shardgroup.py``,
+    ``test_torch_serving_recovery.py``, ``test_torch_host_tier.py`` and
+    ``test_torch_serving_disagg.py`` hold their flows against the JAX
     package)."""
-    from paddle_tpu_torch.serving import HostPagePool
+    from paddle_tpu_torch.serving import HostPagePool, default_layout, make_groups
 
     dkw = dict(STARVED, **knob.get("decode", {}))
-    if "group" in knob or "layout" in knob or "prewarm" in dkw:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item (4c|7)"):
-            DecodeEngine(lm.params, lm.cfg, device="cpu", decode=DecodeConfig(**dkw),
-                         **{k: v for k, v in knob.items() if k != "decode"})
+    if "prewarm" in dkw:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 7"):
+            DecodeEngine(lm.params, lm.cfg, device="cpu", decode=DecodeConfig(**dkw))
         return
     if "journal_path" in dkw:
         dkw["journal_path"] = str(tmp_path / dkw["journal_path"])
@@ -487,11 +488,16 @@ def test_unported_knobs_raise(lm, knob, tmp_path):
     if "host_tier" in knob:
         pool = HostPagePool(1 << 20, STARVED["page_size"])
         dkw["prefix_cache"] = True
-    engine = DecodeEngine(lm.params, lm.cfg, decode=DecodeConfig(**dkw), host_tier=pool,
-                          device="cpu")
+    place = dict(device="cpu")
+    if "group" in knob or "layout" in knob:
+        place = dict(group=make_groups(2, devices=[torch.device("cpu")] * 2)[0])
+        if "layout" in knob:
+            place["layout"] = default_layout()
+    engine = DecodeEngine(lm.params, lm.cfg, decode=DecodeConfig(**dkw), host_tier=pool, **place)
     try:
         prompt, n, ref = lm.cases[0]
         np.testing.assert_array_equal(engine.infer(prompt, n).tokens, ref)
+        assert engine.tp_degree == (2 if "group" in place else 1)
     finally:
         _close(engine)
 

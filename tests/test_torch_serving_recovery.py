@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import torch_fleet_lm as flm
 from paddle_tpu.resilience import faults as jfaults
@@ -298,6 +299,21 @@ def test_fleet_no_healthy_engine_rejects_typed(lm):
         fleet.close(timeout=flm.WAIT_S)
 
 
-def test_from_groups_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
-        DecodeFleet.from_groups({}, {}, [])
+def test_from_groups_refused_naming_its_item(lm):
+    """Once refused, now ported: one engine per replica group (two tp=2
+    groups on four CPU members), labeled by the group, serving the fleet's
+    traffic token-exactly (``tests/test_torch_shardgroup.py`` holds the
+    member-fault migration)."""
+    from paddle_tpu_torch.serving import DecodeConfig, make_groups
+
+    fleet = DecodeFleet.from_groups(lm.params, lm.cfg,
+                                    make_groups(2, devices=[torch.device("cpu")] * 4),
+                                    decode=DecodeConfig(**flm.DC))
+    try:
+        assert [e.metrics.engine_label for e in fleet.engines] == ["group0", "group1"]
+        assert [e.tp_degree for e in fleet.engines] == [2, 2]
+        assert flm.tokens([fleet.submit(p, n) for p, n, _ in lm.mixed]) == flm.refs(lm.mixed)
+    finally:
+        fleet.close(timeout=flm.WAIT_S)
+    for e in fleet.engines:
+        e.kv.assert_no_leaks()
