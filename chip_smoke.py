@@ -240,8 +240,12 @@ Phases, each printing JSON lines:
                agreement as numbers), two more timed in bf16; each rank's
                launches of each kernel (6, 12, 24 forward with remat; 6),
                step ms, peak memory, the pipeline's exchange route.
+               (e)-(h) the axes composed (four gloo ranks), (i) the MoE LM
+               on model=2 x expert=2 with its rows over ("data",
+               "expert"), (j) the LM on data=2 with every matrix stored
+               over data and ZeRO-1 (see MP_PARTS).
                tools/torch_sp_nccl.py runs them over NCCL, one rank per
-               card.
+               card; tools/torch_mp_parts.py runs some parts alone.
  16. catalog — the Fluid catalog (CATALOG_*, BOOK_*, SRL_*): (a) every
                function of ops.math, the catalog's ops.nn functions,
                ops.losses, ops.control_flow, ops.nn3d and ops.vision at
@@ -602,7 +606,8 @@ INFER_RECORD_KEYS = {"pass", "model", "batch_size", "chips", "examples_per_sec",
 # masking rank r of the ring launches r + 1 forward kernels a layer (its
 # dead blocks are skipped), so 6 and 12 of each kernel a step; (b) the ring
 # at long context: SP_LONG_BATCH x SP_LONG_SEQ (4096 tokens of each row a
-# rank), numbers only, beside the one-rank step on the same batch; (c)
+# rank), 3 layers (3 and 6 of each kernel a step), numbers only, beside the
+# one-rank step on the same batch; (c)
 # Ulysses on seq=2: 4 heads a rank after the exchange, 6 launches of each
 # kernel a rank; (d) the MoE LM (SP_MOE: 8 experts, top1, capacity 1.25) on
 # expert=2, 4 experts a rank: the losses, the routers' aux losses and the
@@ -615,16 +620,22 @@ SP_MOE = dict(moe_experts=8, moe_router="top1", moe_capacity_factor=1.25, relu_d
 # steps timed after them)
 SP_PARTS = {
     "a_ring": (1024, TRAIN_BATCH, "seq", "ring", {}, 1, 2),
-    "b_ring_long": (SP_LONG_SEQ, SP_LONG_BATCH, "seq", "ring", {}, 0, 2),
+    "b_ring_long": (SP_LONG_SEQ, SP_LONG_BATCH, "seq", "ring", {"n_layers": 3}, 0, 2),
     "c_ulysses": (1024, TRAIN_BATCH, "seq", "ulysses", {}, 1, 2),
     "d_moe": (1024, TRAIN_BATCH, "expert", None, SP_MOE, 1, 2),
 }
 
 
+def lm_layers(overrides: dict) -> int:
+    """The LM's layers under a part's overrides (BASE_CFG's 6 by default)."""
+    return overrides.get("n_layers", 6)
+
+
 def sp_launches(part: str, rank: int) -> int:
-    """A part's launches of each kernel a step on ``rank``: 6 (a layer),
-    (rank + 1) x 6 on the causal ring (its live blocks)."""
-    return 6 * (rank + 1) if SP_PARTS[part][3] == "ring" else 6
+    """A part's launches of each kernel a step on ``rank``: one a layer,
+    (rank + 1) a layer on the causal ring (its live blocks)."""
+    n = lm_layers(SP_PARTS[part][4])
+    return n * (rank + 1) if SP_PARTS[part][3] == "ring" else n
 # (e) the ring's block math at the LM's attention shape (8 x 8 x 1024 x 64,
 # causal, two blocks of 512): both ranks emulated in one process through
 # flash_attention_with_lse and flash_attention_bwd_block at their offsets,
@@ -666,15 +677,16 @@ SP_RING_F32_TOL, SP_RING_BF16_RATIO = 1e-5, 1.5
 # either from f32 (PERF.md section 6). The pipeline runs each row's
 # arithmetic unchanged and holds bf16 at phase sp's limits.
 # (e)-(h): the axes composed as the JAX package's GSPMD composes them, the
-# LM at BASE_CFG, 8 x 1024, on four gloo ranks sharing the card ((h): the
-# phase's two). (e) pipe=2 x model=2, 4 microbatches: outside the stages
+# LM at BASE_CFG's widths, 8 x 1024, on four gloo ranks sharing the card
+# ((h): the phase's two); (e)-(g) at 4 layers, to make room in the
+# script's time. (e) pipe=2 x model=2, 4 microbatches: outside the stages
 # the embedding and the logits split over model; inside, each rank runs its
-# stage's 3 layers on its one row of each 2-row microbatch with the stage's
-# weights gathered whole: 12 launches of each kernel a step. (f) the ring on
+# stage's 2 layers on its one row of each 2-row microbatch with the stage's
+# weights gathered whole: 8 launches of each kernel a step. (f) the ring on
 # seq=2 x model=2 with P("data", "seq"): 4 heads and 512 tokens of each row
-# a rank, the ring within the rank's seq group: 6 or 12 of each kernel by
+# a rank, the ring within the rank's seq group: 4 or 8 of each kernel by
 # its ring position. (g) Ulysses on the same mesh: 2 heads a rank after the
-# exchange, 6 of each kernel. (e), (f) and (g) are held by (a)'s rule: their
+# exchange, 4 of each kernel. (e), (f) and (g) are held by (a)'s rule: their
 # model axis sums partial products of each row (the row-parallel
 # projections of (f) and (g); in (e) the logits' input gradient over the
 # vocabulary's blocks and each stage weight's gradient over the two ranks'
@@ -683,9 +695,20 @@ SP_RING_F32_TOL, SP_RING_BF16_RATIO = 1e-5, 1.5
 # data): after its held step its parameters equal the same step's without
 # ZeRO-1 bit for bit, and the one-rank step at phase sp's limits; 6 of each
 # kernel a rank.
+# (i) the MoE LM of phase sp on model=2 x expert=2 (four ranks), the batch's
+# rows split over ("data", "expert"): attention on each rank's 4 heads, its
+# 4 experts (replicated over model), the experts' buffers exchanged by
+# all-to-all over expert; held by (a)'s rule, each layer's kept tokens (over
+# the whole batch) and aux loss those of the one-rank f32 step; 6 of each
+# kernel a rank. (j) the LM on data=2 with every matrix stored over data
+# (dim 0, FSDP-like: gathered whole for the step, each rank updates its
+# rows) and ZeRO-1: each rank holds its windows at rest, half of every
+# matrix's bytes and half of Adam's slot bytes; bit-equal to its step
+# without ZeRO-1 and at phase sp's limits from the one-rank step; 6 of each
+# kernel a rank.
 MP_NMT = dict(n_layers=2, attn_dropout=0.0, relu_dropout=0.0, residual_dropout=0.0)
 MP_F32_HELD = ("a_model2", "d_nmt_model2", "e_pipe2_model2", "f_ring_seq2_model2",
-               "g_ulysses_seq2_model2")
+               "g_ulysses_seq2_model2", "i_moe_model2_expert2")
 MP_BF16_SPREAD = 2.0
 # each part: (model, seq_len, batch, the axis the ranks split (or the
 # composed mesh's axes beside data=1 on MP_COMPOSED_RANKS ranks), LM or NMT
@@ -698,18 +721,25 @@ MP_PARTS = {
                       {"pipe_n_micro": 4, "remat": True}, (24, 12, 12)),
     "d_nmt_model2": ("transformer", NMT_SEQ, NMT_BATCH, "model", MP_NMT, (6, 6, 6)),
     "e_pipe2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"pipe": 2, "model": 2},
-                       {"pipe_n_micro": 4}, (12, 12, 12)),
+                       {"pipe_n_micro": 4, "n_layers": 4}, (8, 8, 8)),
     "f_ring_seq2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"seq": 2, "model": 2},
-                           {}, None),
+                           {"n_layers": 4}, None),
     "g_ulysses_seq2_model2": ("transformer_lm", 1024, TRAIN_BATCH, {"seq": 2, "model": 2},
-                              {}, (6, 6, 6)),
+                              {"n_layers": 4}, (4, 4, 4)),
     "h_moe_expert2_zero1": ("transformer_lm", 1024, TRAIN_BATCH, "expert", SP_MOE, (6, 6, 6)),
+    "i_moe_model2_expert2": ("transformer_lm", 1024, TRAIN_BATCH, {"model": 2, "expert": 2},
+                             SP_MOE, (6, 6, 6)),
+    "j_lm_data2_stored": ("transformer_lm", 1024, TRAIN_BATCH, "data", {}, (6, 6, 6)),
 }
 MP_COMPOSED_RANKS = 4
 # the sequence-parallel mode of a part over its mesh's seq axis, and the
 # parts run with ZeRO-1
 MP_SEQ_MODE = {"f_ring_seq2_model2": "ring", "g_ulysses_seq2_model2": "ulysses"}
-MP_ZERO = ("h_moe_expert2_zero1",)
+MP_ZERO = ("h_moe_expert2_zero1", "j_lm_data2_stored")
+# the parts whose batch rows split over several axes (their batch specs'
+# dim 0), and those whose matrices are stored over data
+MP_ROWS = {"i_moe_model2_expert2": ("data", "expert")}
+MP_STORED = ("j_lm_data2_stored",)
 MP_HELD, MP_TIMED = 1, 2
 
 
@@ -725,7 +755,7 @@ def mp_launches(part: str, rank: int):
     on data=1 x seq x model), as phase sp's."""
     want = MP_PARTS[part][5]
     if want is None:
-        n = 6 * (rank // MP_PARTS[part][3]["model"] + 1)
+        n = lm_layers(MP_PARTS[part][4]) * (rank // MP_PARTS[part][3]["model"] + 1)
         want = (n, n, n)
     return dict(zip(HOPPER_KERNELS, want))
 
@@ -4274,8 +4304,10 @@ def router_calls() -> list:
     """The calls of the MoE routers (``parallel.moe._ROUTERS``, looked up at
     each call) from here on, each ``(token routes its dispatch keeps, its
     aux loss)``: the tokens a router drops are the routed ones minus the
-    kept. The routers are wrapped once a process; the caller clears the
-    list."""
+    kept. Inside a data-parallel step the kept routes are summed over the
+    step's token blocks (the whole batch's). The routers are wrapped once a
+    process; the caller clears the list."""
+    from paddle_tpu_torch.parallel import context as dp_context
     from paddle_tpu_torch.parallel import moe
 
     calls = getattr(router_calls, "calls", None)
@@ -4285,7 +4317,7 @@ def router_calls() -> list:
         def wrap(fn):
             def gate(logits, capacity, token_mask=None, rows=None):
                 dispatch, combine, aux = fn(logits, capacity, token_mask=token_mask, rows=rows)
-                calls.append((int(dispatch.sum()), float(aux.detach())))
+                calls.append((int(dp_context.global_sum(dispatch.sum())), float(aux.detach())))
                 return dispatch, combine, aux
 
             return gate
@@ -4405,8 +4437,14 @@ def sp_rank(rank, work, part):
 
 
 def sp_ranks(rank, work):
-    """One rank of phase sp: every part in turn (one spawn for the phase)."""
-    return {part: sp_rank(rank, work, part) for part in SP_PARTS}
+    """One rank of phase sp: every part in turn (one spawn for the phase),
+    each with its seconds."""
+    out = {}
+    for part in SP_PARTS:
+        t0 = time.perf_counter()
+        out[part] = sp_rank(rank, work, part)
+        out[part]["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def sp_ring_block_math():
@@ -4509,7 +4547,11 @@ def sp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
               "rel_l2_out_dq_dk_dv": math, "f32_tol": SP_RING_F32_TOL,
               "bf16_ratio": SP_RING_BF16_RATIO, "card": smi})
         t0 = time.perf_counter()
-        refs = {part: sp_reference(part, work) for part in SP_PARTS}
+        refs = {}
+        for part in SP_PARTS:
+            t1 = time.perf_counter()
+            refs[part] = sp_reference(part, work)
+            refs[part]["seconds"] = time.perf_counter() - t1
         ref_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         by_rank = launch.spawn(sp_ranks, ranks, args=(work,), device=device, backend=backend)
@@ -4563,9 +4605,9 @@ def sp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
 
 
 def mp_mesh(part: str, ranks: int):
-    """The mesh of a phase mp part over ``ranks``: model=ranks or
-    expert=ranks, the pipeline's pipe=2 beside data=ranks/2, or a composed
-    part's own axes beside data=1."""
+    """The mesh of a phase mp part over ``ranks``: model=ranks,
+    expert=ranks or data=ranks, the pipeline's pipe=2 beside data=ranks/2,
+    or a composed part's own axes beside data=1."""
     from paddle_tpu_torch.parallel import make_mesh
 
     axis = MP_PARTS[part][3]
@@ -4573,6 +4615,8 @@ def mp_mesh(part: str, ranks: int):
         return make_mesh(data=1, **axis)
     if axis in ("model", "expert"):
         return make_mesh(data=1, **{axis: ranks})
+    if axis == "data":
+        return make_mesh(data=ranks)
     return make_mesh(data=ranks // 2, pipe=2)
 
 
@@ -4697,7 +4741,12 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
     spec = mp_spec(part, mesh)
     batch = spec.synth_batch(batch_size, np.random.RandomState(0))
     v0 = spec.model.init(0, *batch)
-    specs = [P("data", "seq")] * 2 if part in MP_SEQ_MODE else None
+    if part in MP_STORED:  # every matrix's dim 0 stored over data
+        for info in spec.model.param_info.values():
+            if len(info.shape) >= 2:
+                info.sharding = ("data",) + (None,) * (len(info.shape) - 1)
+    specs = ([P("data", "seq")] * 2 if part in MP_SEQ_MODE else
+             [P(MP_ROWS[part])] * 2 if part in MP_ROWS else None)
 
     def data_parallel(zero):
         return DataParallel(spec.model, spec.optimizer(), mesh=mesh, batch_outputs=(),
@@ -4722,6 +4771,28 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
         res["exchange"] = {"step_ms": step_ms, **ex, "share": ex["ms"] / step_ms}
     q = next((k for k in v.params if k.endswith("self_attn/q/w")), None)
     res["q_block"] = [list(v.params[q].shape), list(v0.params[q].shape)]
+    res["local_experts"] = next((int(t.shape[0]) for k, t in v.params.items()
+                                 if k.endswith("moe_ffn/w_in")), None)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # at rest: this rank's parameter and slot bytes, the whole model's, and
+    # what its windows hold (a matrix stored over data: half its rows; under
+    # ZeRO-1 a replicated parameter's slots split over data where it divides)
+    n_data = mesh.shape["data"]
+    res["bytes"] = {
+        "params": nbytes(v.params.values()),
+        "slots": nbytes(t for d in o.slots.values() for t in d.values()),
+        "params_whole": nbytes(v0.params.values()),
+        "slots_whole": 2 * sum(t.numel() * 4 for t in v0.params.values()),
+        "params_windows": sum(t.numel() * t.element_size() // (
+            n_data if part in MP_STORED and t.dim() >= 2 else 1) for t in v0.params.values()),
+        "slots_windows": 2 * sum(t.numel() * 4 // (
+            n_data if (part in MP_STORED and t.dim() >= 2) or (
+                part in MP_ZERO and t.shape[0] % n_data == 0) else 1)
+            for t in v0.params.values()),
+    }
     ref = torch.load(os.path.join(work, f"{part}_{compute}.pt"),
                      map_location=torch.device("cuda"))
     fv, fo = dp.full_state(v, o)
@@ -4733,16 +4804,15 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
     if part in MP_ZERO:  # the held steps without ZeRO-1: the same parameters, bit for bit
         plain = data_parallel(False)
         pv, po = plain.init(0, *batch, variables=v0)
+        plain_local = plain.put_batch(*batch)
         for _ in range(held):
-            r = plain.step(pv, po, *local)
+            r = plain.step(pv, po, *plain_local)
             pv, po = r.variables, r.opt_state
         pfv, _ = plain.full_state(pv, po)
         res["zero_equals_plain"] = all(torch.equal(fv.params[k], pfv.params[k]) for k in pfv.params)
         res["slot_bytes"] = [sum(t.numel() * t.element_size() for d in st.slots.values()
                                  for t in d.values()) for st in (o, po)]
-        local_w_in = next(t for k, t in v.params.items() if k.endswith("moe_ffn/w_in"))
-        res["local_experts"] = int(local_w_in.shape[0])
-        del plain, pv, po, pfv, r
+        del plain, pv, po, pfv, r, plain_local
     del dp, v, o, fv, fo, ref, v0, batch, local
     torch.cuda.empty_cache()
     return res
@@ -4750,9 +4820,14 @@ def mp_rank(rank, work, part, compute="bf16", held=MP_HELD, timed=MP_TIMED):
 
 def mp_ranks(rank, work, parts):
     """One rank of phase mp: every run of each of ``parts`` in turn (one
-    spawn for them)."""
-    return {(part, run[0]): mp_rank(rank, work, part, *run)
-            for part in parts for run in mp_runs(part)}
+    spawn for them), each with its seconds."""
+    out = {}
+    for part in parts:
+        for run in mp_runs(part):
+            t0 = time.perf_counter()
+            out[(part, run[0])] = mp_rank(rank, work, part, *run)
+            out[(part, run[0])]["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
@@ -4778,8 +4853,13 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
         groups.append((MP_COMPOSED_RANKS, [p for p in MP_PARTS if mp_composed(p)]))
     try:
         t0 = time.perf_counter()
-        refs = {(part, run[0]): mp_reference(part, work, *run)
-                for _, parts in groups for part in parts for run in mp_runs(part)}
+        refs = {}
+        for _, parts in groups:
+            for part in parts:
+                for run in mp_runs(part):
+                    t1 = time.perf_counter()
+                    refs[(part, run[0])] = mp_reference(part, work, *run)
+                    refs[(part, run[0])]["seconds"] = time.perf_counter() - t1
         ref_s = time.perf_counter() - t0
         by_rank, ranks_s = {}, {}
         for n, parts in groups:
@@ -4824,7 +4904,7 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
                 # Ulysses' all-to-all
                 route = ("ppermute" if res["mesh"].get("pipe", 1) > 1
                          or MP_SEQ_MODE.get(part) == "ring" else
-                         "all_to_all" if part in MP_SEQ_MODE else None)
+                         "all_to_all" if part in MP_SEQ_MODE or part in MP_ROWS else None)
                 if route is not None:
                     checks[f"{tag}_rank{r}_{route}_{route_want}"] = set(
                         res["routes"].get(route, {})) == {route_want}
@@ -4833,13 +4913,25 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
                         MP_PARTS[part][2], MP_PARTS[part][1] // res["mesh"]["seq"]]
                 if part in MP_ZERO:
                     checks[f"{tag}_rank{r}_equals_plain_bitwise"] = res["zero_equals_plain"]
+                if res["local_experts"] is not None:
                     checks[f"{tag}_rank{r}_its_experts"] = \
                         res["local_experts"] * res["mesh"]["expert"] == SP_MOE["moe_experts"]
+                if held and part in MP_ROWS:  # each layer's router over the whole batch
+                    checks[f"{tag}_rank{r}_kept_tokens_equal"] = \
+                        [k for k, _ in res["routers"]] == [k for k, _ in ref["routers"]]
+                    checks[f"{tag}_rank{r}_aux_within_tol"] = len(res["routers"]) == len(
+                        ref["routers"]) and all(abs(a - b) <= TRAIN_LOSS_TOL for (_, a), (_, b)
+                                                in zip(res["routers"], ref["routers"]))
+                if part in MP_STORED:  # its windows at rest
+                    b = res["bytes"]
+                    checks[f"{tag}_rank{r}_holds_its_windows"] = \
+                        b["params"] == b["params_windows"] and b["slots"] == b["slots_windows"]
             emit({"phase": "mp", "part": part, "compute": compute,
                   "agreement_checked": held or spread is not None, "model": MP_PARTS[part][0],
                   "seq_len": MP_PARTS[part][1], "batch": MP_PARTS[part][2],
                   "mesh": per_rank[0]["mesh"], "overrides": MP_PARTS[part][4],
                   "seq_mode": MP_SEQ_MODE.get(part), "zero1": part in MP_ZERO,
+                  "rows_over": MP_ROWS.get(part), "stored_over_data": part in MP_STORED,
                   "launches_predicted": [mp_launches(part, r) for r in range(len(per_rank))],
                   "backend": backend, "one_rank": ref,
                   "ranks": per_rank, "loss_tol": TRAIN_LOSS_TOL,
@@ -5917,6 +6009,14 @@ def main() -> int:
     # PyTorch's TF32 switches stay at their defaults: the port's f32 products
     # run in full f32 whatever they say (paddle_tpu_torch/core/dtypes.py)
     failures = []
+    # each phase's seconds, printed beside the kernels: where the script's
+    # time goes
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -6218,61 +6318,75 @@ def main() -> int:
           "agreement": agreement, "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
           "grad_floor": TRAIN_GRAD_FLOOR, "card": smi, "checks": train_checks})
     failures += [f"train check {k}" for k, good in train_checks.items() if not good]
+    mark("device_build_kernel_slice_train")
 
     # 6. the trainer slice
     trainer_launches, trainer_checks = trainer_phase(smi)
     failures += [f"trainer check {k}" for k, good in trainer_checks.items() if not good]
+    mark("trainer")
 
     # 7. the conv zoo
     conv_checks = conv_phase(smi)
     failures += [f"conv check {k}" for k, good in conv_checks.items() if not good]
+    mark("conv")
 
     # 8. the NMT Transformer
     nmt_paths, nmt_checks = nmt_phase(smi)
     failures += [f"nmt check {k}" for k, good in nmt_checks.items() if not good]
+    mark("nmt")
 
     # 9. the LSTM models and the beam search
     rnn_checks = rnn_phase(smi)
     failures += [f"rnn check {k}" for k, good in rnn_checks.items() if not good]
+    mark("rnn")
 
     # 10. decode serving and generate_beam
     serve_paths, serve_checks = serve_phase(smi)
     failures += [f"serve check {k}" for k, good in serve_checks.items() if not good]
+    mark("serve")
 
     # 10b. the rest of serving: disaggregated prefill/decode, the host KV
     # tier, DecodeFleet, the journal, the fleet rollup
     fleet_paths, fleet_checks = fleet_phase(smi)
     failures += [f"fleet check {k}" for k, good in fleet_checks.items() if not good]
+    mark("fleet")
 
     # 10c. tensor-parallel replica groups: DecodeEngine(group=),
     # DecodeFleet.from_groups, handoffs across groups
     group_paths, group_checks = group_phase(smi)
     failures += [f"group check {k}" for k, good in group_checks.items() if not good]
+    mark("group")
 
     # 11. data parallelism
     dp_paths, dp_checks = dp_phase(smi)
     failures += [f"dp check {k}" for k, good in dp_checks.items() if not good]
+    mark("dp")
 
     # 12. the telemetry stack over the Trainer and the DecodeEngine
     telemetry_launches, telemetry_checks = telemetry_phase(smi)
     failures += [f"telemetry check {k}" for k, good in telemetry_checks.items() if not good]
+    mark("telemetry")
 
     # 13. the inference-deployment slice
     infer_paths, infer_checks = infer_phase(smi)
     failures += [f"infer check {k}" for k, good in infer_checks.items() if not good]
+    mark("infer")
 
     # 14. sequence and expert parallelism
     sp_paths, sp_checks = sp_phase(smi)
     failures += [f"sp check {k}" for k, good in sp_checks.items() if not good]
+    mark("sp")
 
     # 15. tensor and pipeline parallelism
     mp_paths, mp_checks = mp_phase(smi)
     failures += [f"mp check {k}" for k, good in mp_checks.items() if not good]
+    mark("mp")
 
     # 16. the Fluid catalog: the op sweep, the book's chapters, the SRL
     # tagger at the book's widths, nets.scaled_dot_product_attention
     catalog_paths, catalog_checks = catalog_phase(smi)
     failures += [f"catalog check {k}" for k, good in catalog_checks.items() if not good]
+    mark("catalog")
 
     # 17. kernels
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
@@ -6286,6 +6400,7 @@ def main() -> int:
                                       if numbers.get(n) else None),
                  "sass": sass_totals.get(n)}
              for n in DESIGNS}
+    emit({"phase_seconds": phase_s, "total_seconds": round(sum(phase_s.values()), 1)})
     emit({"earlier_ms": EARLIER_MS,
           "earlier_ms_source": "copied from PERF.md section 6 (the mma.sync designs), not measured here"})
     emit({"kernels": [

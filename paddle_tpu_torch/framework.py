@@ -295,15 +295,20 @@ def gather_layer_params(n_layers: int, prefix_of: Callable[[int], str]) -> Dict[
 
 
 def _is_local_block(got: tuple, shape: tuple, sharding) -> bool:
-    """Whether ``got`` is the block of a parameter of global ``shape`` that
+    """Whether ``got`` is a block of a parameter of global ``shape`` that
     this rank holds under ``sharding`` on the entered mesh (an expert-
-    parallel MoE's experts: ``parallel/sharding.py::shard_variables``)."""
+    parallel MoE's experts: ``parallel/sharding.py::shard_variables``):
+    each dim this rank's block of it, or whole (a stored dim that the
+    data-parallel step gathered)."""
     if sharding is None:
         return False
     from paddle_tpu_torch.parallel import mesh as mesh_mod
 
     mesh = mesh_mod.entered_mesh()
-    return mesh is not None and got == mesh_mod.local_shape(shape, sharding, mesh)
+    if mesh is None or len(got) != len(shape):
+        return False
+    local = mesh_mod.local_shape(shape, sharding, mesh)
+    return all(g in (w, b) for g, w, b in zip(got, shape, local))
 
 
 def create_state(name: str, shape: Sequence[int], dtype="float32", init=None) -> torch.Tensor:

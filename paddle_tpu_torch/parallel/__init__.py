@@ -8,19 +8,15 @@ bootstrap (``operators/gen_nccl_id_op.cc:31``).
 One rank is one process on one card (``torch.distributed``: NCCL on CUDA,
 gloo on the CPU); a :class:`~paddle_tpu_torch.parallel.mesh.Mesh` names
 axes over the ranks. Ported: the mesh, the collectives (``ppermute`` and
-``all_to_all`` point to point), the sharding spec arithmetic, replicated,
-expert-sharded and model-sharded placement, ``DataParallel`` (with ZeRO-1)
-over ``data``, ``seq``, ``expert``, ``model`` and ``pipe`` axes and their
-compositions ``pipe × model``, ``seq × model`` and ``seq × expert`` (each
-beside ``data``), the global-batch context its step runs in, the
-mixture-of-experts layer (``moe``: ``moe_ffn``, ``switch_gate``,
-``top2_gate``, ``MoEOutput``) and the GPipe schedule (``pipeline``:
-``pipeline_apply``, ``stack_stage_params``, ``split_microbatches``). Not
-ported yet, each raising ``NotImplementedError`` naming ``ROADMAP.md``: the
-``tp`` axis in ``DataParallel``, ``model`` beside ``expert``, ``pipe``
-beside ``seq`` or ``expert``, batch specs over other axes, parameter specs
-over ``data``, ``seq`` or ``pipe``, and ``DataParallel.resize`` (elastic
-training).
+``all_to_all`` point to point), the sharding spec arithmetic and placement
+read from the specs (held blocks over ``expert`` and ``model``, stored
+blocks over any other axes), ``DataParallel`` (with ZeRO-1) on any mesh
+and spec the JAX package's GSPMD runs, the global-batch context its step
+runs in, the mixture-of-experts layer (``moe``: ``moe_ffn``,
+``switch_gate``, ``top2_gate``, ``MoEOutput``) and the GPipe schedule
+(``pipeline``: ``pipeline_apply``, ``stack_stage_params``,
+``split_microbatches``). Not ported yet, raising ``NotImplementedError``
+naming ``ROADMAP.md``: ``DataParallel.resize`` (elastic training).
 """
 
 from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)

@@ -2,9 +2,11 @@
 
 Under the JAX package's ``DataParallel`` the step is one program over the
 global batch, so every reduction over the batch's tokens is global. Here
-each rank runs a forward over its own block of the batch: its rows (the
-``data`` axis) and, when the batch specs split the sequence dim too
-(``P("data", "seq")``), its segment of every row (the ``seq`` axis). While
+each rank runs a forward over its own block of the batch: its rows (split
+over the axes the batch specs split dim 0 over, ``data`` by default, in the
+JAX device order: row-major over the axes as listed, e.g.
+``P(("data", "expert"))``) and, when the batch specs split the sequence dim
+too (``P("data", "seq")``), its segment of every row (the ``seq`` axis). While
 a ``DataParallel`` step runs (and only then), :func:`global_batch` makes
 the reductions that need it global again:
 
@@ -40,20 +42,22 @@ from typing import Iterator, Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["BatchGroup", "global_batch", "active", "global_sum", "global_count", "scale_ratio",
-           "seq_split", "seq_offset", "token_sum", "row_prefix"]
+           "seq_split", "rows_split_over", "seq_offset", "token_sum", "row_prefix"]
 
 _tls = threading.local()
 
 
 class BatchGroup:
-    """The mesh axes a step's tokens are split over — ``data`` (rows) first
-    and, in a sequence-sharded step, ``seq`` (segments of each row) — with
-    this rank's process group on each and the group's total size."""
+    """The mesh axes a step's tokens are split over — the axes its rows are
+    split over (row-major, as the batch specs list them) and, in a
+    sequence-sharded step, ``seq`` (segments of each row) — with this
+    rank's process group on each and the group's total size."""
 
     def __init__(self, mesh, axes: Sequence[str], seq_axis: Optional[str] = None):
         self.mesh = mesh
         self.axes = tuple(axes)
         self.seq_axis = seq_axis
+        self.row_axes = tuple(a for a in self.axes if a != seq_axis)
         self.groups = [mesh.group(a) for a in self.axes]
         self.size = 1
         for a in self.axes:
@@ -76,6 +80,14 @@ class BatchGroup:
 
     def index(self, axis: str) -> int:
         return self.mesh.axis_index(axis) if self.mesh.shape[axis] > 1 else 0
+
+    def row_block(self) -> int:
+        """This rank's block of the global batch's rows: row-major over the
+        row axes."""
+        i = 0
+        for a in self.row_axes:
+            i = i * int(self.mesh.shape[a]) + self.index(a)
+        return i
 
 
 @contextlib.contextmanager
@@ -129,6 +141,13 @@ def seq_split() -> Optional[Tuple[object, str, int, int]]:
     return group.mesh, axis, group.index(axis), int(group.mesh.shape[axis])
 
 
+def rows_split_over(axis: str) -> bool:
+    """Whether the running step splits the batch's rows over ``axis`` (of
+    size > 1): the ranks of that axis hold different tokens."""
+    group = active()
+    return group is not None and axis in group.row_axes and int(group.mesh.shape[axis]) > 1
+
+
 def seq_offset(t_local: int) -> int:
     """The global position of this rank's first token in each row."""
     split = seq_split()
@@ -165,15 +184,17 @@ def row_prefix(counts: torch.Tensor) -> torch.Tensor:
     from paddle_tpu_torch.parallel import collective
 
     b_local, k = counts.shape
-    data, seq = group.axes[0], group.seq_axis  # rows split over data, segments over seq
+    seq = group.seq_axis
     with torch.no_grad(), group.mesh:
         parts = counts[None]  # [n_seq, B_local, K]
         if seq is not None:
             parts = collective.all_gather(counts, seq, axis=0, tiled=False)
-        full = collective.all_gather(parts, data, axis=0, tiled=False)  # [n_data, n_seq, ...]
-        n_data, n_seq = full.shape[0], full.shape[1]
-        # global order: data rank, its rows, each row's segments
+        for axis in reversed(group.row_axes):  # the innermost first
+            parts = collective.all_gather(parts, axis, axis=0, tiled=False)
+        n_seq = parts.shape[len(group.row_axes)]
+        # global order: row blocks row-major, their rows, each row's segments
+        full = parts.reshape(-1, n_seq, b_local, k)
         ordered = full.permute(0, 2, 1, 3).reshape(-1, k)
-        before = (torch.cumsum(ordered, 0) - ordered).reshape(n_data, b_local, n_seq, k)
+        before = (torch.cumsum(ordered, 0) - ordered).reshape(-1, b_local, n_seq, k)
         j = group.index(seq) if seq is not None else 0
-        return before[group.index(data), :, j]
+        return before[group.row_block(), :, j]

@@ -266,11 +266,13 @@ def entered_mesh() -> Optional[Mesh]:
 def local_shape(shape: Sequence[int], sharding, mesh: Optional[Mesh]) -> tuple:
     """The block of a parameter of global ``shape`` that a rank holds under
     ``sharding`` (a ParamAttr sharding tuple) on ``mesh``: each dim named
-    with a mesh axis of size n > 1 that n divides, cut n ways."""
+    with mesh axes (one, or a tuple: the product of their sizes; axes the
+    mesh lacks left out) of size n > 1 that n divides, cut n ways."""
     out = []
     for i, size in enumerate(shape):
-        axis = sharding[i] if sharding is not None and i < len(sharding) else None
-        n = mesh.shape.get(axis, 1) if (mesh is not None and isinstance(axis, str)) else 1
+        entry = sharding[i] if sharding is not None and i < len(sharding) else None
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        n = int(np.prod([mesh.shape.get(a, 1) for a in axes])) if mesh is not None else 1
         out.append(size // n if n > 1 and size % n == 0 else size)
     return tuple(out)
 

@@ -21,16 +21,30 @@ overflows.
 
 Expert parallelism. The expert parameters carry sharding ``('expert',
 ...)``; under a mesh whose ``expert`` axis has size n each rank holds
-(``parallel/sharding.py::shard_variables``) and computes its E/n experts.
-The ranks of one ``expert`` group hold the same tokens: each dispatches
-them to its local experts, and the partial outputs are summed over the
-axis (``collective.reduce_from_axis``: sum forward, identity backward).
-Where the replicated router feeds the split work — the tokens into the
-dispatch product and the router logits into the gate — sits the conjugate
-(``collective.copy_to_axis``: identity forward, sum backward), and the aux
-loss's gradient, which every rank computes whole, is divided by n before
-that sum. So the router's and the upstream layers' gradients come out
-whole and equal on every expert rank, and none is summed twice.
+(``parallel/sharding.py::shard_variables``) and computes its E/n experts,
+replicated over every other axis (``model`` too, as in the JAX package).
+The work is summed over the ``expert`` group: the ranks that share every
+other coordinate. Two cases, by the batch specs:
+
+- the ranks of the group hold the same tokens (``P("data")``): each
+  dispatches them to its local experts, and the partial outputs are summed
+  over the axis (``collective.reduce_from_axis``: sum forward, identity
+  backward). Where the replicated router feeds the split work — the tokens
+  into the dispatch product and the router logits into the gate — sits the
+  conjugate (``collective.copy_to_axis``: identity forward, sum backward),
+  and the aux loss's gradient, which every rank computes whole, is divided
+  by n before that sum. So the router's and the upstream layers' gradients
+  come out whole and equal on every expert rank, and none is summed twice;
+- the rows are split over ``expert`` too (``P(("data", "expert"))``): each
+  rank routes its own tokens (the positions global, so no two tokens of
+  the group share a buffer slot) into all E experts' buffers and sends
+  each expert block's buffers to the rank that holds it
+  (``collective.all_to_all``: GShard's dispatch exchange), which sums
+  what it received (each slot filled by one sender), runs its experts and
+  hands their outputs to the whole group (``collective.all_gather``) for
+  each rank to combine its own tokens. The backward of the all-to-all is
+  the inverse all-to-all, of the gather a reduce-scatter, so every
+  gradient is its rank's tokens' own.
 """
 
 from __future__ import annotations
@@ -265,24 +279,34 @@ def moe_ffn(
 
     logits = torch.matmul(tokens.float(), wg.float())
     block = _expert_block(num_experts, w_in.shape[0])
-    if block is not None:
+    # the rows split over expert too: the buffers move, not the tokens
+    exchange = block is not None and dp_context.rows_split_over(mesh_mod.EXPERT_AXIS)
+    if block is not None and not exchange:
         mesh, n_exp, e0 = block
         with mesh:
             logits = collective.copy_to_axis(logits, mesh_mod.EXPERT_AXIS)
             tokens = collective.copy_to_axis(tokens, mesh_mod.EXPERT_AXIS)
     dispatch, combine, aux = gate_fn(logits, capacity, token_mask=flat_mask, rows=B)
-    if block is not None:
+    if block is not None and not exchange:
         aux = _ScaleGrad.apply(aux, 1.0 / n_exp)
         dispatch = dispatch[:, e0:e0 + w_in.shape[0]]
         combine = combine[:, e0:e0 + w_in.shape[0]]
 
     # dispatch: [N, E, C] × [N, D] → expert inputs [E, C, D]
     expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), tokens)
+    if exchange:  # the group's tokens in this rank's experts' buffers
+        mesh, n_exp = block[:2]
+        with mesh:
+            sent = collective.all_to_all(expert_in, mesh_mod.EXPERT_AXIS, 0, 0)
+        expert_in = sent.view(n_exp, w_in.shape[0], *sent.shape[1:]).sum(0)
     h = act(torch.einsum("ecd,edf->ecf", expert_in, w_in) + b_in[:, None, :])
     expert_out = torch.einsum("ecf,efd->ecd", h, w_out) + b_out[:, None, :]
+    if exchange:  # every expert's outputs, for this rank's tokens to combine
+        with block[0]:
+            expert_out = collective.all_gather(expert_out, mesh_mod.EXPERT_AXIS, axis=0)
     # combine: [N, E, C] × [E, C, D] → [N, D] (the weighted sum)
     out = torch.einsum("nec,ecd->nd", combine.to(x.dtype), expert_out)
-    if block is not None:
+    if block is not None and not exchange:
         with block[0]:
             out = collective.reduce_from_axis(out, mesh_mod.EXPERT_AXIS)
 

@@ -3,21 +3,32 @@
 Reference mapping: MultiDevSSAGraphBuilder replicated params everywhere and
 all-reduced gradients (``multi_devices_graph_pass.cc:397-435``). The spec
 arithmetic (``spec_for``, ``mesh_axis_sizes``, ``degraded_dims``,
-``degrade_spec``) is the JAX package's, whole. Placement: every parameter
-and state entry is replicated — a broadcast from the first rank of each
-mesh axis (``BCastParamsToDevices``) — except a parameter sharded over the
-``expert`` axis on its first dim (the mixture-of-experts weights,
-``parallel/moe.py``) or over the ``model`` axis on any dim (Megatron's
-column- and row-parallel weights, ``models/transformer.py::_proj``), of
-which each rank keeps its block. A dim that the axis's size does not
-divide stays whole (the JAX package's degradation). A parameter spec that
-would shard over any other axis (``tp``, ``pipe``, ``data``, ``seq``)
-raises ``NotImplementedError`` naming ROADMAP.md.
+``degrade_spec``) is the JAX package's, whole.
+
+Placement is read from each parameter's spec, as GSPMD reads it: every
+parameter and state entry is replicated — a broadcast from the first rank
+of each mesh axis (``BCastParamsToDevices``) — except on the dims its spec
+splits over an axis of size > 1, where each rank keeps its block. A dim's
+entry is an axis or a tuple of axes; a rank's block of a tuple is the one
+at its coordinates taken row-major over the axes as listed (the JAX
+device order). The blocks are of two kinds (:func:`split_blocks`):
+
+- held: ``expert`` on dim 0 (the mixture-of-experts weights,
+  ``parallel/moe.py``) and ``model`` on any dim (Megatron's column- and
+  row-parallel weights, ``models/transformer.py::_proj``). The layers
+  consume these blocks as they are;
+- stored: any other axis, or a tuple of axes on one dim (FSDP-like). A
+  rank keeps only its block at rest; ``DataParallel`` gathers it whole
+  for the step (:func:`gather_blocks`) and updates its block.
+
+A dim that the axes' size does not divide stays whole (the JAX package's
+degradation), and so does an axis the mesh does not have.
 """
 
 from __future__ import annotations
 
 import fnmatch
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -56,15 +67,6 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: data, sequence, expert, tensor (over 'model') and pipeline (over 'pipe') "
-        "parallelism are ported to paddle_tpu_torch, and 'pipe' x 'model', 'seq' x 'model' "
-        "and 'seq' x 'expert' together; a 'tp' axis, 'model' beside 'expert', 'pipe' beside "
-        "'seq' or 'expert', batch specs over other axes and parameter specs over 'data', "
-        "'seq' or 'pipe' are not yet (ROADMAP.md §A item 4c)")
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -162,15 +164,106 @@ def batch_sharding(mesh: Mesh, axis: str = DATA_AXIS, ndim: int = 2) -> NamedSha
     return NamedSharding(mesh, P(axis, *([None] * (ndim - 1))))
 
 
-def block_dims(sharding: NamedSharding) -> List[Tuple[int, str]]:
-    """``(dim, axis)`` of each dim the spec splits over an axis of size > 1:
-    the dims of a parameter that each rank holds a block of (over
-    ``expert`` or ``model``); empty when replicated."""
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axes one spec entry splits its dim over: ``()`` for None, the
+    names of a tuple in order."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def block_dims(sharding: NamedSharding) -> List[Tuple[int, object]]:
+    """``(dim, entry)`` of each dim the spec splits over axes of size > 1:
+    the dims of a parameter that each rank holds a block of, the entry the
+    axis (or the tuple of axes, those of size 1 left out) it is split over;
+    empty when replicated."""
     out = []
     for dim, entry in enumerate(sharding.spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,)):
-            if a is not None and sharding.mesh.shape.get(a, 1) > 1:
-                out.append((dim, a))
+        axes = tuple(a for a in spec_axes(entry) if sharding.mesh.shape.get(a, 1) > 1)
+        if axes:
+            out.append((dim, axes if isinstance(entry, tuple) else axes[0]))
+    return out
+
+
+def is_held(dim: int, entry) -> bool:
+    """Whether a block split on ``dim`` over ``entry`` is one the layers
+    consume as it is (experts over ``expert`` on dim 0, a ``model`` split),
+    rather than a stored one that the step gathers whole."""
+    return entry == MODEL_AXIS or (entry == EXPERT_AXIS and dim == 0)
+
+
+def split_blocks(shardings: Mapping[str, NamedSharding]):
+    """``(held, stored)``: ``{name: [(dim, entry), ...]}`` of the dims of
+    each parameter that this rank holds a block of, by kind
+    (:func:`is_held`); a parameter may have dims of both."""
+    held, stored = {}, {}
+    for name, sh in shardings.items():
+        for dim, entry in block_dims(sh):
+            (held if is_held(dim, entry) else stored).setdefault(name, []).append((dim, entry))
+    return held, stored
+
+
+def block_axes(dims: Sequence[Tuple[int, object]]) -> Tuple[str, ...]:
+    """Every axis a block of ``dims`` is split over, each once."""
+    return tuple(dict.fromkeys(a for _, e in dims for a in spec_axes(e)))
+
+
+def _coord(entry, mesh: Mesh) -> Tuple[int, int]:
+    """``(index, count)`` of this rank's block of a dim split over
+    ``entry``: row-major over the axes as listed."""
+    i, n = 0, 1
+    for a in spec_axes(entry):
+        i = i * mesh.shape[a] + mesh.axis_index(a)
+        n *= mesh.shape[a]
+    return i, n
+
+
+def block_window(shape: Sequence[int], dims: Sequence[Tuple[int, object]], mesh: Mesh):
+    """This rank's window ``((start, stop), ...)`` of a parameter of whole
+    ``shape`` split on ``dims`` (:func:`block_dims`)."""
+    window = [(0, int(s)) for s in shape]
+    for dim, entry in dims:
+        i, n = _coord(entry, mesh)
+        k = int(shape[dim]) // n
+        window[dim] = (i * k, (i + 1) * k)
+    return tuple(window)
+
+
+def cut_block(t: torch.Tensor, dims: Sequence[Tuple[int, object]], mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor split on ``dims``."""
+    for dim, (a, b) in enumerate(block_window(t.shape, dims, mesh)):
+        if (a, b) != (0, t.shape[dim]):
+            t = t.narrow(dim, a, b - a)
+    return t.clone()
+
+
+def gather_blocks(tensors: Mapping[str, torch.Tensor],
+                  dims: Mapping[str, Sequence[Tuple[int, object]]],
+                  mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The whole tensors of the blocks ``tensors`` split on ``dims`` (a
+    collective: every rank calls it): per axis, the innermost of a tuple
+    first, one all-gather of a flat buffer per dtype holding every block
+    split over it. No gradient."""
+    from paddle_tpu_torch.parallel import collective
+
+    out = dict(tensors)
+    # the (dim, axis) gathers each tensor still needs, innermost axis first
+    todo = {k: [(d, a) for d, e in dims[k] for a in reversed(spec_axes(e))] for k in tensors}
+    with torch.no_grad(), mesh:
+        while any(todo.values()):
+            level: Dict[Tuple[str, torch.dtype], List[str]] = {}
+            for k, steps in todo.items():
+                if steps:
+                    level.setdefault((steps[0][1], out[k].dtype), []).append(k)
+            for (axis, _), names in level.items():
+                flat = torch.cat([out[k].reshape(-1) for k in names])
+                parts = collective.all_gather(flat, axis, axis=0, tiled=False)
+                off = 0
+                for k in names:
+                    t, dim = out[k], todo[k].pop(0)[0]
+                    out[k] = torch.cat([parts[r, off:off + t.numel()].view(t.shape)
+                                        for r in range(parts.shape[0])], dim=dim)
+                    off += t.numel()
     return out
 
 
@@ -181,45 +274,29 @@ def param_shardings(
 ) -> Dict[str, NamedSharding]:
     """Per-parameter shardings: honor ParamAttr.sharding tuples; default
     replicated. Axes not present in the mesh degrade to None (a tp spec on a
-    dp-only mesh is replicated), and so does a dim the axis's size does not
-    divide (:func:`degrade_spec`, against the parameter's whole shape). A
-    spec may split dim 0 over the ``expert`` axis and any dim over the
-    ``model`` axis; one left splitting a dim over any other axis of size > 1
-    raises."""
+    dp-only mesh is replicated; of a tuple entry, the axes the mesh lacks
+    are left out), and so does a dim the axes' size does not divide
+    (:func:`degrade_spec`, against the parameter's whole shape)."""
     out = {}
     mesh_axes = set(mesh.axis_names)
     for name, p in params.items():
         info = param_info.get(name)
         spec = None
         if info is not None and info.sharding is not None:
-            dims = tuple(a if (a in mesh_axes) else None for a in info.sharding)
+            dims = tuple((tuple(a for a in e if a in mesh_axes) or None)
+                         if isinstance(e, tuple) else e if e in mesh_axes else None
+                         for e in info.sharding)
             dims = tuple(dims[: p.dim()]) + (None,) * max(0, p.dim() - len(dims))
-            spec = degrade_spec(mesh, P(*dims), info.shape, name=name, quiet=True)
-        sh = NamedSharding(mesh, spec if spec is not None else P())
-        if any(not (axis == MODEL_AXIS or (axis == EXPERT_AXIS and dim == 0))
-               for dim, axis in block_dims(sh)):
-            raise _not_ported(f"parameter {name!r} with sharding {sh.spec} on {mesh!r}")
-        out[name] = sh
+            # degrade_spec reads one axis a dim; a tuple's size is its product
+            single = P(*(None if isinstance(e, tuple) else e for e in dims))
+            spec = list(degrade_spec(mesh, single, info.shape, name=name, quiet=True))
+            for i, e in enumerate(dims):
+                if isinstance(e, tuple) and info.shape[i] % math.prod(
+                        mesh.shape[a] for a in e) == 0:
+                    spec[i] = e
+            spec = P(*spec)
+        out[name] = NamedSharding(mesh, spec if spec is not None else P())
     return out
-
-
-def block_window(shape: Sequence[int], dims: Sequence[Tuple[int, str]], mesh: Mesh):
-    """This rank's window ``((start, stop), ...)`` of a parameter of whole
-    ``shape`` split on ``dims`` (:func:`block_dims`)."""
-    window = [(0, int(s)) for s in shape]
-    for dim, axis in dims:
-        k = int(shape[dim]) // mesh.shape[axis]
-        i = mesh.axis_index(axis)
-        window[dim] = (i * k, (i + 1) * k)
-    return tuple(window)
-
-
-def cut_block(t: torch.Tensor, dims: Sequence[Tuple[int, str]], mesh: Mesh) -> torch.Tensor:
-    """This rank's block of a whole tensor split on ``dims``."""
-    for dim, (a, b) in enumerate(block_window(t.shape, dims, mesh)):
-        if (a, b) != (0, t.shape[dim]):
-            t = t.narrow(dim, a, b - a)
-    return t.clone()
 
 
 def broadcast_tensors(tensors: Sequence[torch.Tensor], mesh: Mesh,
@@ -253,9 +330,10 @@ def shard_variables(
 ) -> Variables:
     """Place a Variables tree on the mesh (BCastParamsToDevices parity,
     reference parallel_executor.cc:249): every rank takes the first rank's
-    values — a broadcast over each axis in turn — and of a parameter
-    sharded over ``expert`` or ``model`` keeps its block (a parameter that
-    is already its block is not broadcast over the axes it is split on)."""
+    values — a broadcast over each axis in turn — and of a parameter split
+    over axes of size > 1 (held or stored) keeps its block (a parameter
+    that is already its block is not broadcast over the axes it is split
+    on)."""
     shardings = param_shardings(mesh, param_info, variables.params)
     names = [("p", k) for k in variables.params] + [("s", k) for k in variables.state]
     values = {n: variables.params[n[1]] if n[0] == "p" else variables.state[n[1]] for n in names}
@@ -271,8 +349,7 @@ def shard_variables(
     for axis in mesh.axis_names:
         if axis != DATA_AXIS and mesh.shape[axis] == 1:
             continue
-        todo = [n for n in names
-                if not (is_block(n) and axis in {a for _, a in split[n[1]]})]
+        todo = [n for n in names if not (is_block(n) and axis in block_axes(split[n[1]]))]
         for n, t in zip(todo, broadcast_tensors([values[n] for n in todo], mesh, axis)):
             values[n] = t
     for name, dims in split.items():

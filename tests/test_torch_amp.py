@@ -10,6 +10,7 @@ packages round the same operands but sum in other orders). The loss-scaled
 step: scale, finite flag and the skipped update exactly.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ versions round the probabilities to bf16 before the P V product, the JAX
 flash kernel keeps them in f32).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import importlib
 
 import jax.numpy as jnp

@@ -6,6 +6,7 @@ carried across (``--no_random``, f32, 3 Adam steps) at rtol 1e-4 (f32
 products summed in other orders over three steps).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ and the loss falls. The reference book's SRL tagger (``srl_net``) runs at
 small widths the same way, and its Viterbi tags agree.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ sign(NaN), argsort(descending=True) with NaNs, and indices out of range
 ops are held by distribution: the port's streams are its own.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ MNIST conv net at init on a batch whose top half is blank (ReLUs and max
 pools at exact zeros and ties) gives the JAX package's gradients.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

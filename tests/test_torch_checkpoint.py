@@ -14,6 +14,7 @@ net, whose BN moving statistics are checkpoint leaves, Momentum at lr
 0.01).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import glob
 import json
 import os

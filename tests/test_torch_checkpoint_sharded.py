@@ -8,6 +8,7 @@ the port's two-rank ZeRO-1 save loads in the JAX package, parameters and
 Adam slots bit-equal (a checkpoint moves numbers, it never rounds them).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import json
 import os
 

@@ -38,6 +38,7 @@ attention k biases (zero gradient in exact arithmetic) at the scheduled
 rates' sum.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import concurrent.futures
 import functools
 
@@ -436,11 +437,12 @@ def test_pipe_model_checkpoints_cross_packages(ranks):
 
 def test_composed_guards_match_jax():
     """What stays refused: ``pipe`` beside ``seq`` and MoE FFNs in the
-    pipelined path, with the JAX package's messages; a ``tp`` axis,
-    ``model`` beside ``expert``, ``pipe`` beside ``seq`` or ``expert`` in
-    ``DataParallel``, batch specs over other axes and parameter specs over
-    ``data`` (FSDP-like), each naming ROADMAP.md. The composed meshes this
-    port runs are taken."""
+    pipelined path, with the JAX package's messages. The meshes and specs
+    once refused in ``DataParallel`` — a ``tp`` axis, ``model`` beside
+    ``expert``, ``pipe`` beside ``seq`` or ``expert``, batch specs over
+    other axes and parameter specs over ``data`` (FSDP-like) — are taken,
+    as the JAX package's GSPMD takes them (they step on their ranks in
+    ``test_torch_any_mesh.py``), and so are the composed meshes."""
     batches, params, _, _ = _inputs()
     batch = _rows(batches[0], 4)
     seq = make_mesh(data=1, seq=2, devices=[0, 1])
@@ -466,17 +468,19 @@ def test_composed_guards_match_jax():
     mlp, _ = cases.port_model("mlp")
     for axes in (dict(data=1, tp=2), dict(data=1, model=2, expert=2), dict(data=1, pipe=2, seq=2),
                  dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, model=2, seq=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
-            DataParallel(mlp, topt.SGD(0.1), device="cpu", mesh=make_mesh(
-                **axes, devices=list(range(int(np.prod(list(axes.values())))))))
-    with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
-        DataParallel(mlp, topt.SGD(0.1), device="cpu", batch_specs=(P("model"),),
-                     mesh=make_mesh(data=1, model=2, devices=[0, 1]))
+        n = int(np.prod(list(axes.values())))
+        dp = DataParallel(mlp, topt.SGD(0.1), device="cpu", mesh=make_mesh(
+            **axes, devices=list(range(n))))
+        assert dp.num_devices == n and dp._token_axes == ("data",)
+    # a batch split over an axis the layers consume: gathered whole over it
+    dp = DataParallel(mlp, topt.SGD(0.1), device="cpu", batch_specs=(P("model"),),
+                      mesh=make_mesh(data=1, model=2, devices=[0, 1]))
+    assert dp._token_axes == () and dp.leading_multiple(np.zeros((4, 3))) == 2
     fsdp = tbuild(lambda x: tlayers.fc(x, 4, param_attr=ParamAttr(sharding=("data", None))),
                   name="fsdp")
     fv = fsdp.init(0, torch.zeros(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
-        sharding.param_shardings(make_mesh(data=2, devices=[0, 1]), fsdp.param_info, fv.params)
+    specs = sharding.param_shardings(make_mesh(data=2, devices=[0, 1]), fsdp.param_info, fv.params)
+    assert sharding.split_blocks(specs) == ({}, {"fc/w": [(0, "data")]})
     for axes, zero in ((PM, False), (SM, False), (dict(data=2, pipe=2, model=2), False),
                        (E2, True), (D2E2, True), (dict(data=1, seq=2, expert=2), True)):
         dp = DataParallel(mlp, topt.SGD(0.1), device="cpu", zero_shard_optimizer=zero,

@@ -8,6 +8,7 @@ counts equal. The JAX package lowers the loops onto ``lax`` control flow,
 the port runs them as Python loops.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -44,6 +44,7 @@ Tolerances, f32 (``use_bf16_compute`` off):
   under ``upscale_in_train``; eval (``is_test``) and p = 0 are the identity.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -37,6 +37,7 @@ token, and ``generate_beam`` with its flash prefill against the CPU (the
 same beams, scores 1e-4).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import importlib
 
 import pytest

@@ -24,6 +24,7 @@ The two ranks' parameters must be bit-equal (no replica drift), and ZeRO-1
 must equal the plain step bit for bit (its update is elementwise).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ are held, loss and every gradient, against ``jax.grad`` of the same step,
 the weights carried across by ``convert.params_from_jax``.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import importlib
 
 import jax.numpy as jnp

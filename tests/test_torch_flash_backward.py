@@ -17,6 +17,7 @@ The CUDA kernels themselves are held against the plain versions on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import importlib
 import warnings
 

@@ -13,6 +13,7 @@ package's, on the CPU.
   tier's stats, as the JAX package's does.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import json
 import types
 import urllib.error

@@ -19,6 +19,7 @@ Every engine closes (or is killed) in ``finally`` and every wait has a
 time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import time
 
 import numpy as np

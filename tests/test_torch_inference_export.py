@@ -13,6 +13,7 @@ exported program (f32 sums in other orders). The JAX LM runs its flash
 path as its own tests run it on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ checked on the source's AST so that imports inside functions count too, and
 every module of the port imports in a fresh interpreter where ``jax`` and
 ``paddle_tpu`` cannot be imported. Only the tests import both."""
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import ast
 import subprocess
 import sys

@@ -13,6 +13,7 @@
   ``NotImplementedError`` (ROADMAP §A item 8).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

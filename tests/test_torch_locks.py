@@ -11,6 +11,7 @@ The checker is on under pytest in both packages (``PYTEST_CURRENT_TEST``);
 each test resets both graphs first.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import threading
 import urllib.request
 

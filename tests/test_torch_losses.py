@@ -8,6 +8,7 @@ over T steps in another order), gradients within 1e-4 relative L2; decoded
 tags, tokens, lengths and distances equal.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

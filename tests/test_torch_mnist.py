@@ -11,6 +11,7 @@ rtol 1e-5 and its gradients at rtol 1e-4, atol 1e-6. The digits net
 ``evaluate()`` over all 359 test samples, accuracy > 0.90.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -31,6 +31,7 @@ attention k biases at the rates' sum (``test_torch_data_parallel.py``).
 Dispatch masks are compared exactly.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,8 +237,9 @@ def test_moe_decoders_and_unported_meshes_refused():
     with pytest.raises(Exception, match="pipe_mesh: MoE FFNs unsupported"):
         s.model.apply(s.model.init(0, *tb, device="cpu"), *tb)
     # model-axis parameter specs and model/pipe mesh axes are ported
-    # (test_torch_tensor_parallel.py, test_torch_pipeline.py), and not beside
-    # an expert axis; ZeRO-1 on an expert mesh is taken
+    # (test_torch_tensor_parallel.py, test_torch_pipeline.py), and beside an
+    # expert axis too (they step in test_torch_any_mesh.py: the MoE LM on
+    # model=2 x expert=2); ZeRO-1 on an expert mesh is taken
     # (test_torch_composed_parallel.py)
     m = make_mesh(data=1, model=2, devices=[0, 1])
     fc = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=(None, "model"))),
@@ -245,9 +247,11 @@ def test_moe_decoders_and_unported_meshes_refused():
     v = fc.init(0, torch.zeros(2, 4), device="cpu")
     assert sharding.param_shardings(m, fc.param_info, v.params)["fc/w"].spec == P(None, "model")
     for axes in (dict(data=1, model=2, expert=2), dict(data=1, pipe=2, expert=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu",
-                         mesh=make_mesh(**axes, devices=[0, 1, 2, 3]))
+        dp = DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu",
+                          mesh=make_mesh(**axes, devices=[0, 1, 2, 3]))
+        assert dp.num_devices == 4 and dp._token_axes == ("data",)
+        # the column block over model where the mesh has that axis
+        assert (dp._apply_fn() == dp._apply) == ("model" in axes)
     zero = DataParallel(fc, pt.optimizer.SGD(0.1), device="cpu", zero_shard_optimizer=True,
                         mesh=make_mesh(data=1, expert=2, devices=[0, 1]))
     assert zero.zero_shard_optimizer and zero.num_devices == 2

@@ -14,6 +14,7 @@ added to all of a row's scores cancels in the softmax, so theirs is
 rounding noise in both packages), logits at 1e-5 absolute.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@
   land in ``log_dir``.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import json
 import math
 import os

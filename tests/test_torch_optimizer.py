@@ -9,6 +9,7 @@ the JAX package rounds them to f32, a 1e-7 relative difference).
 Schedules at rtol=1e-6 (the JAX package evaluates them in f32).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

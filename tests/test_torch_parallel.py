@@ -14,6 +14,7 @@ gradients are held at rtol 1e-6; a one-rank ``DataParallel`` runs the very
 operations of the direct step, so it is held bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -290,37 +291,49 @@ def test_one_rank_dp_step_equals_minimize_bit_for_bit(request, group, zero):
 
 # ---- what is not ported ---------------------------------------------------------
 def test_model_parallel_mesh_and_specs_raise():
-    """``model`` and ``pipe`` mesh axes are taken (tensor and pipeline
-    parallelism: ``test_torch_tensor_parallel.py``,
-    ``test_torch_pipeline.py``), and so are ``pipe`` beside ``model`` and
-    ``model`` beside ``seq`` (``test_torch_composed_parallel.py``), a
-    parameter spec over ``model`` on any dim, and a norm clip on a ``model``
-    axis; what stays refused: a ``tp`` axis, ``model`` beside ``expert``,
-    ``pipe`` beside ``seq`` or ``expert`` (ROADMAP.md §A item 4c), a batch
-    spec over any axis but ``data`` on dim 0 and ``seq`` on dim 1 (a ``seq``
-    spec on a mesh without that axis too), and a parameter sharded over an
-    axis other than ``expert`` (dim 0) and ``model``."""
+    """Every mesh and spec the JAX package's GSPMD runs is taken: ``model``
+    and ``pipe`` axes (``test_torch_tensor_parallel.py``,
+    ``test_torch_pipeline.py``), their compositions
+    (``test_torch_composed_parallel.py``), and the meshes and specs once
+    refused — a ``tp`` axis, ``model`` beside ``expert``, ``pipe`` beside
+    ``seq`` or ``expert``, batch specs over other axes and dims, and a
+    parameter split over any axis (they step on their ranks in
+    ``test_torch_any_mesh.py``); a norm clip on a ``model`` axis reads the
+    whole gradients' norms. What raises is what the JAX package refuses,
+    with its message: a batch spec naming an axis the mesh lacks, or one
+    axis twice."""
     for axes in (dict(data=1, model=2), dict(data=1, pipe=2), dict(data=1, model=2, seq=2),
-                 dict(data=1, pipe=2, model=2)):
+                 dict(data=1, pipe=2, model=2), dict(data=1, tp=2), dict(data=1, model=2, expert=2),
+                 dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, seq=2)):
         n = int(np.prod(list(axes.values())))
         dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                           mesh=tmesh.make_mesh(**axes, devices=list(range(n))))
         assert dp.num_devices == n and dp._token_axes == ("data",)
-    for axes in (dict(data=1, tp=2), dict(data=1, model=2, expert=2),
-                 dict(data=1, pipe=2, expert=2), dict(data=1, pipe=2, seq=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4c"):
-            DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
-                         mesh=tmesh.make_mesh(**axes, devices=list(range(
-                             int(np.prod(list(axes.values())))))))
-    clipped = DataParallel(_mlp(), pt.optimizer.SGD(
+    tp_mlp = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=(None, "model"))),
+                      name="tp")
+    tp_mlp.init(0, torch.zeros(2, 4), device="cpu")
+    clipped = DataParallel(tp_mlp, pt.optimizer.SGD(
         1e-2, grad_clip=pt.clip.GradientClipByGlobalNorm(1.0)), device="cpu",
         mesh=tmesh.make_mesh(data=1, model=2, devices=[0, 1]))
-    assert clipped._apply_fn() == clipped._block_apply
-    with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
+    assert clipped._apply_fn() == clipped._apply
+    with pytest.raises(ValueError, match=r"Resource axis: seq of PartitionSpec\('data', 'seq'\) "
+                                         r"is not found in mesh: \('data',\)"):
         DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
                      batch_specs=(P("data", "seq"), P()))
-    with pytest.raises(NotImplementedError, match="(?s)batch_specs.*ROADMAP.md"):
-        DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", batch_specs=(P(None, "data"),))
+    with pytest.raises(ValueError, match="has duplicate entries for `data`"):
+        DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu",
+                     batch_specs=(P(("data", "data")),))
+    # a split over another dim is gathered whole at the step's entry: replicas
+    dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", batch_specs=(P(None, "data"),))
+    assert dp._token_axes == ()
+    # rows over several axes, and over an axis the layers consume (gathered)
+    mex = tmesh.make_mesh(data=1, model=2, expert=2, devices=[0, 1, 2, 3])
+    for specs, want in (((P(("data", "expert")), P(("data", "expert"))), ("data", "expert")),
+                        ((P(("data", "model")), P("data")), ("data",)),
+                        ((P(("expert", "data")), P(("data", "expert"))), ("expert", "data"))):
+        dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", mesh=mex,
+                          batch_specs=specs)
+        assert dp._token_axes == want and dp.leading_multiple(*_batch()) == 2
     seq_mesh = tmesh.make_mesh(data=1, seq=1, devices=[0])
     dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", mesh=seq_mesh,
                       batch_specs=(P("data", "seq"), P("data")))
@@ -329,8 +342,9 @@ def test_model_parallel_mesh_and_specs_raise():
     model = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=("data", None))),
                      name="fsdp")
     v = model.init(0, torch.zeros(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharding.param_shardings(m, model.param_info, v.params)
+    specs = sharding.param_shardings(m, model.param_info, v.params)
+    assert specs["fc/w"].spec == P("data", None)
+    assert sharding.split_blocks(specs) == ({}, {"fc/w": [(0, "data")]})
     # a tensor-parallel spec on a data-only mesh degrades to replicated
     tp = pt.build(lambda x: pt.layers.fc(x, 4, param_attr=ParamAttr(sharding=(None, "model"))),
                   name="tp")

@@ -18,6 +18,7 @@ one spawn of two gloo ranks and one of four (rank bodies in
 attention k biases at the scheduled rates' sum.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 
 import jax

@@ -9,6 +9,7 @@ match the JAX package's plain and rematerialized runs at rtol 1e-5 /
 atol 1e-6 (f32 products summed in other orders).
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ Its CUDA path (pinned memory, a side stream) is tested on the card in
 ``tests/test_torch_cuda_kernels.py``.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ package, each held against it on the CPU.
   ``/admission`` in both packages.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import urllib.error
 import urllib.request
 

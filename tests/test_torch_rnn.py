@@ -9,6 +9,7 @@ recurrences as ``lax.scan``, the port as a loop of the same steps. Beam
 search is token-exact: candidates rank by score, then by index, in both.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ Executor feeds the ledger; the decode engine's step and prefill land as
 rows with a verdict; and the H100 rows of the peak tables.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -27,6 +27,7 @@ attention k biases (zero gradient in exact arithmetic) at the rates'
 sum.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ the other's blob, torn and corrupt blobs raise ``HandoffCorrupt``, and
 Every engine closes in ``finally`` and every wait has a time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import itertools
 import os
 import types

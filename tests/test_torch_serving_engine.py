@@ -13,6 +13,7 @@ so exactness cannot hinge on a near tie. Every engine closes in
 ``finally`` and every wait has a time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 import sys
 import threading

@@ -6,6 +6,7 @@ tables and dequeue order. Also the copied jax-free modules the engine
 leans on: the metric registry's histograms and quantiles, the token
 waterfall, and the Go-style channel."""
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import threading
 import types
 

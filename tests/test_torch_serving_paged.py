@@ -10,6 +10,7 @@ products in another order: ~1e-6) and its tokens are equal. The port writes
 the pages in place and returns the tensors it was given.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 
 import jax

@@ -15,6 +15,7 @@ CPU.
 Every engine closes in ``finally`` and every wait has a time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import dataclasses
 import os
 import time

@@ -14,6 +14,7 @@ atol 1e-5. Every engine closes in ``finally``, and every wait on a thread
 or a result has a time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import threading
 import time
 

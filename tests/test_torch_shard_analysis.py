@@ -12,6 +12,7 @@ message too), ``shard-unknown-axis``, ``shard-conflict`` and
 init with ``jax.eval_shape``; the engine hook raises before placement.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import pytest
 import torch

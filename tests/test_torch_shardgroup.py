@@ -18,6 +18,7 @@ the JAX ``paged_prefill_chunk``/``paged_decode_step``'s. Every engine
 closes in ``finally`` and every wait has a time limit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 import time
 import types

@@ -25,6 +25,7 @@ rtol 2e-4, atol 2e-4; LM losses rtol 1e-4 (1e-5 over three steps, as
 scheduled rates' sum.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 
 import jax

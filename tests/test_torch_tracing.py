@@ -12,6 +12,7 @@ package's (``paddle_tpu.tracing``) on the CPU.
   names and parents.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,7 @@ gradient elements: parameters after bf16 steps are not compared element
 by element.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import numpy as np
 import pytest

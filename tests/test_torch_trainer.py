@@ -15,6 +15,7 @@ move them), Adam slots at rtol 1e-4, atol 1e-7. A prefetched run equals an
 unprefetched one exactly.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import os
 import signal
 import subprocess

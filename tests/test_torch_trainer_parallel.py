@@ -14,6 +14,7 @@ linear regression); a resumed run against the uninterrupted one at the
 same world size bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import os
 
 import jax

@@ -14,6 +14,7 @@ the port counts products only). The ``trainer.mfu`` gauge is the counted
 FLOPs over the last step's seconds times the peak.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import json
 import urllib.request
 

@@ -9,6 +9,7 @@ top-1/top-2 logit margin is asserted to be well above the logits' agreement,
 so a near tie cannot flip a token between the packages.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

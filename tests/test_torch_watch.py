@@ -7,6 +7,7 @@ Every stream is made from numpy seeds; SLO engines run on an injected
 clock, so no test sleeps.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import numpy as np
 import pytest
 

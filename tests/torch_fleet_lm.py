@@ -17,6 +17,7 @@ f32 ``CachedDecoder`` is asserted above ``MARGIN``, so equal tokens across
 the packages cannot hinge on a near tie. Built once per process.
 """
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import functools
 import types
 

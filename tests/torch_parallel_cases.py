@@ -11,6 +11,7 @@ The model configurations live here so both sides build the same models.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: its share of the cores)
 import numpy as np
 import torch
 
@@ -873,3 +874,138 @@ def cx_trainer(rank, root, axes, kw, specs, zero, batches, jax_root):
         out["jax_loaded"] = (numpy_state(*dp.full_state(jv, jo)), int(jo.step),
                              manifest["step"])
     return out
+
+
+# -- any mesh and spec (test_torch_any_mesh.py) ---------------------------------
+def store_rows(model, axis="data"):
+    """Replace the annotation of every parameter of two dims or more of a
+    built model (``param_info`` recorded by an init) by dim 0 split over
+    ``axis``: a stored block (FSDP-like). Works on either package's model."""
+    for info in model.param_info.values():
+        if len(info.shape) >= 2:
+            info.sharding = (axis,) + (None,) * (len(info.shape) - 1)
+
+
+def kept_tokens():
+    """The MoE routers (``parallel.moe._ROUTERS``) of this rank process
+    wrapped once: each call appends ``(routes kept over the step's tokens,
+    aux loss)`` to the returned list (inside a step the count is summed over
+    its token blocks)."""
+    from paddle_tpu_torch.parallel import context as dp_context
+    from paddle_tpu_torch.parallel import moe
+
+    calls = getattr(kept_tokens, "calls", None)
+    if calls is None:
+        calls = kept_tokens.calls = []
+
+        def wrap(fn):
+            def gate(logits, capacity, token_mask=None, rows=None):
+                dispatch, combine, aux = fn(logits, capacity, token_mask=token_mask, rows=rows)
+                calls.append((int(dp_context.global_sum(dispatch.sum())), float(aux.detach())))
+                return dispatch, combine, aux
+
+            return gate
+
+        for name, (fn, routes) in list(moe._ROUTERS.items()):
+            moe._ROUTERS[name] = (wrap(fn), routes)
+    return calls
+
+
+def am_model(run, mesh):
+    """(model, optimizer factory) of an any-mesh run: ``run["model"]`` "mlp"
+    or "lm" (``run["kw"]`` as :func:`_lm_spec`'s)."""
+    if run["model"] == "mlp":
+        return port_model("mlp")
+    spec = _lm_spec(run["kw"], mesh)
+    return spec.model, spec.optimizer
+
+
+def am_steps(rank, runs):
+    """``STEPS`` DataParallel steps per run (a dict: ``axes``, ``model``,
+    ``kw``, ``specs`` (entries of P per arg, or None), ``zero``, ``stored``
+    (:func:`store_rows`), ``batch``, ``params``; optionally ``save``: a root
+    for a sharded checkpoint after the steps, ``load``: the JAX package's
+    checkpoint root to load at this rank's layout, ``pad``: rows of a
+    ragged batch for ``pad_batch``). Returns the losses, the whole state,
+    this rank's digest of its parameters, the shapes, parameter and slot
+    bytes it held, the routers' first-step kept tokens and aux losses, the
+    step's token axes and the batch arithmetic."""
+    import hashlib
+
+    out = {}
+    for name, run in runs.items():
+        mesh = make_mesh(**run["axes"])
+        model, opt = am_model(run, mesh)
+        tb = [torch.from_numpy(b) for b in run["batch"]]
+        if not model.param_info:
+            model.init(0, *tb, device="cpu")
+        if run.get("stored"):
+            store_rows(model)
+        specs = run.get("specs")
+        dp = DataParallel(model, opt(), mesh=mesh, device="cpu",
+                          zero_shard_optimizer=run.get("zero", False),
+                          batch_specs=None if specs is None else [P(*s) for s in specs])
+        v, o = dp.init(0, *tb, variables=Variables(tensors(run["params"]), {}))
+        res = dict(local_shapes={k: tuple(t.shape) for k, t in v.params.items()},
+                   param_bytes=sum(t.numel() * t.element_size() for t in v.params.values()),
+                   slot_bytes=sum(t.numel() * t.element_size()
+                                  for d in o.slots.values() for t in d.values()),
+                   token_axes=dp._token_axes, leading_multiple=dp.leading_multiple(*tb))
+        if run.get("load"):
+            (lv, lo), manifest = cks.load_sharded(run["load"], dp.state_template(v, o))
+            res["loaded"] = (numpy_state(*dp.full_state(lv, lo)), int(lo.step), manifest["step"])
+        calls = kept_tokens() if run["model"] == "lm" and run["kw"].get("moe_experts") else []
+        losses, routers = [], None
+        for _ in range(STEPS):
+            calls.clear()
+            step = dp.step(v, o, *tb)
+            v, o = step.variables, step.opt_state
+            losses.append(float(step.loss))
+            routers = list(calls) if routers is None else routers
+        h = hashlib.sha256()
+        for t in pt.core.tree.leaves(v.params):
+            h.update(t.detach().numpy().tobytes())
+        if run.get("save"):
+            cks.save_sharded(run["save"], (v, o), step=STEPS, template=dp.state_template(v, o))
+        if run.get("pad"):
+            padded, mask = dp.pad_batch(*(b[:run["pad"]] for b in run["batch"]))
+            res["pad"] = ([np.asarray(b) for b in padded], mask,
+                          [np.asarray(dp.rank_rows(b)) for b in padded])
+        res.update(losses=losses, state=numpy_state(*dp.full_state(v, o)), digest=h.hexdigest(),
+                   routers=routers)
+        out[name] = res
+    return out
+
+
+def am_trainer(rank, roots, axes, kw, specs, batches):
+    """``Trainer(parallel=True)`` of the LM (``kw`` as :func:`_lm_spec`'s)
+    on a mesh of ``axes`` with batch specs ``specs``, sharded async
+    checkpoints every 2 steps: two uninterrupted epochs in ``roots[0]``; one
+    epoch in ``roots[1]``, then a fresh Trainer there resumes for the
+    second. Returns both runs' losses, the step and whether the resumed
+    state equals the uninterrupted one bit for bit."""
+    from paddle_tpu_torch.trainer import CheckpointConfig, EndStepEvent, Trainer
+
+    mesh = make_mesh(**axes)
+    spec = _lm_spec(kw, mesh)
+
+    def run(root, epochs):
+        losses = []
+        t = Trainer(lambda: spec.model, spec.optimizer, parallel=True, place="cpu",
+                    parallel_kwargs=dict(mesh=mesh, batch_specs=[P(*s) for s in specs]),
+                    checkpoint_config=CheckpointConfig(root, step_interval=2, sharded=True,
+                                                       async_save=True))
+        t.train(num_epochs=epochs, reader=lambda: iter(batches),
+                event_handler=lambda ev: losses.append(ev.metrics)
+                if isinstance(ev, EndStepEvent) else None)
+        return t, losses
+
+    whole, whole_losses = run(roots[0], 2)
+    run(roots[1], 1)
+    resumed, resumed_losses = run(roots[1], 2)
+    return dict(whole_losses=whole_losses, resumed_losses=resumed_losses,
+                step=resumed.global_step,
+                local_shapes={k: tuple(t.shape) for k, t in whole.variables.params.items()},
+                resumed_equal=all(torch.equal(a, b) for a, b in zip(
+                    pt.core.tree.leaves((whole.variables, whole.opt_state.slots)),
+                    pt.core.tree.leaves((resumed.variables, resumed.opt_state.slots)))))
