@@ -246,6 +246,28 @@ Phases, each printing JSON lines:
                over data and ZeRO-1 (see MP_PARTS).
                tools/torch_sp_nccl.py runs them over NCCL, one rank per
                card; tools/torch_mp_parts.py runs some parts alone.
+ 15b. elastic — elastic training (ELASTIC_*): the LM at BASE_CFG (flash +
+               bf16, Adam) through Trainer(parallel=True,
+               CheckpointConfig(sharded=True, step_interval=2),
+               ResilienceConfig(elastic=True)), three gloo ranks sharing the
+               card, an epoch of 6 batches of 6 x 1024 tokens, and a fourth
+               process that joins back (launch.spawn's may_leave and join).
+               (a) at step 3 DEVICE_LOST fires on every rank naming rank 2:
+               it leaves, the survivors re-form at 2, restore step 2 from
+               disk and replay the epoch; their losses against a cold restart
+               of 2 ranks from that checkpoint (bit-equal expected, else
+               TRAIN_LOSS_TOL); one elastic_shrink run-log event with a trace
+               id. (c) the process started as rank 2 of generation 2 joins at
+               the next checkpoint boundary: the world is 3 again, one
+               elastic_regrow event, the next step against a 3-rank Trainer
+               from the regrow's checkpoint, the joiner's steps equal to the
+               survivors'. (b) on those three, rank 0 (the manifest's
+               writer) ends its process during step 3: the survivors learn
+               it from gloo's error, agree through the launcher's health
+               endpoint and re-form; checked as (a). Every step on every
+               rank launches each kernel 6 times; printed: detection ms,
+               rendezvous ms, restore s and bytes, recovery s, step ms
+               before and after each change of world, the phase's seconds.
  16. catalog — the Fluid catalog (CATALOG_*, BOOK_*, SRL_*): (a) every
                function of ops.math, the catalog's ops.nn functions,
                ops.losses, ops.control_flow, ops.nn3d and ops.vision at
@@ -285,7 +307,8 @@ Phases, each printing JSON lines:
                the proposals under the same near-tie rule, the labels of
                the card's proposals card against CPU.
  17. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8, 10-16), its error and times at the
+               (phases 4-6, 8, 10-16; elastic: one rank's launches over (a)
+               and (c), Model.init's forward included), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
                (not measured).
@@ -519,6 +542,20 @@ DP_ONE_RANK_TOL = 0.0
 # alone, as if the all-reduce did nothing) 0.85 at its median one (PERF.md
 # section 6, PR 9), and it must read above the limit in every run.
 DP_MOVEMENT_TOL = 0.25
+# Elastic training (phase elastic): the LM at BASE_CFG (flash + bf16, Adam)
+# through Trainer(parallel=True, CheckpointConfig(sharded=True,
+# step_interval=ELASTIC_CKPT_STEPS), ResilienceConfig(elastic=True)) on
+# ELASTIC_RANKS gloo ranks sharing the card: an epoch of ELASTIC_BATCHES
+# global batches of ELASTIC_ROWS x 1024 tokens (the rows divide 3 and 2
+# ranks); a rank is lost at step ELASTIC_LOST_STEP of the epoch, so the
+# survivors restore step ELASTIC_CKPT_STEPS. The group's collective timeout
+# is ELASTIC_TIMEOUT_S (the rendezvous deadline when nothing attributes a
+# loss). Losses of the same world from the same checkpoint on the same
+# batches are expected bit-equal (ELASTIC_LOSS_TOL: 0); where they are not,
+# the check falls back to phase dp (b)'s TRAIN_LOSS_TOL and says so.
+ELASTIC_RANKS, ELASTIC_ROWS, ELASTIC_BATCHES = 3, 6, 6
+ELASTIC_CKPT_STEPS, ELASTIC_LOST_STEP, ELASTIC_TIMEOUT_S = 2, 3, 300.0
+ELASTIC_LOSS_TOL = 0.0
 # Telemetry (phase telemetry): bench.py's LM cell through the Trainer (8 x
 # 1024 tokens, bf16, flash, Adam) with the telemetry on — an exporter on an
 # ephemeral port (scraped while it trains), a run log, tracing, a watch on
@@ -1826,7 +1863,7 @@ def nmt_phase(smi: str):
         zeros = torch.zeros(B, H, T, dh, device="cuda")
         eye = torch.eye(T, device="cuda").expand(B, H, T, T).contiguous()
         out = scaled_dot_product_attention(zeros, zeros, eye, dropout_rate=rate, is_test=False,
-                                           dropout_generator=gen)
+                                           dropout_key=gen)
         mask = out.float() * T * keep
         mask_err = float((mask - mask.round()).abs().max())
         kept = float(mask.round().sum())
@@ -1841,7 +1878,7 @@ def nmt_phase(smi: str):
         stats = []
         for _ in range(NMT_DROP_DRAWS):
             diff = scaled_dot_product_attention(q, k, v, dropout_rate=rate, is_test=False,
-                                                dropout_generator=gen).float() - ref
+                                                dropout_key=gen).float() - ref
             stats.append([float(diff.sum()), float((diff * signs).sum())])
         del q, k, v, ref, signs, diff
     stats = np.asarray(stats)
@@ -4948,6 +4985,317 @@ def mp_phase(smi: str, ranks: int = 2, device: str = "cuda:0", backend="gloo"):
     return paths, checks
 
 
+def elastic_rank(rank, work):
+    """One process of phase elastic (three ranks and one that joins back,
+    sharing the card over gloo). (a) initial rank 2 is lost at step
+    ELASTIC_LOST_STEP by a raised DeviceLostError on every rank: the
+    survivors re-form at 2 and restore step 2; (c) the process that joins
+    generation 2 as rank 2 regrows the world to 3 at the next checkpoint
+    boundary, and the three finish the epoch; a 3-rank Trainer from the
+    regrow's checkpoint takes the next batch, the reference of the regrown
+    world's next step. (b) on those three, initial rank 0 (the manifest's
+    writer) ends its process during step ELASTIC_LOST_STEP: the survivors
+    learn it from gloo's error, agree through the launcher's health
+    endpoint and re-form; then a 2-rank Trainer from (a)'s step-2
+    checkpoint takes the epoch's first two batches, the reference of both
+    shrinks. Each process writes what it measured to ``work`` as it goes
+    (initial rank 0 does not come back from (b))."""
+    import json
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model
+    from paddle_tpu_torch.observability.runlog import RunLog, read_runlog, set_runlog
+    from paddle_tpu_torch.ops.cuda import build as kbuild
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel.mesh import EvictedError
+    from paddle_tpu_torch.resilience import ResilienceConfig, faults
+    from paddle_tpu_torch.resilience.faults import DeviceLostError
+    from paddle_tpu_torch.trainer import BeginStepEvent, CheckpointConfig, EndStepEvent, Trainer
+
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=False)
+    # BASE_CFG, seq_len 1024, on this rank's card
+    spec = get_model("transformer_lm", device=mesh_mod.process_device())
+    batches = [spec.synth_batch(ELASTIC_ROWS, np.random.RandomState(i))
+               for i in range(ELASTIC_BATCHES)]
+    joined = mesh_mod.generation() > 0
+    me = f"{mesh_mod.initial_rank()}{'_joined' if joined else ''}"
+    out = {"rank": me}
+
+    def reader(lo=0, hi=ELASTIC_BATCHES):
+        return lambda: iter(batches[lo:hi])
+
+    def save():
+        with open(os.path.join(work, f"rank{me}.json"), "w") as f:
+            json.dump(out, f)
+
+    class Steps:
+        """Per step: the global step, the step in its epoch, the world,
+        the loss, ms (host clock to the loss's fetch) and the launches of
+        each kernel (the counts' difference over the step)."""
+
+        def __init__(self, die_at=None):
+            self.rows, self.die_at, self.t = [], die_at, None
+
+        def __call__(self, ev):
+            if isinstance(ev, BeginStepEvent):
+                if self.die_at is not None and ev.step == self.die_at:
+                    with open(os.path.join(work, "death.json"), "w") as f:
+                        json.dump({"time": time.time()}, f)
+                    os._exit(1)  # a crashed host: no cleanup, no result
+                torch.cuda.synchronize()
+                self.t = (time.perf_counter(),
+                          {n: k.launches for n, k in kbuild.KERNELS.items()})
+            elif isinstance(ev, EndStepEvent):
+                torch.cuda.synchronize()
+                t0, before = self.t
+                self.rows.append({
+                    "step": self.trainer.global_step, "in_epoch": ev.step,
+                    "world": mesh_mod.world_size(), "loss": ev.metrics,
+                    "ms": 1e3 * (time.perf_counter() - t0),
+                    "launches": {n: k.launches - before[n] for n, k in kbuild.KERNELS.items()}})
+
+    def trainer(root, steps, elastic=True, interval=ELASTIC_CKPT_STEPS):
+        t = Trainer(lambda: spec.model, spec.optimizer, parallel=True,
+                    checkpoint_config=CheckpointConfig(root, step_interval=interval,
+                                                       epoch_interval=10 ** 6,
+                                                       max_num_checkpoints=10, sharded=True),
+                    resilience=ResilienceConfig(elastic=elastic))
+        steps.trainer = t
+        return t
+
+    def events(path):
+        set_runlog(None)
+        return [{k: e.get(k) for k in ("kind", "step", "devices_before", "devices_after",
+                                       "source", "seconds", "trace_id")}
+                for e in read_runlog(path) if e["kind"] in ("elastic_shrink", "elastic_regrow")]
+
+    def copy_checkpoint(src_root, step, dst_root):
+        """A directory holding only ``src_root``'s serial ``step``: what a
+        cold restart from that checkpoint resumes."""
+        if mesh_mod.process_rank() == 0:
+            shutil.copytree(os.path.join(src_root, f"checkpoint_{step}"),
+                            os.path.join(dst_root, f"checkpoint_{step}"))
+        mesh_mod.barrier()
+
+    # (a) shrink by a raised loss, then (c) the regrow
+    log = os.path.join(work, f"runlog_a_{me}.jsonl")
+    set_runlog(RunLog(log))
+    steps = Steps()
+    t = trainer(os.path.join(work, "a"), steps)
+    lost = faults.FaultSpec(faults.DEVICE_LOST, "error", after=ELASTIC_LOST_STEP, times=1,
+                            exc=DeviceLostError("injected: rank 2 lost", device_indices=(2,)))
+    for kern in kbuild.KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with faults.injected(*([] if joined else [lost])):
+            t.train(num_epochs=1, reader=reader(), event_handler=steps)
+    except EvictedError as e:
+        out["a"] = {"evicted": str(e), "steps": steps.rows}
+        save()
+        return out
+    sup = t._elastic
+    out["a"] = {"steps": steps.rows, "seconds": time.perf_counter() - t0,
+                "launches": {n: k.launches for n, k in kbuild.KERNELS.items()},
+                "global_step": t.global_step, "recovery": sup.last_recovery,
+                "regrow": sup.last_regrow, "shrinks": sup.shrinks, "regrows": sup.regrows,
+                "members": mesh_mod.members(), "events": events(log)}
+    t.stop()
+    del t
+    torch.cuda.empty_cache()
+    # the regrow's boundary, as the survivors took it
+    at = [None]
+    if not joined:
+        regrow_step = sup.last_regrow["step"]
+        after = [r for r in steps.rows if r["step"] == regrow_step + 1]
+        at = [(regrow_step, after[0]["in_epoch"] if after else None)]
+    dist.broadcast_object_list(at, src=0)
+    regrow_step, next_batch = at[0]
+    out["a"]["regrow_boundary"] = at[0]
+    if next_batch is not None:
+        copy_checkpoint(os.path.join(work, "a"), regrow_step, os.path.join(work, "r3"))
+        ref = Steps()
+        tr = trainer(os.path.join(work, "r3"), ref, elastic=False, interval=10 ** 6)
+        tr.train(num_epochs=1, reader=reader(next_batch, next_batch + 1), event_handler=ref)
+        out["r3"] = ref.rows
+        tr.stop()
+        del tr
+    save()
+
+    # (b) shrink by a real death: initial rank 0 ends its process
+    log = os.path.join(work, f"runlog_b_{me}.jsonl")
+    set_runlog(RunLog(log))
+    steps = Steps(die_at=ELASTIC_LOST_STEP if mesh_mod.initial_rank() == 0 else None)
+    t = trainer(os.path.join(work, "b"), steps)
+    t0 = time.perf_counter()
+    t.train(num_epochs=1, reader=reader(), event_handler=steps)
+    sup = t._elastic
+    out["b"] = {"steps": steps.rows, "seconds": time.perf_counter() - t0,
+                "global_step": t.global_step, "recovery": sup.last_recovery,
+                "shrinks": sup.shrinks, "members": mesh_mod.members(), "events": events(log)}
+    t.stop()
+    del t
+    torch.cuda.empty_cache()
+    # the reference of both shrinks: 2 ranks cold-restarted from (a)'s step 2
+    copy_checkpoint(os.path.join(work, "a"), ELASTIC_CKPT_STEPS, os.path.join(work, "r2"))
+    ref = Steps()
+    tr = trainer(os.path.join(work, "r2"), ref, elastic=False, interval=10 ** 6)
+    tr.train(num_epochs=1, reader=reader(0, 2), event_handler=ref)
+    out["r2"] = ref.rows
+    tr.stop()
+    save()
+    return out
+
+
+def elastic_phase(smi: str, device: str = "cuda:0"):
+    """Phase 15b: elastic training (see ELASTIC_*), gloo ranks sharing
+    ``device``. Returns its kernel launches by path and its checks."""
+    import json
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.parallel import launch
+
+    checks = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        t0 = time.perf_counter()
+        launch.spawn(elastic_rank, ELASTIC_RANKS, args=(work,), device=device, backend="gloo",
+                     may_leave=(0,), join=[(2, 2)], collective_timeout_s=ELASTIC_TIMEOUT_S,
+                     timeout_s=900)
+        seconds = time.perf_counter() - t0
+        ranks = {}
+        for name in sorted(os.listdir(work)):
+            if name.startswith("rank") and name.endswith(".json"):
+                with open(os.path.join(work, name)) as f:
+                    ranks[name[4:-5]] = json.load(f)
+        with open(os.path.join(work, "death.json")) as f:
+            death = json.load(f)["time"]
+        ckpt_bytes = {p: sum(os.path.getsize(os.path.join(work, p, d, f))
+                             for d in os.listdir(os.path.join(work, p))
+                             for f in os.listdir(os.path.join(work, p, d)))
+                      for p in ("r2", "r3") if os.path.isdir(os.path.join(work, p))}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    from paddle_tpu_torch.models import get_model
+
+    n_layers = get_model("transformer_lm", device="cpu").extra["cfg"]["n_layers"]
+    survivors_a = [ranks[r] for r in ("0", "1")]
+    joiner = ranks.get("2_joined", {})
+    left = ranks.get("2", {}).get("a", {})
+    survivors_b = [ranks[r] for r in ("1", "2_joined") if "b" in ranks.get(r, {})]
+
+    def tol_equal(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= max(ELASTIC_LOSS_TOL, TRAIN_LOSS_TOL)
+                                        for x, y in zip(a, b))
+
+    def by_step(rows, lo, hi):
+        return [r["loss"] for r in rows if lo <= r["step"] <= hi]
+
+    all_rows = [r for rk in survivors_a for r in rk["a"]["steps"]] + left.get("steps", []) + \
+        joiner.get("a", {}).get("steps", []) + \
+        [r for rk in survivors_b for r in rk["b"]["steps"]]
+    ref2 = [r["loss"] for r in survivors_b[0]["r2"]] if survivors_b else []
+    def after_shrink(rows):
+        """The losses of the steps the two survivors took from the restored
+        checkpoint (before (a)'s regrow; to the end of the epoch in (b))."""
+        return [r["loss"] for r in rows if r["world"] == 2][:2]
+
+    a_losses = [after_shrink(rk["a"]["steps"]) for rk in survivors_a]
+    b_rows = [rk["b"]["steps"] for rk in survivors_b]
+    regrow_step = survivors_a[0]["a"]["regrow"]["step"] if survivors_a[0]["a"]["regrow"] else None
+    ref3 = [r["loss"] for r in survivors_a[0].get("r3", [])]
+    c_losses = [by_step(rk["a"]["steps"], regrow_step + 1, regrow_step + 1)
+                for rk in survivors_a + [joiner]] if regrow_step is not None else []
+    b_recovery = [rk["b"]["recovery"] for rk in survivors_b]
+    detect_ms = [1e3 * (rec["detected_at"] - death) for rec in b_recovery]
+
+    def one_event(rk, part, kind):
+        evs = [e for e in rk[part]["events"] if e["kind"] == kind]
+        return len(evs) == 1 and bool(evs[0]["trace_id"])
+
+    checks.update({
+        "a_rank2_left": "evicted" in left,
+        "a_survivors_restored_step_2_from_disk": all(
+            rk["a"]["recovery"]["restored_step"] == ELASTIC_CKPT_STEPS
+            and rk["a"]["recovery"]["source"] == "disk" for rk in survivors_a),
+        "a_one_shrink_event_with_trace_id": all(one_event(rk, "a", "elastic_shrink")
+                                                for rk in survivors_a),
+        "a_losses_vs_two_rank_cold_restart": bool(ref2) and all(
+            len(l) == 2 and tol_equal(l, ref2) for l in a_losses),
+        "c_regrew_to_three": all(rk["a"]["regrows"] == 1 and len(rk["a"]["members"]) == 3
+                                 for rk in survivors_a + [joiner]),
+        "c_one_regrow_event_with_trace_id": all(one_event(rk, "a", "elastic_regrow")
+                                                for rk in survivors_a),
+        "c_next_step_vs_three_rank_step": bool(ref3) and len(c_losses) == 3 and all(
+            len(l) == 1 and tol_equal(l, ref3) for l in c_losses),
+        "c_joiner_steps_equal_survivors": bool(joiner) and regrow_step is not None and [
+            r["loss"] for r in joiner["a"]["steps"]] == by_step(
+            survivors_a[0]["a"]["steps"], regrow_step + 1, 10 ** 6),
+        "ac_epoch_finished": all(rk["a"]["global_step"] == ELASTIC_CKPT_STEPS + ELASTIC_BATCHES
+                                 for rk in survivors_a + [joiner]),
+        "b_rank0_died_survivors_reformed": len(survivors_b) == 2 and all(
+            rk["b"]["members"] == [1, 2] for rk in survivors_b),
+        "b_survivors_restored_step_2_from_disk": len(b_recovery) == 2 and all(
+            rec["restored_step"] == ELASTIC_CKPT_STEPS and rec["source"] == "disk"
+            for rec in b_recovery),
+        "b_one_shrink_event_with_trace_id": all(one_event(rk, "b", "elastic_shrink")
+                                                for rk in survivors_b),
+        "b_detected_before_the_timeout": bool(detect_ms) and all(
+            0 <= ms < 1e3 * ELASTIC_TIMEOUT_S for ms in detect_ms),
+        "b_losses_vs_two_rank_cold_restart": bool(ref2) and all(
+            tol_equal(after_shrink(rows), ref2) for rows in b_rows),
+        "b_epoch_finished": all(rk["b"]["global_step"] == ELASTIC_CKPT_STEPS + ELASTIC_BATCHES
+                                for rk in survivors_b),
+        "every_step_six_launches_of_each_kernel": bool(all_rows) and all(
+            r["launches"][k] == n_layers for r in all_rows for k in HOPPER_KERNELS),
+    })
+    bit_equal = {
+        "a": bool(ref2) and all(l == ref2 for l in a_losses),
+        "b": bool(ref2) and all(after_shrink(rows) == ref2 for rows in b_rows),
+        "c": bool(ref3) and all(l == ref3 for l in c_losses),
+    }
+
+    def step_ms(rows, world):
+        ms = [r["ms"] for r in rows if r["world"] == world]
+        return {"median": float(sorted(ms)[len(ms) // 2]) if ms else None, "n": len(ms)}
+
+    rank1 = ranks["1"]
+    numbers = {
+        "a": {"rendezvous_ms": [1e3 * rk["a"]["recovery"]["rendezvous_s"] for rk in survivors_a],
+              "restore_s": [rk["a"]["recovery"]["restore_s"] for rk in survivors_a],
+              "recovery_s": [rk["a"]["recovery"]["seconds"] for rk in survivors_a],
+              "step_ms_3_ranks_before": step_ms(rank1["a"]["steps"][:ELASTIC_LOST_STEP], 3),
+              "step_ms_2_ranks": step_ms(rank1["a"]["steps"], 2)},
+        "c": {"regrow_s": [rk["a"]["regrow"]["seconds"] for rk in survivors_a],
+              "rendezvous_ms": [1e3 * rk["a"]["regrow"]["rendezvous_s"] for rk in survivors_a],
+              "regrow_step": regrow_step,
+              "step_ms_3_ranks_after": step_ms(rank1["a"]["steps"][ELASTIC_LOST_STEP:], 3)},
+        "b": {"detect_ms": detect_ms,
+              "rendezvous_ms": [1e3 * rec["rendezvous_s"] for rec in b_recovery],
+              "restore_s": [rec["restore_s"] for rec in b_recovery],
+              "recovery_s": [rec["seconds"] for rec in b_recovery],
+              "step_ms_3_ranks_before": step_ms(rank1["b"]["steps"], 3),
+              "step_ms_2_ranks_after": step_ms(rank1["b"]["steps"], 2)},
+        "restore_bytes": ckpt_bytes.get("r2"), "regrow_checkpoint_bytes": ckpt_bytes.get("r3"),
+    }
+    emit({"phase": "elastic", "model": "transformer_lm", "ranks": ELASTIC_RANKS,
+          "global_batch": [ELASTIC_ROWS, 1024], "epoch_batches": ELASTIC_BATCHES,
+          "checkpoint_every": ELASTIC_CKPT_STEPS, "lost_at_step": ELASTIC_LOST_STEP,
+          "collective_timeout_s": ELASTIC_TIMEOUT_S, "numbers": numbers,
+          "bit_equal_to_cold_restart": bit_equal, "loss_tol_if_not_bit_equal": TRAIN_LOSS_TOL,
+          "losses": {"a": a_losses, "c": c_losses, "b": [after_shrink(rows) for rows in b_rows],
+                     "ref_two_ranks": ref2, "ref_three_ranks": ref3},
+          "seconds": seconds, "card": smi, "checks": checks})
+    launches = rank1["a"]["launches"]
+    return {"elastic": launches}, checks
+
+
 def catalog_sweep_cases():
     """Phase catalog (a): every function of the port's ops.math, the ops.nn
     functions of the catalog slice, ops.losses, ops.control_flow, ops.nn3d
@@ -6382,6 +6730,11 @@ def main() -> int:
     failures += [f"mp check {k}" for k, good in mp_checks.items() if not good]
     mark("mp")
 
+    # 15b. elastic training: a lost rank, a dead rank 0, a regrow
+    elastic_paths, elastic_checks = elastic_phase(smi)
+    failures += [f"elastic check {k}" for k, good in elastic_checks.items() if not good]
+    mark("elastic")
+
     # 16. the Fluid catalog: the op sweep, the book's chapters, the SRL
     # tagger at the book's widths, nets.scaled_dot_product_attention
     catalog_paths, catalog_checks = catalog_phase(smi)
@@ -6392,7 +6745,7 @@ def main() -> int:
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
              **nmt_paths, **serve_paths, **fleet_paths, **group_paths, **dp_paths,
              "telemetry": telemetry_launches,
-             **infer_paths, **sp_paths, **mp_paths, **catalog_paths}
+             **infer_paths, **sp_paths, **mp_paths, **elastic_paths, **catalog_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

@@ -28,7 +28,12 @@ program that calls the flash kernel through the operator
 (``transpiler.inference``), remat policies (``transpiler.memory``) and the
 ``fluid_benchmark`` CLI (``python -m paddle_tpu_torch.benchmark``) — and
 the Fluid op and layer catalog (``layers``, ``nets`` and ``ops``: math, nn,
-control flow, the CRF/CTC losses, 3-D conv, vision) but detection.
+control flow, the CRF/CTC losses, 3-D conv, vision) but detection — and
+elastic training (``ResilienceConfig(elastic=True)``,
+``resilience.elastic``). The top-level names are the JAX package's
+(``import paddle_tpu_torch as fluid; fluid.Executor(fluid.CPUPlace())``),
+less ``TPUPlace``, which does not apply to a card (``CUDAPlace(i)`` takes
+its place), and ``recordio_writer`` (still to port).
 """
 
 from paddle_tpu_torch.version import __version__  # noqa: F401
@@ -54,3 +59,91 @@ from paddle_tpu_torch import average, debugger, evaluator, tensor  # noqa: F401
 from paddle_tpu_torch.tensor import create_lod_tensor, create_random_int_lodtensor  # noqa: F401
 from paddle_tpu_torch.inferencer import Inferencer  # noqa: F401
 from paddle_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: F401
+from paddle_tpu_torch.framework import WeightNormParamAttr, create_state  # noqa: F401
+from paddle_tpu_torch.executor import Executor  # noqa: F401
+from paddle_tpu_torch.parallel import DataParallel  # noqa: F401
+from paddle_tpu_torch.trainer import (  # noqa: F401
+    BeginEpochEvent, BeginStepEvent, CheckpointConfig, EndEpochEvent, EndStepEvent, Trainer,
+)
+from paddle_tpu_torch import concurrency  # noqa: F401
+from paddle_tpu_torch.concurrency import (  # noqa: F401
+    Select, channel_close, channel_recv, channel_send, go, make_channel,
+)
+from paddle_tpu_torch import serving  # noqa: F401
+from paddle_tpu_torch.serving import ServingConfig, ServingEngine  # noqa: F401
+from paddle_tpu_torch.resilience import ResilienceConfig  # noqa: F401
+from paddle_tpu_torch.observability import ObservabilityConfig  # noqa: F401
+from paddle_tpu_torch import tracing  # noqa: F401
+from paddle_tpu_torch.reader.feeder import DataFeeder, FeedSpec  # noqa: F401
+from paddle_tpu_torch.transpiler import (  # noqa: F401
+    DistributeTranspiler, memory_optimize, release_memory,
+)
+from paddle_tpu_torch.core import profiler  # noqa: F401
+
+CPUPlace = config.CPUPlace
+CUDAPlace = config.CUDAPlace
+# fluid.ParallelExecutor's replacement is DataParallel, as in the JAX
+# package: the reference name resolves to it
+ParallelExecutor = DataParallel
+
+# The JAX package's __all__ less the names that do not apply here:
+# ``TPUPlace`` (there is no TPU; ``CUDAPlace(i)`` takes its place) and
+# ``recordio_writer`` (the RecordIO writer is still to port: ROADMAP.md
+# §A item 8).
+__all__ = [
+    "__version__",
+    "concurrency",
+    "Select",
+    "make_channel",
+    "channel_send",
+    "channel_recv",
+    "channel_close",
+    "go",
+    "config",
+    "enforce",
+    "dtypes",
+    "unique_name",
+    "EnforceError",
+    "check",
+    "framework",
+    "build",
+    "name_scope",
+    "Model",
+    "create_parameter",
+    "create_state",
+    "initializer",
+    "regularizer",
+    "clip",
+    "ops",
+    "layers",
+    "optimizer",
+    "lr_scheduler",
+    "backward",
+    "Executor",
+    "reader",
+    "metrics",
+    "io",
+    "checkpoint",
+    "parallel",
+    "DataParallel",
+    "ParallelExecutor",
+    "DistributeTranspiler",
+    "trainer",
+    "Trainer",
+    "CheckpointConfig",
+    "transpiler",
+    "memory_optimize",
+    "release_memory",
+    "dataset",
+    "debugger",
+    "profiler",
+    "serving",
+    "ServingEngine",
+    "ServingConfig",
+    "resilience",
+    "ResilienceConfig",
+    "observability",
+    "ObservabilityConfig",
+    "tracing",
+    "CPUPlace",
+]

@@ -8,7 +8,12 @@ JAX package's flags.
 Device selection replaces the JAX package's Places: entry points take a
 ``device`` argument that defaults to ``"cuda"`` and raise when CUDA is
 absent, so a run never falls back to the CPU silently. The CPU runs only
-when the caller asks for it (``device="cpu"``), as the tests do.
+when the caller asks for it (``device="cpu"``), as the tests do. Fluid's
+Places are kept as selectors that :func:`resolve_device` accepts
+(``Executor(CPUPlace())``, ``CUDAPlace(0)``); the JAX package's
+``TPUPlace`` does not apply to a card, nor does ``apply_compile_cache``
+(XLA's persistent compilation cache: the port compiles its kernels with
+``nvcc`` into a cache keyed by the source's hash, ``ops/cuda/build.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +101,16 @@ class Flags:
     # (always on under pytest; this flag turns it on elsewhere — env
     # PADDLE_TPU_LOCK_CHECK=1)
     lock_check: bool = False
+    # elastic training (see paddle_tpu_torch.resilience.elastic): re-form
+    # the process group over the surviving ranks and keep training instead
+    # of crashing
+    elastic: bool = False
+    # refuse to shrink below this many surviving ranks
+    elastic_min_devices: int = 1
+    # re-expand the world at a checkpoint boundary when lost ranks return
+    elastic_regrow: bool = True
+    # consecutive watchdog stalls that escalate to a liveness probe
+    elastic_escalate_stalls: int = 2
 
     @staticmethod
     def _coerce(value: str, typ):
@@ -126,11 +141,55 @@ def set_flags(**kwargs) -> None:
         setattr(_flags, k, v)
 
 
+class Place:
+    """Fluid's device selector (``platform/place.h:134``): what
+    :func:`resolve_device` turns into a ``torch.device``."""
+
+    platform: str = "cpu"
+    device_id: int = 0
+
+    def torch_device(self) -> torch.device:
+        return torch.device(self.platform if self.platform == "cpu"
+                            else f"{self.platform}:{self.device_id}")
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.device_id == other.device_id
+
+    def __hash__(self):
+        return hash((type(self).__name__, self.device_id))
+
+
+class CPUPlace(Place):
+    platform = "cpu"
+
+
+class CUDAPlace(Place):
+    platform = "cuda"
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = int(device_id)
+
+    def __repr__(self):
+        return f"CUDAPlace({self.device_id})"
+
+
+def default_place() -> Place:
+    """``CUDAPlace(0)``, the port's default device (the JAX package's
+    default is its accelerator). There is no CPU fallback:
+    :func:`resolve_device` raises on it where no card is visible, and the
+    CPU is asked for with ``CPUPlace()``."""
+    return CUDAPlace(0)
+
+
 def resolve_device(device="cuda") -> torch.device:
-    """The ``torch.device`` an entry point runs on. CUDA is the default and
-    is required unless the caller passes ``device="cpu"``: there is no
-    silent CPU fallback."""
-    dev = torch.device(device)
+    """The ``torch.device`` an entry point runs on (a name, a
+    ``torch.device`` or a :class:`Place`). CUDA is the default and is
+    required unless the caller passes ``device="cpu"``: there is no silent
+    CPU fallback."""
+    dev = device.torch_device() if isinstance(device, Place) else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but CUDA is not available; pass "

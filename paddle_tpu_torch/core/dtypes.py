@@ -16,6 +16,7 @@ flags say.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
@@ -57,11 +58,42 @@ def convert(dtype) -> torch.dtype:
     raise TypeError(f"not a dtype: {dtype!r}")
 
 
-def compute_dtype() -> torch.dtype:
-    """The tensor-core operand dtype of the active policy."""
+def is_floating(dtype) -> bool:
+    """Whether a dtype name or ``torch.dtype`` is a floating type (bf16
+    included)."""
+    return convert(dtype).is_floating_point
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Mixed-precision policy: where each dtype class is used — parameters
+    and optimizer state f32, tensor-core operands in ``compute_dtype``,
+    accumulation f32 (``paddle_tpu.core.dtypes.Policy``)."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    accum_dtype: torch.dtype = torch.float32
+
+    def cast_to_compute(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_floating_point() and x.dtype != self.compute_dtype:
+            return x.to(self.compute_dtype)
+        return x
+
+
+FP32 = Policy()
+MIXED_BF16 = Policy(compute_dtype=torch.bfloat16)
+
+
+def default_policy() -> Policy:
+    """:data:`MIXED_BF16` under ``flags().use_bf16_compute``, else :data:`FP32`."""
     from paddle_tpu_torch.core import config
 
-    return torch.bfloat16 if config.flags().use_bf16_compute else torch.float32
+    return MIXED_BF16 if config.flags().use_bf16_compute else FP32
+
+
+def compute_dtype() -> torch.dtype:
+    """The tensor-core operand dtype of the active policy."""
+    return default_policy().compute_dtype
 
 
 def mxu_operands(*xs):

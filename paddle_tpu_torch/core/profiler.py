@@ -18,6 +18,8 @@ Port of ``paddle_tpu.core.profiler``. Reference:
 - :func:`profiler` / :func:`start_profiler` / :func:`stop_profiler` run a
   ``torch.profiler`` trace with CPU and (when present) CUDA activities and
   write it as a Chrome trace into ``log_dir``, beside the host timeline.
+- :func:`cuda_profiler` starts and stops the CUDA runtime profiler around
+  a block, as Fluid's did.
 """
 
 from __future__ import annotations
@@ -309,3 +311,28 @@ def reset_profiler() -> None:
     _events.clear()
     _spans.clear()
     _thread_names.clear()
+
+
+@contextlib.contextmanager
+def cuda_profiler(output_file=None, output_mode=None, config=None):
+    """Reference ``profiler.py:39``: the CUDA runtime profiler
+    (``cudaProfilerStart``/``cudaProfilerStop`` through
+    ``torch.cuda.profiler``) runs around the block, for an external
+    profiler attached to the process to capture; ``output_mode`` and
+    ``config`` were nvprof's and are accepted for the signature. Without a
+    card there is no CUDA runtime: as the JAX package does, it warns and
+    delegates to :func:`profiler` with ``log_dir=output_file``."""
+    if not torch.cuda.is_available():
+        import warnings
+
+        warnings.warn("cuda_profiler: no CUDA runtime; delegating to the torch.profiler "
+                      "trace (see paddle_tpu_torch.core.profiler.profiler)", stacklevel=3)
+        with profiler(log_dir=output_file):
+            yield
+        return
+    torch.cuda.profiler.start()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.profiler.stop()

@@ -94,8 +94,9 @@ def to_device(value, device: torch.device, non_blocking: bool = False):
 
 class Executor:
     """Runs functions on one device (``exe = fluid.Executor(place)``).
-    ``place``: a device (``"cuda"``, ``"cpu"``, a ``torch.device``); None
-    means CUDA, which must then be available."""
+    ``place``: a device (``"cuda"``, ``"cpu"``, a ``torch.device``, or a
+    Place: ``CPUPlace()``, ``CUDAPlace(i)``); None means CUDA, which must
+    then be available."""
 
     def __init__(self, place=None, max_cache: int = 64):
         self.place = place if place is not None else "cuda"

@@ -18,7 +18,14 @@ parameters' scopes, byte for byte the JAX package's. Randomness in a
 training-mode apply (dropout) draws from the ``torch.Generator`` given as
 ``rng`` (:func:`next_rng`). :func:`checkpoint` rematerializes a block of
 layers in the backward pass (``jax.checkpoint``), replaying its names and
-random draws.
+random draws. :class:`WeightNormParamAttr` reparameterizes any layer's
+weight as ``g * v / ||v||``.
+
+Not applicable here: the JAX package's ``scan_layer_stack`` and
+``stack_layer_params`` (one ``lax.scan`` over stacked layer parameters, to
+keep XLA's compile time flat in depth: PyTorch runs the plain layer loop,
+which compiles nothing) and ``next_rng_key`` (JAX keys: the port's
+streams are ``torch.Generator`` objects, :func:`next_rng`).
 """
 
 from __future__ import annotations
@@ -67,6 +74,20 @@ class ParamAttr:
         if attr is False:
             return ParamAttr(trainable=False)
         return ParamAttr()
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight normalization (Salimans & Kingma; reference
+    ``param_attr.py WeightNormParamAttr``): the effective weight is
+    ``w = g * v / ||v||`` with direction ``v`` and per-output-slice
+    magnitude ``g`` as the trainable parameters (``<name>_v``,
+    ``<name>_g``). ``dim`` is the axis kept by the norm (the output dim;
+    None = one global scalar g). ``g`` initializes to 1, as in the JAX
+    package (the reference initializes it to ``||v_init||``)."""
+
+    def __init__(self, dim: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim
 
 
 @dataclasses.dataclass
@@ -194,6 +215,8 @@ def create_parameter(
 
     frame = _current_frame()
     attr = ParamAttr.to_attr(attr)
+    if isinstance(attr, WeightNormParamAttr):
+        return _weight_norm_parameter(shape, dtype, name, attr, default_initializer)
     t_dtype = dtypes_mod.convert(dtype)
     full = _full_name(frame, "param", attr.name or name)
     shape = tuple(int(s) for s in shape)
@@ -222,6 +245,40 @@ def create_parameter(
             f"parameter {full!r} shape mismatch: created with {shape}, got {tuple(value.shape)}"
         )
     return value
+
+
+def _weight_norm_parameter(shape, dtype, name, attr: WeightNormParamAttr, default_initializer):
+    """Create (or fetch) the (v, g) pair behind a WeightNormParamAttr and
+    return the effective weight ``g * v / ||v||`` (norm over all axes
+    except ``dim``, in f32)."""
+    from paddle_tpu_torch import initializer as init_mod
+
+    base = attr.name or name or "param"
+    v_attr = ParamAttr(initializer=attr.initializer, regularizer=attr.regularizer,
+                       trainable=attr.trainable, learning_rate=attr.learning_rate,
+                       sharding=attr.sharding)
+    v = create_parameter(shape, dtype, name=f"{base}_v", attr=v_attr,
+                         default_initializer=default_initializer)
+    ndim = len(shape)
+    if attr.dim is None:
+        g_shape: Tuple[int, ...] = ()
+        axes = tuple(range(ndim))
+        bshape = (1,) * ndim
+    else:
+        if not (-ndim <= attr.dim < ndim):
+            raise EnforceError(f"WeightNormParamAttr dim={attr.dim} out of range for a "
+                               f"rank-{ndim} parameter")
+        dim = attr.dim % ndim
+        g_shape = (shape[dim],)
+        axes = tuple(a for a in range(ndim) if a != dim)
+        bshape = tuple(shape[d] if d == dim else 1 for d in range(ndim))
+    g = create_parameter(g_shape, dtype, name=f"{base}_g",
+                         attr=ParamAttr(trainable=attr.trainable, learning_rate=attr.learning_rate),
+                         default_initializer=init_mod.Constant(1.0))
+    v32 = v.float()
+    norm = torch.sqrt(torch.sum(v32 * v32, dim=axes, keepdim=True) + 1e-12)
+    w = g.float().reshape(bshape) * v32 / norm
+    return w.to(v.dtype)
 
 
 def _block_of(value: torch.Tensor, sharding, mesh, axis: str) -> torch.Tensor:

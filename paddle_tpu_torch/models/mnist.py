@@ -35,20 +35,24 @@ def cnn_model(images, labels):
     return avg_loss, acc, logits
 
 
+def synth_batch(batch_size: int, rng: np.random.RandomState, device="cuda"):
+    """A random batch ``(images [B,28,28,1] f32, labels [B] int32)`` on
+    ``device``, drawn from ``rng`` as the JAX package's ``synth_batch``."""
+    dev = resolve_device(device)
+    images = rng.rand(batch_size, *IMG_SHAPE).astype(np.float32)
+    labels = rng.randint(0, NUM_CLASSES, size=(batch_size,)).astype(np.int32)
+    return torch.as_tensor(images, device=dev), torch.as_tensor(labels, device=dev)
+
+
 def get_model(learning_rate: float = 0.001, device="cuda", **_unused) -> ModelSpec:
     """``device`` (default CUDA; raises if CUDA is absent unless
     ``device="cpu"``) is where ``synth_batch`` puts its tensors."""
     dev = resolve_device(device)
 
-    def synth_batch(batch_size: int, rng: np.random.RandomState):
-        images = rng.rand(batch_size, *IMG_SHAPE).astype(np.float32)
-        labels = rng.randint(0, NUM_CLASSES, size=(batch_size,)).astype(np.int32)
-        return torch.as_tensor(images, device=dev), torch.as_tensor(labels, device=dev)
-
     return ModelSpec(
         name="mnist",
         model=build(cnn_model, name="mnist"),
-        synth_batch=synth_batch,
+        synth_batch=lambda batch_size, rng: synth_batch(batch_size, rng, dev),
         optimizer=lambda: optimizer.Adam(learning_rate=learning_rate),
         unit="images/sec",
         extra={"device": dev},

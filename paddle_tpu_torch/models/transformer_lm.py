@@ -18,7 +18,8 @@ run in full f32 on the card (``core/dtypes.py::ieee_f32``).
 ``remat`` recomputes each layer in the backward pass
 (:func:`~paddle_tpu_torch.framework.checkpoint`, replaying its names and
 dropout masks). ``scan_layers`` runs as the plain layer loop, whose math is
-identical. Pipeline parallelism (``pipe_mesh``) runs the layers as GPipe
+identical, so the JAX package's ``stack_decode_params`` (the stacked
+parameters of its scanned decode) does not apply. Pipeline parallelism (``pipe_mesh``) runs the layers as GPipe
 stages over the mesh's ``pipe`` axis (:func:`_pipeline_lm_blocks`), and
 tensor parallelism splits every projection, the embedding and the logits
 over a ``model`` axis (``models/transformer.py``, ``layers.fc``). The two
@@ -75,6 +76,7 @@ from paddle_tpu_torch.ops.attention import (
     rope_tables,
     scaled_dot_product_attention,
 )
+from paddle_tpu_torch.ops.nn import _renamed
 from paddle_tpu_torch.parallel import context as dp_context
 from paddle_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from paddle_tpu_torch.parallel.moe import moe_ffn
@@ -527,21 +529,25 @@ def generate(
     max_new_tokens: int,
     cfg: dict,
     temperature: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    rng: Optional[torch.Generator] = None,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
     cache_dtype: Optional[torch.dtype] = None,
     device="cuda",
+    *,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Autoregressive decode with a static k/v cache — prefill once over the
     prompt, then one step per new token. Returns [B, max_new_tokens] int32.
 
     Greedy at ``temperature=0``; else softmax sampling (with ``top_k`` /
-    ``top_p`` filtering) from ``generator``, a ``torch.Generator`` on the
-    run's device (required then). ``device`` (default CUDA; raises if CUDA
+    ``top_p`` filtering) from ``rng``, a ``torch.Generator`` on the run's
+    device (required then) where the JAX package takes a PRNG key
+    (``generator=`` is its deprecated name). ``device`` (default CUDA; raises if CUDA
     is absent unless ``device="cpu"``) must hold the parameters; the prompt
     moves there. ``cache_dtype`` (default f32): ``torch.bfloat16`` halves
     the cache's memory traffic."""
+    generator = _renamed(rng, generator, "generator", "rng")
     enforce(max_new_tokens >= 1, f"max_new_tokens must be >= 1, got {max_new_tokens}")
     enforce(
         temperature == 0.0 or generator is not None,
@@ -906,8 +912,9 @@ def _paged_sampling(temperature: float, generator) -> None:
 
 
 def paged_prefill_chunk(params, tokens, pos0, last_index, page_table, k_pages, v_pages,
-                        generator: Optional[torch.Generator] = None, *, cfg: dict,
-                        page_size: int, temperature: float = 0.0, top_k=None, top_p=None):
+                        rng: Optional[torch.Generator] = None, *, cfg: dict,
+                        page_size: int, temperature: float = 0.0, top_k=None, top_p=None,
+                        generator: Optional[torch.Generator] = None):
     """Prefill ONE sequence's chunk into its pages: ``tokens`` [C] int at
     absolute positions ``[pos0, pos0+C)``, mapped through ``page_table``
     [P]. Returns ``(next_token, k_pages, v_pages)``: ``next_token`` (0-d
@@ -916,7 +923,9 @@ def paged_prefill_chunk(params, tokens, pos0, last_index, page_table, k_pages, v
     given, written in place. Queries at padded positions (>= the prompt
     end) write K/V that decode overwrites before ever attending to them,
     and their outputs are discarded. Greedy at ``temperature=0``, else
-    sampled from ``generator`` (as :func:`generate`)."""
+    sampled from ``rng`` (as :func:`generate`; ``generator=`` is its
+    deprecated name)."""
+    generator = _renamed(rng, generator, "generator", "rng")
     params = params.params if hasattr(params, "params") else params
     _paged_sampling(temperature, generator)
     with torch.no_grad(), ieee_f32():
@@ -927,8 +936,9 @@ def paged_prefill_chunk(params, tokens, pos0, last_index, page_table, k_pages, v
 
 
 def paged_decode_step(params, tokens, positions, page_tables, k_pages, v_pages,
-                      generator: Optional[torch.Generator] = None, *, cfg: dict,
-                      page_size: int, temperature: float = 0.0, top_k=None, top_p=None):
+                      rng: Optional[torch.Generator] = None, *, cfg: dict,
+                      page_size: int, temperature: float = 0.0, top_k=None, top_p=None,
+                      generator: Optional[torch.Generator] = None):
     """One decode iteration for ``S`` independent sequences against the
     paged cache: embed ``tokens`` [S] at per-slot absolute ``positions``
     [S], write each token's K/V into its slot's pages, attend over each
@@ -936,7 +946,8 @@ def paged_decode_step(params, tokens, positions, page_tables, k_pages, v_pages,
     ``(next_tokens [S] int32, k_pages, v_pages)``. Shapes depend only on
     (S, table width, page size, model config); inactive slots point at the
     scratch page, and their writes and outputs are garbage the engine
-    ignores."""
+    ignores. Sampling draws from ``rng`` (as :func:`generate`)."""
+    generator = _renamed(rng, generator, "generator", "rng")
     params = params.params if hasattr(params, "params") else params
     _paged_sampling(temperature, generator)
     with torch.no_grad(), ieee_f32():

@@ -24,6 +24,11 @@ Peak FLOPs resolve in priority order:
    placeholder so CPU runs still report a finite utilization — override
    it for a real host.
 
+:func:`cost_flops` is the JAX function's analogue: one call's FLOPs,
+counted while it runs. The JAX package's ``cost_analysis_totals`` and
+``lowered_flops`` read XLA's cost analysis of a lowered computation,
+which PyTorch's eager calls do not have: not applicable.
+
 Goodput is the fraction of wall time spent making forward progress:
 :class:`GoodputTracker` charges time lost to NaN-skipped steps, rollbacks,
 retries, and stalls against per-category *badput* counters.
@@ -53,6 +58,7 @@ __all__ = [
     "CostCounter",
     "report_kernel",
     "paused",
+    "cost_flops",
     "mfu",
     "GoodputTracker",
 ]
@@ -261,6 +267,15 @@ def paused() -> Iterator[None]:
     finally:
         for counter in counters:
             counter._paused -= 1
+
+
+def cost_flops(fn, *args, **kwargs) -> float:
+    """The FLOPs of one call ``fn(*args, **kwargs)``, counted by a
+    :class:`CostCounter` while it runs (the call runs; its result is
+    dropped)."""
+    with CostCounter() as counter:
+        fn(*args, **kwargs)
+    return float(counter.flops)
 
 
 def mfu(flops_per_step: float, step_time_s: float, device_count: int = 1,

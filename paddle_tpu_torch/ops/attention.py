@@ -72,12 +72,14 @@ def scaled_dot_product_attention(
     mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     is_test: bool = True,
+    dropout_key: Optional[torch.Generator] = None,
     scale: Optional[float] = None,
     causal: bool = False,
     kv_len: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
-    dropout_generator: Optional[torch.Generator] = None,
+    *,
     dropout_block=None,
+    dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention over [..., T, D] tensors. ``mask`` is additive, broadcastable
     to [..., Tq, Tk] (0 keep, -inf drop); ``causal=True`` masks structurally
@@ -90,8 +92,11 @@ def scaled_dot_product_attention(
     bf16 operands on the tensor cores, f32 operands in full f32). With
     ``dropout_rate`` > 0 and not ``is_test``, dropout (``ops.nn.dropout``)
     masks the softmax weights before the P V product, drawing from
-    ``dropout_generator`` (the JAX package's ``dropout_key``), by default
-    the frame's generator (``framework.next_rng``); ``dropout_block`` says
+    ``dropout_key``, a ``torch.Generator`` where the JAX package takes a
+    PRNG key (the arguments keep the JAX package's names and positional
+    order; ``dropout_generator=`` is the deprecated name of
+    ``dropout_key``), by default the frame's generator
+    (``framework.next_rng``); ``dropout_block`` says
     which block of the heads ``q`` holds under tensor parallelism (the
     mask's ``block``, ``ops.nn.dropout``). With
     ``flags().use_flash_attention``, the mask-free 4-D case without dropout
@@ -102,6 +107,9 @@ def scaled_dot_product_attention(
     from paddle_tpu_torch.core.dtypes import NEG_INF, f32_bmm, mxu_operands
     from paddle_tpu_torch.core.enforce import enforce
 
+    from paddle_tpu_torch.ops.nn import _renamed
+
+    dropout_key = _renamed(dropout_key, dropout_generator, "dropout_generator", "dropout_key")
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
 
@@ -160,7 +168,7 @@ def scaled_dot_product_attention(
             return weights
         from paddle_tpu_torch.ops.nn import dropout
 
-        return dropout(weights, dropout_rate, is_test=False, generator=dropout_generator,
+        return dropout(weights, dropout_rate, is_test=False, key=dropout_key,
                        block=dropout_block)
 
     if q.dim() == 4 and k.dim() == 4 and k.shape[1] != q.shape[1]:

@@ -410,19 +410,36 @@ def layer_norm(x, scale=None, bias=None, begin_norm_axis: int = -1, epsilon: flo
     return y.to(x.dtype)
 
 
-def dropout(x, dropout_prob: float, is_test: bool = False, generator=None,
-            upscale_in_train: bool = True, block=None):
+def _renamed(value, old_value, old: str, new: str):
+    """``value``, or the deprecated keyword ``old``'s value (with a
+    warning) when only that one was given."""
+    if old_value is None:
+        return value
+    import warnings
+
+    warnings.warn(f"{old}= is deprecated; pass {new}= (the JAX package's name)",
+                  DeprecationWarning, stacklevel=3)
+    if value is not None:
+        raise TypeError(f"pass {new}= or the deprecated {old}=, not both")
+    return old_value
+
+
+def dropout(x, dropout_prob: float, is_test: bool = False, key=None,
+            upscale_in_train: bool = True, block=None, *, generator=None):
     """Reference ``dropout_op.cc``. ``upscale_in_train`` is the
     'upscale_in_train' dropout_implementation (the modern default): kept
     entries are divided by the keep rate in training, and eval leaves x
-    unchanged. The mask is Bernoulli(1 - dropout_prob) from ``generator``,
-    by default the frame's (``framework.next_rng``, which raises when the
-    training-mode apply was given no ``rng``); it is drawn on the
-    generator's device. ``Model.init`` draws nothing: its outputs are
+    unchanged. The mask is Bernoulli(1 - dropout_prob) from ``key``, a
+    ``torch.Generator`` where the JAX package takes a PRNG key (same name
+    and position), by default the frame's (``framework.next_rng``, which
+    raises when the training-mode apply was given no ``rng``); it is drawn
+    on the generator's device. ``generator=`` is the deprecated name of
+    ``key``. ``Model.init`` draws nothing: its outputs are
     discarded. ``block=(dim, index, n)``: ``x`` is block ``index`` of ``n``
     on ``dim`` of a tensor split over ranks (tensor parallelism); the mask
     is drawn at the whole tensor's shape and cut alike, so the ranks'
     masks join into the one-device mask."""
+    generator = _renamed(key, generator, "generator", "key")
     if is_test:
         return x if upscale_in_train else x * (1.0 - dropout_prob)
     if dropout_prob == 0.0:

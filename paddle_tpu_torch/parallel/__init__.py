@@ -15,8 +15,9 @@ and spec the JAX package's GSPMD runs, the global-batch context its step
 runs in, the mixture-of-experts layer (``moe``: ``moe_ffn``,
 ``switch_gate``, ``top2_gate``, ``MoEOutput``) and the GPipe schedule
 (``pipeline``: ``pipeline_apply``, ``stack_stage_params``,
-``split_microbatches``). Not ported yet, raising ``NotImplementedError``
-naming ``ROADMAP.md``: ``DataParallel.resize`` (elastic training).
+``split_microbatches``). ``DataParallel.resize`` rebuilds the mesh over
+a re-formed process group (:func:`~paddle_tpu_torch.parallel.mesh.reform`,
+elastic training: ``resilience/elastic.py``).
 """
 
 from paddle_tpu_torch.parallel import context  # noqa: F401  (first: ops/nn.py imports it)

@@ -701,11 +701,25 @@ class DataParallel:
 
     # -- state ----------------------------------------------------------------
     def resize(self, devices: Sequence) -> mesh_mod.Mesh:
-        """Elastic mesh shrink/regrow is the elastic supervisor's
-        (``resilience/elastic.py``), not ported yet."""
-        raise NotImplementedError(
-            "DataParallel.resize: elastic training (resilience/elastic.py) is not ported to "
-            "paddle_tpu_torch yet; see ROADMAP.md")
+        """Rebuild the mesh over ``devices`` (the ranks of the re-formed
+        process group, :func:`~paddle_tpu_torch.parallel.mesh.reform`): the
+        batch axis absorbs the change, every other axis keeps its size
+        (:func:`~paddle_tpu_torch.parallel.mesh.remesh`; collective, as
+        building any mesh is). Everything sized by the old world goes: the
+        step functions (their update hook holds the ZeRO-1 rows and the
+        block windows), the block layout, the placed batches' row windows
+        and the token layout the batch group is made from. Returns the new
+        mesh; :meth:`state_template` then describes the new world's layout
+        (what ``checkpoint_sharded.load_sharded`` restores into) and
+        :meth:`place_state` re-places a whole state on it."""
+        self.mesh = mesh_mod.remesh(self.mesh, list(devices), self.batch_axis)
+        self._row_axes, self._seq_axis = self._token_layout()
+        self._token_axes = self._row_axes + ((self._seq_axis,) if self._seq_axis else ())
+        self._step_fn = None
+        self._ragged_fn = None
+        self._layout = None
+        self._placed = weakref.WeakValueDictionary()
+        return self.mesh
 
     def state_template(self, variables: Variables, opt_state: OptState):
         """The layout of ``(variables, opt_state)`` on this rank — a tree of

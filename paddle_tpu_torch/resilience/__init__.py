@@ -12,11 +12,11 @@ Copies of ``paddle_tpu.resilience`` (jax-free):
   stacks when a step exceeds its stall budget;
 - :mod:`resilience.integrity` — CRC32 + fsync + quarantine helpers backing
   the checkpoint module's corrupt-serial fallback;
-- :mod:`resilience.circuit` — the :class:`CircuitBreaker` serving will use.
-
-Elastic training (``paddle_tpu.resilience.elastic``) needs data
-parallelism and sharded checkpoints, which are not ported yet: the Trainer
-raises ``NotImplementedError`` for ``ResilienceConfig(elastic=True)``.
+- :mod:`resilience.circuit` — the :class:`CircuitBreaker` serving uses;
+- :mod:`resilience.elastic` — :class:`ElasticSupervisor`: a Trainer with
+  ``ResilienceConfig(elastic=True)`` survives a lost rank by re-forming the
+  process group over the survivors and restoring the last checkpoint at
+  the new world size, and regrows at a checkpoint boundary.
 """
 
 from __future__ import annotations
@@ -63,10 +63,22 @@ class ResilienceConfig:
 
     ``stall_timeout_s`` arms a :class:`StepWatchdog` around every training
     step; a step exceeding it gets an all-thread stack dump in the log
-    (diagnostics only — the step is never killed).
+    (diagnostics only — the step is never killed directly; with elastic
+    training on, repeated stalls escalate to a liveness probe, see below).
 
-    ``elastic`` is kept for the JAX package's signature; the Trainer
-    raises ``NotImplementedError`` when it is set.
+    Elastic training (``elastic=True``, requires ``parallel=True`` and a
+    sharded checkpoint config): an :class:`~paddle_tpu_torch.resilience.
+    elastic.ElasticSupervisor` catches the loss of a rank
+    (``faults.DeviceLostError`` / a transport error of the collectives),
+    re-forms the process group over the surviving ranks (never fewer than
+    ``elastic_min_devices``), restores the last good serial at the new
+    world size and resumes. ``elastic_regrow`` re-expands the world at a
+    checkpoint boundary when a lost rank returns (it registers at the next
+    generation's rendezvous). ``elastic_escalate_stalls`` watchdog stalls
+    without a good step trigger a liveness probe (stall -> suspected loss
+    escalation). All four are env-settable: ``PADDLE_TPU_ELASTIC=1``,
+    ``PADDLE_TPU_ELASTIC_MIN_DEVICES``, ``PADDLE_TPU_ELASTIC_REGROW``,
+    ``PADDLE_TPU_ELASTIC_ESCALATE_STALLS``.
     """
 
     nan_policy: str = "raise"
@@ -74,6 +86,9 @@ class ResilienceConfig:
     max_rollbacks: int = 2
     stall_timeout_s: Optional[float] = None
     elastic: bool = False
+    elastic_min_devices: int = 1
+    elastic_regrow: bool = True
+    elastic_escalate_stalls: int = 2
 
     def __post_init__(self):
         from paddle_tpu_torch.core.enforce import enforce, enforce_in
@@ -87,13 +102,25 @@ class ResilienceConfig:
             self.stall_timeout_s is None or self.stall_timeout_s > 0,
             f"stall_timeout_s must be positive, got {self.stall_timeout_s}",
         )
+        enforce(self.elastic_min_devices >= 1,
+                f"elastic_min_devices must be >= 1, got {self.elastic_min_devices}")
+        enforce(self.elastic_escalate_stalls >= 1,
+                f"elastic_escalate_stalls must be >= 1, got {self.elastic_escalate_stalls}")
 
     @classmethod
     def from_flags(cls) -> "ResilienceConfig":
         """Default policy from the global flags (env-settable:
         ``PADDLE_TPU_CHECK_NAN_INF_POLICY=skip_step``,
-        ``PADDLE_TPU_NAN_ROLLBACK_AFTER``)."""
+        ``PADDLE_TPU_NAN_ROLLBACK_AFTER``, ``PADDLE_TPU_ELASTIC=1`` etc.)."""
         from paddle_tpu_torch.core import config as cfg
 
         f = cfg.flags()
-        return cls(nan_policy=f.check_nan_inf_policy, rollback_after=f.nan_rollback_after)
+        return cls(
+            nan_policy=f.check_nan_inf_policy,
+            rollback_after=f.nan_rollback_after,
+            elastic=f.elastic,
+            elastic_min_devices=f.elastic_min_devices,
+            elastic_regrow=f.elastic_regrow,
+            elastic_escalate_stalls=f.elastic_escalate_stalls,
+        )
+

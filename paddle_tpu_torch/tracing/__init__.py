@@ -43,6 +43,7 @@ from paddle_tpu_torch.tracing.export import (  # noqa: F401
 from paddle_tpu_torch.tracing.memory import (  # noqa: F401
     device_label,
     memory_history,
+    record_executable_memory,
     reset_memory_telemetry,
     sample_device_memory,
 )
@@ -72,6 +73,7 @@ __all__ = [
     "sample_device_memory",
     "memory_history",
     "reset_memory_telemetry",
+    "record_executable_memory",
     "device_label",
     "StragglerDetector",
     "export",

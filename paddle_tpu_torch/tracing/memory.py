@@ -17,13 +17,17 @@ caller passes (the Trainer passes its variables and optimizer state) and
 tracks its own running peak, with ``source="tensors"``, so the gauge
 families exist on every platform. A per-call peak is the roofline
 ledger's ``peak_hbm_bytes`` (``observability/roofline.py``).
+:func:`record_executable_memory` is the analogue of the JAX function that
+reads XLA's memory analysis of an executable: the allocator's peak over a
+region the caller marks (``torch.cuda.reset_peak_memory_stats`` before
+it).
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -36,6 +40,7 @@ __all__ = [
     "sample_device_memory",
     "memory_history",
     "reset_memory_telemetry",
+    "record_executable_memory",
 ]
 
 _lock = locks.Lock("tracing.memory")
@@ -115,3 +120,16 @@ def reset_memory_telemetry() -> None:
     with _lock:
         _live_peak.clear()
         _history.clear()
+
+
+def record_executable_memory(target: str, device=None) -> Optional[dict]:
+    """Record the caching allocator's peak on ``device`` (the current card
+    by default) since the caller's last ``torch.cuda.reset_peak_memory_stats``
+    into the ``device.hbm.executable_peak_bytes`` gauge labeled
+    ``target=...``; returns ``{"target", "peak_bytes"}``, or None without a
+    card (the CPU has no allocator statistics)."""
+    if not torch.cuda.is_available():
+        return None
+    peak = int(torch.cuda.max_memory_allocated(device))
+    prof.set_gauge("device.hbm.executable_peak_bytes", float(peak), labels={"target": target})
+    return {"target": target, "peak_bytes": peak}

@@ -30,8 +30,16 @@ watch; NaN-skipped steps, rollbacks and watchdog stalls are badput.
 Under ``parallel=True`` each rank counts its own rows' step and divides by
 its own card.
 
-Not ported yet (raises ``NotImplementedError`` naming ``ROADMAP.md``):
-elastic training (``ResilienceConfig(elastic=True)``).
+Elastic training (``ResilienceConfig(elastic=True)``, with ``parallel=True``
+and ``CheckpointConfig(sharded=True)``): an
+:class:`~paddle_tpu_torch.resilience.elastic.ElasticSupervisor` turns the
+loss of a rank into a re-formed process group over the survivors, restored
+at the new world size from the last published serial, and the interrupted
+epoch replays from there; at a checkpoint boundary a rank that came back
+regrows the world. A process started with
+:func:`~paddle_tpu_torch.parallel.mesh.join_generation` (``launch.spawn``'s
+``join``) is such a rank: its Trainer takes the training position from a
+survivor and loads the boundary's checkpoint instead of initializing.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from paddle_tpu_torch.observability import runlog
 from paddle_tpu_torch.optimizer import Optimizer, OptState, StepOutput
 from paddle_tpu_torch.parallel import mesh as mesh_mod
 from paddle_tpu_torch.resilience import ResilienceConfig, faults
+from paddle_tpu_torch.resilience import elastic as elastic_mod
 from paddle_tpu_torch.resilience.watchdog import StepWatchdog
 
 __all__ = [
@@ -72,10 +81,6 @@ __all__ = [
     "CheckpointConfig",
     "ResilienceConfig",
 ]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"Trainer({what}) is not ported to paddle_tpu_torch yet; see ROADMAP.md")
 
 
 class BeginEpochEvent:
@@ -132,8 +137,6 @@ class Trainer:
         watch: Optional[Any] = None,
     ):
         self.resilience = resilience if resilience is not None else ResilienceConfig.from_flags()
-        if self.resilience.elastic:
-            raise _not_ported("resilience=ResilienceConfig(elastic=True): elastic training")
         # flags-driven (or explicit) telemetry: exporter + runlog, idempotent
         obs.setup(observability)
         model = train_func()
@@ -170,6 +173,10 @@ class Trainer:
         self._consec_bad = 0
         self._rollbacks_since_good = 0
         self._watchdog: Optional[StepWatchdog] = None
+        # elastic training (resilience.elastic), set up with the state
+        self._elastic: Optional[elastic_mod.ElasticSupervisor] = None
+        self._step_in_epoch = -1  # the step just taken, within its epoch
+        self._join_skip = 0  # batches a returning rank skips in its first epoch
         # -- telemetry (paddle_tpu_torch.observability / .tracing) ---------
         self.goodput = obs_mfu.GoodputTracker()
         self._ema_eps: Optional[float] = None  # EMA examples/sec
@@ -199,11 +206,18 @@ class Trainer:
             kw.setdefault("device", self.exe.device)
             kw.setdefault("batch_outputs", ())  # the loop reads only the loss
             self._dp = DataParallel(self.model, self.optimizer, **kw)
+            join_source = mesh_mod.take_join_source() if self.resilience.elastic else None
+            if join_source is not None:
+                self._start_elastic()
+                self._join_running(first_batch, join_source)
+                return
             self.variables, self.opt_state = self._dp.init(self.rng, *first_batch)
         else:
             self.variables = self.model.init(self.rng, *self.exe.put(tuple(first_batch)),
                                              device=self.exe.device)
             self.opt_state = self.optimizer.create_state(self.variables.params)
+        if self.resilience.elastic:
+            self._start_elastic()
         # auto-resume (reference Trainer.__init__ -> _load_checkpoint,
         # trainer.py:594-629)
         if self.checkpoint_cfg is not None:
@@ -220,6 +234,56 @@ class Trainer:
                     0, "resumed from %s checkpoint: continuing at epoch %d step %d",
                     "sharded" if sharded else "the", self.epoch, self.global_step,
                 )
+
+    def _start_elastic(self) -> None:
+        """The JAX package's guards, then the supervisor over the initial
+        world's ranks (those no longer in the group are lost), fed every
+        single-rank save's snapshot."""
+        enforce(self.parallel, "elastic training requires parallel=True (a world to shrink)")
+        enforce(
+            self.checkpoint_cfg is not None and self.checkpoint_cfg.use_sharded(),
+            "elastic training needs CheckpointConfig(sharded=True) — "
+            "its serials are the recovery source",
+        )
+        from paddle_tpu_torch.parallel import launch
+
+        if mesh_mod.generation() == 0:
+            mesh_mod.prepare_reform()
+        self._elastic = elastic_mod.ElasticSupervisor(
+            self.resilience, devices=list(range(mesh_mod.initial_world_size())),
+            probe=launch.health_probe())
+        self._elastic.lost = set(self._elastic.all_devices) - set(mesh_mod.members())
+        cks.set_snapshot_listener(self._elastic.note_snapshot)
+
+    def _join_running(self, first_batch, source: int) -> None:
+        """A returning rank (it joined a later generation of the group):
+        the survivors' training position, broadcast by ``source`` at the
+        checkpoint boundary where they took it in
+        (``ElasticSupervisor.maybe_regrow``), and that boundary's
+        checkpoint, restored at this world's layout. Nothing here is
+        collective but the broadcast: the parameters are this rank's own
+        init, only as a template."""
+        import torch.distributed as dist
+
+        position = [None]
+        dist.broadcast_object_list(position, src=source)
+        pos = position[0]
+        variables = self.model.init(self.rng, *self.exe.put(tuple(first_batch)),
+                                    device=self.exe.device)
+        opt_state = self.optimizer.create_state(variables.params)
+        template = self._dp.state_template(variables, opt_state)
+        (self.variables, self.opt_state), meta = cks.load_sharded(
+            self.checkpoint_cfg.checkpoint_dir, template)
+        enforce(int(meta.get("step", -1)) == int(pos["global_step"]),
+                f"regrow: the latest checkpoint holds step {meta.get('step')}, the survivors "
+                f"stand at step {pos['global_step']}")
+        self.epoch, self.global_step = int(pos["epoch"]), int(pos["global_step"])
+        self._last_saved_step = self.global_step
+        self._join_skip = int(pos["step_id"]) + 1
+        self._allow_ragged = bool(pos["allow_ragged"])
+        self._elastic.adopt(pos)
+        ptlog.vlog(0, "joined the running world at epoch %d step %d (global step %d)",
+                   self.epoch, self._join_skip, self.global_step)
 
     def _load_checkpoint(self) -> dict:
         """Restore the latest checkpoint into the training state (corrupt
@@ -277,77 +341,64 @@ class Trainer:
             first = next(iter(reader()), None)
             enforce(first is not None, "reader yielded no batches")
             self._ensure_initialized(first)
+        if self._elastic is not None and self._elastic.lost:
+            # re-entered after an elastic shrink: the global batch may not
+            # divide the shrunken world — keep the ragged path open
+            self._allow_ragged = True
         prev_handlers = self._install_preemption_handlers()
         res = self.resilience
         if res.stall_timeout_s is not None and self._watchdog is None:
             self._watchdog = StepWatchdog(res.stall_timeout_s, on_stall=self._on_stall)
         try:
-            for epoch_id in range(self.epoch, num_epochs):
+            # while (not for-range): elastic recovery rewinds self.epoch to
+            # the restored checkpoint's epoch and restarts it — the same
+            # restart-the-interrupted-epoch semantics a cold resume has
+            epoch_id = self.epoch
+            while epoch_id < num_epochs:
                 self.epoch = epoch_id
                 handler(BeginEpochEvent(epoch_id))
                 # manual next() instead of a for-loop: the wait for the
                 # reader is measured and belongs INSIDE the step's trace
                 batches = iter(self._batches(reader))
                 step_id = -1
+                # a returning rank steps in where the survivors stand
+                skip, self._join_skip = self._join_skip, 0
+                for _ in range(skip):
+                    next(batches, None)
+                    step_id += 1
+                recovered = False
                 while True:
+                    # stall escalation: between steps (state consistent) ask
+                    # the supervisor to probe liveness; a dead rank recovers
+                    # through the same shrink path as a raised loss
+                    if self._elastic is not None and self._elastic.escalation_due():
+                        probe_err = self._elastic.escalate()
+                        if probe_err is not None:
+                            self._elastic.recover(self, probe_err)
+                            recovered = True
+                            break
                     t_wait0 = time.perf_counter()
                     batch = next(batches, None)
                     t_wait1 = time.perf_counter()
                     if batch is None:
                         break
                     step_id += 1
-                    with tracing.start_trace("trainer.step", epoch=epoch_id) as step_span:
-                        # the step trace begins where the data wait began
-                        step_span.t0_us = t_wait0 * 1e6
-                        step_span.set(step=self.global_step)
-                        tracing.record_span("trainer.data_wait", t_wait0, t_wait1)
-                        begin_ev = BeginStepEvent(epoch_id, step_id)
-                        handler(begin_ev)
-                        # fault point: "error" raises here (a crashing step),
-                        # "nan" forces this step to count as non-finite,
-                        # "preempt" delivers SIGTERM (handled at the boundary
-                        # below); as in the JAX package it sits before the
-                        # step's timed region, so a "stall" here is not step
-                        # time
-                        spec = faults.inject(faults.TRAINER_STEP, epoch=epoch_id, step=step_id)
-                        t_step = time.perf_counter()
-                        if self._watchdog is not None:
-                            with self._watchdog.watch(f"epoch {epoch_id} step {step_id}"):
-                                out = self._run_step(batch)
-                        else:
-                            out = self._run_step(batch)
-                        bad = (out.finite is not None and not bool(out.finite)) or (
-                            spec is not None and spec.kind == "nan"
-                        )
-                        if bad:
-                            step_span.set(status="bad_step")
-                            # charge the wasted step to badput even if the
-                            # policy raises below — the accounting outlives
-                            # the run
-                            self.goodput.record_bad(time.perf_counter() - t_step, "nan_skip")
-                            # may raise (policy "raise", or rollback gave up)
-                            self._handle_bad_step(epoch_id, step_id)
-                            metrics = float("nan") if begin_ev.fetch_metrics else None
-                        else:
-                            self._consec_bad = 0
-                            self._rollbacks_since_good = 0
-                            self.variables, self.opt_state = out.variables, out.opt_state
-                            self.global_step += 1
-                            # honoring fetch_metrics avoids a host sync per step
-                            # (reference BeginStepEvent.fetch_metrics, trainer.py:158)
-                            metrics = float(out.loss) if begin_ev.fetch_metrics else None
-                            self._record_step(epoch_id, batch, time.perf_counter() - t_step,
-                                              metrics)
-                        # the step's outputs (an LM's logits) must not live
-                        # through the next step
-                        del out
-                        handler(EndStepEvent(epoch_id, step_id, metrics))
-                        if self._preempt_requested:
-                            with tracing.start_span("trainer.checkpoint", reason="preempt"):
-                                self._preemption_save(next_epoch=epoch_id)
-                            return
-                        with tracing.start_span("trainer.checkpoint"):
-                            self._maybe_checkpoint(epoch_id, step=True)
+                    try:
+                        self._train_step(handler, epoch_id, step_id, batch, t_wait0, t_wait1)
+                    except Exception as e:
+                        if self._elastic is None or not elastic_mod.is_device_loss(e):
+                            raise
+                        # a lost rank: re-form over the survivors, restore
+                        # the last serial, restart the interrupted epoch
+                        # from the restored step
+                        self._elastic.recover(self, e)
+                        recovered = True
+                        break
+                    if self.preempted:
+                        return
+                if recovered:
+                    epoch_id = self.epoch  # the restored manifest's epoch
+                    continue
                 handler(EndEpochEvent(epoch_id))
                 with tracing.start_span("trainer.checkpoint", boundary="epoch"):
                     self._maybe_checkpoint(epoch_id, step=False)
@@ -355,6 +406,7 @@ class Trainer:
                     # the epoch just COMPLETED — resume must not re-train it
                     self._preemption_save(next_epoch=epoch_id + 1)
                     return
+                epoch_id += 1
         finally:
             self._restore_signal_handlers(prev_handlers)
             if self._watchdog is not None:
@@ -370,6 +422,72 @@ class Trainer:
                     # the loop is already unwinding with its own exception —
                     # log the writer failure instead of masking the cause
                     ptlog.error("async checkpoint writer failed during train() exit: %s", e)
+
+    def _train_step(self, handler, epoch_id: int, step_id: int, batch, t_wait0: float,
+                    t_wait1: float) -> None:
+        """One step of the loop, in its ``trainer.step`` trace: the events,
+        the fault points, the step, the bad-step policy, then the boundary
+        work (a preemption's save, the periodic checkpoint, an elastic
+        regrow)."""
+        with tracing.start_trace("trainer.step", epoch=epoch_id) as step_span:
+            # the step trace begins where the data wait began
+            step_span.t0_us = t_wait0 * 1e6
+            step_span.set(step=self.global_step)
+            tracing.record_span("trainer.data_wait", t_wait0, t_wait1)
+            begin_ev = BeginStepEvent(epoch_id, step_id)
+            handler(begin_ev)
+            # elastic fault points: a scheduler's advance preemption notice
+            # ("preempt" -> SIGTERM, handled at the boundary below) and a rank
+            # vanishing ("error" -> DeviceLostError, recovered by the loop)
+            faults.inject(faults.PREEMPT_NOTICE, epoch=epoch_id, step=step_id)
+            faults.inject(faults.DEVICE_LOST, epoch=epoch_id, step=step_id)
+            # fault point: "error" raises here (a crashing step), "nan" forces
+            # this step to count as non-finite, "preempt" delivers SIGTERM
+            # (handled at the boundary below); as in the JAX package it sits
+            # before the step's timed region, so a "stall" here is not step time
+            spec = faults.inject(faults.TRAINER_STEP, epoch=epoch_id, step=step_id)
+            t_step = time.perf_counter()
+            if self._watchdog is not None:
+                with self._watchdog.watch(f"epoch {epoch_id} step {step_id}"):
+                    out = self._run_step(batch)
+            else:
+                out = self._run_step(batch)
+            bad = (out.finite is not None and not bool(out.finite)) or (
+                spec is not None and spec.kind == "nan"
+            )
+            if bad:
+                step_span.set(status="bad_step")
+                # charge the wasted step to badput even if the policy raises
+                # below — the accounting outlives the run
+                self.goodput.record_bad(time.perf_counter() - t_step, "nan_skip")
+                # may raise (policy "raise", or rollback gave up)
+                self._handle_bad_step(epoch_id, step_id)
+                metrics = float("nan") if begin_ev.fetch_metrics else None
+            else:
+                self._consec_bad = 0
+                self._rollbacks_since_good = 0
+                self.variables, self.opt_state = out.variables, out.opt_state
+                self.global_step += 1
+                # honoring fetch_metrics avoids a host sync per step
+                # (reference BeginStepEvent.fetch_metrics, trainer.py:158)
+                metrics = float(out.loss) if begin_ev.fetch_metrics else None
+                self._record_step(epoch_id, batch, time.perf_counter() - t_step,
+                                  metrics)
+            # the step's outputs (an LM's logits) must not live through the
+            # next step
+            del out
+            self._step_in_epoch = step_id
+            handler(EndStepEvent(epoch_id, step_id, metrics))
+            if self._preempt_requested:
+                with tracing.start_span("trainer.checkpoint", reason="preempt"):
+                    self._preemption_save(next_epoch=epoch_id)
+                return
+            with tracing.start_span("trainer.checkpoint"):
+                self._maybe_checkpoint(epoch_id, step=True)
+            if self._elastic is not None:
+                # regrow only at a checkpoint boundary (the supervisor
+                # checks; state is durable there)
+                self._elastic.maybe_regrow(self)
 
     # -- telemetry ----------------------------------------------------------
     def _record_step(self, epoch_id: int, batch, dt: float, loss: Optional[float]) -> None:
@@ -412,6 +530,9 @@ class Trainer:
         # the stalled wall time against goodput here (trainer-side policy)
         self.goodput.record_bad(elapsed, "stall")
         prof.set_gauge("trainer.goodput_frac", self.goodput.goodput_frac())
+        if self._elastic is not None:
+            # repeated stalls escalate to a liveness probe (between steps)
+            self._elastic.note_stall()
 
     # -- self-healing (resilience.ResilienceConfig) -------------------------
     def _handle_bad_step(self, epoch_id: int, step_id: int) -> None:
@@ -699,6 +820,11 @@ class Trainer:
         io_mod.save_params(dirname, self.variables)
 
     def stop(self):
+        # detach OUR snapshot listener (== not `is`: bound methods are
+        # recreated per access) so a later trainer's saves don't feed a
+        # dead supervisor
+        if self._elastic is not None and cks._snapshot_listener == self._elastic.note_snapshot:
+            cks.set_snapshot_listener(None)
         try:
             cks.wait_pending_save()  # the last async checkpoint must be durable
         finally:

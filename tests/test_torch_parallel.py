@@ -363,13 +363,14 @@ def test_model_parallel_mesh_and_specs_raise():
 
 
 def test_resize_pipeline_and_moe_raise():
-    """``resize`` still raises naming ROADMAP.md; ZeRO-1 on an ``expert``
-    axis is taken (``test_torch_composed_parallel.py``); the pipeline names
-    (``parallel/pipeline.py``) and the MoE names (``parallel/moe.py``) are
-    ported."""
+    """``resize`` is ported (elastic training, ``test_torch_elastic.py``):
+    on one rank it rebuilds the one-rank mesh and drops the step; ZeRO-1
+    on an ``expert`` axis is taken (``test_torch_composed_parallel.py``);
+    the pipeline names (``parallel/pipeline.py``) and the MoE names
+    (``parallel/moe.py``) are ported."""
     dp = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu")
-    with pytest.raises(NotImplementedError, match="(?s)elastic.*ROADMAP.md"):
-        dp.resize([0])
+    old_mesh = dp.mesh
+    assert dp.resize([0]).size == 1 and dp.mesh is not old_mesh and dp._step_fn is None
     zero = DataParallel(_mlp(), pt.optimizer.SGD(1e-2), device="cpu", zero_shard_optimizer=True,
                         mesh=tmesh.make_mesh(data=1, expert=2, devices=[0, 1]))
     assert zero.zero_shard_optimizer and zero.num_devices == 2

@@ -274,16 +274,17 @@ def test_prefetcher_surfaces_reader_errors():
     ({"watch": WatchConfig(enabled=True)}, None),
 ], ids=["elastic", "observability", "watch"])
 def test_not_ported_options_raise(kwargs, match):
-    """Elastic training still raises, naming ROADMAP.md; the telemetry
-    options are ported and a Trainer given them trains."""
+    """Every option is ported: the telemetry options train; elastic
+    training (``test_torch_elastic.py``) keeps the JAX package's guard, so
+    a Trainer without ``parallel=True`` refuses it when it starts."""
     if match is None:
         trainer = _trainer(**kwargs)
         trainer.train(num_epochs=1, reader=_reader(n_batches=2))
         trainer.stop()
         assert trainer.global_step == 2
         return
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP.md"):
-        _trainer(**kwargs)
+    with pytest.raises(EnforceError, match=f"{match}.*parallel=True"):
+        _trainer(**kwargs).train(num_epochs=1, reader=_reader(n_batches=2))
 
 
 def test_trainer_defaults_to_cuda():
