@@ -209,7 +209,23 @@ Phases, each printing JSON lines:
                transformer_lm, mnist, resnet --infer_only and a profiled
                transformer_lm pass: the JAX record's keys, finite losses,
                examples/s, 6 launches of each kernel per LM step, the
-               profile's trace holding the three kernels.
+               profile's trace holding the three kernels. Every
+               ServingEngine of the phase lints its model first (the
+               default lint_model=True): the log holds no "model lint
+               skipped", and the folded ResNet-50's findings are printed.
+ 13b. analysis — the analysis slice (ANALYSIS_*): (a) the LM at BASE_CFG on
+               the card linted on the meta device (analysis.lint_model over
+               its variables, eval and training mode): no error finding,
+               torch.cuda.memory_allocated() the same before and after, no
+               launch counted and no device record in a torch.profiler
+               session opened by profile_markers and closed by a fill, the
+               lint's seconds; (b) a ServingEngine with the default
+               lint_model=True (the infer phase's policy) serving 8 requests
+               one at a time: no "model lint skipped" in the log, logits
+               bit-equal to a lint_model=False engine's, 6 flash-forward
+               launches a request, and the two engines' warm-ups launching
+               alike; (c) python -m paddle_tpu_torch.analysis over the
+               package, in process: exit 0, its seconds.
  14. sp      — sequence and expert parallelism (SP_*), two gloo ranks
                sharing the card, the LM at BASE_CFG (flash + bf16, Adam):
                (a) ring attention on seq=2, 8 x 1024 split P("data",
@@ -307,7 +323,7 @@ Phases, each printing JSON lines:
                the proposals under the same near-tie rule, the labels of
                the card's proposals card against CPU.
  17. kernels — one line: each kernel with its launches on every path
-               (phases 4-6, 8, 10-16; elastic: one rank's launches over (a)
+               (phases 4-6, 8, 10-16, 13b; elastic: one rank's launches over (a)
                and (c), Model.init's forward included), its error and times at the
                slice shape and at the NMT cases from phase 3; before it, a
                line with the kernels' earlier times, copied from PERF.md
@@ -631,6 +647,12 @@ INFER_CLI_RUNS = (
 )
 INFER_RECORD_KEYS = {"pass", "model", "batch_size", "chips", "examples_per_sec", "unit",
                      "last_loss", "elapsed_sec"}
+# Phase analysis. (a) the model lint of the LM at BASE_CFG over a batch of
+# ANALYSIS_LINT_BATCH rows; (b) ANALYSIS_REQUESTS prompts of
+# ANALYSIS_PROMPT_LENS tokens (numpy seed 1) served one at a time by an
+# engine with the lint and one without, under phase infer's policy (one
+# request a batch, so both run the same shapes and must agree bit for bit).
+ANALYSIS_LINT_BATCH, ANALYSIS_REQUESTS, ANALYSIS_PROMPT_LENS = 8, 8, (64, 512)
 # Sequence and expert parallelism (phase sp): two gloo ranks on the one card
 # (as phase dp (b)), the LM at BASE_CFG, flash + bf16, Adam: one step held
 # against the one-rank minimize step on the whole batch as phase dp (b)
@@ -3728,6 +3750,34 @@ def profile_intact(prof) -> bool:
     return min(markers_kept(prof)) > 0
 
 
+class LogLines:
+    """The warnings the port's logger emits while entered (warn_once's
+    dedup set cleared on entry, so each finding shows again)."""
+
+    def __enter__(self):
+        import logging
+
+        from paddle_tpu_torch.core import logging as ptlog
+
+        class Handler(logging.Handler):
+            def emit(handler, record):
+                self.lines.append(record.getMessage())
+
+        self.lines, self._handler = [], Handler(logging.WARNING)
+        ptlog.reset_warn_once()
+        ptlog.get_logger().addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import logging as ptlog
+
+        ptlog.get_logger().removeHandler(self._handler)
+
+    def lint(self) -> list:
+        """The model lint's lines: its findings, or that it was skipped."""
+        return [ln for ln in self.lines if "model lint" in ln]
+
+
 def records_diff(a: list, b: list) -> dict:
     """Which device records (names) one run kept and the other did not: the
     counts each side lacks, at most 8 names a side, and whether the shorter
@@ -4113,10 +4163,11 @@ def infer_phase(smi: str):
             lambda tokens: transformer_lm.lm_forward(tokens, tokens, cfg=cfg)[2],
             name="transformer_lm_logits")
         t0 = time.perf_counter()
-        engine = ServingEngine(
-            net, variables, [FeedSpec("tokens", (None,), "int32")],
-            config=ServingConfig(max_batch_size=INFER_MAX_BATCH, num_replicas=1,
-                                 length_buckets=INFER_LENGTH_BUCKETS, engine_label="infer_lm"))
+        with LogLines() as log_a:
+            engine = ServingEngine(
+                net, variables, [FeedSpec("tokens", (None,), "int32")],
+                config=ServingConfig(max_batch_size=INFER_MAX_BATCH, num_replicas=1,
+                                     length_buckets=INFER_LENGTH_BUCKETS, engine_label="infer_lm"))
         warm_s = time.perf_counter() - t0
         lengths = rng.randint(INFER_PROMPT_LENS[0], INFER_PROMPT_LENS[1] + 1, size=INFER_REQUESTS)
         prompts = [rng.randint(1, cfg["vocab"], size=(1, n)).astype(np.int32) for n in lengths]
@@ -4157,6 +4208,7 @@ def infer_phase(smi: str):
             "a_all_answered_nothing_pending": snap["responses_total"] == INFER_REQUESTS
             and all(p.done() for p in pending) and unjoined == [],
             "a_mean_occupancy_above_1": snap["mean_batch_occupancy"] > 1.0,
+            "a_model_lint_ran_clean": log_a.lint() == [],
         }
         checks.update(a_checks)
         emit({"phase": "infer", "part": "a_static_serving_lm", "card": smi,
@@ -4170,7 +4222,8 @@ def infer_phase(smi: str):
               "flash_launches_per_batch": launches_per_batch,
               "launches": paths["infer_serve"], "inferencer_launches": paths["infer_inferencer"],
               "logits_dtype": str(outs[0].dtype), "logits_max_abs_err_vs_inferencer": max(errs),
-              "logits_tol": INFER_LOGITS_TOL, "peak_memory_bytes": peak_a, "checks": a_checks})
+              "logits_tol": INFER_LOGITS_TOL, "peak_memory_bytes": peak_a,
+              "model_lint_log": log_a.lint(), "checks": a_checks})
         del outs, pending
 
         # (b) ResNet-50 eval at bench.py's cell, f32, BN folded
@@ -4210,9 +4263,11 @@ def infer_phase(smi: str):
             runs[name].append(timed(rvars if name == "unfolded" else folded))
         side = INFER_IMAGE_SIZE
         images = rng.rand(INFER_RESNET_REQUESTS, side, side, 3).astype(np.float32)
-        engine = ServingEngine(rnet, folded, [FeedSpec("image", (side, side, 3), "float32")],
-                               config=ServingConfig(max_batch_size=INFER_RESNET_SERVE_MAX,
-                                                    num_replicas=1, engine_label="infer_resnet"))
+        with LogLines() as log_b:
+            engine = ServingEngine(rnet, folded, [FeedSpec("image", (side, side, 3), "float32")],
+                                   config=ServingConfig(max_batch_size=INFER_RESNET_SERVE_MAX,
+                                                        num_replicas=1,
+                                                        engine_label="infer_resnet"))
         try:
             sizes0 = engine.aot_cache_sizes()
             t0 = time.perf_counter()
@@ -4233,6 +4288,7 @@ def infer_phase(smi: str):
             "b_cache_sizes_steady": sizes0 == sizes1,
             "b_served_no_error": rsnap["errors_total"] == 0 and unjoined == []
             and rsnap["responses_total"] == len(images),
+            "b_model_lint_ran": not any("model lint skipped" in ln for ln in log_b.lint()),
         }
         checks.update(b_checks)
         emit({"phase": "infer", "part": "b_resnet50_bn_folded", "card": smi,
@@ -4244,7 +4300,8 @@ def infer_phase(smi: str):
               "served_images_per_s": len(images) / served_s, "served_requests": len(images),
               "served_mean_batch_occupancy": rsnap["mean_batch_occupancy"],
               "served_p50_ms": rsnap["p50_ms"], "served_p99_ms": rsnap["p99_ms"],
-              "served_rel_l2_vs_direct": served_err, "checks": b_checks})
+              "served_rel_l2_vs_direct": served_err, "model_lint_log": log_b.lint(),
+              "checks": b_checks})
         del rvars, folded, served, direct
 
         # (c) the exported LM program: save, load, run on the card
@@ -4334,6 +4391,135 @@ def infer_phase(smi: str):
               "profile_trace_kernels": traced, "checks": d_checks})
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return paths, checks
+
+
+def analysis_phase(smi: str):
+    """Phase 13b: the analysis slice on the card — the model lint of the LM
+    at BASE_CFG on the meta device (no device bytes, no launch), a
+    ServingEngine that lints before warm-up against one that does not, and
+    the analysis CLI over the package. Returns the kernel launches of its
+    paths and the checks."""
+    import contextlib
+    import io as io_mod
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.analysis import has_errors, lint_model
+    from paddle_tpu_torch.analysis.__main__ import main as analysis_main
+    from paddle_tpu_torch.core.config import set_flags
+    from paddle_tpu_torch.models import get_model, transformer_lm
+    from paddle_tpu_torch.reader.feeder import FeedSpec
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    checks, paths = {}, {}
+    set_flags(use_flash_attention=True, use_bf16_compute=True, check_nan_inf=False)
+    spec = get_model("transformer_lm")  # BASE_CFG, on CUDA
+    cfg = spec.extra["cfg"]
+    n_layers = cfg["n_layers"]
+    rng = np.random.RandomState(1)
+    variables = spec.model.init(0, *spec.synth_batch(1, rng))
+    batch = spec.synth_batch(ANALYSIS_LINT_BATCH, rng)
+
+    # (a) the lint on meta: nothing on the card moves
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    bytes0 = torch.cuda.memory_allocated()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_a:
+        profile_markers()
+        t0 = time.perf_counter()
+        found = {mode: lint_model(spec.model, batch, variables=variables, train=mode == "train")
+                 for mode in ("eval", "train")}
+        lint_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        bytes1 = torch.cuda.memory_allocated()
+        closing = torch.full((1,), 7.0, device="cuda")  # a fill closes the window
+        torch.cuda.synchronize()
+    paths["analysis_lint"] = kernel_launch_counts()
+    del closing
+    records = _records(prof_a)
+    spins = [i for i, n in enumerate(records) if "spin_kernel" in n]
+    window = records[spins[-1] + 1:] if spins else records
+    a_checks = {
+        "a_no_error_finding": not any(has_errors(d) for d in found.values()),
+        "a_device_bytes_unchanged": bytes1 == bytes0,
+        "a_no_kernel_launch_counted": not any(paths["analysis_lint"].values()),
+        "a_window_opened_and_closed": bool(spins) and len(window) >= 1
+        and "fill" in window[-1].lower(),
+        "a_no_device_record_in_window": len(window) == 1,
+    }
+    checks.update(a_checks)
+    emit({"phase": "analysis", "part": "a_model_lint_on_meta", "card": smi,
+          "batch": ANALYSIS_LINT_BATCH, "seq_len": spec.extra["seq_len"],
+          "findings": {m: [str(d) for d in ds] for m, ds in found.items()},
+          "lint_s_eval_and_train": lint_s, "device_bytes_before": bytes0,
+          "device_bytes_after": bytes1, "launches": paths["analysis_lint"],
+          "device_records_in_window": window[:-1], "checks": a_checks})
+
+    # (b) serving after the lint, against an engine without it
+    net = framework.build(
+        lambda tokens: transformer_lm.lm_forward(tokens, tokens, cfg=cfg)[2],
+        name="transformer_lm_logits")
+    lengths = rng.randint(ANALYSIS_PROMPT_LENS[0], ANALYSIS_PROMPT_LENS[1] + 1,
+                          size=ANALYSIS_REQUESTS)
+    prompts = [rng.randint(1, cfg["vocab"], size=(1, n)).astype(np.int32) for n in lengths]
+    runs = {}
+    for lint in (True, False):
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with LogLines() as log:
+            engine = ServingEngine(
+                net, variables, [FeedSpec("tokens", (None,), "int32")],
+                config=ServingConfig(max_batch_size=INFER_MAX_BATCH, num_replicas=1,
+                                     length_buckets=INFER_LENGTH_BUCKETS, lint_model=lint,
+                                     engine_label=f"analysis_lint_{lint}"))
+        init_s = time.perf_counter() - t0
+        warm = kernel_launch_counts()
+        try:
+            zero_kernel_counts()
+            outs = [engine.submit({"tokens": p}).result(timeout=INFER_WAIT_S) for p in prompts]
+            torch.cuda.synchronize()
+            served = kernel_launch_counts()
+            snap = engine.metrics.snapshot()
+        finally:
+            unjoined = engine.close(timeout=INFER_WAIT_S)
+        runs[lint] = {"outs": outs, "init_s": init_s, "warm": warm, "served": served,
+                      "log": log.lint(), "batches": snap["batches_total"],
+                      "errors": snap["errors_total"], "unjoined": unjoined}
+    paths["analysis_serve"] = runs[True]["served"]
+    on, off = runs[True], runs[False]
+    b_checks = {
+        "b_no_model_lint_skipped": not any("skipped" in ln for ln in on["log"]),
+        "b_lint_found_nothing": on["log"] == [],
+        "b_logits_bit_equal_lint_on_off": all(torch.equal(a, b)
+                                              for a, b in zip(on["outs"], off["outs"])),
+        "b_flash_launches_per_request_eq_n_layers":
+            on["served"]["flash_fwd"] == n_layers * ANALYSIS_REQUESTS == on["batches"] * n_layers,
+        "b_warmup_launches_alike": on["warm"] == off["warm"],
+        "b_no_error": on["errors"] == off["errors"] == 0 and on["unjoined"] == off["unjoined"] == [],
+    }
+    checks.update(b_checks)
+    emit({"phase": "analysis", "part": "b_serving_after_the_lint", "card": smi,
+          "requests": ANALYSIS_REQUESTS, "prompt_lens": [int(n) for n in lengths],
+          "engine_init_s": {"lint": on["init_s"], "no_lint": off["init_s"]},
+          "warmup_launches": {"lint": on["warm"], "no_lint": off["warm"]},
+          "launches": on["served"], "model_lint_log": on["log"], "checks": b_checks})
+    del runs, on, off
+
+    # (c) the CLI over the package, in process
+    out = io_mod.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main([])
+    cli_s = time.perf_counter() - t0
+    c_checks = {"c_cli_exit_0": rc == 0}
+    checks.update(c_checks)
+    emit({"phase": "analysis", "part": "c_cli", "card": smi, "exit_code": rc,
+          "seconds": cli_s, "summary": out.getvalue().strip().splitlines()[-1:],
+          "checks": c_checks})
     return paths, checks
 
 
@@ -6720,6 +6906,11 @@ def main() -> int:
     failures += [f"infer check {k}" for k, good in infer_checks.items() if not good]
     mark("infer")
 
+    # 13b. the analysis slice: the model lint on meta, serving after it, the CLI
+    analysis_paths, analysis_checks = analysis_phase(smi)
+    failures += [f"analysis check {k}" for k, good in analysis_checks.items() if not good]
+    mark("analysis")
+
     # 14. sequence and expert parallelism
     sp_paths, sp_checks = sp_phase(smi)
     failures += [f"sp check {k}" for k, good in sp_checks.items() if not good]
@@ -6745,7 +6936,7 @@ def main() -> int:
     paths = {"generate": launches, "train_step": train_launches, "trainer": trainer_launches,
              **nmt_paths, **serve_paths, **fleet_paths, **group_paths, **dp_paths,
              "telemetry": telemetry_launches,
-             **infer_paths, **sp_paths, **mp_paths, **elastic_paths, **catalog_paths}
+             **infer_paths, **analysis_paths, **sp_paths, **mp_paths, **elastic_paths, **catalog_paths}
     slice_numbers = case_numbers["slice"]
     numbers = {"flash_fwd": slice_numbers, **bwd_numbers["slice"]}
     extra = {n: {"design": DESIGNS[n],

@@ -44,9 +44,8 @@ costs one all-reduce of the full activation row, ``2·(tp-1)/tp`` of the
 payload over the wire per device for a ring.
 
 Wired into ``DecodeEngine`` group-mode init
-(:func:`lint_group_layout_or_raise` runs before any param is placed).
-The JAX package's command-line ``shard`` pass and its CI gate are not
-ported yet (``ROADMAP.md`` §A item 9).
+(:func:`lint_group_layout_or_raise` runs before any param is placed)
+and into ``python -m paddle_tpu_torch.analysis`` (the ``shard`` pass).
 """
 
 from __future__ import annotations

@@ -2,14 +2,16 @@
 
 Maps to stdlib logging with a VLOG-style verbosity gate controlled by the
 ``v`` flag. Same surface as ``paddle_tpu.core.logging``; the dedup set of
-:func:`warn_once` is guarded by a plain ``threading.Lock``.
+:func:`warn_once` is guarded by the named ``core.locks`` lock
+``core.warn_once``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
 import sys
-import threading
+
+from paddle_tpu_torch.core import locks
 
 _logger = logging.getLogger("paddle_tpu_torch")
 if not _logger.handlers:
@@ -41,7 +43,7 @@ def warning(msg: str, *args) -> None:
 
 
 _warned_once: set = set()
-_warned_once_lock = threading.Lock()
+_warned_once_lock = locks.Lock("core.warn_once")
 
 
 def warn_once(key, msg: str, *args) -> bool:

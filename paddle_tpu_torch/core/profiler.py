@@ -36,6 +36,8 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+from paddle_tpu_torch.core import locks
+
 __all__ = [
     "inc_counter", "set_gauge", "observe", "counters", "gauges", "histograms",
     "reset_metrics", "record_event", "enable_profiler", "disable_profiler",
@@ -55,7 +57,7 @@ _enabled: bool = False
 
 # histogram extremes for the flat histograms() view (the registry keeps
 # buckets, sums and counts per labeled child, not extremes)
-_extremes_lock = threading.Lock()
+_extremes_lock = locks.Lock("core.profiler_extremes")
 _extremes: Dict[str, list] = {}
 
 

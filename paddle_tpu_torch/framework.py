@@ -129,6 +129,11 @@ class _Frame:
         self.whole: Dict[str, "ParamInfo"] = {}
         # values that stand in for parameters by name (overlay_frame)
         self.overlay: Dict[str, torch.Tensor] = {}
+        # the read ledger analysis.lint_model reads: the parameters this run
+        # read, and each update_state that resolved only through the
+        # bare-name fallback, as (scoped name, bare name)
+        self.param_reads: set = set()
+        self.cross_scope_updates: set = set()
 
 
 _tls = threading.local()
@@ -239,6 +244,7 @@ def create_parameter(
             f"parameter {full!r} not found in provided params; model structure "
             "must match between init and apply"
         )
+    frame.param_reads.add(full)
     value = frame.params[full]
     if tuple(value.shape) != shape and not _is_local_block(tuple(value.shape), shape, attr.sharding):
         raise EnforceError(
@@ -348,6 +354,9 @@ def gather_layer_params(n_layers: int, prefix_of: Callable[[int], str]) -> Dict[
             raise EnforceError(f"layer {prefix_of(i)!r} has other parameters than layer "
                                f"{prefix_of(0)!r}")
         per_layer.append({k[len(pre):]: frame.params[k] for k in names})
+        # stacked layers are read here, not through create_parameter: record
+        # the reads so lint_model's unused-param check sees through them
+        frame.param_reads.update(names)
     return {s: torch.stack([p[s] for p in per_layer]) for s in per_layer[0]}
 
 
@@ -400,6 +409,7 @@ def update_state(name: str, value: torch.Tensor) -> None:
     scoped = "/".join(frame.name_stack + [name])
     full = scoped if (scoped in frame.state or scoped in frame.new_state) else name
     if full is name and scoped != name and name in frame.state:
+        frame.cross_scope_updates.add((scoped, name))
         ptlog.warn_once(
             ("update_state-cross-scope", scoped),
             "update_state(%r): no state entry at scope %r; falling back to the "
@@ -504,6 +514,11 @@ class Model:
         self._fn = fn
         self.name = name or getattr(fn, "__name__", "model")
         self.param_info: Dict[str, ParamInfo] = {}
+        # what the last apply touched (analysis.lint_model reads it)
+        self._last_param_info: Dict[str, ParamInfo] = {}
+        self._last_param_reads: frozenset = frozenset()
+        self._last_state_updates: frozenset = frozenset()
+        self._last_cross_scope_updates: frozenset = frozenset()
 
     def init(self, seed: Union[int, torch.Generator, None] = None, *args,
              device="cuda", **kwargs) -> Variables:
@@ -569,6 +584,10 @@ class Model:
             out = self._fn(*args, **kwargs)
         if not self.param_info:
             self.param_info = frame.param_info
+        self._last_param_info = frame.param_info
+        self._last_param_reads = frozenset(frame.param_reads)
+        self._last_state_updates = frozenset(frame.new_state)
+        self._last_cross_scope_updates = frozenset(frame.cross_scope_updates)
         return out, {**state, **frame.new_state}
 
 

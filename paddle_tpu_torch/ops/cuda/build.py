@@ -12,6 +12,11 @@ Nothing is built or imported when this module is imported.
 A :class:`CudaKernel` counts its launches in ``launches``: the count rises
 by one exactly where the kernel is launched, so a run can show that its
 main path went through the kernel.
+
+An ``nvcc`` that runs longer than ``BUILD_TIMEOUT_S`` (from its start) is
+killed and the build raises, naming the kernel and the seconds waited: a
+kernel that does not build is an error, never a fall back to its plain
+version.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
+from paddle_tpu_torch.core import locks
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
@@ -35,6 +42,10 @@ NVCC_FLAGS = (
 
 # every kernel of the port, by name (chip_smoke.py builds and checks them all)
 KERNELS: Dict[str, "CudaKernel"] = {}
+# how long one nvcc may run before its build fails, in seconds: some fifty
+# times a cold build of the largest kernel on the card (5-6 s; chip_smoke.py's
+# build line, PERF.md section 6)
+BUILD_TIMEOUT_S = 300.0
 
 
 def nvcc_path() -> str:
@@ -64,7 +75,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
-        self._lock = threading.Lock()
+        self._lock = locks.Lock("ops.cuda_build")
         KERNELS[name] = self
 
     def library_path(self) -> Path:
@@ -96,7 +107,7 @@ class CudaKernel:
                 if self._fn is None:
                     build = self.start_build()
                     if build is not None:
-                        build.wait()
+                        build.wait(BUILD_TIMEOUT_S)
                     fn = getattr(ctypes.CDLL(str(self.library_path())), self.symbol)
                     fn.argtypes = self.argtypes
                     fn.restype = ctypes.c_int
@@ -117,9 +128,19 @@ class _Build:
         self.kernel, self.proc, self.tmp, self.lib = kernel, proc, tmp, lib
         self.started = time.perf_counter()
 
-    def wait(self) -> str:
-        """Wait for nvcc; publish the library; return nvcc's output."""
-        out, _ = self.proc.communicate()
+    def wait(self, timeout_s: Optional[float] = None) -> str:
+        """Wait for nvcc, at most ``timeout_s`` (default ``BUILD_TIMEOUT_S``)
+        from its start; publish the library; return nvcc's output. An nvcc
+        still running then is killed and the build raises."""
+        timeout_s = BUILD_TIMEOUT_S if timeout_s is None else float(timeout_s)
+        left = self.started + timeout_s - time.perf_counter()
+        try:
+            out, _ = self.proc.communicate(timeout=max(0.0, left))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise RuntimeError(
+                f"nvcc for kernel {self.kernel.name} ({self.kernel.source.name}) did not "
+                f"finish within {timeout_s:g} s; it was killed") from None
         if self.proc.returncode != 0:
             self.tmp.unlink(missing_ok=True)
             raise RuntimeError(
@@ -129,10 +150,18 @@ class _Build:
         os.replace(self.tmp, self.lib)
         return out
 
+    def kill(self) -> None:
+        """Stop a running nvcc and drop its partial output."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate(timeout=60)
+        self.tmp.unlink(missing_ok=True)
 
-def build_all(extra_flags: Sequence[str] = ()) -> Dict[str, dict]:
+
+def build_all(extra_flags: Sequence[str] = (), timeout_s: Optional[float] = None) -> Dict[str, dict]:
     """Build every registered kernel, one ``nvcc`` per source, all started
-    together. Returns ``{name: {"seconds": s, "nvcc_output": text}}``
+    together, each given ``timeout_s`` (default ``BUILD_TIMEOUT_S``) from
+    its start. Returns ``{name: {"seconds": s, "nvcc_output": text}}``
     (seconds 0 and no output for a library that was already built)."""
     builds = {}
     report = {}
@@ -143,11 +172,10 @@ def build_all(extra_flags: Sequence[str] = ()) -> Dict[str, dict]:
             if b is None:
                 report[name] = {"seconds": 0.0, "nvcc_output": ""}
                 continue
-            out = b.wait()
+            out = b.wait(timeout_s)
             report[name] = {"seconds": time.perf_counter() - b.started, "nvcc_output": out}
     finally:  # a failed build leaves no nvcc running
         for b in builds.values():
-            if b is not None and b.proc.poll() is None:
-                b.proc.kill()
-                b.proc.wait()
+            if b is not None:
+                b.kill()
     return report

@@ -329,10 +329,13 @@ def _nbytes(*ts) -> int:
 def _flash_fwd(q, k, v, causal: bool, sm_scale: float, kv_len=None, window=None,
                q_off: int = 0, k_off: int = 0):
     """``(out [B,H,T,d], lse [B,H,T,1])``: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors, and for ``meta`` tensors the operator's
+    shapes (no launch)."""
     enforce(q.dim() == 4, f"flash_attention: q must be [B, H, T, d], got {tuple(q.shape)}")
     enforce(q.shape[1] % k.shape[1] == 0,
             f"{q.shape[1]} query heads not divisible by {k.shape[1]} kv heads")
+    if q.device.type == "meta":  # shapes only (analysis.lint_model): the operator's fake
+        return flash_fwd_op(q, k, v, kv_len, causal, sm_scale, window, q_off, k_off)
     # reads q, k, v (and kv_len); writes out (like q) and the f32 lse
     _report_costs("flash_fwd", q, k, causal, kv_len, window, q_off, k_off, 1.0,
                   2 * _nbytes(q) + _nbytes(k, v, kv_len) + q[..., 0].numel() * 4)

@@ -40,6 +40,7 @@ gradient while the work between them is split over the axis (JAX's
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -188,6 +189,28 @@ def _wire(x: torch.Tensor, route: str) -> torch.Tensor:
     return x.cpu() if route == "gloo_host" else x
 
 
+def _wait_all(works) -> None:
+    """Wait for each of ``ppermute``'s ``works`` up to the process group's
+    collective timeout (``initialize_distributed(timeout_s=)``). One that
+    does not complete in it (a peer that died or hangs) raises
+    :class:`~paddle_tpu_torch.resilience.faults.DeviceLostError`, which the
+    elastic supervisor classifies as a lost rank."""
+    from paddle_tpu_torch.resilience.faults import DeviceLostError
+
+    timeout_s = mesh_mod.collective_timeout_s()
+    lost = DeviceLostError(f"ppermute: a point-to-point exchange did not complete within "
+                           f"the collective timeout of {timeout_s} s")
+    for work in works:
+        try:
+            done = work.wait(timeout=datetime.timedelta(seconds=timeout_s))
+        except RuntimeError as e:
+            if "timed out" not in str(e).lower():
+                raise
+            raise lost from e
+        if done is False:
+            raise lost
+
+
 def _permuted(x, ax, perm) -> torch.Tensor:
     """The value the member at ``src`` sends to this member (``(src, dst)``
     pairs over axis indices); zeros where none is sent to it, as in JAX.
@@ -205,8 +228,7 @@ def _permuted(x, ax, perm) -> torch.Tensor:
     if srcs and srcs[0] != ax.index:
         ops.append(dist.P2POp(dist.irecv, recv, peer=ax.ranks[srcs[0]], group=ax.group))
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        _wait_all(dist.batch_isend_irecv(ops))
     if not srcs:
         return torch.zeros_like(x)
     if srcs[0] == ax.index:  # sent to itself

@@ -241,6 +241,13 @@ def barrier() -> None:
 
 
 # -- elastic re-forming -------------------------------------------------------
+def collective_timeout_s() -> float:
+    """How long a collective waits for the other ranks before it fails:
+    the ``timeout_s`` the process group was made with (the default
+    without one)."""
+    return _world.timeout_s if _world is not None else _TIMEOUT_S
+
+
 def generation() -> int:
     """How many times the process group was re-formed (0 without one)."""
     return _world.generation if _world is not None and dist.is_initialized() else 0

@@ -47,11 +47,15 @@ Key properties, as in the JAX package:
   everything already accepted, waits for the replica workers, and only
   then returns — no accepted request is dropped.
 
+- **Model lint**: before warm-up the model is traced on the ``meta``
+  device (``analysis.lint_model``: no kernel, no device memory) over the
+  smallest warm-up signature and each finding is logged once. Best
+  effort, as in the JAX package: a failure of the lint is logged, never
+  fatal.
+
 Not ported yet: the persistent warm-up manifest and :meth:`ServingEngine.
 prewarm` (``tune/``, ``ROADMAP.md`` §A item 7: ``ServingConfig(prewarm=
-True)`` raises ``NotImplementedError``) and the model lint before warm-up
-(``analysis/``, item 9: best-effort in the JAX package, logged once as
-skipped here).
+True)`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -143,9 +147,8 @@ class ServingConfig:
     warmup: bool = True
     # replay the persisted warm-up manifest (tune/, not ported: True raises)
     prewarm: Optional[bool] = None
-    # the JAX package abstract-traces the model through analysis.lint_model
-    # before warm-up (never fatal); analysis/ is not ported, so the port
-    # logs once that the lint was skipped
+    # trace the model through analysis.lint_model on the meta device before
+    # warm-up and log its findings (never fatal)
     lint_model: bool = True
     # default per-request deadline; None = no deadline
     default_deadline_s: Optional[float] = None
@@ -377,10 +380,7 @@ class ServingEngine:
         self.metrics.set_healthy_replicas(n_rep)
 
         if self.config.lint_model:
-            ptlog.warn_once(
-                ("serving-model-lint-skipped",),
-                "ServingEngine: model lint skipped: analysis/ is not ported to "
-                "paddle_tpu_torch yet (ROADMAP.md §A item 9)")
+            self._lint_model(variables)
         if self.config.warmup:
             self._warmup()
 
@@ -435,6 +435,30 @@ class ServingEngine:
         self._batcher_thread = go(self._batcher.run)
 
     # -- startup -----------------------------------------------------------
+
+    def _lint_model(self, variables) -> None:
+        """Trace the model on the ``meta`` device over the smallest warm-up
+        signature (no kernel, no device memory) and log its structural
+        findings (stale params, sharding-rank mismatches, f64 leaks) once
+        each, before warm-up. Best effort: a failure of the lint is logged
+        and never blocks serving."""
+        try:
+            from paddle_tpu_torch.analysis import lint_model as _lint
+
+            sig = sorted(self.buckets.all_signatures())[0]
+            rows = min(self.buckets.batch_buckets)
+            diags = _lint(self.model, self._zeros_for(sig, rows), variables=variables,
+                          train=False)
+            for d in diags:
+                ptlog.warn_once(
+                    ("serving-model-lint", self.model.name, d.code, d.where),
+                    "model lint [%s]: %s", d.code, str(d),
+                )
+        except Exception as e:  # the lint never blocks serving
+            ptlog.warn_once(
+                ("serving-model-lint-failed", self.model.name),
+                "model lint skipped: %s", e,
+            )
 
     def _zeros_for(self, sig, rows: int):
         return [

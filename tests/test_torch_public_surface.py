@@ -58,9 +58,8 @@ NOT_APPLICABLE = {
 STILL_TO_PORT = {
     "paddle_tpu": {"recordio_writer"},  # item 8
     "paddle_tpu.reader": {"recordio"},  # item 8
-    "paddle_tpu.analysis": {  # items 8 (the verifier) and 9 (the lints)
-        "VerificationError", "verify_or_raise", "verify_program", "verify_text",
-        "lint_concurrency", "lint_file", "lint_model", "lint_retrace", "lint_source"},
+    "paddle_tpu.analysis": {  # item 8 (the verifier)
+        "VerificationError", "verify_or_raise", "verify_program", "verify_text"},
     "paddle_tpu.dataset": {  # item 10
         "cifar", "conll05", "flowers", "imdb", "imikolov", "mnist", "movielens", "mq2007",
         "sentiment", "uci_housing", "voc2012", "wmt14", "wmt16"},
@@ -103,6 +102,15 @@ def test_module_names_match_jax(name):
         assert n in (tmod.__doc__ or ""), f"{tmod.__name__}'s docstring does not name {n}"
     for n in getattr(tmod, "__all__", ()):
         assert hasattr(tmod, n), f"{tmod.__name__}.__all__ names {n}, which it lacks"
+
+
+def test_analysis_all_is_the_jax_one_less_the_verifier():
+    import paddle_tpu.analysis as janalysis
+    import paddle_tpu_torch.analysis as tanalysis
+
+    assert set(tanalysis.__all__) == set(janalysis.__all__) - STILL_TO_PORT["paddle_tpu.analysis"]
+    for n in tanalysis.__all__:  # each loads (lazily) and is what the module says
+        assert callable(getattr(tanalysis, n)) or n in ("ERROR", "WARNING"), n
 
 
 def test_top_level_all_and_fluid_main_path():
