@@ -4208,7 +4208,7 @@ def infer_phase(smi: str):
             "a_all_answered_nothing_pending": snap["responses_total"] == INFER_REQUESTS
             and all(p.done() for p in pending) and unjoined == [],
             "a_mean_occupancy_above_1": snap["mean_batch_occupancy"] > 1.0,
-            "a_model_lint_ran_clean": log_a.lint() == [],
+            "a_model_lint_ran_clean": log_a.lint() == [] and engine.lint_findings == [],
         }
         checks.update(a_checks)
         emit({"phase": "infer", "part": "a_static_serving_lm", "card": smi,
@@ -4288,7 +4288,8 @@ def infer_phase(smi: str):
             "b_cache_sizes_steady": sizes0 == sizes1,
             "b_served_no_error": rsnap["errors_total"] == 0 and unjoined == []
             and rsnap["responses_total"] == len(images),
-            "b_model_lint_ran": not any("model lint skipped" in ln for ln in log_b.lint()),
+            "b_model_lint_ran": not any("model lint skipped" in ln for ln in log_b.lint())
+            and engine.lint_findings is not None,
         }
         checks.update(b_checks)
         emit({"phase": "infer", "part": "b_resnet50_bn_folded", "card": smi,
@@ -4301,6 +4302,7 @@ def infer_phase(smi: str):
               "served_mean_batch_occupancy": rsnap["mean_batch_occupancy"],
               "served_p50_ms": rsnap["p50_ms"], "served_p99_ms": rsnap["p99_ms"],
               "served_rel_l2_vs_direct": served_err, "model_lint_log": log_b.lint(),
+              "model_lint_findings": [[d.code, d.where] for d in engine.lint_findings or ()],
               "checks": b_checks})
         del rvars, folded, served, direct
 
@@ -4487,13 +4489,15 @@ def analysis_phase(smi: str):
         finally:
             unjoined = engine.close(timeout=INFER_WAIT_S)
         runs[lint] = {"outs": outs, "init_s": init_s, "warm": warm, "served": served,
-                      "log": log.lint(), "batches": snap["batches_total"],
+                      "log": log.lint(), "findings": engine.lint_findings,
+                      "batches": snap["batches_total"],
                       "errors": snap["errors_total"], "unjoined": unjoined}
     paths["analysis_serve"] = runs[True]["served"]
     on, off = runs[True], runs[False]
     b_checks = {
         "b_no_model_lint_skipped": not any("skipped" in ln for ln in on["log"]),
         "b_lint_found_nothing": on["log"] == [],
+        "b_lint_ran_only_when_on": on["findings"] == [] and off["findings"] is None,
         "b_logits_bit_equal_lint_on_off": all(torch.equal(a, b)
                                               for a, b in zip(on["outs"], off["outs"])),
         "b_flash_launches_per_request_eq_n_layers":

@@ -135,7 +135,7 @@ def lint_model(
     (enabling the init-vs-apply checks); otherwise the given variable set
     is linted against a single apply trace."""
     from paddle_tpu_torch.core import tree as tree_mod
-    from paddle_tpu_torch.framework import Model, Variables, build
+    from paddle_tpu_torch.framework import Model, Variables, _recording_reads, build
 
     if not isinstance(model, Model):
         model = build(model)
@@ -163,7 +163,7 @@ def lint_model(
     params, state = _split_variables(variables)
 
     try:
-        with torch.no_grad():
+        with torch.no_grad(), _recording_reads() as ledger:
             out = model.apply(variables, *inputs, rng=torch.Generator().manual_seed(int(rng)),
                               is_train=train)
     except Exception as e:
@@ -173,9 +173,10 @@ def lint_model(
         diags.append(Diagnostic("init-apply-mismatch", found, where=f"{model.name}.apply"))
         return diags
 
-    reads = set(model._last_param_reads)
-    updated = set(model._last_state_updates)
-    cross_scope = set(model._last_cross_scope_updates)
+    # this trace's own ledger: another thread may apply the same model meanwhile
+    reads = set(ledger["param_reads"])
+    updated = set(ledger["state_updates"])
+    cross_scope = set(ledger["cross_scope_updates"])
 
     # -- structural: params present but never read by this apply trace
     for name in sorted(set(params) - reads):
@@ -187,7 +188,7 @@ def lint_model(
 
     # -- per-param metadata (init's records win: they cover every parameter;
     # an apply-only trace still covers what it read)
-    info = dict(model._last_param_info)
+    info = dict(ledger["param_info"])
     info.update(init_info or {})
     for name, pi in sorted(info.items()):
         if pi.sharding is not None and len(pi.sharding) != len(pi.shape):

@@ -112,7 +112,7 @@ class Variables(NamedTuple):
 
 class _Frame:
     def __init__(self, mode: str, params, device: torch.device, generator, is_train: bool,
-                 state=None):
+                 state=None, ledger: bool = False):
         assert mode in ("init", "apply")
         self.mode = mode
         self.params: Dict[str, torch.Tensor] = params
@@ -129,14 +129,30 @@ class _Frame:
         self.whole: Dict[str, "ParamInfo"] = {}
         # values that stand in for parameters by name (overlay_frame)
         self.overlay: Dict[str, torch.Tensor] = {}
-        # the read ledger analysis.lint_model reads: the parameters this run
-        # read, and each update_state that resolved only through the
-        # bare-name fallback, as (scoped name, bare name)
-        self.param_reads: set = set()
-        self.cross_scope_updates: set = set()
+        # the read ledger analysis.lint_model reads, kept only under
+        # _recording_reads: the parameters this run read, and each
+        # update_state that resolved only through the bare-name fallback, as
+        # (scoped name, bare name)
+        self.param_reads: Optional[set] = set() if ledger else None
+        self.cross_scope_updates: Optional[set] = set() if ledger else None
 
 
 _tls = threading.local()
+
+
+@contextlib.contextmanager
+def _recording_reads():
+    """Within it, each :meth:`Model.apply` on this thread keeps the read
+    ledger, and the dict yielded holds the last such apply's:
+    ``param_info``, ``param_reads``, ``state_updates`` and
+    ``cross_scope_updates``. Outside it, an apply keeps none."""
+    ledger: Dict[str, Any] = {}
+    prev = getattr(_tls, "ledger", None)
+    _tls.ledger = ledger
+    try:
+        yield ledger
+    finally:
+        _tls.ledger = prev
 
 
 def _current_frame() -> _Frame:
@@ -244,7 +260,8 @@ def create_parameter(
             f"parameter {full!r} not found in provided params; model structure "
             "must match between init and apply"
         )
-    frame.param_reads.add(full)
+    if frame.param_reads is not None:
+        frame.param_reads.add(full)
     value = frame.params[full]
     if tuple(value.shape) != shape and not _is_local_block(tuple(value.shape), shape, attr.sharding):
         raise EnforceError(
@@ -356,7 +373,8 @@ def gather_layer_params(n_layers: int, prefix_of: Callable[[int], str]) -> Dict[
         per_layer.append({k[len(pre):]: frame.params[k] for k in names})
         # stacked layers are read here, not through create_parameter: record
         # the reads so lint_model's unused-param check sees through them
-        frame.param_reads.update(names)
+        if frame.param_reads is not None:
+            frame.param_reads.update(names)
     return {s: torch.stack([p[s] for p in per_layer]) for s in per_layer[0]}
 
 
@@ -409,7 +427,8 @@ def update_state(name: str, value: torch.Tensor) -> None:
     scoped = "/".join(frame.name_stack + [name])
     full = scoped if (scoped in frame.state or scoped in frame.new_state) else name
     if full is name and scoped != name and name in frame.state:
-        frame.cross_scope_updates.add((scoped, name))
+        if frame.cross_scope_updates is not None:
+            frame.cross_scope_updates.add((scoped, name))
         ptlog.warn_once(
             ("update_state-cross-scope", scoped),
             "update_state(%r): no state entry at scope %r; falling back to the "
@@ -514,7 +533,7 @@ class Model:
         self._fn = fn
         self.name = name or getattr(fn, "__name__", "model")
         self.param_info: Dict[str, ParamInfo] = {}
-        # what the last apply touched (analysis.lint_model reads it)
+        # what the last apply under _recording_reads touched
         self._last_param_info: Dict[str, ParamInfo] = {}
         self._last_param_reads: frozenset = frozenset()
         self._last_state_updates: frozenset = frozenset()
@@ -574,8 +593,9 @@ class Model:
         if not held:
             raise EnforceError("Model.apply: no parameters or state given (run Model.init first)")
         device = held[0].device
+        ledger = getattr(_tls, "ledger", None)
         frame = _Frame("apply", params=params, device=device, generator=rng, is_train=is_train,
-                       state=state)
+                       state=state, ledger=ledger is not None)
         from paddle_tpu_torch.parallel import mesh as mesh_mod
 
         if mesh_mod.entered_mesh() is not None:  # the layers read which params are blocks
@@ -584,10 +604,15 @@ class Model:
             out = self._fn(*args, **kwargs)
         if not self.param_info:
             self.param_info = frame.param_info
-        self._last_param_info = frame.param_info
-        self._last_param_reads = frozenset(frame.param_reads)
-        self._last_state_updates = frozenset(frame.new_state)
-        self._last_cross_scope_updates = frozenset(frame.cross_scope_updates)
+        if ledger is not None:
+            self._last_param_info = frame.param_info
+            self._last_param_reads = frozenset(frame.param_reads)
+            self._last_state_updates = frozenset(frame.new_state)
+            self._last_cross_scope_updates = frozenset(frame.cross_scope_updates)
+            ledger.update(param_info=self._last_param_info,
+                          param_reads=self._last_param_reads,
+                          state_updates=self._last_state_updates,
+                          cross_scope_updates=self._last_cross_scope_updates)
         return out, {**state, **frame.new_state}
 
 

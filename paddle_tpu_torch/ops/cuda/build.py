@@ -107,7 +107,7 @@ class CudaKernel:
                 if self._fn is None:
                     build = self.start_build()
                     if build is not None:
-                        build.wait(BUILD_TIMEOUT_S)
+                        build.finish()
                     fn = getattr(ctypes.CDLL(str(self.library_path())), self.symbol)
                     fn.argtypes = self.argtypes
                     fn.restype = ctypes.c_int
@@ -128,19 +128,18 @@ class _Build:
         self.kernel, self.proc, self.tmp, self.lib = kernel, proc, tmp, lib
         self.started = time.perf_counter()
 
-    def wait(self, timeout_s: Optional[float] = None) -> str:
-        """Wait for nvcc, at most ``timeout_s`` (default ``BUILD_TIMEOUT_S``)
-        from its start; publish the library; return nvcc's output. An nvcc
-        still running then is killed and the build raises."""
-        timeout_s = BUILD_TIMEOUT_S if timeout_s is None else float(timeout_s)
-        left = self.started + timeout_s - time.perf_counter()
+    def finish(self) -> str:
+        """Wait for nvcc, at most ``BUILD_TIMEOUT_S`` from its start; publish
+        the library; return nvcc's output. An nvcc still running then is
+        killed and the build raises."""
+        left = self.started + BUILD_TIMEOUT_S - time.perf_counter()
         try:
             out, _ = self.proc.communicate(timeout=max(0.0, left))
         except subprocess.TimeoutExpired:
             self.kill()
             raise RuntimeError(
                 f"nvcc for kernel {self.kernel.name} ({self.kernel.source.name}) did not "
-                f"finish within {timeout_s:g} s; it was killed") from None
+                f"finish within {BUILD_TIMEOUT_S:g} s; it was killed") from None
         if self.proc.returncode != 0:
             self.tmp.unlink(missing_ok=True)
             raise RuntimeError(
@@ -158,11 +157,11 @@ class _Build:
         self.tmp.unlink(missing_ok=True)
 
 
-def build_all(extra_flags: Sequence[str] = (), timeout_s: Optional[float] = None) -> Dict[str, dict]:
+def build_all(extra_flags: Sequence[str] = ()) -> Dict[str, dict]:
     """Build every registered kernel, one ``nvcc`` per source, all started
-    together, each given ``timeout_s`` (default ``BUILD_TIMEOUT_S``) from
-    its start. Returns ``{name: {"seconds": s, "nvcc_output": text}}``
-    (seconds 0 and no output for a library that was already built)."""
+    together, each given ``BUILD_TIMEOUT_S`` from its start. Returns
+    ``{name: {"seconds": s, "nvcc_output": text}}`` (seconds 0 and no
+    output for a library that was already built)."""
     builds = {}
     report = {}
     try:
@@ -172,7 +171,7 @@ def build_all(extra_flags: Sequence[str] = (), timeout_s: Optional[float] = None
             if b is None:
                 report[name] = {"seconds": 0.0, "nvcc_output": ""}
                 continue
-            out = b.wait(timeout_s)
+            out = b.finish()
             report[name] = {"seconds": time.perf_counter() - b.started, "nvcc_output": out}
     finally:  # a failed build leaves no nvcc running
         for b in builds.values():

@@ -67,7 +67,8 @@ class _Axis:
         self.index = self.ranks.index(mesh_mod.process_rank())
 
     def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        y = x.detach().clone()
+        # NCCL takes contiguous tensors only (a gradient may come transposed)
+        y = x.detach().clone(memory_format=torch.contiguous_format)
         if self.group is not None:
             dist.all_reduce(y, op=_OPS[op], group=self.group)
         return y
@@ -128,7 +129,7 @@ class _Broadcast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax, root):
         ctx.ax, ctx.root = ax, root
-        y = x.detach().clone()
+        y = x.detach().clone(memory_format=torch.contiguous_format)
         if ax.group is not None:
             dist.broadcast(y, src=ax.ranks[root], group=ax.group)
         return y
@@ -189,12 +190,22 @@ def _wire(x: torch.Tensor, route: str) -> torch.Tensor:
     return x.cpu() if route == "gloo_host" else x
 
 
-def _wait_all(works) -> None:
-    """Wait for each of ``ppermute``'s ``works`` up to the process group's
-    collective timeout (``initialize_distributed(timeout_s=)``). One that
-    does not complete in it (a peer that died or hangs) raises
+def _wait_all(works, route: str) -> None:
+    """Wait for each of ``ppermute``'s ``works``.
+
+    Under gloo the host waits, up to the process group's collective timeout
+    (``initialize_distributed(timeout_s=)``); one that does not complete in
+    it (a peer that died or hangs) raises
     :class:`~paddle_tpu_torch.resilience.faults.DeviceLostError`, which the
-    elastic supervisor classifies as a lost rank."""
+    elastic supervisor classifies as a lost rank. Under NCCL only the
+    current stream waits (``synchronize``): a timed ``wait`` would block the
+    host until the exchange ends; the bound there is NCCL's watchdog, which
+    aborts the communicators after the same timeout
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``, set by ``initialize_distributed``)."""
+    if route == "nccl":
+        for work in works:
+            work.synchronize()
+        return
     from paddle_tpu_torch.resilience.faults import DeviceLostError
 
     timeout_s = mesh_mod.collective_timeout_s()
@@ -228,7 +239,7 @@ def _permuted(x, ax, perm) -> torch.Tensor:
     if srcs and srcs[0] != ax.index:
         ops.append(dist.P2POp(dist.irecv, recv, peer=ax.ranks[srcs[0]], group=ax.group))
     if ops:
-        _wait_all(dist.batch_isend_irecv(ops))
+        _wait_all(dist.batch_isend_irecv(ops), route)
     if not srcs:
         return torch.zeros_like(x)
     if srcs[0] == ax.index:  # sent to itself

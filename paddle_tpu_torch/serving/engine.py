@@ -379,6 +379,8 @@ class ServingEngine:
             )
         self.metrics.set_healthy_replicas(n_rep)
 
+        # the model lint's findings; None when it did not run (off or failed)
+        self.lint_findings: Optional[List] = None
         if self.config.lint_model:
             self._lint_model(variables)
         if self.config.warmup:
@@ -449,6 +451,7 @@ class ServingEngine:
             rows = min(self.buckets.batch_buckets)
             diags = _lint(self.model, self._zeros_for(sig, rows), variables=variables,
                           train=False)
+            self.lint_findings = list(diags)
             for d in diags:
                 ptlog.warn_once(
                     ("serving-model-lint", self.model.name, d.code, d.where),

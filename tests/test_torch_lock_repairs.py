@@ -2,9 +2,10 @@
 ``warn_once``'s dedup set and the profiler's histogram extremes are guarded
 by named ``core.locks`` locks (seen by the lock-order graph), an ``nvcc``
 build waits at most its timeout and then raises (never falling back to the
-plain version), and a point-to-point exchange waits at most the process
-group's collective timeout and then raises the error the elastic
-supervisor classifies as a lost rank.
+plain version), and a point-to-point exchange under gloo waits at most
+the process group's collective timeout and then raises the error the
+elastic supervisor classifies as a lost rank (under NCCL only the stream
+waits, and NCCL's watchdog bounds the exchange).
 """
 
 import torch_threads  # noqa: F401  (first: its share of the cores)
@@ -63,11 +64,12 @@ def hung_nvcc(tmp_path, monkeypatch):
     build.KERNELS.pop("hung_test_kernel", None)
 
 
-def test_nvcc_that_never_exits_raises_within_its_timeout(hung_nvcc):
+def test_nvcc_that_never_exits_raises_within_its_timeout(hung_nvcc, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_TIMEOUT_S", 1.5)
     running = hung_nvcc.start_build()
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match=r"hung_test_kernel .* did not finish within 1\.5 s"):
-        running.wait(timeout_s=1.5)
+        running.finish()
     assert time.perf_counter() - t0 < 10
     assert running.proc.poll() is not None  # killed, not left running
     assert not running.tmp.exists() and not running.lib.exists()
@@ -75,9 +77,10 @@ def test_nvcc_that_never_exits_raises_within_its_timeout(hung_nvcc):
 
 def test_build_all_raises_and_leaves_no_nvcc(hung_nvcc, monkeypatch):
     monkeypatch.setattr(build, "KERNELS", {"hung_test_kernel": hung_nvcc})
+    monkeypatch.setattr(build, "BUILD_TIMEOUT_S", 1.0)
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match="did not finish within 1 s"):
-        build.build_all(timeout_s=1.0)
+        build.build_all()
     assert time.perf_counter() - t0 < 10
     assert not any(p.suffix == ".tmp" for p in (build.BUILD_DIR).iterdir())
 
@@ -126,8 +129,28 @@ def test_other_exchange_errors_pass_through():
             raise RuntimeError("Connection closed by peer [127.0.0.1]:1234")
 
     with pytest.raises(RuntimeError, match="Connection closed by peer") as err:
-        collective._wait_all([Broken()])
+        collective._wait_all([Broken()], "gloo_host")
     assert not isinstance(err.value, DeviceLostError) and is_device_loss(err.value)
+
+
+def test_nccl_exchange_waits_on_the_stream_not_the_host(monkeypatch):
+    """Under NCCL a timed wait would block the host until the exchange
+    ends; only the stream waits, and NCCL's watchdog bounds the exchange."""
+    class StreamWork:
+        synced = 0
+
+        def wait(self, timeout=None):
+            raise AssertionError("the host waited on an NCCL exchange")
+
+        def synchronize(self):
+            self.synced += 1
+
+    work = StreamWork()
+    monkeypatch.setattr(collective, "_route", lambda ax, x: "nccl")
+    monkeypatch.setattr(collective.dist, "P2POp", lambda *a, **k: (a, k))
+    monkeypatch.setattr(collective.dist, "batch_isend_irecv", lambda ops: [work])
+    out = collective._permuted(torch.ones(3), _Axis(), [(0, 1), (1, 0)])
+    assert work.synced == 1 and tuple(out.shape) == (3,)
 
 
 def test_collective_timeout_is_the_groups(tmp_path):
@@ -139,3 +162,4 @@ def test_collective_timeout_is_the_groups(tmp_path):
     finally:
         mesh_mod.shutdown_distributed()
     assert mesh_mod.collective_timeout_s() == mesh_mod._TIMEOUT_S
+

@@ -295,6 +295,19 @@ def _tiny():
     return tfw.build(net, name="net")
 
 
+def test_read_ledger_is_kept_only_for_the_lint():
+    """A plain apply keeps no read ledger; one under the lint's recording
+    hands its own ledger back, whatever the shared model holds."""
+    m = _tiny()
+    variables = m.init(0, torch.from_numpy(X), device="cpu")
+    m.apply(variables, torch.from_numpy(X))
+    assert m._last_param_reads == frozenset() and m._last_param_info == {}
+    with tfw._recording_reads() as ledger:
+        m.apply(variables, torch.from_numpy(X))
+    assert ledger["param_reads"] == frozenset({"b", "w"}) == m._last_param_reads
+    assert ledger["state_updates"] == frozenset() and sorted(ledger["param_info"]) == ["b", "w"]
+
+
 @pytest.mark.parametrize("inputs", [
     [X], [torch.from_numpy(X)], [((2, 4), "float32")], [((2, 4), torch.float32)],
     [((2, 4), np.float32)], [jax.ShapeDtypeStruct((2, 4), np.float32)],
@@ -406,12 +419,13 @@ def _serve(net, variables, feed, request):
                            config=ServingConfig(max_batch_size=2, num_replicas=1,
                                                 length_buckets=(8, 16)), place="cpu")
     try:
-        return engine.submit(request).result(timeout=60)
+        return engine.submit(request).result(timeout=60), engine.lint_findings
     finally:
         assert engine.close(timeout=30) == []
 
 
-def test_engine_lints_the_tiny_lm(engine_log):
+def test_engine_lints_the_tiny_lm(engine_log, monkeypatch):
+    from paddle_tpu_torch.analysis import model_lint
     from paddle_tpu_torch.models import transformer_lm
 
     spec = tmodels.get_model("transformer_lm", device="cpu", **MODELS["transformer_lm"])
@@ -420,11 +434,26 @@ def test_engine_lints_the_tiny_lm(engine_log):
     variables = spec.model.init(0, *spec.synth_batch(1, rng), device="cpu")
     net = tfw.build(lambda tokens: transformer_lm.lm_forward(tokens, tokens, cfg=cfg)[2],
                     name="transformer_lm_logits")
-    out = _serve(net, variables, ("tokens", (None,), "int32"),
-                 {"tokens": rng.randint(1, 64, size=(1, 5)).astype(np.int32)})
+    lints, applied_on = [], []
+    real_lint, real_apply = model_lint.lint_model, net.apply
+
+    def lint(*a, **k):
+        lints.append(a[0])
+        return real_lint(*a, **k)
+
+    def apply(v, *a, **k):
+        applied_on.append(next(iter(v.params.values())).device.type)
+        return real_apply(v, *a, **k)
+
+    monkeypatch.setattr(model_lint, "lint_model", lint)
+    monkeypatch.setattr(net, "apply", apply)
+    out, findings = _serve(net, variables, ("tokens", (None,), "int32"),
+                           {"tokens": rng.randint(1, 64, size=(1, 5)).astype(np.int32)})
     assert tuple(out.shape) == (1, 8, 64)
     assert not any("model lint" in line for line in engine_log), engine_log
-    assert net._last_param_reads == frozenset(variables.params)  # the lint's trace ran
+    # the lint ran once, traced on meta before anything was served, and found nothing
+    assert lints == [net] and applied_on[0] == "meta" and applied_on.count("meta") == 1
+    assert findings == []
 
 
 def test_engine_reports_a_planted_float64_parameter(engine_log):
@@ -434,8 +463,9 @@ def test_engine_reports_a_planted_float64_parameter(engine_log):
 
     m = tfw.build(net, name="f64_net")
     variables = m.init(0, torch.from_numpy(X), device="cpu")
-    out = _serve(m, variables, ("x", (4,), "float32"), {"x": X[:1]})
+    out, findings = _serve(m, variables, ("x", (4,), "float32"), {"x": X[:1]})
     assert tuple(out.shape) == (1, 3)
+    assert [(d.code, d.where) for d in findings] == [("float64-leak", "w64")]
     lint = [line for line in engine_log if "model lint" in line]
     assert len(lint) == 1 and "[float64-leak]" in lint[0] and "w64" in lint[0], engine_log
     assert "skipped" not in lint[0]
@@ -448,7 +478,7 @@ def test_engine_lint_failure_never_blocks_serving(engine_log, monkeypatch):
         raise RuntimeError("lint broke")
 
     monkeypatch.setattr(model_lint, "lint_model", broken)
-    out = _serve(_tiny(), _tiny().init(0, torch.from_numpy(X), device="cpu"),
-                 ("x", (4,), "float32"), {"x": X[:1]})
-    assert tuple(out.shape) == (1, 3)
+    out, findings = _serve(_tiny(), _tiny().init(0, torch.from_numpy(X), device="cpu"),
+                           ("x", (4,), "float32"), {"x": X[:1]})
+    assert tuple(out.shape) == (1, 3) and findings is None
     assert any("model lint skipped: lint broke" in line for line in engine_log), engine_log

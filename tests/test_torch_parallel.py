@@ -427,3 +427,28 @@ def test_distribute_transpiler_single_process_mesh():
         t.get_pserver_program()
     with pytest.raises(EnforceError, match="pserver"):
         t.transpile(pservers="127.0.0.1:6174")
+
+
+class _TwoRankAxis:
+    """One member of a two-rank axis whose group is never dialled."""
+    index, size, ranks, group = 0, 2, [0, 1], object()
+
+
+@pytest.mark.parametrize("op", ["reduce", "broadcast"])
+def test_collectives_hand_nccl_contiguous_tensors(monkeypatch, op):
+    """NCCL refuses a non-contiguous tensor (gloo takes one): a transposed
+    gradient reaching an all-reduce or a broadcast goes out contiguous."""
+    from paddle_tpu_torch.parallel import collective
+
+    def contiguous_only(t, *a, **k):
+        if not t.is_contiguous():
+            raise ValueError("Tensors must be contiguous")
+
+    monkeypatch.setattr(collective.dist, "all_reduce", contiguous_only)
+    monkeypatch.setattr(collective.dist, "broadcast", contiguous_only)
+    x = torch.arange(12.0).reshape(3, 4).t()
+    if op == "reduce":
+        y = collective._Axis.reduce(_TwoRankAxis(), x)
+    else:
+        y = collective._Broadcast.apply(x, _TwoRankAxis(), 0)
+    assert y.is_contiguous() and torch.equal(y, x)

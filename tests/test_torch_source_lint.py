@@ -56,7 +56,7 @@ def test_whole_tree_lints_clean():
 @pytest.mark.parametrize("rel", ["ops/nn.py", "layers/attention.py", "models/resnet.py",
                                  "nets.py", "io.py", "serving/engine.py"])
 def test_traced_path_detection_matches_jax(rel):
-    for prefix in ("", "/root/repo/"):
+    for prefix in ("", f"{ROOT}/"):
         assert tlint._is_traced_path(f"{prefix}paddle_tpu_torch/{rel}") \
             == jlint._is_traced_path(f"{prefix}paddle_tpu/{rel}")
 

@@ -9,6 +9,7 @@ seconds and the checks that failed; each turn's whole output (the phases'
 own JSON lines) goes to ``--log-dir``. Exits 1 if any check failed.
 
     python3 tools/torch_phase_ab.py --phases infer,analysis --other .chipcheck/parent
+    python3 tools/torch_phase_ab.py --phases elastic    # one phase alone
 """
 import argparse
 import json
@@ -17,6 +18,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# seconds one turn may take
+TURN_TIMEOUT_S = 900.0
 
 # what one turn runs in its own process, from the root of a tree
 TURN = r"""
@@ -44,10 +47,10 @@ print("TURN " + json.dumps(out), flush=True)
 """
 
 
-def turn(root: str, label: str, phases, timeout_s: float, log: str) -> dict:
+def turn(root: str, label: str, phases, log: str) -> dict:
     code = f"ROOT = {root!r}\nLABEL = {label!r}\nPHASES = {list(phases)!r}\n" + TURN
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
-                          text=True, timeout=timeout_s)
+                          text=True, timeout=TURN_TIMEOUT_S)
     with open(log, "w") as f:
         f.write(proc.stdout + proc.stderr)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TURN ")]
@@ -61,8 +64,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="infer,analysis")
     ap.add_argument("--other", default=None, help="root of another checkout to run in turns")
-    ap.add_argument("--timeout", type=float, default=900.0, help="seconds a turn may take")
-    ap.add_argument("--log-dir", default=os.path.join(HERE, "chiprun_out", "phase_ab"))
+    ap.add_argument("--log-dir", default=os.path.join(HERE, ".chipcheck", "phase_ab"))
     args = ap.parse_args()
     phases = args.phases.split(",")
     order = [("this", HERE)] if args.other is None else [
@@ -71,8 +73,7 @@ def main() -> int:
     os.makedirs(args.log_dir, exist_ok=True)
     bad = False
     for i, (label, root) in enumerate(order):
-        res = turn(root, label, phases, args.timeout,
-                   os.path.join(args.log_dir, f"turn{i}_{label}.log"))
+        res = turn(root, label, phases, os.path.join(args.log_dir, f"turn{i}_{label}.log"))
         print(json.dumps(res), flush=True)
         bad |= "exit_code" in res or any(p and p["failed"] for p in res["phases"].values())
     return 1 if bad else 0
